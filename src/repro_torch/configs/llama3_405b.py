@@ -1,0 +1,19 @@
+"""llama3-405b [dense] — GQA, 128k vocab [arXiv:2407.21783]."""
+from repro_torch.configs.base import ATTN, MLP_DENSE, ModelConfig, register
+
+
+@register("llama3-405b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-405b",
+        family="dense",
+        num_layers=126,
+        d_model=16384,
+        num_heads=128,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=53248,
+        vocab_size=128256,
+        rope_theta=500_000.0,
+        pattern=((ATTN, MLP_DENSE),),
+    )

@@ -1,0 +1,33 @@
+"""Carry the JAX package's params into the port.
+
+`params_from_numpy` takes the ``Model.init`` pytree of the JAX package
+with every leaf already converted to a numpy array (the caller does
+``jax.tree.map(np.asarray, params)``: the port never imports jax) and
+returns the port's flat state dict. Leaves map one for one by their
+pytree path and keep their shape: the port's `Model` stores every weight
+in the reference's layout (``wq`` as (d, hq, hd), ``wo`` as (hq, hd, d),
+stacked groups leading), so nothing is transposed anywhere.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import flatten
+from repro_torch.models.transformer import check_state
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy has no bf16: widen exactly
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))     # a writable copy
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
+    """Nested dict of numpy arrays (the reference pytree) -> flat
+    ``{"groups.l0.attn.wq": tensor}`` state on the CPU, checked name for
+    name and shape for shape against the port's model spec."""
+    return check_state(cfg, {name: _to_torch(v)
+                             for name, v in flatten(tree).items()})

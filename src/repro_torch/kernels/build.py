@@ -1,0 +1,78 @@
+"""Build the port's CUDA kernels on first use and load them with ctypes.
+
+Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface under ``build/kernels/`` at
+the repository root (listed in ``.gitignore``). A library's file name
+carries a digest of its source and flags, so an edited source rebuilds
+and an unchanged one is reused. All missing libraries build at once, one
+``nvcc`` per source started together. A failed build raises with the
+compiler's output; ``ptxas -v`` (registers, shared memory, spills) is
+kept beside each library as ``<name>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def sources() -> dict[str, Path]:
+    return {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = sources()[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every kernel whose library is missing, all in parallel.
+    Returns ``{name: library path}``."""
+    targets = {name: library_path(name) for name in sources()}
+    missing = {n: p for n, p in targets.items() if not p.exists()}
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name, lib in missing.items():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, missing[name])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` (the source's stem), built if needed."""
+    return ctypes.CDLL(str(build_all()[name]))

@@ -1,0 +1,252 @@
+// Paged decode attention (GQA, 1 or k query rows per sequence) for Hopper.
+//
+// Replaces the TPU kernel `paged_attention_pallas` (body `_paged_kernel`)
+// of src/repro/kernels/paged_attention/paged_attention.py. Same function:
+// K and V live in a page pool shared by two tiers -- a float pool (fast
+// pages) and an int8 pool with one scale per (token, kv head) row (slow
+// pages) -- and each is read as `float + int8 * scale`, which is exact on
+// either tier because the other tier's cell holds zeros. A (b, slots) page
+// table names each sequence's pages; pools are flat (P, T, hkv, d) or
+// layer-stacked (L, P, T, hkv, d) with the layer index as an argument.
+// q is (b, k, hq, d): k consecutive query rows per sequence, row j seeing
+// lengths[b] + j positions (k = 1 is plain decode). The softmax is fp32
+// online softmax: masked scores are -1e30 and the normaliser is clamped
+// at 1e-30, as in the reference.
+//
+// Design. One block per (sequence, kv head). Its k * g query rows (the
+// k rows folded with the g query heads of the kv head, row r = j * g + gi)
+// sit in shared memory as fp32, pre-scaled. The block walks the
+// sequence's pages in order, only up to the page holding position
+// lengths[b] + k - 2 -- table entries past it may be 0 or a trash slot and
+// are never read -- in steps of 32 positions: it loads and dequantizes the
+// step's K and V rows into shared memory, scores every query row against
+// them with plain fp32 FMAs (no TF32, no tensor cores: the fp32 cases must
+// meet 5e-5), updates the per-row (m, l) with one warp per row, and adds
+// p @ V into an fp32 accumulator in shared memory. Element offsets are
+// 64-bit: L * P * T * hkv * d passes 2^31 as the serving pool grows.
+//
+// Bound. Decode attention does 4 * k * g flops per dequantized K/V
+// element, far below the card's ratio of flops to bytes, so the kernel is
+// bound by the bytes of K/V (float + int8 + scale) it streams: the least
+// time is those bytes over the 3.35 TB/s of HBM. This first version is
+// simple and far from that bound: it issues one 4-byte load per element
+// with no overlap of loads and math, and at decode batch sizes its
+// b * hkv blocks occupy a small part of the 132 SMs. Pipelining pages
+// with cp.async or TMA, splitting the KV walk over blocks for small
+// batches (split-KV with a second reduction pass) and reading only the
+// populated tier of each page are for a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 32;       // positions per step: one per lane in the softmax
+constexpr int kThreads = 256;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int8_t* k_quant;
+  const int8_t* v_quant;
+  const void* k_scale;
+  const void* v_scale;
+  const int32_t* page_table;
+  const int32_t* lengths;
+  void* out;
+  int rows;         // k: query rows per sequence
+  int hq, hkv, d;
+  int64_t pages;    // pages per layer (P)
+  int t;            // tokens per page (T)
+  int slots;        // page-table width
+  int64_t layer;    // 0 for flat pools
+  float scale;      // softmax scale
+};
+
+size_t smem_floats(int kg, int d) {
+  return (size_t)kg * d            // q rows
+       + (size_t)kTile * (d + 1)   // K step, rows padded against bank conflicts
+       + (size_t)kTile * d         // V step
+       + (size_t)kg * kTile        // scores, then probabilities
+       + (size_t)kg * d            // accumulator
+       + 3 * (size_t)kg;           // m, l, correction
+}
+
+template <typename QT, typename PT>
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
+  const int bi = blockIdx.x;
+  const int h = blockIdx.y;
+  const int g = a.hq / a.hkv;
+  const int kg = a.rows * g;
+  const int d = a.d;
+  const int t = a.t;
+  const int tid = threadIdx.x;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kg * d;
+  float* v_s = k_s + kTile * (d + 1);
+  float* p_s = v_s + kTile * d;
+  float* acc = p_s + kg * kTile;
+  float* m_s = acc + kg * d;
+  float* l_s = m_s + kg;
+  float* c_s = l_s + kg;
+
+  const QT* q = static_cast<const QT*>(a.q);
+  const PT* kf = static_cast<const PT*>(a.k_pages);
+  const PT* vf = static_cast<const PT*>(a.v_pages);
+  const PT* ks = static_cast<const PT*>(a.k_scale);
+  const PT* vs = static_cast<const PT*>(a.v_scale);
+  QT* out = static_cast<QT*>(a.out);
+
+  for (int i = tid; i < kg * d; i += kThreads) {
+    const int r = i / d, c = i % d;
+    const int64_t off =
+        (((int64_t)bi * a.rows + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
+    q_s[i] = to_f32(q[off]) * a.scale;
+    acc[i] = 0.f;
+  }
+  for (int r = tid; r < kg; r += kThreads) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
+  }
+  __syncthreads();
+
+  const int len = a.lengths[bi];
+  const int span = len + a.rows - 1;          // positions the last row sees
+  const int n_pages = min((span + t - 1) / t, a.slots);
+  const int warp = tid / 32, lane = tid % 32;
+
+  for (int n = 0; n < n_pages; ++n) {
+    const int64_t pid = a.page_table[(int64_t)bi * a.slots + n];
+    const int64_t row0 = (a.layer * a.pages + pid) * t;   // first token row
+    const int valid = min(t, span - n * t);
+    for (int t0 = 0; t0 < valid; t0 += kTile) {
+      const int cnt = min(kTile, valid - t0);
+      for (int i = tid; i < cnt * d; i += kThreads) {
+        const int j = i / d, c = i % d;
+        const int64_t srow = (row0 + t0 + j) * a.hkv + h;   // scale row
+        const int64_t off = srow * d + c;
+        k_s[j * (d + 1) + c] =
+            to_f32(kf[off]) + (float)a.k_quant[off] * to_f32(ks[srow]);
+        v_s[j * d + c] =
+            to_f32(vf[off]) + (float)a.v_quant[off] * to_f32(vs[srow]);
+      }
+      __syncthreads();
+
+      const int pos0 = n * t + t0;
+      for (int i = tid; i < kg * kTile; i += kThreads) {
+        const int r = i / kTile, j = i % kTile;
+        float s = kNegInf;
+        if (j < cnt && pos0 + j < len + r / g) {
+          const float* qr = q_s + r * d;
+          const float* kr = k_s + j * (d + 1);
+          float dot = 0.f;
+          for (int c = 0; c < d; ++c) dot = fmaf(qr[c], kr[c], dot);
+          s = dot;
+        }
+        p_s[i] = s;
+      }
+      __syncthreads();
+
+      for (int r = warp; r < kg; r += kThreads / 32) {
+        const float s = p_s[r * kTile + lane];
+        float mx = s;
+        for (int o = 16; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_old = m_s[r];
+        const float m_new = fmaxf(m_old, mx);
+        const float p = lane < cnt ? expf(s - m_new) : 0.f;
+        float sum = p;
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        p_s[r * kTile + lane] = p;
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+          c_s[r] = corr;
+        }
+      }
+      __syncthreads();
+
+      for (int i = tid; i < kg * d; i += kThreads) {
+        const int r = i / d, c = i % d;
+        const float* pr = p_s + r * kTile;
+        float pv = 0.f;
+        for (int j = 0; j < cnt; ++j) pv = fmaf(pr[j], v_s[j * d + c], pv);
+        acc[i] = acc[i] * c_s[r] + pv;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = tid; i < kg * d; i += kThreads) {
+    const int r = i / d, c = i % d;
+    const int64_t off =
+        (((int64_t)bi * a.rows + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
+    store(out + off, acc[i] / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+template <typename QT, typename PT>
+cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
+  const int kg = a.rows * (a.hq / a.hkv);
+  const size_t smem = smem_floats(kg, a.d) * sizeof(float);
+  auto kernel = paged_attention_kernel<QT, PT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(b, a.hkv), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared-memory bytes one block needs for k * g query rows of width d.
+long long paged_attention_smem_bytes(int kg, int d) {
+  return (long long)(smem_floats(kg, d) * sizeof(float));
+}
+
+// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+// Tensors are contiguous; `q_bf16` / `pool_bf16` pick bf16 over fp32 for q
+// and out, and for the float pools and scales.
+int paged_attention_launch(const void* q, const void* k_pages,
+                           const void* v_pages, const void* k_quant,
+                           const void* v_quant, const void* k_scale,
+                           const void* v_scale, const void* page_table,
+                           const void* lengths, void* out, int b, int rows,
+                           int hq, int hkv, int d, long long pages, int t,
+                           int slots, long long layer, float scale,
+                           int q_bf16, int pool_bf16, void* stream) {
+  Args a{q, k_pages, v_pages,
+         static_cast<const int8_t*>(k_quant),
+         static_cast<const int8_t*>(v_quant),
+         k_scale, v_scale,
+         static_cast<const int32_t*>(page_table),
+         static_cast<const int32_t*>(lengths),
+         out, rows, hq, hkv, d, pages, t, slots, layer, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (q_bf16 && pool_bf16) err = launch<__nv_bfloat16, __nv_bfloat16>(a, b, s);
+  else if (q_bf16) err = launch<__nv_bfloat16, float>(a, b, s);
+  else if (pool_bf16) err = launch<float, __nv_bfloat16>(a, b, s);
+  else err = launch<float, float>(a, b, s);
+  return (int)err;
+}
+
+const char* paged_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,92 @@
+"""Norms, RoPE, MLPs, embeddings.
+
+Each function pins a reference semantic (``repro/models/layers.py``)
+that differs from the PyTorch default: RMSNorm in fp32 scaling by
+``1 + scale`` with eps 1e-6; RoPE rotating split halves in fp32; the
+GELU MLP in its tanh form (``jax.nn.gelu``'s default); padded-vocab
+logits masked to -1e30.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamSpec, torch_dtype
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def norm_spec(d: int) -> ParamSpec:
+    # stored as delta around 1 (zeros init) in fp32
+    return ParamSpec((d,), init="zeros", dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    dim = x.shape[-1]
+    inv = rope_freqs(dim, theta, x.device)                 # (dim/2,)
+    ang = positions.float()[..., None] * inv               # (..., seq, dim/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU or classic GELU)
+# ---------------------------------------------------------------------------
+def mlp_spec(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gelu:
+        return {"up": ParamSpec((d, f), init="fan_in"),
+                "down": ParamSpec((f, d), init="fan_in")}
+    return {"gate": ParamSpec((d, f), init="fan_in"),
+            "up": ParamSpec((d, f), init="fan_in"),
+            "down": ParamSpec((f, d), init="fan_in")}
+
+
+def mlp_apply(cfg: ModelConfig, p, x):
+    if cfg.mlp_gelu:
+        h = F.gelu(x @ p["up"], approximate="tanh")
+    else:
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+def embed_spec(cfg: ModelConfig):
+    vp = cfg.padded_vocab_size
+    if cfg.external_embed:
+        raise NotImplementedError(f"{cfg.name}: external embeddings are not "
+                                  f"ported")
+    return {"lm_head": ParamSpec((cfg.d_model, vp), init="fan_in"),
+            "tok": ParamSpec((vp, cfg.d_model))}
+
+
+def embed_apply(cfg: ModelConfig, p, tokens):
+    return p["tok"][tokens].to(torch_dtype(cfg.compute_dtype))
+
+
+def lm_head_apply(cfg: ModelConfig, p, x):
+    logits = x @ p["lm_head"]
+    if cfg.padded_vocab_size != cfg.vocab_size:   # mask padded vocab entries
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits

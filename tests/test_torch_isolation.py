@@ -1,0 +1,37 @@
+"""The port stands alone: importing `repro_torch` and every one of its
+modules loads no ``jax`` and nothing of the JAX package ``repro``."""
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["leaked"] == []
+    expected = {m.name for m in pkgutil.walk_packages(
+        [str(SRC / "repro_torch")], "repro_torch.")}
+    assert expected <= set(result["modules"])
+    assert "repro_torch.serve.engine" in result["modules"]
+    assert "repro_torch.kernels.paged_attention.paged_attention" in \
+        result["modules"]
