@@ -2,33 +2,42 @@
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --only kernel
+    python3 chip_smoke.py --only kernel   # or exact | serve | chunked | spec
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 1. device  — the card, ``nvidia-smi``'s name and power limit, versions.
    Builds the CUDA kernels from the sources in the checkout (into
    ``build/kernels/``) and prints what ``ptxas -v`` reported.
-2. kernel  — the paged-attention kernel against its plain PyTorch version
-   on the spec's 7 cases (flat and layer-stacked pools) and at the
-   starcoder2-7b decode shape (b=4, hq=36, hkv=4, d=128, T=128, L=32,
-   mixed fast/slow pages, one dead row) in bf16 and fp32. The spec cases
-   (bf16 inputs against the fp32 plain version) hold to the spec's
-   tolerance; the full-width cases (both sides on the same inputs) to 2
-   ulps of |want| in the output dtype. Times kernel, plain version and
-   ``scaled_dot_product_attention`` (over K/V gathered and dequantized
-   beforehand) with CUDA events, in alternation within one run.
+2. kernel  — each kernel against its plain PyTorch version on its spec's
+   cases (paged attention: flat and layer-stacked pools; bf16 inputs
+   against the fp32 plain version, held to the spec's tolerance), then
+   at starcoder2-7b's shapes with the same inputs on both sides, held per
+   element to 2 ulps of |want| in the output dtype: paged attention at
+   b=4, hq=36, hkv=4, d=128, T=128, L=32 (mixed fast/slow pages, one dead
+   row) with 1, 4 and 128 query rows per sequence; flash attention at
+   b=1, causal, s = 2048, 1000 (ragged) and 600. Times kernel, plain
+   version and one PyTorch call (``scaled_dot_product_attention``) with
+   CUDA events, in alternation within one run.
 3. exact   — starcoder2-7b at full width, 2 layers, fp32, seeded weights:
-   ``generate`` and ``serve(max_active=2)`` give identical greedy tokens
-   with the kernel and with the plain version.
+   identical greedy tokens with the kernels and with the plain versions
+   for ``generate``, monolithic ``serve``, the default chunked + radix
+   ``serve`` and k = 4 speculative ``serve``.
 4. serve   — the main path: starcoder2-7b, all 32 layers, bf16, seeded
    weights made on the card, a 128-token page pool with every other page
    in the int8 tier; ``serve`` 5 requests (prompts 120..600, 32 new
-   tokens) with ``max_active=2``. Checks outputs, an empty pool, kernel
-   launches == decode steps x layers and 2 transfers per steady token.
-   Then 16 decode steps of the same model (2 rows, 500-token context)
-   timed bare and under ``torch.profiler``: device busy share, kernels
-   per step, the largest kernels.
+   tokens) with ``max_active=2`` and one prefill pass per prompt. Checks
+   outputs, an empty pool, paged-attention launches == decode steps x
+   layers, flash-attention launches == prefills x layers and 2 transfers
+   per steady token. Then 16 decode steps of the same model (2 rows,
+   500-token context) timed bare and under ``torch.profiler``: device
+   busy share, kernels per step, the largest kernels.
+5. chunked — the default ``serve`` path (chunked prefill + radix prefix
+   cache) on 6 prompts sharing a 512-token head: prefix hit rate, chunk
+   and decode step times, time to first token, an empty pool after
+   ``close``.
+6. spec    — k = 4 speculative ``serve`` with n-gram drafts on the serve
+   phase's prompts: accept rate, tokens per verify step.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -50,8 +59,15 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
-REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:110"
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
+    "paged_attention": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:110"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:72"),
+}
 
 
 def emit(obj):
@@ -139,11 +155,13 @@ def quantize(raw):
 
 
 def decode_inputs(gen, *, b, hq, hkv, d, t, n_layers, lengths, dead,
-                  q_dtype):
+                  q_dtype, rows=1):
     """Layer-stacked mixed-tier pool (odd page ids slow) on the card, each
-    row with its own pages; `dead` rows have length 1 and a zero table."""
+    row with its own pages; `dead` rows have length 1 and a zero table.
+    ``rows`` > 1 gives q (b, rows, hq, d): consecutive query rows of a
+    verify or chunk-fill step, row j seeing lengths + j positions."""
     dev = "cuda"
-    slots = max(-(-n // t) for n in lengths)
+    slots = max(-(-(n + rows - 1) // t) for n in lengths)
     pages = b * slots
     shape = (n_layers, pages, t, hkv, d)
     slow = (torch.arange(pages, device=dev) % 2 == 1)[None, :, None, None]
@@ -164,7 +182,8 @@ def decode_inputs(gen, *, b, hq, hkv, d, t, n_layers, lengths, dead,
     for i in dead:
         table[i] = 0
         lens[i] = 1
-    q = torch.randn((b, hq, d), generator=gen, device=dev).to(q_dtype)
+    q_shape = (b, hq, d) if rows == 1 else (b, rows, hq, d)
+    q = torch.randn(q_shape, generator=gen, device=dev).to(q_dtype)
     return [q, kf, vf, kq, vq, ks, vs, table, lens]
 
 
@@ -179,17 +198,18 @@ def bytes_and_flops(args, rows: int = 1):
     span = sum(n + rows - 1 for n in lengths)
     nbytes = (2 * q.numel() * q.element_size() + span * per_pos
               + args[7].numel() * 4 + args[8].numel() * 4)
-    flops = 4 * hq * d * sum(rows * (n + rows - 1) for n in lengths)
+    flops = 4 * hq * d * sum(rows * n + rows * (rows - 1) // 2
+                             for n in lengths)
     return nbytes, flops
 
 
-def sdpa_yardstick(args, layer):
+def sdpa_yardstick(args, layer, rows: int = 1):
     """`scaled_dot_product_attention` over K/V gathered and dequantized
     beforehand (untimed), masked to each row's length. It omits the
     page gather and the dequant the kernel does."""
     from repro_torch.kernels.paged_attention.ref import dequantize_pool
     q, kf, vf, kq, vq, ks, vs, table, lens = args
-    b, hq, d = q.shape
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     t, hkv = kf.shape[-3], kf.shape[-2]
     tab = table.long()
     k = dequantize_pool(kf[layer][tab], kq[layer][tab], ks[layer][tab])
@@ -199,93 +219,175 @@ def sdpa_yardstick(args, layer):
     v = v.reshape(b, s, hkv, d).transpose(1, 2).to(q.dtype).contiguous()
     k = k.repeat_interleave(hq // hkv, dim=1)
     v = v.repeat_interleave(hq // hkv, dim=1)
-    mask = (torch.arange(s, device=q.device)[None, :] < lens[:, None].long())
-    mask = mask[:, None, None, :]
-    qq = q[:, :, None, :]
+    limit = lens[:, None].long() + torch.arange(rows, device=q.device)
+    mask = torch.arange(s, device=q.device)[None, None, :] < limit[..., None]
+    mask = mask[:, None]                                # (b, 1, rows, s)
+    qq = q.reshape(b, rows, hq, d).transpose(1, 2).contiguous()
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
-def phase_kernel() -> dict:
+def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
+                     extra) -> dict:
+    """Hold a kernel to its plain version on the same inputs, per element
+    to 2 ulps of |want| in the output dtype (`same_input_limit`), then
+    time kernel, plain version and library call in alternation. Returns
+    the row, with the bound from this call's bytes and flops."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    limit = same_input_limit(want)
+    worst = int(torch.argmax(diff))
+    err = diff.flatten()[worst].item()
+    tol = limit.flatten()[worst].item()
+    over = (diff / limit).max().item()
+    del got, want, diff, limit
+    if not over <= 1.0:
+        raise AssertionError(f"{label}: error {err} beyond 2 ulps of |want| "
+                             f"({over:.2f}x the limit)")
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    times = cuda_ms({"kernel": kernel, "plain": plain, "library": library},
+                    rounds=20)
+    row = {"phase": "kernel", "case": label, **extra,
+           "max_abs_err": err, "tol": tol,
+           "tol_rule": "per element: 2 ulps of |want| in the output dtype + "
+                       "1e-6; tol is the limit at the element of the "
+                       "largest error",
+           "max_err_over_limit": over,
+           "kernel_ms": times["kernel"][0], "plain_ms": times["plain"][0],
+           "library_ms": times["library"][0],
+           "host_ms": {k: v[1] for k, v in times.items()},
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": max(t_bytes, t_flops),
+           "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    emit(row)
+    return row
+
+
+def spec_cases(name, run_case):
+    """Every case of a kernel's spec: the kernel on the case's dtype
+    against the plain version on fp32 inputs, held to the spec's tol."""
     from repro_torch.kernels import api, registry
-    spec = registry.get("paged_attention")
+    spec = registry.get(name)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     for i, case in enumerate(spec.cases):
         inputs = spec.example_inputs(shape=dict(case.shape))
         args = [torch.from_numpy(v).cuda() for v in inputs.values()]
-        # a layer-stacked pool with the case's pool as layer 1 of 3
-        others = [spec.example_inputs(shape=dict(case.shape), seed=s)
-                  for s in (1, 2)]
-        names = spec.arg_names[1:7]
-        stacked = [torch.stack([torch.from_numpy(others[0][n]).cuda(), a,
-                                torch.from_numpy(others[1][n]).cuda()])
-                   for n, a in zip(names, args[1:7])]
-        want = api.run(spec.name, *args, backend="ref")
+        want = api.run(name, *args, backend="ref", **case.kwargs)
+        errs = run_case(spec, case, args, want, dtypes[case.dtype])
         tol = spec.tol[case.dtype]
-        errs = {}
-        for form, pools, layer in (("flat", args[1:7], None),
-                                   ("stacked", stacked, 1)):
-            kargs = [_cast(a, dtypes[case.dtype])
-                     for a in [args[0], *pools, args[7], args[8]]]
-            extra = () if layer is None else (layer,)
-            got = api.run(spec.name, *kargs, *extra, backend="cuda")
-            torch.cuda.synchronize()
-            errs[form] = (got.float() - want.float()).abs().max().item()
         err = max(errs.values())
-        emit({"phase": "kernel", "case": i, "shape": dict(case.shape),
+        emit({"phase": "kernel", "kernel": name, "case": i,
+              "shape": dict(case.shape), "kwargs": dict(case.kwargs),
               "dtype": case.dtype, "max_abs_err": errs, "tol": tol,
               "ok": err <= tol})
         if not err <= tol:
-            raise AssertionError(f"case {i}: error {err} > tol {tol}")
+            raise AssertionError(f"{name} case {i}: error {err} > tol {tol}")
 
-    # the starcoder2-7b decode shape of the main path
+
+def _paged_case(spec, case, args, want, dtype):
+    """Flat pools, and a layer-stacked pool with the case's pool as layer
+    1 of 3."""
+    from repro_torch.kernels import api
+    others = [spec.example_inputs(shape=dict(case.shape), seed=s)
+              for s in (1, 2)]
+    names = spec.arg_names[1:7]
+    stacked = [torch.stack([torch.from_numpy(others[0][n]).cuda(), a,
+                            torch.from_numpy(others[1][n]).cuda()])
+               for n, a in zip(names, args[1:7])]
+    errs = {}
+    for form, pools, layer in (("flat", args[1:7], None),
+                               ("stacked", stacked, 1)):
+        kargs = [_cast(a, dtype) for a in [args[0], *pools, args[7], args[8]]]
+        extra = () if layer is None else (layer,)
+        got = api.run(spec.name, *kargs, *extra, backend="cuda")
+        torch.cuda.synchronize()
+        errs[form] = (got.float() - want.float()).abs().max().item()
+    return errs
+
+
+def _flash_case(spec, case, args, want, dtype):
+    from repro_torch.kernels import api
+    got = api.run(spec.name, *[a.to(dtype) for a in args], backend="cuda",
+                  **case.kwargs)
+    torch.cuda.synchronize()
+    return {"kernel": (got.float() - want.float()).abs().max().item()}
+
+
+def flash_inputs(gen, *, b, sq, skv, hq, hkv, d, dtype):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+
+
+def flash_bytes_and_flops(q, k, v):
+    """Bytes of q, k, v and out, each once; 4 d flops per (query, key) pair
+    the causal mask lets through (queries and keys aligned at 0)."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = sum(min(i + 1, skv) for i in range(sq))
+    return nbytes, 4 * b * hq * d * pairs
+
+
+def phase_kernel() -> dict:
+    from repro_torch.kernels import api
+    spec_cases("paged_attention", _paged_case)
+    spec_cases("flash_attention", _flash_case)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    full = {}
+    # paged attention at the starcoder2-7b shapes of the main path: one
+    # decode row, a k = 4 verify step and a k = 128 chunk-fill step (1152
+    # query rows per kv head, 18 blocks of 64 rows)
     shape = dict(b=4, hq=36, hkv=4, d=128, t=128, n_layers=32,
                  lengths=[2048, 700, 1, 1500], dead=[2])
-    full = {}
-    for name, q_dtype in (("bfloat16", torch.bfloat16),
-                          ("float32", torch.float32)):
-        args = decode_inputs(gen, q_dtype=q_dtype, **shape)
-        layer = 17
-        kernel = lambda: api.run("paged_attention", *args, layer,  # noqa
-                                 backend="cuda")
-        plain = lambda: api.run("paged_attention", *args, layer,   # noqa
-                                backend="ref")
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        limit = same_input_limit(want)
-        worst = int(torch.argmax(diff))
-        err = diff.flatten()[worst].item()
-        tol = limit.flatten()[worst].item()
-        over = (diff / limit).max().item()
-        if not over <= 1.0:
-            raise AssertionError(f"full-width {name}: error {err} beyond "
-                                 f"2 ulps of |want| ({over:.2f}x the limit)")
-        nbytes, flops = bytes_and_flops(args)
-        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, \
-            flops / FP32_FLOPS * 1e3
-        times = cuda_ms({"kernel": kernel, "plain": plain,
-                         "library": sdpa_yardstick(args, layer)})
-        row = {"phase": "kernel", "case": f"starcoder2-7b decode {name}",
-               "shape": {k: v for k, v in shape.items()}, "layer": layer,
-               "max_abs_err": err, "tol": tol,
-               "tol_rule": "per element: 2 ulps of |want| in the output "
-                           "dtype + 1e-6; tol is the limit at the element "
-                           "of the largest error",
-               "max_err_over_limit": over,
-               "kernel_ms": times["kernel"][0], "plain_ms": times["plain"][0],
-               "library_ms": times["library"][0],
-               "host_ms": {k: v[1] for k, v in times.items()},
-               "library": "scaled_dot_product_attention over K/V gathered "
-                          "and dequantized beforehand (omits gather and "
-                          "dequant)",
-               "bytes": nbytes, "flops": flops,
-               "bound_ms": max(t_bytes, t_flops),
-               "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
-        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
-        emit(row)
-        full[name] = row
-        del args
+    layer = 17
+    for rows, dtypes in ((1, ("bfloat16", "float32")), (4, ("bfloat16",)),
+                         (128, ("bfloat16", "float32"))):
+        for name in dtypes:
+            dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+            args = decode_inputs(gen, q_dtype=dtype, rows=rows, **shape)
+            nbytes, flops = bytes_and_flops(args, rows)
+            full[("paged_attention", rows, name)] = compare_and_time(
+                f"paged_attention starcoder2-7b k={rows} {name}",
+                lambda: api.run("paged_attention", *args, layer,  # noqa
+                                backend="cuda"),
+                lambda: api.run("paged_attention", *args, layer,  # noqa
+                                backend="ref"),
+                sdpa_yardstick(args, layer, rows), nbytes, flops,
+                FP32_FLOPS, {"kernel": "paged_attention", "rows": rows,
+                             "dtype": name, "shape": shape, "layer": layer,
+                             "library": "scaled_dot_product_attention over "
+                                        "K/V gathered and dequantized "
+                                        "beforehand (omits gather and "
+                                        "dequant)"})
+            del args
+    # flash attention at starcoder2-7b prefill shapes: b=1, 36 query heads
+    # over 4 kv heads, d=128, causal; 600 is the main path's longest prompt
+    for sq, dtypes in ((2048, ("bfloat16", "float32")),
+                       (1000, ("bfloat16", "float32")), (600, ("bfloat16",))):
+        for name in dtypes:
+            dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+            q, k, v = flash_inputs(gen, b=1, sq=sq, skv=sq, hq=36, hkv=4,
+                                   d=128, dtype=dtype)
+            nbytes, flops = flash_bytes_and_flops(q, k, v)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            full[("flash_attention", sq, name)] = compare_and_time(
+                f"flash_attention starcoder2-7b prefill s={sq} {name}",
+                lambda: api.run("flash_attention", q, k, v,  # noqa
+                                causal=True, backend="cuda"),
+                lambda: api.run("flash_attention", q, k, v,  # noqa
+                                causal=True, backend="ref"),
+                lambda: F.scaled_dot_product_attention(  # noqa
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                nbytes, flops,
+                BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
+                {"kernel": "flash_attention", "dtype": name,
+                 "shape": {"b": 1, "sq": sq, "skv": sq, "hq": 36, "hkv": 4,
+                           "d": 128, "causal": True},
+                 "library": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) on (b, h, s, d) copies made "
+                            "beforehand"})
+            del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return full
 
@@ -311,47 +413,109 @@ def _requests(vocab, lengths, new, seed):
             for n, m in zip(lengths, new)]
 
 
+def _shared_prefix_requests(vocab, prefix, suffixes, new, seed):
+    """Requests whose prompts share one `prefix`-token head."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, prefix).astype(np.int32)
+    return [Request(np.concatenate([head, rng.integers(0, vocab, n)
+                                    .astype(np.int32)]), new)
+            for n in suffixes]
+
+
+def _tokens(outs):
+    return [None if o is None else o.tolist() for o in outs]
+
+
 def phase_exact() -> dict:
+    """Kernel and plain paths give identical greedy tokens at full width
+    (2 layers, fp32) on every path the serving code has: the monolithic
+    prefill (flash kernel) of `generate` and of ``serve(chunked_prefill=
+    False)``, the default chunked + radix `serve` (k = page_tokens chunk
+    fills, adopted prefixes) and a k = 4 speculative `serve`."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
     cfg = get_config("starcoder2-7b", num_layers=2, param_dtype="float32",
                      compute_dtype="float32")
     lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    v = cfg.vocab_size
     outs = {}
     for backend in ("auto", "ref"):
-        eng = ServeEngine(cfg, seed=0, backend=backend, kv_pool=PagedKVPool(
-            page_tokens=64, placement_policy=EveryOtherSlow()))
-        gen_out = eng.generate(_requests(cfg.vocab_size, lengths, new, 0),
-                               free_pages=True)
-        srv_out = eng.serve(_requests(cfg.vocab_size, lengths, new, 1),
-                            max_active=2)
+        def engine(speculate=0):
+            return ServeEngine(cfg, seed=0, backend=backend,
+                               speculate=speculate, kv_pool=PagedKVPool(
+                                   page_tokens=64,
+                                   placement_policy=EveryOtherSlow()))
+        eng = engine()
+        got = {"generate": _tokens(eng.generate(
+            _requests(v, lengths, new, 0), free_pages=True))}
+        got["serve_monolithic"] = _tokens(eng.serve(
+            _requests(v, lengths, new, 1), max_active=2,
+            chunked_prefill=False, radix=False))
+        got["serve_chunked_radix"] = _tokens(eng.serve(
+            _shared_prefix_requests(v, 150, [20, 90, 45, 130], 10, 2),
+            max_active=2))
+        got["prefix_hit_rate"] = eng.last_prefix_hit_rate
         if eng.kv_pool.live_pages:
             raise AssertionError("pages left in the pool")
-        outs[backend] = ([o.tolist() for o in gen_out],
-                         [o.tolist() for o in srv_out])
+        del eng
+        eng = engine(speculate=4)
+        got["serve_speculative_k4"] = _tokens(eng.serve(
+            _requests(v, lengths, new, 3), max_active=2))
+        got["spec_stats"] = eng.last_request_stats
+        if eng.kv_pool.live_pages:
+            raise AssertionError("pages left in the pool")
+        outs[backend] = got
         del eng
         torch.cuda.empty_cache()
-    same = outs["auto"] == outs["ref"]
+    paths = ("generate", "serve_monolithic", "serve_chunked_radix",
+             "serve_speculative_k4")
+    same = {p: outs["auto"][p] == outs["ref"][p] for p in paths}
     row = {"phase": "exact", "config": "starcoder2-7b full width, 2 layers, "
            "fp32", "page_tokens": 64, "prompt_lengths": lengths,
            "max_new": new, "identical_tokens": same,
-           "generate_tokens": outs["auto"][0], "serve_tokens": outs["auto"][1]}
+           "prefix_hit_rate": outs["auto"]["prefix_hit_rate"],
+           "spec_accept_rates": [d["accept_rate"] for d in
+                                 outs["auto"]["spec_stats"]],
+           **{p: outs["auto"][p] for p in paths}}
     emit(row)
-    if not same:
-        raise AssertionError(f"kernel and plain tokens differ: {outs}")
+    if not all(same.values()) or not outs["auto"]["prefix_hit_rate"]:
+        raise AssertionError(f"kernel and plain tokens differ, or no prefix "
+                             f"was adopted: {same}, {outs}")
     return row
 
 
 # ---------------------------------------------------------------------------
 # 4. the main path at full size
 # ---------------------------------------------------------------------------
-def phase_serve() -> dict:
-    from repro_torch.configs import get_config
+def _counters():
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_attention
+    return {"paged_attention": paged_attention,
+            "flash_attention": flash_attention}
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_serve() -> dict:
+    """The first slice's workload through the monolithic-prefill path (kept
+    so its numbers stay comparable): every prompt
+    prefills in one pass through the flash-attention kernel, then decodes
+    through the paged-attention kernel."""
+    from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.steps import prefill_all_positions
     cfg = get_config("starcoder2-7b")
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, seed=0, kv_pool=PagedKVPool(
@@ -361,30 +525,52 @@ def phase_serve() -> dict:
     lengths, new = [120, 250, 380, 500, 600], [32] * 5
     reqs = _requests(cfg.vocab_size, lengths, new, 2)
     steps0 = eng.stats["decode_steps"]
-    paged_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
-    outs = eng.serve(reqs, max_active=2)
+    outs = eng.serve(reqs, max_active=2, chunked_prefill=False, radix=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = paged_attention.launches
+    launches = read_launches()
     steps = eng.stats["decode_steps"] - steps0
     for o in outs:
         if o is None or len(o) != 32 or not ((0 <= o) & (o < cfg.vocab_size)).all():
             raise AssertionError(f"bad output {o}")
     if eng.kv_pool.live_pages:
         raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
-    if launches != steps * cfg.num_layers:
+    if launches["paged_attention"] != steps * cfg.num_layers:
         raise AssertionError(f"{launches} launches for {steps} steps")
+    if launches["flash_attention"] != len(reqs) * cfg.num_layers:
+        raise AssertionError(f"{launches} launches for {len(reqs)} prefills")
     steady = eng.last_steady_transfers
     if not steady or any(s != (1, 1) for s in steady):
         raise AssertionError(f"steady-state transfers {steady}")
     decode_tokens = eng.stats["tokens"] - len(reqs)
+    # prefill of each prompt with the flash kernel and with the plain
+    # version (the materialized fp32 softmax the prefill ran before the
+    # kernel), in alternation, synchronized
+    ab = {"kernel": [], "plain": []}
+    for r in reqs:
+        toks = torch.from_numpy(r.prompt[None]).cuda()
+        for _ in range(2):
+            for name, backend in (("kernel", "auto"), ("plain", "ref")):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                prefill_all_positions(eng.model, toks, backend=backend)
+                torch.cuda.synchronize()
+                ab[name].append((time.perf_counter() - t1) * 1e3)
     row = {"phase": "serve", "config": "starcoder2-7b, 32 layers, bf16",
+           "path": "monolithic prefill (chunked_prefill=False, radix=False)",
            "params": sum(p.numel() for p in eng.model.parameters()),
            "init_s": init_s, "requests": len(reqs), "prompt_lengths": lengths,
            "max_new": 32, "max_active": 2, "page_tokens": 128,
            "wall_s": wall_s, "decode_steps": steps, "launches": launches,
            "prefill_ms_per_request": eng.stats["prefill_s"] / len(reqs) * 1e3,
+           "prefill_forward_ms_by_prompt": {
+               "kernel": [statistics.median(ab["kernel"][2 * i:2 * i + 2])
+                          for i in range(len(reqs))],
+               "plain": [statistics.median(ab["plain"][2 * i:2 * i + 2])
+                         for i in range(len(reqs))]},
            "decode_ms_per_step": eng.stats["decode_s"] / steps * 1e3,
            "decode_tok_s": decode_tokens / eng.stats["decode_s"],
            "steady_steps": len(steady), "transfers_per_steady_token": 2,
@@ -394,6 +580,133 @@ def phase_serve() -> dict:
                     ("fast_hits", "slow_hits", "evictions")}}
     emit(row)
     return row, eng
+
+
+def _shared_engine(eng, **kw):
+    """A new engine over the same weights (no copy) and a fresh pool."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    return ServeEngine(eng.cfg, params=dict(eng.model.weights
+                                            .named_parameters()),
+                       kv_pool=PagedKVPool(page_tokens=128,
+                                           placement_policy=EveryOtherSlow()),
+                       **kw)
+
+
+def drive_session(eng, reqs, max_active=2) -> dict:
+    """The reference's default serving path, step by step: a
+    `ServeSession` with chunked prefill and the radix prefix cache on.
+    Returns per-request time to first token and per-step times, split
+    into steps that carried a prompt chunk and steps that only decoded."""
+    from repro_torch.serve.engine import ServeSession
+    cap = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    session = ServeSession(eng, capacity=cap, max_active=max_active)
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not session.submit(r):
+            raise AssertionError(f"request rejected: {session.request_stats(r)}")
+    ttft, wide_ms, narrow_ms = {}, [], []
+    while not session.done:
+        chunks0 = session.chunk_steps
+        t1 = time.perf_counter()
+        events = session.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        (wide_ms if session.chunk_steps > chunks0 else narrow_ms).append(
+            (now - t1) * 1e3)
+        for ev in events:
+            if ev.tokens and id(ev.request) not in ttft:
+                ttft[id(ev.request)] = (now - t0) * 1e3
+    outs = [session.result(r) for r in reqs]
+    stats = [session.request_stats(r) for r in reqs]
+    hit_rate = session.prefix_hit_rate
+    session.close()
+    return {"outs": outs, "stats": stats, "hit_rate": hit_rate,
+            "ttft_ms": [ttft[id(r)] for r in reqs], "wide_ms": wide_ms,
+            "narrow_ms": narrow_ms, "wall_s": time.perf_counter() - t0,
+            "steps": session.steps}
+
+
+def _check_outs(outs, reqs, vocab):
+    for o, r in zip(outs, reqs):
+        if o is None or len(o) != r.max_new_tokens or \
+                not ((0 <= o) & (o < vocab)).all():
+            raise AssertionError(f"bad output {o}")
+
+
+def phase_chunked(base) -> dict:
+    """The reference's default `serve` path at full width: 6 requests whose
+    prompts share a 512-token head (4 pages), prefilled in page-sized
+    chunks riding k = 128 verify steps (the row-blocked paged-attention
+    kernel: 1152 query rows per kv head), with later requests adopting the
+    cached head from the radix prefix tree."""
+    eng = _shared_engine(base)
+    cfg = eng.cfg
+    reqs = _shared_prefix_requests(cfg.vocab_size, 512,
+                                   [40, 130, 250, 70, 300, 10], 32, 4)
+    reset_launches()
+    run = drive_session(eng, reqs)
+    launches = read_launches()
+    _check_outs(run["outs"], reqs, cfg.vocab_size)
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{eng.kv_pool.live_pages} pages left after "
+                             f"close")
+    if not run["hit_rate"]:
+        raise AssertionError(f"no prefix hit: {run['hit_rate']}")
+    if not run["wide_ms"]:
+        raise AssertionError("no chunk-fill (k = 128) step ran")
+    if launches["paged_attention"] != run["steps"] * cfg.num_layers or \
+            launches["flash_attention"]:
+        raise AssertionError(f"{launches} launches for {run['steps']} steps")
+    row = {"phase": "chunked", "config": "starcoder2-7b, 32 layers, bf16",
+           "path": "default serve: chunked prefill + radix prefix cache",
+           "requests": len(reqs), "shared_prefix": 512,
+           "prompt_lengths": [len(r.prompt) for r in reqs], "max_new": 32,
+           "max_active": 2, "page_tokens": 128, "launches": launches,
+           "steps": run["steps"], "chunk_steps": len(run["wide_ms"]),
+           "prefix_hit_rate": run["hit_rate"], "wall_s": run["wall_s"],
+           "ttft_ms": run["ttft_ms"],
+           "chunk_step_ms_mean": statistics.mean(run["wide_ms"]),
+           "prefill_ms_per_request": sum(run["wide_ms"]) / len(reqs),
+           "decode_ms_per_step": statistics.mean(run["narrow_ms"]),
+           "decode_steps": len(run["narrow_ms"])}
+    emit(row)
+    return row
+
+
+def phase_spec(base) -> dict:
+    """k = 4 speculative decode with n-gram drafts through the default
+    serve path, on the serve phase's workload."""
+    eng = _shared_engine(base, speculate=4)
+    cfg = eng.cfg
+    reqs = _requests(cfg.vocab_size, [120, 250, 380, 500, 600], [32] * 5, 2)
+    reset_launches()
+    run = drive_session(eng, reqs)
+    launches = read_launches()
+    _check_outs(run["outs"], reqs, cfg.vocab_size)
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
+    if launches["paged_attention"] != run["steps"] * cfg.num_layers:
+        raise AssertionError(f"{launches} launches for {run['steps']} steps")
+    proposed = sum(d["proposed"] for d in run["stats"])
+    accepted = sum(d["accepted"] for d in run["stats"])
+    decode_tokens = sum(d["tokens"] - 1 for d in run["stats"])
+    verify_steps = sum(d["steps"] for d in run["stats"])
+    row = {"phase": "spec", "config": "starcoder2-7b, 32 layers, bf16",
+           "path": "default serve, speculate=4, n-gram draft",
+           "requests": len(reqs), "max_new": 32, "max_active": 2,
+           "launches": launches, "steps": run["steps"],
+           "chunk_steps": len(run["wide_ms"]),
+           "accept_rate": accepted / proposed if proposed else None,
+           "tokens_per_step": decode_tokens / verify_steps,
+           "per_request": [{k: d[k] for k in ("accept_rate",
+                                              "tokens_per_step")}
+                           for d in run["stats"]],
+           "verify_step_ms_mean": statistics.mean(run["narrow_ms"]),
+           "verify_steps": len(run["narrow_ms"]),
+           "ttft_ms": run["ttft_ms"], "wall_s": run["wall_s"]}
+    emit(row)
+    return row
 
 
 def _union_us(intervals) -> float:
@@ -473,10 +786,37 @@ def phase_profile(eng, steps: int = 16) -> dict:
     return row
 
 
+def kernels_line(full, launches) -> dict:
+    """One entry per kernel at the main path's shapes (bf16): paged
+    attention at one decode row, flash attention at the longest serve
+    prompt (600 tokens); launches from the serve phase's run."""
+    out = []
+    for name, key in (("paged_attention", ("paged_attention", 1, "bfloat16")),
+                      ("flash_attention", ("flash_attention", 600,
+                                           "bfloat16"))):
+        k = full[key]
+        source, replaces = KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "impl": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+            "tol": k["tol"], "tol_rule": k["tol_rule"],
+            "max_err_over_limit": k["max_err_over_limit"],
+            "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "shape": k["shape"]})
+    return {"kernels": out}
+
+
+PHASES = ("kernel", "exact", "serve", "chunked", "spec")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernel", "exact", "serve"),
-                    help="run the device phase and this one phase only")
+    ap.add_argument("--only", choices=PHASES,
+                    help="run the device phase and this one phase only "
+                         "(chunked and spec build the serve phase's model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -489,27 +829,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain fp32 is fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
+    run = (lambda p: args.only in (None, p))
     full = serve = None
-    if args.only in (None, "kernel"):
+    if run("kernel"):
         full = phase_kernel()
-    if args.only in (None, "exact"):
+    if run("exact"):
         phase_exact()
-    if args.only in (None, "serve"):
+    if run("serve") or run("chunked") or run("spec"):
         serve, eng = phase_serve()
-        phase_profile(eng)
+        if args.only in (None, "serve"):
+            phase_profile(eng)
+        if run("chunked"):
+            phase_chunked(eng)
+        if run("spec"):
+            phase_spec(eng)
         del eng
     if full is not None:
-        k = full["bfloat16"]
-        emit({"kernels": [{
-            "name": "paged_attention", "route": "cuda", "impl": "cuda",
-            "source": KERNEL_SOURCE, "replaces": REPLACES,
-            "launches": serve["launches"] if serve else 0,
-            "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
-            "tol": k["tol"], "tol_rule": k["tol_rule"],
-            "max_err_over_limit": k["max_err_over_limit"],
-            "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]})
+        emit(kernels_line(full, serve["launches"] if serve else {}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

@@ -18,9 +18,11 @@ from typing import Callable, Mapping
 
 @dataclasses.dataclass(frozen=True)
 class KernelCase:
-    """One validation case: a shape dict and a dtype."""
+    """One validation case: a shape dict, a dtype and the keyword
+    arguments the function is called with."""
     shape: Mapping[str, int]
     dtype: str = "float32"
+    kwargs: Mapping = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)

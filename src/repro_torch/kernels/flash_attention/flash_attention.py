@@ -1,0 +1,90 @@
+"""Prefill attention: the wrapper of the CUDA kernel in
+``csrc/flash_attention.cu``.
+
+On CUDA tensors `flash_attention` checks its arguments, allocates the
+output and launches the kernel on the current stream, or raises: there is
+no fallback. On CPU tensors it runs the plain version
+(`repro_torch.kernels.flash_attention.ref`). ``flash_attention.launches``
+counts kernel launches and ``flash_attention.plain_calls`` the calls that
+went to the plain version because the tensors lay on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import ref
+
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _lib():
+    from repro_torch.kernels.build import load
+    lib = load("flash_attention")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = (
+        [vp] * 4 + [i32] * 8 + [ctypes.c_float, i32, vp])
+    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_error_string.argtypes = [i32]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v, window):
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: expected (b, sq, hq, d) and "
+                         f"(b, skv, hkv, d) twice")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} {x.dtype} != q {q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q {q.dtype}: the kernel takes float32 or bfloat16")
+    b, sq, hq, d = q.shape
+    kb, skv, hkv, kd = k.shape
+    if kb != b or kd != d or d > MAX_HEAD_DIM or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)}: batch and "
+                         f"head dim must agree (max {MAX_HEAD_DIM}) and hq "
+                         f"must be a multiple of hkv")
+    if sq < 1 or skv < 1 or window < 0:
+        raise ValueError(f"sq {sq}, skv {skv}, window {window}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softmax_scale=None):
+    """Same arguments and result as `ref.attention`: q (b, sq, hq, d), k and
+    v (b, skv, hkv, d), any sq and skv."""
+    if not q.is_cuda:
+        flash_attention.plain_calls += 1
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softmax_scale=softmax_scale)
+    _check(q, k, v, window)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    lib = _lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, hq, hkv, d, int(bool(causal)), int(window), scale,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.plain_calls = 0

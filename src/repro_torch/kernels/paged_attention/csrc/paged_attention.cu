@@ -13,12 +13,16 @@
 // online softmax: masked scores are -1e30 and the normaliser is clamped
 // at 1e-30, as in the reference.
 //
-// Design. One block per (sequence, kv head). Its k * g query rows (the
-// k rows folded with the g query heads of the kv head, row r = j * g + gi)
-// sit in shared memory as fp32, pre-scaled. The block walks the
-// sequence's pages in order, only up to the page holding position
-// lengths[b] + k - 2 -- table entries past it may be 0 or a trash slot and
-// are never read -- in steps of 32 positions: it loads and dequantizes the
+// Design. The k * g query rows of a sequence and kv head (the k rows
+// folded with the g query heads of the kv head, row r = j * g + gi) split
+// into blocks of at most 64 rows, so that any k up to a page (k = 128 rows
+// of a chunked-prefill step at g = 9: 1152 rows) fits shared memory. One
+// block per (sequence, kv head, block of rows). Its rows sit in shared
+// memory as fp32, pre-scaled. The block walks the sequence's pages in
+// order, only up to the page holding the last position its last row sees
+// (lengths[b] + j - 1 for row j) -- table entries past it may be 0 or a
+// trash slot and are never read -- in steps of 32 positions: it loads and
+// dequantizes the
 // step's K and V rows into shared memory, scores every query row against
 // them with plain fp32 FMAs (no TF32, no tensor cores: the fp32 cases must
 // meet 5e-5), updates the per-row (m, l) with one warp per row, and adds
@@ -31,7 +35,8 @@
 // time is those bytes over the 3.35 TB/s of HBM. This first version is
 // simple and far from that bound: it issues one 4-byte load per element
 // with no overlap of loads and math, and at decode batch sizes its
-// b * hkv blocks occupy a small part of the 132 SMs. Pipelining pages
+// b * hkv blocks occupy a small part of the 132 SMs; blocks of rows of
+// one (sequence, kv head) each read its K/V again. Pipelining pages
 // with cp.async or TMA, splitting the KV walk over blocks for small
 // batches (split-KV with a second reduction pass) and reading only the
 // populated tier of each page are for a later change.
@@ -44,6 +49,7 @@ namespace {
 
 constexpr int kTile = 32;       // positions per step: one per lane in the softmax
 constexpr int kThreads = 256;
+constexpr int kMaxRows = 64;    // query rows per block
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -63,6 +69,7 @@ struct Args {
   const int32_t* lengths;
   void* out;
   int rows;         // k: query rows per sequence
+  int row_block;    // query rows (of the k * g) per block
   int hq, hkv, d;
   int64_t pages;    // pages per layer (P)
   int t;            // tokens per page (T)
@@ -71,7 +78,7 @@ struct Args {
   float scale;      // softmax scale
 };
 
-size_t smem_floats(int kg, int d) {
+size_t smem_floats(int kg, int d) {   // kg: rows of one block
   return (size_t)kg * d            // q rows
        + (size_t)kTile * (d + 1)   // K step, rows padded against bank conflicts
        + (size_t)kTile * d         // V step
@@ -85,7 +92,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
   const int bi = blockIdx.x;
   const int h = blockIdx.y;
   const int g = a.hq / a.hkv;
-  const int kg = a.rows * g;
+  const int r0 = blockIdx.z * a.row_block;       // first row of the block
+  const int kg = min(a.row_block, a.rows * g - r0);
   const int d = a.d;
   const int t = a.t;
   const int tid = threadIdx.x;
@@ -108,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
   QT* out = static_cast<QT*>(a.out);
 
   for (int i = tid; i < kg * d; i += kThreads) {
-    const int r = i / d, c = i % d;
+    const int r = r0 + i / d, c = i % d;
     const int64_t off =
         (((int64_t)bi * a.rows + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
     q_s[i] = to_f32(q[off]) * a.scale;
@@ -121,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
   __syncthreads();
 
   const int len = a.lengths[bi];
-  const int span = len + a.rows - 1;          // positions the last row sees
+  const int span = len + (r0 + kg - 1) / g;   // positions the last row sees
   const int n_pages = min((span + t - 1) / t, a.slots);
   const int warp = tid / 32, lane = tid % 32;
 
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
       for (int i = tid; i < kg * kTile; i += kThreads) {
         const int r = i / kTile, j = i % kTile;
         float s = kNegInf;
-        if (j < cnt && pos0 + j < len + r / g) {
+        if (j < cnt && pos0 + j < len + (r0 + r) / g) {
           const float* qr = q_s + r * d;
           const float* kr = k_s + j * (d + 1);
           float dot = 0.f;
@@ -190,22 +198,23 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Args a) {
   }
 
   for (int i = tid; i < kg * d; i += kThreads) {
-    const int r = i / d, c = i % d;
+    const int lr = i / d, r = r0 + lr, c = i % d;
     const int64_t off =
         (((int64_t)bi * a.rows + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
-    store(out + off, acc[i] / fmaxf(l_s[r], 1e-30f));
+    store(out + off, acc[i] / fmaxf(l_s[lr], 1e-30f));
   }
 }
 
 template <typename QT, typename PT>
 cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
   const int kg = a.rows * (a.hq / a.hkv);
-  const size_t smem = smem_floats(kg, a.d) * sizeof(float);
+  const int n_blocks = (kg + a.row_block - 1) / a.row_block;
+  const size_t smem = smem_floats(a.row_block, a.d) * sizeof(float);
   auto kernel = paged_attention_kernel<QT, PT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(b, a.hkv), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(b, a.hkv, n_blocks), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -213,9 +222,11 @@ cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared-memory bytes one block needs for k * g query rows of width d.
-long long paged_attention_smem_bytes(int kg, int d) {
-  return (long long)(smem_floats(kg, d) * sizeof(float));
+// Query rows per block for k * g rows: the fewest blocks of at most
+// kMaxRows rows, balanced.
+int paged_attention_row_block(int kg) {
+  const int n_blocks = (kg + kMaxRows - 1) / kMaxRows;
+  return (kg + n_blocks - 1) / n_blocks;
 }
 
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
@@ -235,7 +246,8 @@ int paged_attention_launch(const void* q, const void* k_pages,
          k_scale, v_scale,
          static_cast<const int32_t*>(page_table),
          static_cast<const int32_t*>(lengths),
-         out, rows, hq, hkv, d, pages, t, slots, layer, scale};
+         out, rows, paged_attention_row_block(rows * (hq / hkv)),
+         hq, hkv, d, pages, t, slots, layer, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_bf16 && pool_bf16) err = launch<__nv_bfloat16, __nv_bfloat16>(a, b, s);

@@ -19,7 +19,6 @@ import torch
 from repro_torch.kernels.paged_attention import ref
 
 MAX_HEAD_DIM = 256
-MAX_SMEM_BYTES = 232_448        # dynamic shared memory one H100 block may use
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -32,8 +31,6 @@ def _lib():
         [vp] * 10 + [i32] * 5 + [i64, i32, i32, i64, ctypes.c_float,
                                  i32, i32, vp])
     lib.paged_attention_launch.restype = i32
-    lib.paged_attention_smem_bytes.argtypes = [i32, i32]
-    lib.paged_attention_smem_bytes.restype = i64
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,11 +107,6 @@ def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     pages, t, hkv = k_pages.shape[-4], k_pages.shape[-3], k_pages.shape[-2]
     lib = _lib()
-    smem = lib.paged_attention_smem_bytes(rows * (hq // hkv), d)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{rows} rows x {hq // hkv} heads of width {d} need "
-                         f"{smem} bytes of shared memory (max "
-                         f"{MAX_SMEM_BYTES})")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -2,9 +2,10 @@
 
 The validation cases, tolerances and input generator are copies of the
 JAX package's ``repro/kernels/paged_attention/spec.py`` so that the CPU
-tests and `chip_smoke.py` hold the kernel to the same cases. The launch
-shape is fixed (one block per sequence and kv head), so the spec has no
-tunable tiles yet.
+tests and `chip_smoke.py` hold the kernel to the same cases; one wide
+case of the port's own follows them. The launch shape is fixed (one block
+per sequence, kv head and 64 query rows), so the spec has no tunable
+tiles yet.
 """
 from __future__ import annotations
 
@@ -81,5 +82,10 @@ SPEC = registry.register(KernelSpec(
                     "hq": 8, "hkv": 4, "d": 64, "k": 3}),
         KernelCase({"b": 2, "pages": 16, "page_tokens": 16, "slots": 4,
                     "hq": 4, "hkv": 2, "d": 32, "k": 2}, dtype="bfloat16"),
+        # the port's own (not in the JAX spec): a chunk-fill-wide step,
+        # k = page_tokens rows at starcoder2-7b's g = 9 -- 288 query rows
+        # per kv head, more than one block of rows
+        KernelCase({"b": 2, "pages": 16, "page_tokens": 32, "slots": 4,
+                    "hq": 18, "hkv": 2, "d": 32, "k": 32}),
     ),
 ))

@@ -1,9 +1,11 @@
 """Global self-attention (GQA/MQA/MHA by num_kv_heads), ATTN layers only.
 
-`attention_core` is the plain masked-softmax attention of the JAX
-package's ``repro/models/attention.py`` written as tensor ops (einsum +
-fp32 softmax). It serves prefill and the dense-cache decode; the paged
-decode step attends through the paged-attention kernel instead.
+Prefill attends through the flash-attention kernel
+(``api.run("flash_attention", ...)``). `attention_core` is the plain
+masked-softmax attention of the JAX package's
+``repro/models/attention.py`` written as tensor ops (einsum + fp32
+softmax); it serves the dense-cache decode. The paged decode step attends
+through the paged-attention kernel.
 Query heads fold as (hkv, g): query head ``h`` attends kv head
 ``h // g``.
 """
@@ -14,6 +16,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import api
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import apply_rope, norm_spec, rms_norm
 
@@ -115,12 +118,14 @@ def out_proj(p, y, dtype):
 
 
 def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
-               cache=None):
+               cache=None, backend: str = "auto"):
     """Returns (y, cache).
 
-    mode: "prefill" (emit the (b, s, hkv, hd) cache) | "decode" (write the
-    step's rows into the capacity-sized cache IN PLACE at scalar position
-    `positions`, then attend its first ``pos + s`` rows)."""
+    mode: "prefill" (causal attention over the prompt through the
+    flash-attention kernel, `backend` as in `kernels.api.run`; emit the
+    (b, s, hkv, hd) cache) | "decode" (write the step's rows into the
+    capacity-sized cache IN PLACE at scalar position `positions`, then
+    attend its first ``pos + s`` rows with `attention_core`)."""
     if mode == "decode":
         pos = int(positions)
         q, k_new, v_new = decode_qkv(cfg, p, x, pos)
@@ -131,7 +136,9 @@ def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
                            q_offset=pos, kv_valid_len=pos + 1)
     elif mode == "prefill":
         q, k_new, v_new = roped_qkv(cfg, p, x, positions)
-        y = attention_core(q, k_new, v_new, causal=True)
+        k_new, v_new = k_new.contiguous(), v_new.contiguous()
+        y = api.run("flash_attention", q.contiguous(), k_new, v_new,
+                    causal=True, backend=backend)
         cache = {"k": k_new, "v": v_new}
     else:
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")

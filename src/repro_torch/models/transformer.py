@@ -124,26 +124,32 @@ class Model(nn.Module):
         x = rms_norm(x, self.params["final_norm"])
         return lm_head_apply(self.cfg, self.params["embed"], x)
 
-    def run_stack(self, x, *, mode, positions, caches=None):
-        """Every layer in order. Returns (x, per-layer caches)."""
+    def run_stack(self, x, *, mode, positions, caches=None,
+                  backend: str = "auto"):
+        """Every layer in order. Returns (x, per-layer caches). `backend`
+        picks the prefill attention implementation (`kernels.api.run`)."""
         out = []
         for layer, p in enumerate(self.layers):
             h = rms_norm(x, p["norm1"])
             y, c = attn.attn_apply(
                 self.cfg, p["attn"], h, mode=mode, positions=positions,
-                cache=caches[layer] if caches is not None else None)
+                cache=caches[layer] if caches is not None else None,
+                backend=backend)
             x = mlp_tail(self.cfg, p, x + y)
             out.append(c)
         return x, out
 
-    def forward_prefill(self, tokens):
+    def forward_prefill(self, tokens, backend: str = "auto"):
         """tokens: (b, s). Returns (last-position logits (b, V), caches:
-        per layer ``{"k", "v"}`` of shape (b, s, hkv, hd))."""
+        per layer ``{"k", "v"}`` of shape (b, s, hkv, hd)). Attention runs
+        through the flash-attention kernel (`backend` as in
+        `kernels.api.run`)."""
         x = self.embed_in(tokens)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-        x, caches = self.run_stack(x, mode="prefill", positions=positions)
+        x, caches = self.run_stack(x, mode="prefill", positions=positions,
+                                   backend=backend)
         return self.head(x[:, -1:])[:, 0], caches
 
     def forward_decode(self, tokens, caches, pos: int):

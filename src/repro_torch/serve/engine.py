@@ -1,18 +1,29 @@
 """Serving engine over one model — the port of ``repro/serve/engine.py``
-for paged, fused, one-token decode.
+for paged, fused decode.
 
-- `generate` — static lockstep batch: prefill the (left-padded) prompts,
-  write their K/V into the `PagedKVPool`, then decode every row in
-  lockstep through the fused step (`serve.paged_decode.build_fused_step`).
+- `generate` — static lockstep batch: prefill the (left-padded) prompts
+  through the flash-attention kernel, write their K/V into the
+  `PagedKVPool`, then decode every row through the fused step
+  (`serve.paged_decode.build_fused_step`).
 - `serve` — continuous batching over a `ServeSession`: a `Scheduler`
   admits requests into free decode rows mid-flight (admission gated on
-  pool headroom), each admission prefills its prompt in one pass, each
-  row decodes at its own position, and retiring (per-request
-  ``max_new_tokens`` or ``eos_token``) frees the request's pages.
+  pool headroom, crediting radix-cached prompt pages), each row decodes
+  at its own position, and retiring (per-request ``max_new_tokens`` or
+  ``eos_token``) frees the request's pages. By default, as in the
+  reference, prompts prefill in page-sized chunks riding the widened
+  fused steps and a radix prefix cache lets later requests adopt cached
+  prompt pages; ``chunked_prefill=False`` prefills each prompt in one
+  pass at admission.
+
+Speculative decode (``speculate=k`` on the engine or per `Request`): a
+draft proposer (`serve.speculative`) guesses k - 1 tokens per request and
+one widened fused VERIFY step scores all k rows in one pass — 2
+host/device crossings per accepted run of up to k tokens. Greedy outputs
+are token-for-token those of the 1-token path for any draft.
 
 Greedy decoding is argmax; temperature sampling draws from a
-``torch.Generator`` seeded with ``seed``. Speculative verify, chunked
-prefill, the radix prefix cache, preemption and mesh sharding are later
+``torch.Generator`` seeded with ``seed``. Preemption, deadlines and
+priorities, mesh sharding and the eager/numpy decode modes are later
 slices: the arguments that ask for them raise `NotImplementedError`.
 """
 from __future__ import annotations
@@ -29,40 +40,17 @@ from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
                                             extract_prefill_pages, sample)
 from repro_torch.serve.paged_state import StateLayout
+from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import (Admission, Request, Scheduler,
                                          effective_speculate,
                                          prefix_page_hashes)
+from repro_torch.serve.speculative import SpecStats, make_draft
 from repro_torch.serve.steps import prefill_all_positions
 
 __all__ = ["Admission", "Request", "ServeEngine", "ServeSession"]
 
 
-class SpecStats:
-    """Per-request accounting in the reference's format. Without
-    speculative decoding every step emits one token and ``proposed`` /
-    ``accepted`` stay 0."""
-
-    __slots__ = ("steps", "proposed", "accepted", "tokens")
-
-    def __init__(self):
-        self.steps = 0
-        self.proposed = 0
-        self.accepted = 0
-        self.tokens = 0
-
-    def as_dict(self) -> dict:
-        return {"tokens": self.tokens, "steps": self.steps,
-                "tokens_per_step": self.tokens / self.steps
-                if self.steps else 0.0,
-                "proposed": self.proposed, "accepted": self.accepted,
-                "accept_rate": self.accepted / self.proposed
-                if self.proposed else None}
-
-
 def _check_request(req: Request):
-    if effective_speculate(req) > 1:
-        raise NotImplementedError("speculative decode (Request.speculate > 1)"
-                                  " is not ported")
     if req.deadline is not None or req.priority != 0:
         raise NotImplementedError("deadlines and priorities (SLO shedding, "
                                   "preemption) are not ported")
@@ -71,19 +59,21 @@ def _check_request(req: Request):
 class ServeEngine:
     """Engine over one model. ``params`` is a flat state dict (e.g. from
     `repro_torch.convert.params_from_numpy`); without it the weights are
-    drawn from ``seed`` on ``device``. ``backend`` picks the paged
-    attention implementation (`repro_torch.kernels.api.run`)."""
+    drawn from ``seed`` on ``device``. ``backend`` picks the kernels'
+    implementation (`repro_torch.kernels.api.run`): prefill's flash
+    attention and the decode step's paged attention. ``speculate`` is the
+    engine's default tokens per step (`Request.speculate` wins); ``draft``
+    is ``"ngram[:N]"``, ``"self"`` or any ``propose(history, n)``
+    object."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None,
                  seed: int = 0, kv_pool: Optional[PagedKVPool] = None,
                  device="cuda", backend: str = "auto",
                  decode_mode: Optional[str] = None, speculate: int = 0,
-                 mesh=None):
+                 draft="ngram", mesh=None):
         if decode_mode not in (None, "fused"):
             raise NotImplementedError(f"decode_mode={decode_mode!r}: only "
                                       f"the fused step is ported")
-        if speculate > 1:
-            raise NotImplementedError("speculative decode is not ported")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported")
         self.cfg = cfg
@@ -93,11 +83,21 @@ class ServeEngine:
         self.backend = backend
         self.layout = StateLayout(cfg, kv_pool.page_tokens) \
             if kv_pool is not None else None
+        self.speculate = int(speculate)
+        self._draft_arg = draft
+        self._draft = None
         self._next_seq = 0           # pool seq ids are engine-lifetime unique
         self._fused_cache: dict = {}
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
                       "decode_steps": 0}
         self.last_request_stats: list[dict] = []
+
+    @property
+    def draft(self):
+        if self._draft is None:
+            self._draft = make_draft(self._draft_arg, self.model,
+                                     backend=self.backend)
+        return self._draft
 
     def _require_paged(self):
         if self.kv_pool is None:
@@ -105,23 +105,133 @@ class ServeEngine:
                                       "ported — construct the engine with "
                                       "kv_pool=")
 
-    def _new_state(self, capacity: int, batch_hint: int) -> PagedKVState:
+    def _check_spec_width(self, k: int):
+        """A k-token verify step needs the page pool and k <= page_tokens
+        (one step may cross at most one page boundary)."""
+        if k <= 1:
+            return
+        if self.kv_pool is None:
+            raise ValueError("speculative decode verifies against the "
+                             "page pool — construct the engine with "
+                             "kv_pool=")
+        t = self.kv_pool.page_tokens
+        if k > t:
+            raise ValueError(
+                f"speculate={k} exceeds page_tokens={t}: one verify "
+                f"step may cross at most one page boundary")
+
+    def _resolve_spec(self, requests) -> tuple[int, list[int]]:
+        """Effective per-request k (Request.speculate, falling back to the
+        engine default) and the verify-step width (their max)."""
+        ks = [effective_speculate(r, self.speculate) for r in requests]
+        k = max(ks, default=1)
+        self._check_spec_width(k)
+        return k, ks
+
+    def _new_state(self, capacity: int, batch_hint: int,
+                   tail_slots: int = 1) -> PagedKVState:
         cfg = self.cfg
         return PagedKVState(self.kv_pool, capacity, self.layout,
                             cfg.num_kv_heads, cfg.head_dim,
-                            batch_hint=batch_hint, device=self.device)
+                            batch_hint=batch_hint, tail_slots=tail_slots,
+                            device=self.device)
 
-    def _fused_step_fn(self, slots: int, greedy: bool, temperature: float):
-        key = (slots, greedy, float(temperature))
+    def _fused_step_fn(self, slots: int, greedy: bool, temperature: float,
+                       k: int = 1):
+        key = (slots, greedy, float(temperature), k)
         fn = self._fused_cache.get(key)
         if fn is None:
-            fn = build_fused_step(self.model, slots, backend=self.backend,
-                                  greedy=greedy, temperature=temperature)
+            fn = build_fused_step(self.model, slots, k=k,
+                                  backend=self.backend, greedy=greedy,
+                                  temperature=temperature)
             self._fused_cache[key] = fn
         return fn
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _prefill_all(self, toks: np.ndarray):
+        """All-position logits and caches of one prompt (no padding)."""
+        return prefill_all_positions(
+            self.model, torch.from_numpy(toks[None]).to(self.device),
+            backend=self.backend)
+
+    def _spec_step(self, state: PagedKVState, step_fn, k: int, rows,
+                   generator):
+        """One k-row verify step over the current batch rows.
+
+        ``rows``: per batch row, ``None`` (dead/padded) or a dict with
+        ``seq`` (pool id), ``history`` (int32 array: prompt + emitted
+        tokens, whose last entry is the token this step feeds), ``pos``
+        (absolute position of that token), ``eff_k`` (the request's
+        tokens per step), ``limit`` (tokens still allowed before max_new,
+        >= 1), ``eos`` (stop token or None) and ``stats`` (`SpecStats`).
+        Proposes drafts, runs the step, and advances the state by exactly
+        the per-row kept counts — the accepted prefix + bonus token,
+        clamped by limit/eos; everything else rolls back. Returns the
+        per-row kept-token lists.
+
+        A row may instead carry a prefill CHUNK (``{"seq", "pos",
+        "chunk", "final"}``): up to k true prompt tokens fed through the
+        same step, always kept. Columns past the chunk repeat its last
+        token (their K/V rows are phantom). A ``final`` chunk keeps one
+        token — the sample after the last prompt token, the request's
+        first generated token; earlier chunks keep nothing."""
+        b = len(rows)
+        toks = np.zeros((b, k), np.int32)
+        seq_ids = [-1] * b
+        pos = np.zeros(b, np.int32)
+        proposed = [0] * b
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            seq_ids[i] = r["seq"]
+            pos[i] = r["pos"]
+            chunk = r.get("chunk")
+            if chunk is not None:
+                m = len(chunk)
+                toks[i, :m] = chunk
+                if m < k:               # pad: repeat the last true token
+                    toks[i, m:] = chunk[-1]
+                continue
+            hist = r["history"]
+            toks[i, 0] = hist[-1]
+            n_d = min(r["eff_k"], k) - 1
+            if n_d > 0:
+                drafts = np.asarray(self.draft.propose(hist, n_d), np.int32)
+                proposed[i] = len(drafts)
+                toks[i, 1:1 + len(drafts)] = drafts
+            if proposed[i] < k - 1:     # pad: repeat the last filled token
+                toks[i, 1 + proposed[i]:] = toks[i, proposed[i]]
+        verdict = state.run_spec(step_fn, toks, seq_ids, pos, generator)
+        kept = [None] * b
+        advanced = [0] * b
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            chunk = r.get("chunk")
+            if chunk is not None:
+                m = len(chunk)
+                kept[i] = [int(verdict[i, m - 1])] if r["final"] else []
+                advanced[i] = m
+                continue
+            # padding columns never count as accepted (a non-speculative
+            # row always keeps exactly its 1 bonus token)
+            n_acc = min(int(verdict[i, k]), proposed[i])
+            cand = [int(x) for x in verdict[i, :n_acc + 1][:r["limit"]]]
+            eos = r["eos"]
+            if eos is not None and eos in cand:
+                cand = cand[:cand.index(eos) + 1]
+            kept[i] = cand
+            advanced[i] = len(cand)
+            st = r.get("stats")
+            if st is not None:
+                st.steps += 1
+                st.proposed += proposed[i]
+                st.accepted += min(len(cand), n_acc)
+                st.tokens += len(cand)
+        state.end_step(seq_ids, advanced)
+        return kept
 
     # ------------------------------------------------------------------
     # Static lockstep batch
@@ -131,8 +241,10 @@ class ServeEngine:
                  free_pages: bool = False) -> list[np.ndarray]:
         """Static lockstep decode. Per-request ``eos_token`` truncates the
         returned tokens (eos inclusive); the lockstep batch still decodes
-        ``max_new_tokens`` steps. The batch's pages stay live after the
-        call unless ``free_pages=True``."""
+        ``max_new_tokens`` steps (speculative rows advance at their own
+        accept rates). The batch's pages stay live after the call unless
+        ``free_pages=True``."""
+        spec_k, eff_ks = self._resolve_spec(requests)
         self._require_paged()
         for r in requests:
             _check_request(r)
@@ -145,10 +257,11 @@ class ServeEngine:
 
         t0 = time.perf_counter()
         logits, caches = self.model.forward_prefill(
-            torch.from_numpy(prompts).to(self.device))
+            torch.from_numpy(prompts).to(self.device), backend=self.backend)
         seq_ids = list(range(self._next_seq, self._next_seq + b))
         self._next_seq += b
-        state = self._new_state(plen + max_new, batch_hint=b)
+        state = self._new_state(plen + max_new, batch_hint=b,
+                                tail_slots=2 if spec_k > 1 else 1)
         extract_prefill_pages(self.model, caches, state, seq_ids)
         self.stats["prefill_s"] += time.perf_counter() - t0
 
@@ -156,23 +269,29 @@ class ServeEngine:
         tok = sample(logits, greedy, temperature, gen)
         outs = [[int(x)] for x in tok.cpu().numpy()]
         observe = getattr(self.kv_pool.policy, "observe", None)
-        step_fn = self._fused_step_fn(state.slots, greedy, temperature)
+        spec_stats = [SpecStats() for _ in requests]
         t0 = time.perf_counter()
-        for step in range(max_new - 1):
-            hits0 = (self.kv_pool.stats["fast_hits"],
-                     self.kv_pool.stats["slow_hits"])
-            g0 = state.gather_s
-            # steady state: one control upload, one token download — `tok`
-            # stays on the device
-            tok_host, tok = state.run_fused(step_fn, tok, seq_ids,
-                                            plen + step, gen)
-            if observe is not None:
-                observe(state.gather_s - g0,
-                        self.kv_pool.stats["fast_hits"] - hits0[0],
-                        self.kv_pool.stats["slow_hits"] - hits0[1])
-            for i in range(b):
-                outs[i].append(int(tok_host[i]))
-            self.stats["decode_steps"] += 1
+        if spec_k > 1:
+            self._generate_spec(requests, eff_ks, spec_k, state, seq_ids,
+                                outs, spec_stats, plen, greedy, temperature,
+                                gen, observe)
+        else:
+            step_fn = self._fused_step_fn(state.slots, greedy, temperature)
+            for step in range(max_new - 1):
+                hits0 = (self.kv_pool.stats["fast_hits"],
+                         self.kv_pool.stats["slow_hits"])
+                g0 = state.gather_s
+                # steady state: one control upload, one token download —
+                # `tok` stays on the device
+                tok_host, tok = state.run_fused(step_fn, tok, seq_ids,
+                                                plen + step, gen)
+                if observe is not None:
+                    observe(state.gather_s - g0,
+                            self.kv_pool.stats["fast_hits"] - hits0[0],
+                            self.kv_pool.stats["slow_hits"] - hits0[1])
+                for i in range(b):
+                    outs[i].append(int(tok_host[i]))
+                self.stats["decode_steps"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
         self.last_transfers = state.transfer_counts()
         if free_pages:
@@ -188,14 +307,61 @@ class ServeEngine:
         results = [trim(o, r) for o, r in zip(outs, requests)]
         self.stats["tokens"] += sum(len(o) for o in results)
         self.last_request_stats = []
-        for res in results:
-            st = SpecStats()
-            st.steps = max(1, max_new - 1)
-            st.tokens = max(0, len(res) - 1)
+        for res, st in zip(results, spec_stats):
+            if st.steps == 0:               # non-speculative lockstep rows
+                st.steps = max(1, max_new - 1)
+                st.tokens = max(0, len(res) - 1)
             d = st.as_dict()
             d["tokens"] = len(res)          # eos-trimmed, prefill token incl.
             self.last_request_stats.append(d)
         return results
+
+    def _generate_spec(self, requests, eff_ks, spec_k, state, seq_ids,
+                       outs, spec_stats, plen, greedy, temperature, gen,
+                       observe):
+        """Static-batch speculative loop: rows advance at their own accept
+        rates, finished rows turn into seq -1 padding until every row has
+        reached its max_new/eos."""
+        step_fn = self._fused_step_fn(state.slots, greedy, temperature,
+                                      k=spec_k)
+        hist = [np.concatenate([np.asarray(r.prompt, np.int32),
+                                np.asarray(o, np.int32)])
+                for r, o in zip(requests, outs)]
+
+        def is_done(i):
+            r = requests[i]
+            return (len(outs[i]) >= r.max_new_tokens
+                    or (r.eos_token is not None
+                        and outs[i][-1] == r.eos_token))
+
+        done = [is_done(i) for i in range(len(requests))]
+        while not all(done):
+            rows = []
+            for i, r in enumerate(requests):
+                if done[i]:
+                    rows.append(None)
+                    continue
+                rows.append({"seq": seq_ids[i], "history": hist[i],
+                             "pos": plen + len(outs[i]) - 1,
+                             "eff_k": eff_ks[i],
+                             "limit": r.max_new_tokens - len(outs[i]),
+                             "eos": r.eos_token, "stats": spec_stats[i]})
+            hits0 = (self.kv_pool.stats["fast_hits"],
+                     self.kv_pool.stats["slow_hits"])
+            g0 = state.gather_s
+            kept = self._spec_step(state, step_fn, spec_k, rows, gen)
+            self.stats["decode_steps"] += 1
+            if observe is not None:
+                observe(state.gather_s - g0,
+                        self.kv_pool.stats["fast_hits"] - hits0[0],
+                        self.kv_pool.stats["slow_hits"] - hits0[1])
+            for i in range(len(requests)):
+                if rows[i] is None:
+                    continue
+                outs[i].extend(kept[i])
+                hist[i] = np.concatenate(
+                    [hist[i], np.asarray(kept[i], np.int32)])
+                done[i] = is_done(i)
 
     # ------------------------------------------------------------------
     # Continuous batching
@@ -204,26 +370,34 @@ class ServeEngine:
               greedy: bool = True, temperature: float = 1.0, seed: int = 0,
               prefix_cache: bool = True,
               chunked_prefill: Optional[bool] = None,
+              prefill_budget: int = 1,
               radix: Optional[bool] = None,
               preempt: bool = False) -> list[Optional[np.ndarray]]:
         """Continuous-batching decode: requests join free rows mid-flight
         and retire at their own lengths; finished requests' pages are
         freed. Returns outputs in submission order; a request that can
         never fit is rejected (its slot is None, its `Admission` verdict
-        in ``last_rejections``). Prompts prefill in one pass at admission
-        (``prefix_cache`` dedups identical prompt pages by content hash)."""
-        if chunked_prefill or radix or preempt:
-            raise NotImplementedError("chunked prefill, the radix prefix "
-                                      "cache and preemption are not ported")
+        in ``last_rejections``). ``chunked_prefill`` and ``radix``
+        default on, as in the reference (see `ServeSession`).
+        ``preempt=True`` raises: preemption is not ported (the reference
+        preempts only for deadlines and priorities, which the port
+        refuses, so its default path is this one)."""
+        if preempt:
+            raise NotImplementedError("preemption is not ported")
         if not requests:
             self.last_rejections = []
             return []
+        self._require_paged()
+        spec_k, _ = self._resolve_spec(requests)
         if len({id(r) for r in requests}) != len(requests):
             raise ValueError("duplicate Request objects in one serve() call")
         cap = max(len(r.prompt) + r.max_new_tokens for r in requests)
         session = ServeSession(self, capacity=cap, max_active=max_active,
-                               greedy=greedy, temperature=temperature,
-                               seed=seed, prefix_cache=prefix_cache)
+                               speculate=spec_k, greedy=greedy,
+                               temperature=temperature, seed=seed,
+                               prefix_cache=prefix_cache,
+                               chunked_prefill=chunked_prefill,
+                               prefill_budget=prefill_budget, radix=radix)
         self.last_rejections = []
         for r in requests:
             verdict = session.submit(r)
@@ -233,8 +407,10 @@ class ServeEngine:
         self.last_peak_active = session.sched.peak_active
         self.last_transfers = session.state.transfer_counts()
         self.last_steady_transfers = list(session.steady_transfers)
+        self.last_prefix_hit_rate = session.prefix_hit_rate
         self.last_request_stats = [session.request_stats(r)
                                    for r in requests]
+        session.close()    # drop radix pins: the pool tracks live work
         return [session.result(r) for r in requests]
 
 
@@ -242,14 +418,23 @@ class ServeEngine:
 # Step-granular continuous batching
 # ---------------------------------------------------------------------------
 class _Active:
-    """One occupied decode row of the continuous batch."""
+    """One occupied decode row of the continuous batch. A chunked-prefill
+    row starts with ``pending`` prompt tokens still to stream into the
+    pool (``prefilled`` counts tokens already resident, adopted prefix
+    included) and an empty ``outs``; it joins decode once its final
+    chunk produces its first token."""
 
-    __slots__ = ("req", "seq", "plen", "outs", "stats")
+    __slots__ = ("req", "seq", "plen", "outs", "eff_k", "stats", "pending",
+                 "prefilled", "hashes")
 
-    def __init__(self, req: Request, seq: int, plen: int):
+    def __init__(self, req: Request, seq: int, plen: int, eff_k: int = 1):
         self.req, self.seq, self.plen = req, seq, plen
         self.outs: list[int] = []
+        self.eff_k = eff_k
         self.stats = SpecStats()
+        self.pending: Optional[np.ndarray] = None
+        self.prefilled = 0
+        self.hashes: Optional[list] = None
 
     @property
     def pos(self) -> int:
@@ -257,7 +442,13 @@ class _Active:
         return self.plen + len(self.outs) - 1
 
     @property
+    def prefilling(self) -> bool:
+        return self.pending is not None and len(self.pending) > 0
+
+    @property
     def finished(self) -> bool:
+        if not self.outs:               # still prefilling: no token yet
+            return False
         return (len(self.outs) >= self.req.max_new_tokens
                 or self.outs[-1] == self.req.eos_token)
 
@@ -265,12 +456,15 @@ class _Active:
 class StreamEvent:
     """Per-request outcome of one `ServeSession.step`: the tokens the
     request emitted this step (the admission prefill token included) and
-    whether it just finished."""
+    whether it just finished. ``error`` names a late rejection on a
+    terminal event."""
 
-    __slots__ = ("request", "tokens", "done")
+    __slots__ = ("request", "tokens", "done", "error")
 
-    def __init__(self, request: Request, tokens: list, done: bool = False):
+    def __init__(self, request: Request, tokens: list, done: bool = False,
+                 error: Optional[str] = None):
         self.request, self.tokens, self.done = request, tokens, done
+        self.error = error
 
 
 class _SessionRec:
@@ -280,7 +474,8 @@ class _SessionRec:
 
     def __init__(self, req: Request):
         self.req = req
-        self.status = "waiting"          # waiting | active | done | rejected
+        # waiting | active | done | cancelled | rejected
+        self.status = "waiting"
         self.active: Optional[_Active] = None
         self.row = -1
         self.result: Optional[np.ndarray] = None
@@ -290,10 +485,20 @@ class _SessionRec:
 class ServeSession:
     """Resumable, step-granular continuous-batching loop: ``submit``
     queues a request and returns its `Admission` verdict, ``step`` runs
-    one admission round plus one fused decode step over the live rows and
-    returns per-request `StreamEvent`s. ``capacity`` (in tokens) sizes the
-    page table for the session's lifetime — a longer request is rejected
-    with reason ``capacity``.
+    one admission round plus one fused step over the live rows and
+    returns per-request `StreamEvent`s, ``cancel`` retires a request.
+    ``capacity`` (in tokens) sizes the page table for the session's
+    lifetime — a longer request is rejected with reason ``capacity``.
+    ``speculate`` fixes the verify-step width; a request whose k exceeds
+    it is rejected with reason ``speculate``.
+
+    ``chunked_prefill`` (default on) streams prompts in page-sized chunks
+    through the widened verify step — up to ``prefill_budget`` chunk rows
+    per step — while decode rows keep decoding in the same step; off, a
+    prompt prefills in one pass at admission. ``radix`` (default: as
+    ``prefix_cache``) keeps a `RadixPrefixCache` that pins finished
+    prompts' pages so later requests adopt the cached prefix instead of
+    prefilling it.
 
     ``steady_transfers`` lists the (host->device, device->host) transfers
     of every step that fed its tokens back on the device and neither
@@ -301,30 +506,55 @@ class ServeSession:
     one token download."""
 
     def __init__(self, engine: ServeEngine, capacity: int,
-                 max_active: int = 4, greedy: bool = True,
-                 temperature: float = 1.0, seed: int = 0,
-                 prefix_cache: bool = True):
+                 max_active: int = 4, speculate: Optional[int] = None,
+                 greedy: bool = True, temperature: float = 1.0,
+                 seed: int = 0, prefix_cache: bool = True,
+                 chunked_prefill: Optional[bool] = None,
+                 prefill_budget: int = 1, radix: Optional[bool] = None):
         engine._require_paged()
+        k = max(1, engine.speculate if speculate is None else int(speculate))
+        engine._check_spec_width(k)
         self.engine = engine
         self.pool = engine.kv_pool
         self.capacity = int(capacity)
+        self.spec_k = k
         self.max_active = max_active
         self.greedy, self.temperature = greedy, float(temperature)
         self.prefix_cache = prefix_cache
+        self.chunked = True if chunked_prefill is None \
+            else bool(chunked_prefill)
+        self.prefill_budget = max(1, int(prefill_budget))
+        self.radix = bool(prefix_cache) if radix is None else bool(radix)
+        self.prefix_index = RadixPrefixCache(
+            self.pool, engine.layout.n_kv,
+            on_release=self._release_pinned) if self.radix else None
         self.sched = Scheduler(self.pool, engine.layout,
-                               max_active=max_active)
-        self.state = engine._new_state(self.capacity, batch_hint=max_active)
+                               max_active=max_active,
+                               default_speculate=engine.speculate,
+                               prefix_index=self.prefix_index)
+        # a chunk-fill step uses the spill slot (decode rows riding a wide
+        # step may cross their page boundary), so chunked sessions need the
+        # second tail slot even at k == 1
+        self.state = engine._new_state(
+            self.capacity, batch_hint=max_active,
+            tail_slots=2 if (k > 1 or self.chunked) else 1)
+        # prefix-cache hit accounting: pages adopted / adoptable pages
+        self.pages_adopted_total = 0
+        self.pages_needed_total = 0
         self._rows: list[Optional[_Active]] = [None] * max_active
         self._recs: dict[int, _SessionRec] = {}
         self._gen = engine._generator(seed)
         self._observe = getattr(self.pool.policy, "observe", None)
         self._step_fn = engine._fused_step_fn(self.state.slots, greedy,
-                                              temperature)
+                                              temperature, k=k)
         self._tok_dev = None      # device-resident (max_active,) last tokens
         self._rows_dirty = True   # host-known token entered/left a row
         self.steps = 0
+        self.chunk_steps = 0      # steps that carried a prompt chunk
+        self.peak_live_pages = 0
         self.steady_transfers: list[tuple[int, int]] = []
 
+    # -- lifecycle ----------------------------------------------------------
     @property
     def done(self) -> bool:
         """True when nothing is waiting and no decode row is occupied."""
@@ -339,18 +569,26 @@ class ServeSession:
             raise ValueError("Request object already submitted to this "
                              "session")
         t = self.pool.page_tokens
+        tail = 2 if (self.spec_k > 1 or self.chunked) else 1
         need_tokens = len(req.prompt) + req.max_new_tokens
         pages = -(-need_tokens // t)
-        if pages + 1 > self.state.slots:
+        eff_k = effective_speculate(req, self.engine.speculate)
+        if pages + tail > self.state.slots:
             verdict = Admission(
                 False, reason="capacity",
-                pages_needed=self.engine.layout.pages_needed(need_tokens),
+                pages_needed=self.engine.layout.pages_needed(
+                    need_tokens, tail_slots=tail),
                 pages_budget=self.sched._budget(),
                 detail=f"request spans {need_tokens} KV tokens = {pages} "
-                       f"pages + 1 tail slot, beyond the session page table "
-                       f"of {self.state.slots} slots "
-                       f"({self.state.slots * t} tokens); raise the session "
-                       f"capacity")
+                       f"pages + {tail} tail slot(s), beyond the session "
+                       f"page table of {self.state.slots} slots "
+                       f"({self.state.slots * t} tokens); raise the "
+                       f"session capacity")
+        elif eff_k > self.spec_k:
+            verdict = Admission(
+                False, reason="speculate",
+                detail=f"request speculates {eff_k} tokens/step but the "
+                       f"session verify graph is {self.spec_k} wide")
         else:
             verdict = self.sched.submit(req)
         rec = _SessionRec(req)
@@ -361,9 +599,39 @@ class ServeSession:
                          **verdict.as_dict()}
         return verdict
 
+    def cancel(self, req: Request) -> bool:
+        """Cancel a submitted request: a waiting one leaves the queue; an
+        active one retires — its row and reservation free immediately and
+        its pool pages drop their refs (prefix-shared and pinned pages
+        survive through their other holders). The tokens streamed so far
+        become its partial result. Returns False if it already finished
+        or was never submitted."""
+        rec = self._recs.get(id(req))
+        if rec is None or rec.status in ("done", "cancelled", "rejected"):
+            return False
+        outs: list = []
+        stats = SpecStats()
+        if rec.status == "waiting":
+            self.sched.remove_waiting(req)
+        else:
+            act = rec.active
+            outs, stats = act.outs, act.stats
+            self.state.free_seq(act.seq)
+            self._rows[rec.row] = None
+            self.sched.retire(req)
+            self._rows_dirty = True
+        rec.status = "cancelled"
+        rec.active = None
+        rec.result = np.array(outs[:req.max_new_tokens], np.int64)
+        d = stats.as_dict()
+        d["tokens"] = len(rec.result)
+        d["cancelled"] = True
+        rec.stats = d
+        return True
+
     def result(self, req: Request) -> Optional[np.ndarray]:
-        """Final output tokens; None while the request is queued or
-        decoding, and None forever if rejected."""
+        """Final (or partial, if cancelled) output tokens; None while the
+        request is queued or decoding, and None forever if rejected."""
         rec = self._recs.get(id(req))
         return None if rec is None else rec.result
 
@@ -371,6 +639,35 @@ class ServeSession:
         rec = self._recs.get(id(req))
         return None if rec is None else rec.stats
 
+    def _release_pinned(self, pid: int):
+        # a radix-tree unpin destroyed a pool page: recycle its device slot
+        self.state.release_page(pid)
+
+    @property
+    def prefix_hit_rate(self) -> Optional[float]:
+        """Pages adopted / adoptable prompt pages across the session's
+        admissions; None before any admission counted one."""
+        if self.pages_needed_total == 0:
+            return None
+        return self.pages_adopted_total / self.pages_needed_total
+
+    def close(self):
+        """Release the session's cross-request state: unpin every radix
+        tree node (pages whose last holder was the tree are destroyed and
+        their device slots recycled), so a drained, closed session leaves
+        ``pool.live_pages == 0``."""
+        if self.prefix_index is not None:
+            self.prefix_index.clear()
+
+    def check_invariants(self):
+        """The pool's and the device mirror's structural invariants, with
+        the radix tree's pins as the pool's external references."""
+        pins = self.prefix_index.pin_counts() \
+            if self.prefix_index is not None else None
+        self.pool.check_invariants(pins=pins)
+        self.state._device.check_invariants()
+
+    # -- the step -----------------------------------------------------------
     def _finish(self, rec: _SessionRec):
         act = rec.active
         self.state.free_seq(act.seq)
@@ -383,6 +680,18 @@ class ServeSession:
         d["tokens"] = len(rec.result)   # eos-trimmed, prefill token incl.
         rec.stats = d
 
+    def _reject_late(self, events: list):
+        """Surface the scheduler's late rejections: a queue head that can
+        never fit even after evicting every reclaimable pin."""
+        for req, verdict in self.sched.late_rejections:
+            rec = self._recs[id(req)]
+            rec.status = "rejected"
+            rec.stats = {"rejected": verdict.reason, "tokens": 0,
+                         **verdict.as_dict()}
+            events.append(StreamEvent(req, [], done=True,
+                                      error=verdict.reason))
+        self.sched.late_rejections.clear()
+
     def _admit(self, events: list):
         eng = self.engine
         t = self.pool.page_tokens
@@ -390,6 +699,7 @@ class ServeSession:
             # loop: an admitted request finishing at its very first token
             # frees its row + reservation, unblocking the queue head again
             batch = self.sched.admit()
+            self._reject_late(events)
             if not batch:
                 return
             for req in batch:
@@ -398,16 +708,55 @@ class ServeSession:
                 eng._next_seq += 1
                 row_i = self._rows.index(None)
                 toks = np.asarray(req.prompt, np.int32)
-                act = _Active(req, seq, len(toks))
+                plen = len(toks)
+                act = _Active(req, seq, plen,
+                              eff_k=effective_speculate(req, eng.speculate))
+                if self.chunked:
+                    # adopt the radix-cached prefix (the exact pages the
+                    # admission gate credited) and queue the suffix for
+                    # page-sized chunk fills riding the decode steps — no
+                    # prefill work happens at admission
+                    hashes = self.sched._prompt_hashes(req) \
+                        if self.radix else \
+                        (prefix_page_hashes(toks, t)
+                         if self.prefix_cache else [])
+                    match = self.sched.take_match(req) \
+                        if self.radix else None
+                    adopted = match.pages if match is not None else 0
+                    self.state.adopt_prefix(
+                        seq, match.groups if match is not None else (),
+                        pending_hashes=hashes[adopted:])
+                    act.pending = toks[adopted * t:]
+                    act.prefilled = adopted * t
+                    act.hashes = hashes
+                    self.pages_adopted_total += adopted
+                    self.pages_needed_total += self.sched.adopt_cap(req)
+                    self._rows[row_i] = act
+                    rec.active, rec.row, rec.status = act, row_i, "active"
+                    self._rows_dirty = True
+                    continue
                 t0 = time.perf_counter()
-                logits_all, caches = prefill_all_positions(
-                    eng.model, torch.from_numpy(toks[None]).to(eng.device))
-                hashes = [prefix_page_hashes(toks, t)] \
-                    if self.prefix_cache else None
+                logits_all, caches = eng._prefill_all(toks)
+                want_hashes = self.prefix_cache or self.radix
+                hashes = [prefix_page_hashes(toks, t)] if want_hashes \
+                    else None
+                # adopt the radix-cached prefix pages by reference (the
+                # prefill still runs full-length for the logits, but the
+                # cached pages are not written again)
+                match = self.sched.take_match(req) if self.radix else None
+                adopted = match.pages if match is not None else 0
+                if adopted:
+                    self.state.adopt_prefix(seq, match.groups)
+                    self.pages_adopted_total += adopted
+                self.pages_needed_total += self.sched.adopt_cap(req)
                 extract_prefill_pages(eng.model, caches, self.state, [seq],
-                                      page_hashes=hashes)
+                                      page_hashes=hashes,
+                                      skip_pages=[adopted])
+                if self.radix and hashes:
+                    # pin the prompt's full pages for later requests
+                    self.prefix_index.insert(hashes[0])
                 eng.stats["prefill_s"] += time.perf_counter() - t0
-                tok = int(sample(logits_all[:, len(toks) - 1], self.greedy,
+                tok = int(sample(logits_all[:, plen - 1], self.greedy,
                                  self.temperature, self._gen)[0])
                 eng.stats["tokens"] += 1
                 act.outs.append(tok)
@@ -420,9 +769,14 @@ class ServeSession:
                 events.append(StreamEvent(req, [tok], done=done))
 
     def step(self) -> list[StreamEvent]:
-        """One admission round + one decode step over the live rows.
-        Returns the per-request token events (admission prefill tokens
-        included); an idle session returns an empty list."""
+        """One admission round + one step over the live rows. Returns the
+        per-request token events (admission prefill tokens included); an
+        idle session returns an empty list.
+
+        While chunked-prefill rows are live the step widens to
+        ``max(speculate, page_tokens)`` columns: up to ``prefill_budget``
+        chunk rows stream one prompt page each through the verify step
+        while every decode row keeps decoding in the same step."""
         events: list[StreamEvent] = []
         self._admit(events)
         rows = self._rows
@@ -432,34 +786,81 @@ class ServeSession:
                                    "requests and no active rows")
             return events
         eng, pool, state = self.engine, self.pool, self.state
-        pos = np.zeros(len(rows), np.int32)
-        seq_ids = [-1] * len(rows)
-        for i, act in enumerate(rows):
-            if act is not None:
-                pos[i], seq_ids[i] = act.pos, act.seq
+        t = pool.page_tokens
+        chunk_rows: dict[int, tuple[int, bool]] = {}   # row -> (m, final)
+        wide = any(a is not None and a.prefilling for a in rows)
+        spec = self.spec_k > 1 or wide
         t0 = time.perf_counter()
         hits0 = (pool.stats["fast_hits"], pool.stats["slow_hits"])
         g0 = state.gather_s
-        tok_in = self._tok_dev
-        fed_back = not (self._rows_dirty or tok_in is None)
-        if not fed_back:
-            # an admission or a retirement changed the rows — upload the
-            # token vector once; steady-state steps feed the previous
-            # step's device tokens back
-            tok_in = np.zeros(len(rows), np.int32)
+        if spec:
+            # verify step: k rows per live request, mixed freely with
+            # plain (eff_k = 1) rows and prefill chunk rows; tokens ride
+            # in the control block, so no device-token feedback
+            k = max(self.spec_k, t) if wide else self.spec_k
+            step_fn = eng._fused_step_fn(state.slots, self.greedy,
+                                         self.temperature, k=k) \
+                if wide else self._step_fn
+            budget = self.prefill_budget
+            srows: list[Optional[dict]] = []
+            for act in rows:
+                if act is None:
+                    srows.append(None)
+                    continue
+                if act.prefilling:
+                    if budget <= 0:
+                        srows.append(None)   # over budget: wait a step
+                        continue
+                    budget -= 1
+                    # fill to the page boundary, never across it: one
+                    # chunk completes at most one page, so end_step sees
+                    # whole pages exactly as decode does
+                    m = min(t - act.prefilled % t, len(act.pending))
+                    final = m == len(act.pending)
+                    chunk_rows[len(srows)] = (m, final)
+                    srows.append({"seq": act.seq, "pos": act.prefilled,
+                                  "chunk": act.pending[:m], "final": final})
+                    continue
+                srows.append({
+                    "seq": act.seq,
+                    "history": np.concatenate(
+                        [np.asarray(act.req.prompt, np.int32),
+                         np.asarray(act.outs, np.int32)]),
+                    "pos": act.pos, "eff_k": act.eff_k,
+                    "limit": act.req.max_new_tokens - len(act.outs),
+                    "eos": act.req.eos_token, "stats": act.stats})
+            kept = eng._spec_step(state, step_fn, k, srows, self._gen)
+            self.chunk_steps += bool(chunk_rows)
+            # the verify step did not refresh the 1-token device feedback
+            # vector — rebuild it on the next plain step
+            self._rows_dirty = True
+            self._tok_dev = None
+        else:
+            pos = np.zeros(len(rows), np.int32)
+            seq_ids = [-1] * len(rows)
             for i, act in enumerate(rows):
                 if act is not None:
-                    tok_in[i] = act.outs[-1]
-            self._rows_dirty = False
-        before = state.transfer_counts()
-        pool_io = (state._device.writes, state._device.reads)
-        toks, self._tok_dev = state.run_fused(self._step_fn, tok_in,
-                                              seq_ids, pos, self._gen)
-        after = state.transfer_counts()
-        if fed_back and pool_io == (state._device.writes,
-                                    state._device.reads):
-            self.steady_transfers.append((after[0] - before[0],
-                                          after[1] - before[1]))
+                    pos[i], seq_ids[i] = act.pos, act.seq
+            tok_in = self._tok_dev
+            fed_back = not (self._rows_dirty or tok_in is None)
+            if not fed_back:
+                # an admission or a retirement changed the rows — upload
+                # the token vector once; steady-state steps feed the
+                # previous step's device tokens back
+                tok_in = np.zeros(len(rows), np.int32)
+                for i, act in enumerate(rows):
+                    if act is not None:
+                        tok_in[i] = act.outs[-1]
+                self._rows_dirty = False
+            before = state.transfer_counts()
+            pool_io = (state._device.writes, state._device.reads)
+            toks, self._tok_dev = state.run_fused(self._step_fn, tok_in,
+                                                  seq_ids, pos, self._gen)
+            after = state.transfer_counts()
+            if fed_back and pool_io == (state._device.writes,
+                                        state._device.reads):
+                self.steady_transfers.append((after[0] - before[0],
+                                              after[1] - before[1]))
         dt = time.perf_counter() - t0
         eng.stats["decode_s"] += dt
         eng.stats["decode_steps"] += 1
@@ -472,15 +873,39 @@ class ServeSession:
             if act is None:
                 continue
             rec = self._recs[id(act.req)]
-            tok = int(toks[i])
-            act.outs.append(tok)
-            act.stats.steps += 1
-            act.stats.tokens += 1
-            eng.stats["tokens"] += 1
+            if i in chunk_rows:
+                m, final = chunk_rows[i]
+                act.prefilled += m
+                act.pending = act.pending[m:]
+                if not final:
+                    continue        # mid-prefill: nothing to stream yet
+                tok = int(kept[i][0])    # first generated token
+                act.outs.append(tok)
+                act.pending = None
+                eng.stats["tokens"] += 1
+                if self.radix and act.hashes:
+                    # prompt fully resident: pin its full pages so later
+                    # requests adopt them
+                    self.prefix_index.insert(act.hashes)
+                done = act.finished
+                if done:
+                    self._finish(rec)
+                events.append(StreamEvent(act.req, [tok], done=done))
+                continue
+            if spec:
+                if kept[i] is None:      # over-budget prefill row idled
+                    continue
+                new = [int(x) for x in kept[i]]
+                act.outs.extend(new)
+            else:
+                new = [int(toks[i])]
+                act.outs.append(new[0])
+                act.stats.steps += 1
+                act.stats.tokens += 1
+            eng.stats["tokens"] += len(new)
             done = act.finished
             if done:
-                # the retired row turns into a -1 row: its stale device
-                # token is never read, so nothing is uploaded for it
                 self._finish(rec)
-            events.append(StreamEvent(act.req, [tok], done=done))
+            events.append(StreamEvent(act.req, new, done=done))
+        self.peak_live_pages = max(self.peak_live_pages, pool.live_pages)
         return events

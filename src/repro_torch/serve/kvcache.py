@@ -2,13 +2,14 @@
 
 The part of the JAX package's ``repro/serve/kvcache.py`` pool that the
 port's serving path drives (the port imports nothing of that package);
-page contents stay host numpy, as there. The host swap tier (preemption),
-radix pins and ring-page recycling come with the slices that port them.
+page contents stay host numpy, as there. The host swap tier (preemption)
+and ring-page recycling come with the slices that port them.
 
 The `PagedKVPool` owns the page *lifecycle*: tier placement per page
 (policy-driven), LRU demotion under fast-tier pressure, reference-counted
-sharing of content-identical pages (prefix caching), and `free(seq_id)`
-when a request retires — so the pool's live page count tracks the working
+sharing of content-identical pages (prefix caching), adoption of cached
+pages by reference (the radix prefix cache's pins, `adopt_page` /
+`ref_page` / `unref_page`), and `free(seq_id)` when a request retires — so the pool's live page count tracks the working
 set instead of growing monotonically. Page *contents* are additionally
 mirrored into device-resident arrays by `repro_torch.serve.device_pool` for the
 decode-step gather.
@@ -85,7 +86,7 @@ class PagedKVPool:
         self.next_id = 0
         self.stats = {"fast_hits": 0, "slow_hits": 0, "evictions": 0,
                       "fast_bytes": 0, "slow_bytes": 0, "freed": 0,
-                      "shared_puts": 0}
+                      "shared_puts": 0, "adopted_pages": 0}
 
     @property
     def live_pages(self) -> int:
@@ -176,6 +177,43 @@ class PagedKVPool:
         pool scan (gather calls this per layer per decode step)."""
         return list(self._by_seq.get((seq_id, layer), ()))
 
+    # -- reference management (radix prefix cache hooks) ---------------------
+    def page_by_hash(self, layer: int, content_hash) -> Optional[int]:
+        """Page id currently storing `(layer, content_hash)`, or None —
+        how the radix prefix index resolves hashes to live pages."""
+        return self._by_hash.get((layer, content_hash))
+
+    def ref_page(self, pid: int) -> None:
+        """Take an extra reference on a live page (the radix tree's pin:
+        the page now survives every sequence that wrote it retiring)."""
+        self.pages[pid].refs += 1
+
+    def unref_page(self, pid: int) -> list[tuple]:
+        """Drop one reference (the tree's unpin). Returns the destroyed
+        ``(page_id, layer)`` pairs — empty while other holders remain —
+        in `free`'s format so device-slot recycling is uniform."""
+        page = self.pages.get(pid)
+        if page is None:
+            return []
+        page.refs -= 1
+        if page.refs > 0:
+            return []
+        self._destroy(page)
+        return [(pid, page.layer)]
+
+    def adopt_page(self, seq_id: int, pid: int, layer: int) -> None:
+        """Attach a cached page to a sequence WITHOUT storing anything:
+        refs grow, the page joins the sequence's per-layer page list, and
+        the prefill that would have re-computed it never runs."""
+        self.clock += 1
+        page = self.pages[pid]
+        page.refs += 1
+        page.last_access = self.clock
+        if page.tier == "fast":
+            self._fast_lru.move_to_end(pid)
+        self._by_seq.setdefault((seq_id, layer), []).append(pid)
+        self.stats["adopted_pages"] += 1
+
     def _destroy(self, page: Page) -> None:
         del self.pages[page.page_id]
         self._fast_lru.pop(page.page_id, None)
@@ -206,12 +244,14 @@ class PagedKVPool:
                 destroyed.append((pid, page.layer))
         return destroyed
 
-    def check_invariants(self) -> None:
+    def check_invariants(self, pins: Optional[dict] = None) -> None:
         """Structural self-check: every page is held by the sequences whose
-        page lists name it (refs == holders, nothing pinned from outside),
-        tier, quantization and LRU membership agree, the byte stats equal
-        the live sums and the hash index names live pages. Raises
-        AssertionError on the first breach."""
+        page lists name it plus ``pins`` (page id -> references held from
+        outside, e.g. the radix tree's `pin_counts()`; without it no page
+        may be pinned), tier, quantization and LRU membership agree, the
+        byte stats equal the live sums and the hash index names live
+        pages. Raises AssertionError on the first breach."""
+        pins = pins or {}
         holders: dict[int, int] = {}
         for key, pids in self._by_seq.items():
             for pid in pids:
@@ -223,8 +263,10 @@ class PagedKVPool:
             assert page.page_id == pid
             assert page.tier in tier_bytes, f"page {pid} tier {page.tier!r}"
             held = holders.get(pid, 0)
-            assert page.refs == held >= 1, \
-                f"page {pid}: refs={page.refs} != seq holders {held}"
+            pinned = pins.get(pid, 0)
+            assert page.refs == held + pinned >= 1, \
+                (f"page {pid}: refs={page.refs} != seq holders {held} + "
+                 f"pins {pinned}")
             assert (pid in self._fast_lru) == (page.tier == "fast"), \
                 f"page {pid}: tier {page.tier} vs LRU membership mismatch"
             assert page.quantized == (page.tier == "slow"), \

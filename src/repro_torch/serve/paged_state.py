@@ -2,9 +2,10 @@
 
 The part of ``repro/serve/paged_state.py`` that an ATTN-only stack needs:
 which layers own the pool's layer axis (`kv_of`), the column layout of
-the per-step int32 control block (`cols`), and the page charge per
-request (`pages_needed`). Ring pages (sliding window) and recurrent
-slots (SSM, RG-LRU) are a later slice: any other mixer raises.
+the per-step int32 control block for one or k tokens per row (`cols`),
+and the page charge per request (`pages_needed`). Ring pages (sliding
+window) and recurrent slots (SSM, RG-LRU) are a later slice: any other
+mixer raises.
 """
 from __future__ import annotations
 
@@ -12,13 +13,22 @@ from repro_torch.configs.base import ATTN
 
 
 class ControlCols:
-    """Column offsets into the k = 1 control block ``[page table | tail
-    slot | tail row | position | kv length]`` for a table of `slots`."""
+    """Column offsets into the per-step int32 control block for a table of
+    `slots` pages. ``k == 1`` (plain decode): ``[page table | tail slot |
+    tail row | position | kv length]``. ``k > 1`` (speculative verify and
+    chunk fill): ``[page table | tail slot | spill slot | tail row |
+    position | kv length | k input tokens]``."""
 
-    def __init__(self, slots: int):
-        self.tail, self.row, self.pos, self.len = (slots, slots + 1,
-                                                   slots + 2, slots + 3)
-        self.width = slots + 4
+    def __init__(self, slots: int, k: int = 1):
+        s = slots
+        if k == 1:
+            self.tail, self.row, self.pos, self.len = s, s + 1, s + 2, s + 3
+            self.width = s + 4
+        else:
+            self.tail, self.spill = s, s + 1
+            self.row, self.pos, self.len = s + 2, s + 3, s + 4
+            self.tok = s + 5
+            self.width = s + 5 + k
 
 
 class StateLayout:
@@ -37,10 +47,7 @@ class StateLayout:
         self.n_kv = len(mixers)
 
     def cols(self, slots: int, k: int = 1) -> ControlCols:
-        if k != 1:
-            raise NotImplementedError("multi-token (speculative) control "
-                                      "blocks are not ported")
-        return ControlCols(slots)
+        return ControlCols(slots, k)
 
     def pages_needed(self, cap_tokens: int, tail_slots: int = 1) -> int:
         """Pool-page charge for a request growing to ``cap_tokens``: one

@@ -32,6 +32,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     expected = {m.name for m in pkgutil.walk_packages(
         [str(SRC / "repro_torch")], "repro_torch.")}
     assert expected <= set(result["modules"])
-    assert "repro_torch.serve.engine" in result["modules"]
-    assert "repro_torch.kernels.paged_attention.paged_attention" in \
-        result["modules"]
+    for name in ("serve.engine", "serve.speculative", "serve.prefix_cache",
+                 "kernels.paged_attention.paged_attention",
+                 "kernels.flash_attention.flash_attention",
+                 "kernels.flash_attention.ref",
+                 "kernels.flash_attention.spec"):
+        assert f"repro_torch.{name}" in result["modules"]

@@ -113,7 +113,8 @@ def test_serve_with_dead_rows_matches_reference(params):
     jeng, eng = _engines(params)
     want = jeng.serve(_staggered(JaxRequest), max_active=2,
                       chunked_prefill=False, radix=False, preempt=False)
-    got = eng.serve(_staggered(Request), max_active=2)
+    got = eng.serve(_staggered(Request), max_active=2,
+                    chunked_prefill=False, radix=False)
     _assert_same(want, got)
     assert eng.last_transfers == jeng.last_transfers
     assert eng.last_request_stats == jeng.last_request_stats
@@ -155,7 +156,7 @@ def test_pool_capacity_rejection_matches_reference(params):
     jreqs = [JaxRequest(r.prompt, r.max_new_tokens) for r in reqs]
     want = jeng.serve(jreqs, max_active=2, chunked_prefill=False,
                       radix=False, preempt=False)
-    got = eng.serve(reqs, max_active=2)
+    got = eng.serve(reqs, max_active=2, chunked_prefill=False, radix=False)
     assert got[1] is None and want[1] is None
     _assert_same([want[0], want[2]], [got[0], got[2]])
     assert eng.last_rejections[1].reason == "pool_capacity"
@@ -205,28 +206,31 @@ def test_sampling_is_seeded(params):
 
 
 def test_unported_options_raise(params):
+    """What is still unported raises: mesh sharding, the eager/numpy
+    decode modes, preemption, deadlines and priorities, and the
+    dense-cache path without a page pool."""
     _, state = params
     cfg = smoke_config(ARCH)
     pool = PagedKVPool(page_tokens=4)
-    for kw in ({"speculate": 4}, {"mesh": object()},
-               {"decode_mode": "eager"}):
+    for kw in ({"mesh": object()}, {"decode_mode": "eager"},
+               {"decode_mode": "numpy"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
     eng = ServeEngine(cfg, params=state, kv_pool=pool, device="cpu")
-    for kw in ({"chunked_prefill": True}, {"radix": True}, {"preempt": True}):
-        with pytest.raises(NotImplementedError):
-            eng.serve(_reqs(Request), **kw)
-    spec_req = _reqs(Request)[0]
-    spec_req.speculate = 4
+    with pytest.raises(NotImplementedError):
+        eng.serve(_reqs(Request), preempt=True)
     late = _reqs(Request)[0]
     late.deadline = 1.0
-    for req in (spec_req, late):
+    urgent = _reqs(Request)[0]
+    urgent.priority = 1
+    for req in (late, urgent):
         with pytest.raises(NotImplementedError):
             eng.generate([req])
         with pytest.raises(NotImplementedError):
             eng.serve([req])
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, params=state, device="cpu").generate(_reqs(Request))
+    assert len(pool.pages) == 0
 
 
 def test_session_streams_events_and_rejects_over_capacity(params):
@@ -235,7 +239,8 @@ def test_session_streams_events_and_rejects_over_capacity(params):
     session's page table is rejected with reason ``capacity``."""
     from repro_torch.serve.engine import ServeSession
     _, eng = _engines(params)
-    session = ServeSession(eng, capacity=18, max_active=2)
+    session = ServeSession(eng, capacity=18, max_active=2,
+                           chunked_prefill=False, radix=False)
     reqs = _staggered(Request)
     too_long = Request(reqs[0].prompt, 40)
     verdicts = [session.submit(r) for r in reqs + [too_long]]
