@@ -2,7 +2,8 @@
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --only kernel   # or exact | serve | chunked | spec
+    python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
+                                          # spec | hybrid
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -16,13 +17,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    element to 2 ulps of |want| in the output dtype: paged attention at
    b=4, hq=36, hkv=4, d=128, T=128, L=32 (mixed fast/slow pages, one dead
    row) with 1, 4 and 128 query rows per sequence; flash attention at
-   b=1, causal, s = 2048, 1000 (ragged) and 600. Times kernel, plain
-   version and one PyTorch call (``scaled_dot_product_attention``) with
-   CUDA events, in alternation within one run.
+   b=1, causal, s = 2048, 1000 (ragged) and 600, and at recurrentgemma-
+   2b's local-attention prefill (the generate prefill's b=2, s = 2300,
+   hq=10, hkv=1, d=256, window 2048). The SSD scan (5 spec cases, then mamba2-780m's B=1, S=2048,
+   H=48, P=64, G=1, N=128 in bf16 and fp32, ragged S=1000 and the
+   generate prefill's B=3, S=1536; y and the final state) and the RG-LRU
+   scan (5 spec cases, then W=2560 at S=2048, ragged S=1000 and the
+   generate prefill's B=2, S=2300). The SSD scan chunks differently from
+   its plain version, so it is held to a limit scaled by max |want| and
+   sqrt(S) (`ssd_limit`), which two deliberately broken chunk loops
+   (`ssd_chunk_loop`) must exceed. Times kernel, plain version and one
+   PyTorch call (``scaled_dot_product_attention``; none computes either
+   scan) with CUDA events, in alternation within one run.
 3. exact   — starcoder2-7b at full width, 2 layers, fp32, seeded weights:
    identical greedy tokens with the kernels and with the plain versions
    for ``generate``, monolithic ``serve``, the default chunked + radix
-   ``serve`` and k = 4 speculative ``serve``.
+   ``serve`` and k = 4 speculative ``serve``; then mamba2-780m (2
+   layers) and recurrentgemma-2b (3 layers, one of each kind) at full
+   width, fp32: identical tokens for ``generate``, the default ``serve``
+   and k = 4 ``serve``.
 4. serve   — the main path: starcoder2-7b, all 32 layers, bf16, seeded
    weights made on the card, a 128-token page pool with every other page
    in the int8 tier; ``serve`` 5 requests (prompts 120..600, 32 new
@@ -38,6 +51,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``close``.
 6. spec    — k = 4 speculative ``serve`` with n-gram drafts on the serve
    phase's prompts: accept rate, tokens per verify step.
+7. hybrid  — the hybrid stacks at full depth, bf16, seeded weights:
+   mamba2-780m ``generate`` (prompts 256/700/1536, 32 new tokens) and
+   the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
+   ``generate`` (prompts 2300 and 1000, 40 new tokens: a ring page drops
+   during decode) and the default ``serve`` (3 short prompts). Checks
+   SSD / RG-LRU / flash launches per prefill, no scan launch from
+   ``serve`` (its prompts stream through the one-token cores, as in the
+   reference), 2 transfers per steady token, no recurrent-store readback,
+   live ring pages within ``ring_pages()``.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -45,6 +67,7 @@ Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -67,6 +90,12 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:72"),
+    "ssd_scan": (
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:60"),
+    "rglru_scan": (
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:37"),
 }
 
 
@@ -111,6 +140,74 @@ def same_input_limit(want):
     mant = {torch.float32: 23, torch.bfloat16: 7}[want.dtype]
     a = want.float().abs().clamp_min(2.0 ** -126)
     return 2.0 * torch.exp2(torch.floor(torch.log2(a)) - mant) + 1e-6
+
+
+SSD_LIMIT_RULE = ("per tensor (y, final state): 256 * 2^-23 * sqrt(S) * "
+                  "max |want|")
+
+
+def ssd_limit(want, s_len: int) -> float:
+    """Limit for the SSD scan against its plain version on the same
+    inputs, for one output tensor (y or the final state) of a sequence
+    of `s_len` positions. Both compute in fp32, but the kernel chunks by
+    64 positions and the plain version by 256 (or the whole sequence when
+    256 does not divide it): the sums and the state carry run in other
+    orders, and the error grows with the magnitudes summed and about
+    with sqrt(S). A correct 64-chunk loop (`ssd_chunk_loop`) stays within
+    1/16 of this limit on the CPU at the spec's cases and at S = 300,
+    1000, 2048; one that drops a chunk's inter-chunk term or skips the
+    ragged last chunk exceeds it 50-fold or more."""
+    scale = max(want.float().abs().max().item(), 2.0 ** -126)
+    return 256.0 * 2.0 ** -23 * s_len ** 0.5 * scale
+
+
+def ssd_chunk_loop(x, b_mat, c_mat, dt, a, fault=None):
+    """The ssd_scan kernel's algorithm in plain PyTorch: chunks of 64
+    positions, the last one ragged, the state carried chunk to chunk.
+    ``fault`` breaks it on purpose, to show that `ssd_limit` catches
+    such a kernel: "drop_inter" drops chunk 1's inter-chunk term C
+    exp(cum) @ state, "skip_ragged" skips a ragged last chunk (its y
+    stays 0, the state is not updated)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK
+    B, S, H, P = x.shape
+    G, N = b_mat.shape[2], b_mat.shape[3]
+    rep = H // G
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bh = b_mat.float().repeat_interleave(rep, 2)
+    ch = c_mat.float().repeat_interleave(rep, 2)
+    state = torch.zeros(B, H, P, N, device=x.device)
+    y = torch.zeros(B, S, H, P, device=x.device)
+    for ci, c0 in enumerate(range(0, S, CHUNK)):
+        q = min(CHUNK, S - c0)
+        if fault == "skip_ragged" and q < CHUNK:
+            break
+        dtc = dtf[:, c0:c0 + q]
+        cum = torch.cumsum(dtc * af, dim=1)                  # (B, q, H)
+        xc, bc, cc = xf[:, c0:c0 + q], bh[:, c0:c0 + q], ch[:, c0:c0 + q]
+        ii = torch.arange(q, device=x.device)[:, None]
+        jj = torch.arange(q, device=x.device)[None, :]
+        diff = torch.where((ii >= jj)[None, :, :, None],
+                           cum[:, :, None, :] - cum[:, None, :, :],
+                           float("-inf"))
+        s = torch.einsum("bihn,bjhn->bhij", cc, bc) \
+            * torch.exp(diff).permute(0, 3, 1, 2) \
+            * dtc.permute(0, 2, 1)[:, :, None, :]
+        inter = torch.einsum("bihn,bhpn->bihp", cc, state) \
+            * torch.exp(cum)[..., None]
+        if fault == "drop_inter" and ci == 1:
+            inter = torch.zeros_like(inter)
+        y[:, c0:c0 + q] = torch.einsum("bhij,bjhp->bihp", s, xc) + inter
+        w = torch.exp(cum[:, -1:] - cum) * dtc
+        state = state * torch.exp(cum[:, -1])[..., None, None] \
+            + torch.einsum("bjhn,bjhp->bhpn", bc, xc * w[..., None])
+    return y, state
+
+
+def over_ssd_limit(got, want) -> float:
+    """max over y and the final state of max |got - want| / `ssd_limit`."""
+    s_len = want[0].shape[1]
+    return max((g.float() - w.float()).abs().max().item()
+               / ssd_limit(w, s_len) for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -226,35 +323,53 @@ def sdpa_yardstick(args, layer, rows: int = 1):
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
-def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
-                     extra) -> dict:
-    """Hold a kernel to its plain version on the same inputs, per element
-    to 2 ulps of |want| in the output dtype (`same_input_limit`), then
-    time kernel, plain version and library call in alternation. Returns
-    the row, with the bound from this call's bytes and flops."""
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
+ULP_RULE = ("per element: 2 ulps of |want| in the output dtype + 1e-6; "
+            "tol is the limit at the element of the largest error")
+
+
+def ulp_check(got, want):
+    """`same_input_limit` per element: (max abs error, the limit at that
+    element, max error / limit)."""
     diff = (got.float() - want.float()).abs()
     limit = same_input_limit(want)
     worst = int(torch.argmax(diff))
-    err = diff.flatten()[worst].item()
-    tol = limit.flatten()[worst].item()
-    over = (diff / limit).max().item()
-    del got, want, diff, limit
+    return (diff.flatten()[worst].item(), limit.flatten()[worst].item(),
+            (diff / limit).max().item())
+
+
+def ssd_check(got, want):
+    """`ssd_limit` over y and the final state: (max abs error, y's limit,
+    max error / limit)."""
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return err, ssd_limit(want[0], want[0].shape[1]), \
+        over_ssd_limit(got, want)
+
+
+def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
+                     extra, check=ulp_check, rule=ULP_RULE) -> dict:
+    """Hold a kernel to its plain version on the same inputs with
+    `check` (default: per element to 2 ulps of |want| in the output
+    dtype), then time kernel, plain version and library call (None when
+    no PyTorch call computes the function) in alternation. Returns the
+    row, with the bound from this call's bytes and flops."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, tol, over = check(got, want)
+    del got, want
     if not over <= 1.0:
-        raise AssertionError(f"{label}: error {err} beyond 2 ulps of |want| "
-                             f"({over:.2f}x the limit)")
+        raise AssertionError(f"{label}: error {err} beyond the limit "
+                             f"({over:.2f}x; {rule})")
     t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    times = cuda_ms({"kernel": kernel, "plain": plain, "library": library},
-                    rounds=20)
+    fns = {"kernel": kernel, "plain": plain}
+    if library is not None:
+        fns["library"] = library
+    times = cuda_ms(fns, rounds=20)
     row = {"phase": "kernel", "case": label, **extra,
-           "max_abs_err": err, "tol": tol,
-           "tol_rule": "per element: 2 ulps of |want| in the output dtype + "
-                       "1e-6; tol is the limit at the element of the "
-                       "largest error",
+           "max_abs_err": err, "tol": tol, "tol_rule": rule,
            "max_err_over_limit": over,
            "kernel_ms": times["kernel"][0], "plain_ms": times["plain"][0],
-           "library_ms": times["library"][0],
+           "library_ms": times["library"][0] if library else None,
            "host_ms": {k: v[1] for k, v in times.items()},
            "bytes": nbytes, "flops": flops,
            "bound_ms": max(t_bytes, t_flops),
@@ -314,18 +429,73 @@ def _flash_case(spec, case, args, want, dtype):
     return {"kernel": (got.float() - want.float()).abs().max().item()}
 
 
+def _ssd_case(spec, case, args, want, dtype):
+    """y and the final state of the kernel against the plain version."""
+    from repro_torch.kernels import api
+    got = api.run(spec.name, *args, backend="cuda")
+    torch.cuda.synchronize()
+    return {part: (g - w).abs().max().item()
+            for part, g, w in zip(("y", "state"), got, want)}
+
+
+def _rglru_case(spec, case, args, want, dtype):
+    from repro_torch.kernels import api
+    got = api.run(spec.name, *args, backend="cuda")
+    torch.cuda.synchronize()
+    return {"h": (got - want).abs().max().item()}
+
+
+def ssd_inputs(shape, dtype, seed):
+    """The spec's generator (numpy, seeded) at a full-width shape: x, B
+    and C in `dtype`, dt and a fp32, on the card."""
+    from repro_torch.kernels.ssd_scan.spec import example_inputs
+    inp = example_inputs(shape=shape, seed=seed)
+    return [torch.from_numpy(v).cuda().to(dtype if n in ("x", "b_mat",
+                                                         "c_mat")
+                                          else torch.float32)
+            for n, v in inp.items()]
+
+
+def ssd_bytes_and_flops(args):
+    """Bytes of x, B, C, dt, a, y and the final state, each once, and the
+    operations the chunked form needs at the kernel's chunk Q, by type:
+    {peak rate: flops}. Counted are the multiply-adds of its products
+    over the causal half of each chunk (pairs j <= i): C Bt once per
+    group (on the tensor cores when B and C are bf16), the scores times
+    x per head, C exp(cum) @ state per head in every chunk but the first
+    (whose incoming state is zero), and the state update per head with
+    its per-chunk decay; the O(pairs x H) decay weights are left out."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK
+    x, b_mat = args[0], args[1]
+    B, S, H, P = x.shape
+    G, N = b_mat.shape[2], b_mat.shape[3]
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + (B * S * H * P + B * H * P * N) * 4
+    q = min(CHUNK, S)
+    lens = [min(q, S - i) for i in range(0, S, q)]
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    cb = 2 * B * G * pairs * N
+    fp32 = B * H * (2 * pairs * P + 2 * (S - lens[0]) * N * P
+                    + 2 * S * N * P + len(lens) * N * P)
+    if b_mat.dtype == torch.bfloat16:
+        return nbytes, {BF16_FLOPS: cb, FP32_FLOPS: fp32}
+    return nbytes, {FP32_FLOPS: cb + fp32}
+
+
 def flash_inputs(gen, *, b, sq, skv, hq, hkv, d, dtype):
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
             for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
 
 
-def flash_bytes_and_flops(q, k, v):
+def flash_bytes_and_flops(q, k, v, window: int = 0):
     """Bytes of q, k, v and out, each once; 4 d flops per (query, key) pair
-    the causal mask lets through (queries and keys aligned at 0)."""
+    the causal mask (and the window) lets through (queries and keys
+    aligned at 0)."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    pairs = sum(min(i + 1, skv) for i in range(sq))
+    pairs = sum(min(i + 1, skv) - (max(0, i - window + 1) if window else 0)
+                for i in range(sq))
     return nbytes, 4 * b * hq * d * pairs
 
 
@@ -388,7 +558,106 @@ def phase_kernel() -> dict:
                             "enable_gqa=True) on (b, h, s, d) copies made "
                             "beforehand"})
             del q, k, v, qt, kt, vt
+    # flash attention at recurrentgemma-2b's local-attention prefill, at
+    # the hybrid phase's generate batch (2 prompts padded to 2300): MQA,
+    # 10 query heads, d=256 (6 positions x 10 heads per block, ~197 KB of
+    # shared memory), window 2048; SDPA takes the window as a boolean mask
+    q, k, v = flash_inputs(gen, b=2, sq=2300, skv=2300, hq=10, hkv=1,
+                           d=256, dtype=torch.bfloat16)
+    nbytes, flops = flash_bytes_and_flops(q, k, v, window=2048)
+    pos = torch.arange(2300, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - 2048)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    full[("flash_attention", "recurrentgemma", "bfloat16")] = \
+        compare_and_time(
+            "flash_attention recurrentgemma-2b prefill b=2 s=2300 "
+            "window=2048 "
+            "bfloat16",
+            lambda: api.run("flash_attention", q, k, v, causal=True,
+                            window=2048, backend="cuda"),
+            lambda: api.run("flash_attention", q, k, v, causal=True,
+                            window=2048, backend="ref"),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            nbytes, flops, BF16_FLOPS,
+            {"kernel": "flash_attention", "dtype": "bfloat16",
+             "shape": {"b": 2, "sq": 2300, "skv": 2300, "hq": 10, "hkv": 1,
+                       "d": 256, "causal": True, "window": 2048},
+             "library": "scaled_dot_product_attention(attn_mask=causal "
+                        "window mask, enable_gqa=True) on (b, h, s, d) "
+                        "copies made beforehand"})
+    del q, k, v, qt, kt, vt, mask
+    full.update(scan_kernels())
     torch.cuda.empty_cache()
+    return full
+
+
+def scan_kernels() -> dict:
+    """The SSD and RG-LRU scans: spec cases, then full width against the
+    plain versions (SSD: `ssd_limit`, and the two broken chunk loops must
+    exceed it; RG-LRU: 2 ulps, as the two round alike)."""
+    from repro_torch.kernels import api
+    spec_cases("ssd_scan", _ssd_case)
+    spec_cases("rglru_scan", _rglru_case)
+    full = {}
+    mamba = dict(H=48, P=64, G=1, N=128)
+    for (b, s_len), dtypes in (((1, 2048), ("bfloat16", "float32")),
+                               ((1, 1000), ("bfloat16",)),
+                               ((3, 1536), ("bfloat16",))):
+        for name in dtypes:
+            dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+            shape = dict(B=b, S=s_len, **mamba)
+            args = ssd_inputs(shape, dtype, seed=s_len)
+            nbytes, by_rate = ssd_bytes_and_flops(args)
+            # one rate that gives the mix's time: flops / rate
+            flops = sum(by_rate.values())
+            rate = flops / sum(n / r for r, n in by_rate.items())
+            row = compare_and_time(
+                f"ssd_scan mamba2-780m B={b} S={s_len} {name}",
+                lambda: api.run("ssd_scan", *args, backend="cuda"),  # noqa
+                lambda: api.run("ssd_scan", *args, backend="ref"),  # noqa
+                None, nbytes, flops, rate,
+                {"kernel": "ssd_scan", "dtype": name, "shape": shape,
+                 "flops_by_peak": {f"{r:.3g}": n for r, n in by_rate.items()},
+                 "library": "none: no single PyTorch call computes the SSD "
+                            "scan"},
+                check=ssd_check, rule=SSD_LIMIT_RULE)
+            if s_len == 1000:
+                # the limit rejects a kernel that drops a chunk's
+                # inter-chunk term or skips the ragged last chunk
+                want = api.run("ssd_scan", *args, backend="ref")
+                row["broken_over_limit"] = {
+                    fault: over_ssd_limit(ssd_chunk_loop(*args, fault=fault),
+                                          want)
+                    for fault in ("drop_inter", "skip_ragged")}
+                row["chunk_loop_over_limit"] = over_ssd_limit(
+                    ssd_chunk_loop(*args), want)
+                emit({"phase": "kernel", "case": row["case"],
+                      "broken_over_limit": row["broken_over_limit"],
+                      "chunk_loop_over_limit": row["chunk_loop_over_limit"]})
+                if not (min(row["broken_over_limit"].values()) > 1.0
+                        >= row["chunk_loop_over_limit"]):
+                    raise AssertionError(f"ssd_limit does not separate "
+                                         f"broken from correct: {row}")
+                del want
+            full[("ssd_scan", b, s_len, name)] = row
+            del args
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, s_len in ((1, 2048), (1, 1000), (2, 2300)):
+        a = torch.rand(b, s_len, 2560, generator=gen, device="cuda") \
+            * 0.149 + 0.85
+        x = torch.randn(b, s_len, 2560, generator=gen, device="cuda") * 0.1
+        full[("rglru_scan", b, s_len, "float32")] = compare_and_time(
+            f"rglru_scan recurrentgemma-2b B={b} S={s_len} W=2560 float32",
+            lambda: api.run("rglru_scan", a, x, backend="cuda"),  # noqa
+            lambda: api.run("rglru_scan", a, x, backend="ref"),  # noqa
+            None, 3 * a.numel() * 4, 2 * a.numel(), FP32_FLOPS,
+            {"kernel": "rglru_scan", "dtype": "float32",
+             "shape": {"B": b, "S": s_len, "W": 2560},
+             "library": "none: no single PyTorch call computes the linear "
+                        "recurrence"})
+        del a, x
     return full
 
 
@@ -483,7 +752,55 @@ def phase_exact() -> dict:
     if not all(same.values()) or not outs["auto"]["prefix_hit_rate"]:
         raise AssertionError(f"kernel and plain tokens differ, or no prefix "
                              f"was adopted: {same}, {outs}")
-    return row
+    return row, exact_hybrid()
+
+
+def exact_hybrid() -> list:
+    """The hybrid stacks at full width, fp32: mamba2-780m with 2 SSD
+    layers, recurrentgemma-2b with 3 (RG-LRU, RG-LRU, local attention).
+    Kernel and plain paths give identical greedy tokens for `generate`
+    (prefill through the SSD / RG-LRU scans and windowed flash
+    attention), the default `serve` (chunked prefill through the
+    one-token cores) and k = 4 speculative `serve`."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    paths = ("generate", "serve", "serve_speculative_k4")
+    rows = []
+    for arch, layers in (("mamba2-780m", 2), ("recurrentgemma-2b", 3)):
+        cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                         compute_dtype="float32")
+        v = cfg.vocab_size
+        outs = {}
+        for backend in ("auto", "ref"):
+            got = {}
+            for path in paths:
+                eng = ServeEngine(
+                    cfg, seed=0, backend=backend,
+                    speculate=4 if path == "serve_speculative_k4" else 0,
+                    kv_pool=PagedKVPool(page_tokens=64,
+                                        placement_policy=EveryOtherSlow()))
+                reqs = _requests(v, lengths, new, paths.index(path))
+                got[path] = _tokens(
+                    eng.generate(reqs, free_pages=True)
+                    if path == "generate" else eng.serve(reqs, max_active=2))
+                if eng.kv_pool.live_pages:
+                    raise AssertionError(f"{arch} {path}: pages left")
+                del eng
+                torch.cuda.empty_cache()
+            outs[backend] = got
+        same = {p: outs["auto"][p] == outs["ref"][p] for p in paths}
+        row = {"phase": "exact", "config": f"{arch} full width, {layers} "
+               f"layers, fp32", "page_tokens": 64, "prompt_lengths": lengths,
+               "max_new": new, "identical_tokens": same,
+               **{p: outs["auto"][p] for p in paths}}
+        emit(row)
+        if not all(same.values()):
+            raise AssertionError(f"{arch}: kernel and plain tokens differ: "
+                                 f"{same}")
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -494,8 +811,11 @@ def _counters():
         flash_attention
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_attention
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     return {"paged_attention": paged_attention,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
 
 
 def reset_launches():
@@ -624,7 +944,9 @@ def drive_session(eng, reqs, max_active=2) -> dict:
     return {"outs": outs, "stats": stats, "hit_rate": hit_rate,
             "ttft_ms": [ttft[id(r)] for r in reqs], "wide_ms": wide_ms,
             "narrow_ms": narrow_ms, "wall_s": time.perf_counter() - t0,
-            "steps": session.steps}
+            "steps": session.steps, "chunked": session.chunked,
+            "radix": session.radix,
+            "steady": list(session.steady_transfers)}
 
 
 def _check_outs(outs, reqs, vocab):
@@ -709,6 +1031,145 @@ def phase_spec(base) -> dict:
     return row
 
 
+def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
+    """One `generate` call of a hybrid engine with the counts set to 0
+    just before it: launches, recurrent-store traffic, transfers, times."""
+    from repro_torch.serve.paged_state import rec_array_names
+    seq0 = eng._next_seq
+    st0 = dict(eng.stats)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    _check_outs(outs, reqs, eng.cfg.vocab_size)
+    for name, n in n_layers_by_kernel.items():
+        if launches[name] != n:       # one batched prefill per generate
+            raise AssertionError(f"{launches} launches, want {name} == {n}")
+    steps = eng.stats["decode_steps"] - st0["decode_steps"]
+    store = eng.last_rec_store
+    # the prefill installs one block per recurrent tensor and sequence;
+    # decode never reads a state back nor writes one from the host
+    n_names = len(rec_array_names(eng.layout))
+    if store["reads"] or store["writes"] != n_names * len(reqs):
+        raise AssertionError(f"recurrent store {store}, want "
+                             f"{n_names * len(reqs)} writes, 0 reads")
+    h2d, d2h = eng.last_transfers
+    seqs = list(range(seq0, eng._next_seq))
+    return {"outs": outs, "launches": launches, "steps": steps,
+            "wall_s": wall_s, "seqs": seqs, "transfers": [h2d, d2h],
+            "rec_store": dict(store),
+            "prefill_ms_per_request":
+                (eng.stats["prefill_s"] - st0["prefill_s"]) / len(reqs) * 1e3,
+            "decode_ms_per_step":
+                (eng.stats["decode_s"] - st0["decode_s"]) / steps * 1e3}
+
+
+def _hybrid_serve(eng, reqs) -> dict:
+    """The default `serve` path (a `ServeSession`) of a hybrid engine:
+    chunked prefill through the one-token cores, no scan launches."""
+    reset_launches()
+    run = drive_session(eng, reqs, max_active=len(reqs))
+    launches = read_launches()
+    _check_outs(run["outs"], reqs, eng.cfg.vocab_size)
+    if launches["ssd_scan"] or launches["rglru_scan"] or \
+            launches["flash_attention"]:
+        raise AssertionError(f"serve() launched a prefill kernel: {launches}")
+    if not run["chunked"] or run["radix"]:
+        raise AssertionError("a hybrid session must chunk, without radix")
+    if not run["steady"] or any(s != (1, 1) for s in run["steady"]):
+        raise AssertionError(f"steady-state transfers {run['steady']}")
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
+    return {"launches": launches, "steps": run["steps"],
+            "chunk_steps": len(run["wide_ms"]),
+            "chunk_step_ms_mean": statistics.mean(run["wide_ms"]),
+            "decode_ms_per_step": statistics.mean(run["narrow_ms"]),
+            "steady_steps": len(run["steady"]),
+            "transfers_per_steady_token": 2, "ttft_ms": run["ttft_ms"],
+            "wall_s": run["wall_s"]}
+
+
+def phase_hybrid() -> dict:
+    """The hybrid stacks at full depth, bf16, seeded random weights made on
+    the card: `generate` prefills through the SSD / RG-LRU scan kernels
+    (and, for recurrentgemma's local-attention layers, the flash kernel
+    with a 2048 window), then decodes with one recurrent slot per
+    sequence and ring pages; the default `serve` streams short prompts
+    in page-sized chunks through the one-token cores."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.paged_state import StateLayout
+    rows, launches = {}, {}
+    for arch, gen_lengths, gen_new, serve_lengths in (
+            ("mamba2-780m", [256, 700, 1536], 32, [200, 280, 350]),
+            ("recurrentgemma-2b", [2300, 1000], 40, [150, 220, 300])):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, seed=0, kv_pool=PagedKVPool(
+            page_tokens=128, placement_policy=EveryOtherSlow()))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        lay = StateLayout(cfg, 128)
+        per_prefill = {"ssd_scan": lay.n_ssd, "rglru_scan": lay.n_rg,
+                       "flash_attention": lay.n_kv, "paged_attention": 0}
+        torch.cuda.reset_peak_memory_stats()
+        gen = _hybrid_generate(
+            eng, _requests(cfg.vocab_size, gen_lengths,
+                           [gen_new] * len(gen_lengths), 5), per_prefill)
+        row = {"phase": "hybrid", "config": f"{arch}, {cfg.num_layers} "
+               f"layers, bf16", "params": sum(
+                   p.numel() for p in eng.model.parameters()),
+               "init_s": init_s, "page_tokens": 128,
+               "generate": {"prompt_lengths": gen_lengths,
+                            "padded_to": max(gen_lengths),
+                            "max_new": gen_new,
+                            **{k: v for k, v in gen.items()
+                               if k not in ("outs", "seqs")}}}
+        if lay.has_ring:
+            pool = eng.kv_pool
+            live = [len(pool.seq_pages(s, 0)) for s in gen["seqs"]]
+            # nothing but ring drops frees a page inside generate()
+            drops = pool.stats["freed"]
+            row["generate"].update(ring_pages_live=live,
+                                   ring_pages_max=lay.ring_pages(),
+                                   ring_pages_dropped_in_decode=drops)
+            if max(live) > lay.ring_pages() or not drops:
+                raise AssertionError(f"ring pages {live} (max "
+                                     f"{lay.ring_pages()}), {drops} drops")
+            for seq in gen["seqs"]:
+                pool.free(seq)
+        elif gen["transfers"][1] != gen["steps"] or \
+                gen["transfers"][0] - gen["rec_store"]["writes"] \
+                != gen["steps"]:
+            # pure SSM: one control upload and one token download per
+            # step, nothing else crosses
+            raise AssertionError(f"transfers {gen['transfers']} for "
+                                 f"{gen['steps']} steps")
+        row["generate"]["peak_mem_gb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[arch] = gen["launches"]
+        # the chunk step holds all k = page_tokens recurrent checkpoints
+        # of every recurrent layer until its accept rule, as the reference
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated() / 2 ** 30
+        row["serve"] = {"prompt_lengths": serve_lengths, "max_new": 16,
+                        **_hybrid_serve(eng, _requests(
+                            cfg.vocab_size, serve_lengths,
+                            [16] * len(serve_lengths), 6))}
+        row["serve"].update(mem_before_gb=mem0, peak_mem_gb=torch.cuda
+                            .max_memory_allocated() / 2 ** 30)
+        emit(row)
+        row["profile"] = phase_profile(eng)
+        rows[arch] = row
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
 def _union_us(intervals) -> float:
     """Total length of the union of (start, end) intervals."""
     total, end = 0.0, None
@@ -725,8 +1186,11 @@ def _union_us(intervals) -> float:
 def phase_profile(eng, steps: int = 16) -> dict:
     """Decode steps of 2 rows at ~500 tokens of context, timed without
     and then with `torch.profiler`: device busy share of the traced window
-    (union of kernel intervals over its wall time), kernels per step, and
-    the kernels that take the most device time."""
+    (union of kernel intervals over its wall time), kernels per step, the
+    port's kernels' share of the busy time and the kernels that take the
+    most device time. Any stack the engine serves (the hybrids' decode
+    runs none of the port's kernels: their recurrent and ring layers step
+    through plain PyTorch, as the reference's do through jnp)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.paged_decode import (PagedKVState,
@@ -741,7 +1205,7 @@ def phase_profile(eng, steps: int = 16) -> dict:
     seqs = [10_000, 10_001]
     extract_prefill_pages(eng.model, caches, state, seqs)
     del caches
-    step_fn = build_fused_step(eng.model, state.slots)
+    step_fn = build_fused_step(eng.model, state.slots, layout=eng.layout)
     tok = torch.argmax(logits, -1).to(torch.int32)
     pos = 500
     for _ in range(3):                              # warm-up
@@ -770,9 +1234,13 @@ def phase_profile(eng, steps: int = 16) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn_us = sum(v for k, v in by_name.items() if "paged_attention" in k)
+    port_us = sum(v for k, v in by_name.items()
+                  if any(name in k for name in KERNELS))
     for seq in seqs:
         state.free_seq(seq)
-    row = {"phase": "profile", "rows": 2, "context": 500, "steps": steps,
+    row = {"phase": "profile", "config": f"{cfg.name}, {cfg.num_layers} "
+           f"layers, {cfg.compute_dtype}", "rows": 2, "context": 500,
+           "steps": steps,
            "decode_ms_per_step": plain_ms,
            "traced_ms_per_step": traced_s / steps * 1e3,
            "device_busy_share": busy_us / (traced_s * 1e6),
@@ -781,19 +1249,26 @@ def phase_profile(eng, steps: int = 16) -> dict:
            else None,
            "paged_attention_us_per_launch":
                attn_us / (steps * cfg.num_layers),
+           "port_kernels_share_of_busy": port_us / busy_us if busy_us
+           else None,
            "top_kernels_us_per_step": [[k[:80], v / steps] for k, v in top]}
     emit(row)
     return row
 
 
 def kernels_line(full, launches) -> dict:
-    """One entry per kernel at the main path's shapes (bf16): paged
-    attention at one decode row, flash attention at the longest serve
-    prompt (600 tokens); launches from the serve phase's run."""
+    """One entry per kernel at its main path's shapes (bf16 where the path
+    runs bf16): paged attention at one decode row and flash attention at
+    the longest serve prompt (600 tokens), launches from the serve
+    phase's run; the SSD scan at mamba2-780m's generate prefill (B=3,
+    S=1536) and the RG-LRU scan at recurrentgemma-2b's (B=2, S=2300),
+    launches from the hybrid phase's generate calls."""
     out = []
     for name, key in (("paged_attention", ("paged_attention", 1, "bfloat16")),
                       ("flash_attention", ("flash_attention", 600,
-                                           "bfloat16"))):
+                                           "bfloat16")),
+                      ("ssd_scan", ("ssd_scan", 3, 1536, "bfloat16")),
+                      ("rglru_scan", ("rglru_scan", 2, 2300, "float32"))):
         k = full[key]
         source, replaces = KERNELS[name]
         out.append({
@@ -805,11 +1280,11 @@ def kernels_line(full, launches) -> dict:
             "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "shape": k["shape"]})
+            "library": k.get("library"), "shape": k["shape"]})
     return {"kernels": out}
 
 
-PHASES = ("kernel", "exact", "serve", "chunked", "spec")
+PHASES = ("kernel", "exact", "serve", "chunked", "spec", "hybrid")
 
 
 def main(argv=None) -> int:
@@ -831,6 +1306,7 @@ def main(argv=None) -> int:
     dev = phase_device()
     run = (lambda p: args.only in (None, p))
     full = serve = None
+    launches = {}
     if run("kernel"):
         full = phase_kernel()
     if run("exact"):
@@ -844,8 +1320,20 @@ def main(argv=None) -> int:
         if run("spec"):
             phase_spec(eng)
         del eng
+        # a finished session's radix tree and its release callback form
+        # reference cycles: collect them so the next phase's memory
+        # readings start from its own weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update({k: serve["launches"][k]
+                         for k in ("paged_attention", "flash_attention")})
+    if run("hybrid"):
+        _, hybrid_launches = phase_hybrid()
+        launches["ssd_scan"] = hybrid_launches["mamba2-780m"]["ssd_scan"]
+        launches["rglru_scan"] = \
+            hybrid_launches["recurrentgemma-2b"]["rglru_scan"]
     if full is not None:
-        emit(kernels_line(full, serve["launches"] if serve else {}))
+        emit(kernels_line(full, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

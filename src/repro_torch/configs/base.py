@@ -189,6 +189,8 @@ def register(name: str):
 
 def _load_builtin():
     import repro_torch.configs.llama3_405b  # noqa: F401  (populate registry)
+    import repro_torch.configs.mamba2_780m  # noqa: F401
+    import repro_torch.configs.recurrentgemma_2b  # noqa: F401
     import repro_torch.configs.starcoder2_7b  # noqa: F401
 
 

@@ -8,7 +8,7 @@ import importlib
 from repro_torch.kernels.api import KernelSpec
 
 _REGISTRY: dict[str, KernelSpec] = {}
-_BUILTIN = ("paged_attention", "flash_attention")
+_BUILTIN = ("paged_attention", "flash_attention", "ssd_scan", "rglru_scan")
 
 
 def register(spec: KernelSpec) -> KernelSpec:

@@ -1,11 +1,13 @@
-"""Global self-attention (GQA/MQA/MHA by num_kv_heads), ATTN layers only.
+"""Self-attention (GQA/MQA/MHA by num_kv_heads): global (ATTN) and
+sliding-window (LOCAL_ATTN) layers.
 
 Prefill attends through the flash-attention kernel
-(``api.run("flash_attention", ...)``). `attention_core` is the plain
-masked-softmax attention of the JAX package's
-``repro/models/attention.py`` written as tensor ops (einsum + fp32
-softmax); it serves the dense-cache decode. The paged decode step attends
-through the paged-attention kernel.
+(``api.run("flash_attention", ...)``, with the layer's window).
+`attention_core` is the plain masked-softmax attention of the JAX
+package's ``repro/models/attention.py`` written as tensor ops (einsum +
+fp32 softmax); it serves the dense-cache decode, where a sliding-window
+layer keeps a ring buffer of the last ``window`` positions. The paged
+decode step attends through the paged-attention kernel.
 Query heads fold as (hkv, g): query head ``h`` attends kv head
 ``h // g``.
 """
@@ -23,8 +25,8 @@ from repro_torch.models.layers import apply_rope, norm_spec, rms_norm
 NEG_INF = -1e30
 
 
-def attention_core(q, k, v, *, causal=True, q_offset=0, kv_valid_len=None,
-                   softmax_scale=None):
+def attention_core(q, k, v, *, causal=True, window=0, q_offset=0,
+                   kv_valid_len=None, softmax_scale=None):
     """q: (b, sq, hq, dd); k, v: (b, skv, hkv, dd). Returns (b, sq, hq, dd).
 
     Scores and softmax in fp32 over the whole key range at once: masked
@@ -42,6 +44,8 @@ def attention_core(q, k, v, *, causal=True, q_offset=0, kv_valid_len=None,
     ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
     if causal:
         ok &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
     if kv_valid_len is not None:
         ok &= k_pos[None, :] < kv_valid_len
     s = s + torch.where(ok, 0.0, NEG_INF)
@@ -118,27 +122,39 @@ def out_proj(p, y, dtype):
 
 
 def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
-               cache=None, backend: str = "auto"):
+               cache=None, window: int = 0, backend: str = "auto"):
     """Returns (y, cache).
 
-    mode: "prefill" (causal attention over the prompt through the
-    flash-attention kernel, `backend` as in `kernels.api.run`; emit the
-    (b, s, hkv, hd) cache) | "decode" (write the step's rows into the
-    capacity-sized cache IN PLACE at scalar position `positions`, then
-    attend its first ``pos + s`` rows with `attention_core`)."""
+    mode: "prefill" (causal attention over the prompt, within `window`
+    positions when it is set, through the flash-attention kernel,
+    `backend` as in `kernels.api.run`; emit the (b, s, hkv, hd) cache) |
+    "decode" (write the step's row into the cache IN PLACE at scalar
+    position `positions` — slot ``pos % capacity`` of a sliding-window
+    layer's ring buffer — then attend its valid rows with
+    `attention_core`)."""
     if mode == "decode":
         pos = int(positions)
         q, k_new, v_new = decode_qkv(cfg, p, x, pos)
         s = x.shape[1]
-        cache["k"][:, pos:pos + s] = k_new.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + s] = v_new.to(cache["v"].dtype)
-        y = attention_core(q, cache["k"], cache["v"], causal=False,
-                           q_offset=pos, kv_valid_len=pos + 1)
+        if window:
+            # ring buffer: RoPE is absolute, so slot order does not matter
+            # under the mask
+            cap = cache["k"].shape[1]
+            slot = pos % cap
+            cache["k"][:, slot:slot + s] = k_new.to(cache["k"].dtype)
+            cache["v"][:, slot:slot + s] = v_new.to(cache["v"].dtype)
+            y = attention_core(q, cache["k"], cache["v"], causal=False,
+                               kv_valid_len=min(pos + 1, cap))
+        else:
+            cache["k"][:, pos:pos + s] = k_new.to(cache["k"].dtype)
+            cache["v"][:, pos:pos + s] = v_new.to(cache["v"].dtype)
+            y = attention_core(q, cache["k"], cache["v"], causal=False,
+                               q_offset=pos, kv_valid_len=pos + 1)
     elif mode == "prefill":
         q, k_new, v_new = roped_qkv(cfg, p, x, positions)
         k_new, v_new = k_new.contiguous(), v_new.contiguous()
         y = api.run("flash_attention", q.contiguous(), k_new, v_new,
-                    causal=True, backend=backend)
+                    causal=True, window=window, backend=backend)
         cache = {"k": k_new, "v": v_new}
     else:
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")

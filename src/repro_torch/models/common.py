@@ -3,7 +3,8 @@
 A module describes its parameters as a nested dict of ``ParamSpec``
 leaves; the same tree gives the shapes, the dtypes and the seeded random
 init, so they cannot drift apart. The init rules are those of the JAX
-package's ``repro/models/common.py`` (fan_in, zeros, normal), drawn from
+package's ``repro/models/common.py`` (fan_in, zeros, ones, normal, and
+the mamba2 ``alog`` and RG-LRU ``lambda`` draws), drawn from
 an explicit ``torch.Generator`` on the target device so that a full-width
 model is initialised on the card, never on the host.
 """
@@ -19,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
-    init: str = "normal"           # normal | zeros | ones | fan_in
+    init: str = "normal"    # normal | zeros | ones | fan_in | alog | lambda
     scale: float = 0.02
     dtype: Optional[str] = None    # override model param dtype (e.g. fp32 norms)
 
@@ -74,6 +75,14 @@ def init_leaf(ps: ParamSpec, generator: torch.Generator, device,
         std = 1.0 / math.sqrt(max(fan_in, 1))
     elif ps.init == "normal":
         std = ps.scale
+    elif ps.init in ("alog", "lambda"):
+        lo, hi = (1.0, 16.0) if ps.init == "alog" else (0.9, 0.999)
+        u = torch.rand(ps.shape, generator=generator, device=device) \
+            * (hi - lo) + lo
+        # alog: mamba2's A_log = log(uniform[1, 16]); lambda: RG-LRU's
+        # Lambda with a = sigmoid(Lambda) uniform in [0.9, 0.999]
+        out = torch.log(u) if ps.init == "alog" else torch.log(u / (1 - u))
+        return out.to(dtype)
     else:
         raise NotImplementedError(f"init {ps.init!r} is not ported")
     out = torch.empty(ps.shape, dtype=dtype, device=device)

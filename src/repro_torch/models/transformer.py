@@ -1,5 +1,6 @@
-"""Decoder stack: ATTN + dense-MLP layers over the reference's parameter
-layout.
+"""Decoder stack over the reference's parameter layout: global (ATTN) and
+sliding-window (LOCAL_ATTN) attention, Mamba2 SSD and RG-LRU mixers, with
+dense MLPs or none.
 
 Parameters keep the JAX package's pytree (``repro/models/transformer.py``):
 ``groups`` leaves carry a leading ``n_groups`` stack axis (one entry per
@@ -14,8 +15,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, MLP_DENSE, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLP_DENSE, MLP_NONE,
+                                      RGLRU, SSD, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (flatten, materialize, stack_specs,
                                        torch_dtype, unflatten)
 from repro_torch.models.layers import (embed_apply, embed_spec, lm_head_apply,
@@ -24,19 +28,47 @@ from repro_torch.models.layers import (embed_apply, embed_spec, lm_head_apply,
 
 
 def layer_spec(cfg: ModelConfig, mixer: str, mlp: str):
-    if mixer != ATTN or mlp != MLP_DENSE:
+    if mixer not in (ATTN, LOCAL_ATTN, SSD, RGLRU) or \
+            mlp not in (MLP_DENSE, MLP_NONE):
         raise NotImplementedError(
             f"{cfg.name}: layer ({mixer}, {mlp}) is not ported — the port "
-            f"runs global-attention layers with dense MLPs")
+            f"runs attn/local_attn/ssd/rglru mixers with dense MLPs or none")
     d = cfg.d_model
-    return {"norm1": norm_spec(d), "attn": attn.attn_spec(cfg),
-            "norm2": norm_spec(d), "mlp": mlp_spec(cfg)}
+    s = {"norm1": norm_spec(d)}
+    if mixer in (ATTN, LOCAL_ATTN):
+        s["attn"] = attn.attn_spec(cfg)
+    elif mixer == SSD:
+        s["ssm"] = ssm_mod.ssm_spec(cfg)
+    else:
+        s["rglru"] = rglru_mod.rglru_spec(cfg)
+    if mlp == MLP_DENSE:
+        s["norm2"] = norm_spec(d)
+        s["mlp"] = mlp_spec(cfg)
+    return s
 
 
-def mlp_tail(cfg: ModelConfig, p, x):
-    """Post-mixer half of a layer (norm2 + dense MLP residual) — shared by
-    the dense stack and the serve layer's fused paged decode step."""
+def mlp_tail(cfg: ModelConfig, kind, p, x):
+    """Post-mixer half of a layer (norm2 + dense MLP residual; nothing for
+    MLP_NONE) — shared by the dense stack and the serve layer's fused
+    paged decode step."""
+    if kind[1] == MLP_NONE:
+        return x
     return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["norm2"]))
+
+
+def mixer_apply(cfg: ModelConfig, kind, p, h, *, mode, positions,
+                cache=None, backend: str = "auto"):
+    """A layer's mixer on its normed input. Returns (y, cache)."""
+    mixer = kind[0]
+    if mixer in (ATTN, LOCAL_ATTN):
+        return attn.attn_apply(
+            cfg, p["attn"], h, mode=mode, positions=positions, cache=cache,
+            window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend)
+    if mixer == SSD:
+        return ssm_mod.ssm_apply(cfg, p["ssm"], h, mode=mode, cache=cache,
+                                 backend=backend)
+    return rglru_mod.rglru_apply(cfg, p["rglru"], h, mode=mode, cache=cache,
+                                 backend=backend)
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -96,6 +128,7 @@ class Model(nn.Module):
                  state: dict | None = None):
         super().__init__()
         self.cfg = cfg
+        self.kinds = cfg.layer_kinds()
         device = torch.device(device)
         if state is None:
             gen = torch.Generator(device=device).manual_seed(seed)
@@ -127,22 +160,24 @@ class Model(nn.Module):
     def run_stack(self, x, *, mode, positions, caches=None,
                   backend: str = "auto"):
         """Every layer in order. Returns (x, per-layer caches). `backend`
-        picks the prefill attention implementation (`kernels.api.run`)."""
+        picks the prefill kernels' implementation (`kernels.api.run`)."""
         out = []
-        for layer, p in enumerate(self.layers):
+        for layer, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             h = rms_norm(x, p["norm1"])
-            y, c = attn.attn_apply(
-                self.cfg, p["attn"], h, mode=mode, positions=positions,
+            y, c = mixer_apply(
+                self.cfg, kind, p, h, mode=mode, positions=positions,
                 cache=caches[layer] if caches is not None else None,
                 backend=backend)
-            x = mlp_tail(self.cfg, p, x + y)
+            x = mlp_tail(self.cfg, kind, p, x + y)
             out.append(c)
         return x, out
 
     def forward_prefill(self, tokens, backend: str = "auto"):
         """tokens: (b, s). Returns (last-position logits (b, V), caches:
-        per layer ``{"k", "v"}`` of shape (b, s, hkv, hd)). Attention runs
-        through the flash-attention kernel (`backend` as in
+        per layer ``{"k", "v"}`` of shape (b, s, hkv, hd) for attention
+        layers, ``{"conv", "state"}`` for SSD and ``{"h", "conv"}`` for
+        RG-LRU layers). Attention runs through the flash-attention kernel,
+        the SSD and RG-LRU scans through theirs (`backend` as in
         `kernels.api.run`)."""
         x = self.embed_in(tokens)
         b, s = tokens.shape
@@ -160,9 +195,26 @@ class Model(nn.Module):
         return self.head(x)[:, 0]
 
 
-def pad_caches(caches, capacity: int):
-    """Expand prefill caches to decode capacity along the sequence axis."""
-    def pad(a):
-        z = a.new_zeros((a.shape[0], capacity - a.shape[1]) + a.shape[2:])
+def pad_caches(caches, capacity: int, cfg: ModelConfig | None = None):
+    """Expand prefill caches to decode capacity along the sequence axis.
+    With `cfg`, a sliding-window layer's cache becomes a ring buffer of
+    ``min(window, capacity)`` rows (the last ones of a longer prefill,
+    ring-aligned when the prefill length is a multiple of the window);
+    recurrent state passes through."""
+    kinds = cfg.layer_kinds() if cfg is not None \
+        else [(ATTN, None)] * len(caches)
+
+    def fit(a, rows):
+        if a.shape[1] >= rows:
+            return a[:, a.shape[1] - rows:].clone()
+        z = a.new_zeros((a.shape[0], rows - a.shape[1]) + a.shape[2:])
         return torch.cat([a, z], dim=1)
-    return [{"k": pad(c["k"]), "v": pad(c["v"])} for c in caches]
+
+    out = []
+    for (mixer, _), c in zip(kinds, caches):
+        if "k" not in c:
+            out.append(dict(c))
+            continue
+        rows = min(cfg.window, capacity) if mixer == LOCAL_ATTN else capacity
+        out.append({"k": fit(c["k"], rows), "v": fit(c["v"], rows)})
+    return out

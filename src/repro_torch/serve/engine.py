@@ -21,6 +21,13 @@ one widened fused VERIFY step scores all k rows in one pass — 2
 host/device crossings per accepted run of up to k tokens. Greedy outputs
 are token-for-token those of the 1-token path for any draft.
 
+Hybrid stacks (SSD, RG-LRU and sliding-window layers, e.g. mamba2-780m
+and recurrentgemma-2b) serve through the same paths: `generate`
+prefills through the SSD / RG-LRU scan kernels and keeps one recurrent
+slot per sequence and O(window) ring pages, and — as in the reference —
+`serve()` / `ServeSession` on such a stack always prefill in chunks,
+with no radix cache (a recurrent state is not content-addressable).
+
 Greedy decoding is argmax; temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed``. Preemption, deadlines and
 priorities, mesh sharding and the eager/numpy decode modes are later
@@ -39,7 +46,7 @@ from repro_torch.models import Model
 from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
                                             extract_prefill_pages, sample)
-from repro_torch.serve.paged_state import StateLayout
+from repro_torch.serve.paged_state import StateLayout, supports_paged_layout
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import (Admission, Request, Scheduler,
                                          effective_speculate,
@@ -91,6 +98,8 @@ class ServeEngine:
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
                       "decode_steps": 0}
         self.last_request_stats: list[dict] = []
+        # the last generate()/serve() call's recurrent-store slot traffic
+        self.last_rec_store = {"writes": 0, "reads": 0}
 
     @property
     def draft(self):
@@ -99,11 +108,21 @@ class ServeEngine:
                                      backend=self.backend)
         return self._draft
 
+    @property
+    def _hybrid(self) -> bool:
+        """True when the stack holds any non-global-attention mixer
+        (recurrent slots or ring pages)."""
+        return self.layout.has_rec or self.layout.has_ring
+
     def _require_paged(self):
         if self.kv_pool is None:
             raise NotImplementedError("the dense-cache serving path is not "
                                       "ported — construct the engine with "
                                       "kv_pool=")
+        if not supports_paged_layout(self.cfg):
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged serving needs a stack of "
+                f"attn/local_attn/ssd/rglru mixers")
 
     def _check_spec_width(self, k: int):
         """A k-token verify step needs the page pool and k <= page_tokens
@@ -143,7 +162,8 @@ class ServeEngine:
         if fn is None:
             fn = build_fused_step(self.model, slots, k=k,
                                   backend=self.backend, greedy=greedy,
-                                  temperature=temperature)
+                                  temperature=temperature,
+                                  layout=self.layout)
             self._fused_cache[key] = fn
         return fn
 
@@ -176,12 +196,19 @@ class ServeEngine:
         same step, always kept. Columns past the chunk repeat its last
         token (their K/V rows are phantom). A ``final`` chunk keeps one
         token — the sample after the last prompt token, the request's
-        first generated token; earlier chunks keep nothing."""
+        first generated token; earlier chunks keep nothing.
+
+        On a recurrent stack each row also names the state checkpoint the
+        step commits: a chunk row exactly its chunk length, a verify row
+        ``min(accepted, proposed) + 1`` (pad drafts never advance the
+        state)."""
         b = len(rows)
         toks = np.zeros((b, k), np.int32)
         seq_ids = [-1] * b
         pos = np.zeros(b, np.int32)
         proposed = [0] * b
+        keep_fixed = np.ones(b, np.int32)
+        keep_cap = np.zeros(b, np.int32)
         for i, r in enumerate(rows):
             if r is None:
                 continue
@@ -191,6 +218,7 @@ class ServeEngine:
             if chunk is not None:
                 m = len(chunk)
                 toks[i, :m] = chunk
+                keep_fixed[i] = m
                 if m < k:               # pad: repeat the last true token
                     toks[i, m:] = chunk[-1]
                 continue
@@ -203,7 +231,10 @@ class ServeEngine:
                 toks[i, 1:1 + len(drafts)] = drafts
             if proposed[i] < k - 1:     # pad: repeat the last filled token
                 toks[i, 1 + proposed[i]:] = toks[i, proposed[i]]
-        verdict = state.run_spec(step_fn, toks, seq_ids, pos, generator)
+            keep_fixed[i] = -1
+            keep_cap[i] = proposed[i]
+        verdict = state.run_spec(step_fn, toks, seq_ids, pos, generator,
+                                 keep_fixed=keep_fixed, keep_cap=keep_cap)
         kept = [None] * b
         advanced = [0] * b
         for i, r in enumerate(rows):
@@ -294,6 +325,7 @@ class ServeEngine:
                 self.stats["decode_steps"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
         self.last_transfers = state.transfer_counts()
+        self.last_rec_store = state.rec_store_counts()
         if free_pages:
             for seq in seq_ids:
                 state.free_seq(seq)
@@ -406,6 +438,7 @@ class ServeEngine:
             session.step()
         self.last_peak_active = session.sched.peak_active
         self.last_transfers = session.state.transfer_counts()
+        self.last_rec_store = session.state.rec_store_counts()
         self.last_steady_transfers = list(session.steady_transfers)
         self.last_prefix_hit_rate = session.prefix_hit_rate
         self.last_request_stats = [session.request_stats(r)
@@ -498,7 +531,9 @@ class ServeSession:
     prompt prefills in one pass at admission. ``radix`` (default: as
     ``prefix_cache``) keeps a `RadixPrefixCache` that pins finished
     prompts' pages so later requests adopt the cached prefix instead of
-    prefilling it.
+    prefilling it. A hybrid stack (recurrent or ring layers) always
+    prefills in chunks, with no radix cache and no prefix hashing, as in
+    the reference: ``chunked_prefill=False`` raises `ValueError`.
 
     ``steady_transfers`` lists the (host->device, device->host) transfers
     of every step that fed its tokens back on the device and neither
@@ -520,11 +555,20 @@ class ServeSession:
         self.spec_k = k
         self.max_active = max_active
         self.greedy, self.temperature = greedy, float(temperature)
-        self.prefix_cache = prefix_cache
+        hybrid = engine._hybrid
+        if hybrid and chunked_prefill is not None and not chunked_prefill:
+            # the monolithic prefill of a session cannot hand a recurrent
+            # state over — hybrid stacks stream their prompts in chunks
+            raise ValueError(
+                f"{engine.cfg.name}: recurrent/ring stacks prefill through "
+                f"chunked prefill only; drop chunked_prefill=False")
         self.chunked = True if chunked_prefill is None \
             else bool(chunked_prefill)
         self.prefill_budget = max(1, int(prefill_budget))
-        self.radix = bool(prefix_cache) if radix is None else bool(radix)
+        # a recurrent state is not content-addressable: no radix adoption
+        self.radix = False if hybrid else \
+            (bool(prefix_cache) if radix is None else bool(radix))
+        self.prefix_cache = False if hybrid else prefix_cache
         self.prefix_index = RadixPrefixCache(
             self.pool, engine.layout.n_kv,
             on_release=self._release_pinned) if self.radix else None
@@ -571,9 +615,12 @@ class ServeSession:
         t = self.pool.page_tokens
         tail = 2 if (self.spec_k > 1 or self.chunked) else 1
         need_tokens = len(req.prompt) + req.max_new_tokens
+        lay = self.engine.layout
         pages = -(-need_tokens // t)
+        if lay.has_ring:                # ring layers recycle: O(window)
+            pages = min(pages, lay.ring_pages())
         eff_k = effective_speculate(req, self.engine.speculate)
-        if pages + tail > self.state.slots:
+        if lay.n_kv and pages + tail > self.state.slots:
             verdict = Admission(
                 False, reason="capacity",
                 pages_needed=self.engine.layout.pages_needed(
@@ -666,6 +713,8 @@ class ServeSession:
             if self.prefix_index is not None else None
         self.pool.check_invariants(pins=pins)
         self.state._device.check_invariants()
+        if self.state._rec is not None:
+            self.state._rec.check_invariants()
 
     # -- the step -----------------------------------------------------------
     def _finish(self, rec: _SessionRec):

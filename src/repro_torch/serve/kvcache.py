@@ -3,7 +3,7 @@
 The part of the JAX package's ``repro/serve/kvcache.py`` pool that the
 port's serving path drives (the port imports nothing of that package);
 page contents stay host numpy, as there. The host swap tier (preemption)
-and ring-page recycling come with the slices that port them.
+comes with the slice that ports it.
 
 The `PagedKVPool` owns the page *lifecycle*: tier placement per page
 (policy-driven), LRU demotion under fast-tier pressure, reference-counted
@@ -243,6 +243,27 @@ class PagedKVPool:
                 self._destroy(page)
                 destroyed.append((pid, page.layer))
         return destroyed
+
+    def drop_front(self, seq_id: int, layer: int = 0) -> list[tuple]:
+        """Retire the OLDEST page of ``(seq_id, layer)`` — the ring-page
+        recycling primitive of sliding-window layers: once the window has
+        slid past a page's positions they are never attended again.
+        Returns the destroyed ``(page_id, layer)`` pairs in `free`'s
+        format (empty while other holders keep the page alive)."""
+        pids = self._by_seq.get((seq_id, layer))
+        if not pids:
+            return []
+        pid = pids.pop(0)
+        if not pids:
+            del self._by_seq[(seq_id, layer)]
+        page = self.pages.get(pid)
+        if page is None:
+            return []
+        page.refs -= 1
+        if page.refs > 0:
+            return []
+        self._destroy(page)
+        return [(pid, page.layer)]
 
     def check_invariants(self, pins: Optional[dict] = None) -> None:
         """Structural self-check: every page is held by the sequences whose

@@ -36,5 +36,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "kernels.paged_attention.paged_attention",
                  "kernels.flash_attention.flash_attention",
                  "kernels.flash_attention.ref",
-                 "kernels.flash_attention.spec"):
+                 "kernels.flash_attention.spec",
+                 "kernels.ssd_scan.ssd_scan", "kernels.ssd_scan.ref",
+                 "kernels.ssd_scan.spec",
+                 "kernels.rglru_scan.rglru_scan", "kernels.rglru_scan.ref",
+                 "kernels.rglru_scan.spec",
+                 "models.ssm", "models.rglru", "serve.paged_state",
+                 "configs.mamba2_780m", "configs.recurrentgemma_2b"):
         assert f"repro_torch.{name}" in result["modules"]

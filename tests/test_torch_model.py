@@ -129,9 +129,11 @@ def test_random_init_is_seeded_and_reference_shaped():
 
 
 def test_unported_layers_raise():
-    from repro_torch.configs.base import LOCAL_ATTN, MLP_DENSE
+    # sliding-window, SSD and RG-LRU layers are ported; MLA and MoE are not
+    from repro_torch.configs.base import ATTN, MLA, MLP_DENSE, MLP_MOE
     import dataclasses
-    cfg = dataclasses.replace(smoke_config("starcoder2-7b"),
-                              pattern=((LOCAL_ATTN, MLP_DENSE),))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg, device="cpu")
+    for pattern in (((MLA, MLP_DENSE),), ((ATTN, MLP_MOE),)):
+        cfg = dataclasses.replace(smoke_config("starcoder2-7b"),
+                                  pattern=pattern)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Model(cfg, device="cpu")
