@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
-                                          # spec | hybrid
+                                          # spec | hybrid | stencil
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -61,6 +61,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    reference), 2 transfers per steady token, no recurrent-store readback,
    live ring pages within ``ring_pages()``.
 
+8. stencil — NERO's COSMO stencils, hdiff and vadvc: every spec case at
+   every tile of the kernel's tune space that fits, held to the plain
+   version to the bit; at the COSMO grid (64 x 256 x 256; hdiff fp32 and
+   bf16, vadvc fp32) the knee tile against the plain version to the bit
+   and a deliberately broken variant (`hdiff_variant`, `vadvc_variant`)
+   shown to differ; device times at every tile beside the Hopper cost
+   model's estimate (inputs rotated through copies larger than L2), the
+   plain version's time and the bound; one launch's device time; then
+   the main path, `weather_stencil.main` at the COSMO grid with the
+   counts set to 0 just before it, its hdiff sweep equal to the same
+   sweep through the plain version on the card.
+
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
 """
@@ -69,6 +81,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -96,6 +109,12 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "rglru_scan": (
         "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan/rglru_scan.py:37"),
+    "hdiff": (
+        "src/repro_torch/kernels/hdiff/csrc/hdiff.cu",
+        "src/repro/kernels/hdiff/hdiff.py:49"),
+    "vadvc": (
+        "src/repro_torch/kernels/vadvc/csrc/vadvc.cu",
+        "src/repro/kernels/vadvc/vadvc.py:83"),
 }
 
 
@@ -813,9 +832,12 @@ def _counters():
         paged_attention
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.hdiff.hdiff import hdiff
+    from repro_torch.kernels.vadvc.vadvc import vadvc
     return {"paged_attention": paged_attention,
             "flash_attention": flash_attention,
-            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
+            "hdiff": hdiff, "vadvc": vadvc}
 
 
 def reset_launches():
@@ -1256,20 +1278,346 @@ def phase_profile(eng, steps: int = 16) -> dict:
     return row
 
 
-def kernels_line(full, launches) -> dict:
+# ---------------------------------------------------------------------------
+# 8. the stencil path: NERO's COSMO hdiff and vadvc
+# ---------------------------------------------------------------------------
+EXACT_RULE = ("bit equality with the plain version on the same inputs "
+              "(NaN where it has NaN): both round each operation once, in "
+              "the same order")
+L2_BYTES = 50e6                  # H100 L2 cache
+SLEEP_CYCLES = 10_000_000        # ~5 ms of `torch.cuda._sleep` at 1.98 GHz
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def exact_check(got, want) -> dict:
+    """`EXACT_RULE`: the elements that differ, the largest difference and
+    its distance in ulps of |want| (in want's dtype)."""
+    g, w = got.float(), want.float()
+    same = (g == w) | (g.isnan() & w.isnan())
+    diff = torch.where(same, 0.0, (g - w).abs().nan_to_num(nan=float("inf")))
+    mant = {torch.float32: 23, torch.bfloat16: 7}[want.dtype]
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.double().abs().nan_to_num(0.0).clamp_min(2.0 ** -126))) - mant)
+    return {"mismatches": int((~same).sum()),
+            "max_abs_err": diff.max().item(),
+            "max_ulps": (diff.double() / ulp).max().item()}
+
+
+def hdiff_variant(src, fault=None):
+    """The hdiff algorithm of `kernels/hdiff/ref.py` once more, in plain
+    PyTorch; ``fault="skip_limiter"`` skips the limiter of the x flux at
+    each cell's east face, to show that `exact_check` catches a kernel
+    that does."""
+    from repro_torch.kernels.hdiff.ref import COEFF, HALO
+    nz, ny, nx = src.shape
+    p = src.float()
+
+    def s(dy, dx):
+        return p[:, 2 + dy:ny - 2 + dy, 2 + dx:nx - 2 + dx]
+
+    def lap(dy, dx):
+        return (4.0 * s(dy, dx) - (s(dy - 1, dx) + s(dy + 1, dx)
+                                   + s(dy, dx - 1) + s(dy, dx + 1)))
+
+    def limited(flx, dif, skip=False):
+        return flx if skip else torch.where(flx * dif > 0, 0.0, flx)
+
+    lap_c = lap(0, 0)
+    flx_c = limited(lap(0, 1) - lap_c, s(0, 1) - s(0, 0),
+                    skip=fault == "skip_limiter")
+    flx_m = limited(lap_c - lap(0, -1), s(0, 0) - s(0, -1))
+    fly_c = limited(lap(1, 0) - lap_c, s(1, 0) - s(0, 0))
+    fly_m = limited(lap_c - lap(-1, 0), s(0, 0) - s(-1, 0))
+    out = src.clone()
+    out[:, HALO:ny - HALO, HALO:nx - HALO] = (
+        s(0, 0) - COEFF * ((flx_c - flx_m) + (fly_c - fly_m))).to(src.dtype)
+    return out
+
+
+def vadvc_variant(ustage, upos, utens, utens_stage, wcon, fault=None):
+    """The vadvc algorithm of `kernels/vadvc/ref.py` once more, in plain
+    PyTorch; ``fault="drop_k0_correction"`` drops the correction term of
+    level 0, to show that `exact_check` catches a kernel that does."""
+    from repro_torch.kernels.vadvc.ref import BET_M, BET_P, DTR_STAGE
+    nz = ustage.shape[0]
+    cc = dd = torch.zeros_like(ustage[0])
+    ccols, dcols = [], []
+    for k in range(nz):
+        gav = -0.25 * (wcon[k, :, 1:] + wcon[k, :, :-1])
+        gcv = 0.25 * (wcon[k + 1, :, 1:] + wcon[k + 1, :, :-1])
+        u_k = ustage[k]
+        corr_lo = -(gav * BET_M) * (ustage[max(k - 1, 0)] - u_k)
+        corr_hi = -(gcv * BET_M) * (ustage[min(k + 1, nz - 1)] - u_k)
+        acol = torch.zeros_like(gav) if k == 0 else gav * BET_P
+        ccol = torch.zeros_like(gcv) if k == nz - 1 else gcv * BET_P
+        if k == 0:
+            corr = torch.zeros_like(corr_hi) \
+                if fault == "drop_k0_correction" else corr_hi
+        else:
+            corr = corr_lo if k == nz - 1 else corr_lo + corr_hi
+        rhs = DTR_STAGE * upos[k] + utens[k] + utens_stage[k] + corr
+        divided = 1.0 / (DTR_STAGE - acol - ccol - cc * acol)
+        cc, dd = ccol * divided, (rhs - dd * acol) * divided
+        ccols.append(cc)
+        dcols.append(dd)
+    out = torch.empty_like(ustage)
+    data = torch.zeros_like(ustage[0])
+    for k in range(nz - 1, -1, -1):
+        data = dcols[k] - ccols[k] * data
+        out[k] = DTR_STAGE * (data - upos[k])
+    return out
+
+
+STENCIL_FAULTS = {"hdiff": (hdiff_variant, "skip_limiter"),
+                  "vadvc": (vadvc_variant, "drop_k0_correction")}
+
+
+def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call of `fn` in a stream of `calls` calls, the
+    median over `reps`: the card is held busy (`torch.cuda._sleep`) while
+    the host enqueues the start event, the calls and the end event, so
+    the interval holds the device's work and the gaps between launches,
+    not the host's enqueueing. A rep whose sleep ended before the host
+    finished is run again with a longer sleep."""
+    fn()
+    torch.cuda.synchronize()
+    times, cycles = [], SLEEP_CYCLES
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        if start.query():             # the card had idled: enqueue-bound
+            cycles *= 2
+            torch.cuda.synchronize()
+            continue
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def rotating(args, nbytes):
+    """A function returning, call by call, one of enough copies of `args`
+    to exceed twice the L2 cache, so that timed calls read their inputs
+    from device memory."""
+    sets = [args] + [[a.clone() for a in args]
+                     for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes))
+                                    - 1)]
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % len(sets)
+        return sets[state["i"]]
+    return nxt
+
+
+def _ranks(xs):
+    order = sorted(range(len(xs)), key=lambda i: xs[i])
+    r = [0] * len(xs)
+    for rank, i in enumerate(order):
+        r[i] = rank
+    return r
+
+
+def spearman(xs, ys) -> float:
+    """Rank correlation of two equally long lists (no ties expected)."""
+    rx, ry = _ranks(xs), _ranks(ys)
+    n = len(xs)
+    return 1.0 - 6.0 * sum((a - b) ** 2 for a, b in zip(rx, ry)) \
+        / (n * (n * n - 1))
+
+
+def stencil_cases():
+    """Every spec case of hdiff and vadvc at every tile of the kernel's
+    tune space that fits the case's grid: the kernel against the plain
+    version on the same inputs under `EXACT_RULE`, and against the plain
+    version on fp32 inputs under the spec's tolerance."""
+    from repro_torch.core.autotune import autotune_kernel
+    from repro_torch.kernels import api, registry
+    for name in ("hdiff", "vadvc"):
+        spec = registry.get(name)
+        for i, case in enumerate(spec.cases):
+            inputs = spec.example_inputs(shape=dict(case.shape))
+            args32 = [torch.from_numpy(v).cuda() for v in inputs.values()]
+            args = [a.to(DTYPES[case.dtype]) for a in args32]
+            want = api.run(name, *args, backend="ref")
+            want32 = api.run(name, *args32, backend="ref")
+            tiles = [c.params for c in autotune_kernel(
+                spec, spec.grid_of(*args), case.dtype)["candidates"]
+                if c.feasible]
+            mismatches, tol_err = 0, 0.0
+            for tile in tiles:
+                got = api.run(name, *args, backend="cuda", tile=tile)
+                mismatches += exact_check(got, want)["mismatches"]
+                tol_err = max(tol_err, (got.float() - want32).abs().max()
+                              .item())
+            tol = spec.tol[case.dtype]
+            emit({"phase": "stencil", "kernel": name, "case": i,
+                  "shape": dict(case.shape), "dtype": case.dtype,
+                  "tiles": len(tiles), "mismatches": mismatches,
+                  "max_abs_err_vs_fp32_plain": tol_err, "tol": tol})
+            if mismatches or not tol_err <= tol:
+                raise AssertionError(f"{name} case {i}: {mismatches} "
+                                     f"elements differ, error {tol_err} "
+                                     f"(tol {tol})")
+
+
+def stencil_grid(name, dtype_name) -> dict:
+    """One kernel at the COSMO grid (the spec's bench shape): the knee
+    tile (`backend="auto"`) against the plain version under `EXACT_RULE`,
+    the broken variant above it; then device times at every tile that
+    fits beside the cost model's estimate, the knee's time against the
+    fastest tile's, the plain version's time and the bound."""
+    from repro_torch.core.autotune import LAUNCH_OVERHEAD_S, autotune_kernel
+    from repro_torch.kernels import api, registry
+    spec = registry.get(name)
+    inputs = spec.example_inputs(shape=dict(spec.bench_shape))
+    args = [torch.from_numpy(v).cuda().to(DTYPES[dtype_name])
+            for v in inputs.values()]
+    grid = spec.grid_of(*args)
+    tune = autotune_kernel(spec, grid, dtype_name)
+    knee = api.resolve_tile(spec, args)
+    if knee != tune["knee"].params:
+        raise AssertionError(f"{name}: resolve_tile {knee} is not the knee "
+                             f"{tune['knee'].params}")
+    want = api.run(name, *args, backend="ref")
+    got = api.run(name, *args, backend="auto")
+    torch.cuda.synchronize()
+    check = exact_check(got, want)
+    variant, fault = STENCIL_FAULTS[name]
+    broken = exact_check(variant(*args, fault=fault), want)
+    if check["mismatches"] or not broken["mismatches"]:
+        raise AssertionError(f"{name} {dtype_name}: kernel {check}, broken "
+                             f"variant {fault} {broken} ({EXACT_RULE})")
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    nbytes = in_bytes + got.numel() * got.element_size()
+    flops = spec.flops(grid)
+    del got
+    nxt = rotating(args, in_bytes)
+    tiles = []
+    for c in tune["candidates"]:
+        if c.feasible:
+            tiles.append({"tile": c.params, "smem": c.smem_bytes,
+                          "est_ms": c.est_time_s * 1e3,
+                          "ms": device_ms(lambda t=c.params: api.run(
+                              name, *nxt(), backend="cuda", tile=t))})
+    kernel_ms = device_ms(lambda: api.run(name, *nxt(), backend="auto"))
+    warm_ms = device_ms(lambda: api.run(name, *args, backend="auto"))
+    times = cuda_ms({"plain": lambda: api.run(name, *nxt(), backend="ref")},
+                    warmup=1, rounds=5)
+    fastest = min(tiles, key=lambda r: r["ms"])
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    row = {"phase": "stencil", "case": f"{name} COSMO grid {dtype_name}",
+           "kernel": name, "dtype": dtype_name,
+           "shape": dict(zip(spec.shape_keys, grid)),
+           "knee": knee, "knee_est_ms": tune["knee"].est_time_s * 1e3,
+           "max_abs_err": check["max_abs_err"], "tol": 0.0,
+           "tol_rule": EXACT_RULE, "mismatches": check["mismatches"],
+           "max_err_over_limit": 0.0,
+           "broken": {fault: broken},
+           "kernel_ms": kernel_ms, "warm_ms": warm_ms,
+           "plain_ms": times["plain"][0], "library_ms": None,
+           "library": f"none: no single PyTorch call computes {name}"
+                      + (" (its flux limiter)" if name == "hdiff" else
+                         " (an assembled tridiagonal solve and its "
+                         "epilogue)"),
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": max(t_bytes, t_flops),
+           "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+           "fastest": fastest, "knee_over_fastest": kernel_ms / fastest["ms"],
+           "est_vs_ms_rank_correlation": spearman(
+               [r["est_ms"] for r in tiles], [r["ms"] for r in tiles]),
+           "launch_overhead_model_ms": LAUNCH_OVERHEAD_S * 1e3,
+           "tiles": tiles}
+    row["bound_share"] = row["bound_ms"] / kernel_ms
+    emit(row)
+    return row
+
+
+def stencil_main_path() -> dict:
+    """The stencil path's entry point, `weather_stencil.main`, at the
+    COSMO grid on the card, with the counts set to 0 just before it: the
+    kernel check, the knees and the hdiff sweep through the kernel, which
+    must equal the same sweep through the plain version on the card."""
+    from repro_torch.core import precision as prec
+    from repro_torch.kernels import api, registry
+    from repro_torch.launch import weather_stencil
+    reset_launches()
+    t0 = time.perf_counter()
+    res = weather_stencil.main(["--grid", "cosmo"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    fmts = weather_stencil.SWEEP_FORMATS
+    # one check each, then the sweep's exact run and one run per format
+    want = {n: 0 for n in launches}
+    want.update(hdiff=2 + len(fmts), vadvc=1)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if any(res["check"].values()):
+        raise AssertionError(f"kernel against plain: {res['check']}")
+    inputs = registry.get("hdiff").example_inputs(shape=res["grid"],
+                                                  dtype=np.float64)
+    plain = prec.precision_sweep(api.numpy_fn("hdiff", backend="ref"),
+                                 inputs, fmts)
+    if plain != res["sweep"] or not all(
+            0.0 < r["accuracy_pct"] <= 100.0 for r in plain):
+        raise AssertionError(f"sweep {res['sweep']} != plain {plain}")
+    row = {"phase": "stencil", "path": "weather_stencil.main(['--grid', "
+           "'cosmo'])", "grid": res["grid"], "wall_s": wall_s,
+           "launches": launches, "check": res["check"],
+           "knees": {f"{k[0]} {k[1]}": {"tile": v.params,
+                                        "smem": v.smem_bytes,
+                                        "est_ms": v.est_time_s * 1e3}
+                     for k, v in res["knee"].items()},
+           "sweep": res["sweep"], "sweep_equals_plain": True}
+    emit(row)
+    return row
+
+
+def phase_stencil():
+    """NERO's stencils: spec cases at every tile, the COSMO grid for
+    hdiff fp32 and bf16 and vadvc fp32, one launch's device time, then
+    the main path. Returns the grid rows and the main path's launches."""
+    from repro_torch.kernels import api
+    stencil_cases()
+    rows = {(n, d): stencil_grid(n, d) for n, d in (
+        ("hdiff", "float32"), ("hdiff", "bfloat16"), ("vadvc", "float32"))}
+    tiny = torch.randn(1, 8, 32, device="cuda")
+    launch_ms = device_ms(lambda: api.run(
+        "hdiff", tiny, backend="cuda",
+        tile={"tile_x": 32, "tile_y": 8, "block_z": 1}), calls=50)
+    emit({"phase": "stencil", "case": "one launch: hdiff of one block "
+          "(1 x 8 x 32) in a stream of 50", "launch_ms": launch_ms})
+    main_row = stencil_main_path()
+    torch.cuda.empty_cache()
+    return rows, {k: main_row["launches"][k] for k in ("hdiff", "vadvc")}
+
+
+def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
     the longest serve prompt (600 tokens), launches from the serve
     phase's run; the SSD scan at mamba2-780m's generate prefill (B=3,
     S=1536) and the RG-LRU scan at recurrentgemma-2b's (B=2, S=2300),
-    launches from the hybrid phase's generate calls."""
+    launches from the hybrid phase's generate calls; hdiff and vadvc at
+    the COSMO grid in fp32, launches from the stencil phase's main path.
+    Kernels whose phase did not run are left out."""
+    rows = []
+    if full is not None:
+        rows += [(name, full[key]) for name, key in (
+            ("paged_attention", ("paged_attention", 1, "bfloat16")),
+            ("flash_attention", ("flash_attention", 600, "bfloat16")),
+            ("ssd_scan", ("ssd_scan", 3, 1536, "bfloat16")),
+            ("rglru_scan", ("rglru_scan", 2, 2300, "float32")))]
+    if stencil is not None:
+        rows += [(name, stencil[(name, "float32")])
+                 for name in ("hdiff", "vadvc")]
     out = []
-    for name, key in (("paged_attention", ("paged_attention", 1, "bfloat16")),
-                      ("flash_attention", ("flash_attention", 600,
-                                           "bfloat16")),
-                      ("ssd_scan", ("ssd_scan", 3, 1536, "bfloat16")),
-                      ("rglru_scan", ("rglru_scan", 2, 2300, "float32"))):
-        k = full[key]
+    for name, k in rows:
         source, replaces = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "impl": "cuda", "source": source,
@@ -1284,7 +1632,8 @@ def kernels_line(full, launches) -> dict:
     return {"kernels": out}
 
 
-PHASES = ("kernel", "exact", "serve", "chunked", "spec", "hybrid")
+PHASES = ("kernel", "exact", "serve", "chunked", "spec", "hybrid",
+          "stencil")
 
 
 def main(argv=None) -> int:
@@ -1332,8 +1681,12 @@ def main(argv=None) -> int:
         launches["ssd_scan"] = hybrid_launches["mamba2-780m"]["ssd_scan"]
         launches["rglru_scan"] = \
             hybrid_launches["recurrentgemma-2b"]["rglru_scan"]
-    if full is not None:
-        emit(kernels_line(full, launches))
+    stencil = None
+    if run("stencil"):
+        stencil, stencil_launches = phase_stencil()
+        launches.update(stencil_launches)
+    if full is not None or stencil is not None:
+        emit(kernels_line(full, launches, stencil))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
     return 0

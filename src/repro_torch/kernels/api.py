@@ -5,15 +5,22 @@ all of them — the port's counterpart of ``repro/kernels/api.py``.
     y = api.run("paged_attention", *args)                   # "auto"
     y = api.run("paged_attention", *args, backend="cuda")   # the kernel
     y = api.run("paged_attention", *args, backend="ref")    # plain PyTorch
+    y = api.run("hdiff", src, tile={"tile_x": 32, "tile_y": 8,
+                                    "block_z": 1})          # a tuned kernel
 
 ``auto`` runs the kernel on CUDA tensors and the plain version on CPU
-tensors (through the kernel's wrapper, which makes that choice). The
-kernels' launch shapes are fixed: tile parameters are refused.
+tensors (through the kernel's wrapper, which makes that choice). A spec
+with a ``tune_space`` (the stencils) takes a ``tile``; with ``auto`` and
+no tile its kernel launches at the knee of the spec's Hopper cost model
+(`resolve_tile`). The other kernels' launch shapes are fixed, and they
+refuse tiles.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Mapping
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +34,16 @@ class KernelCase:
 
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
+    """What the port knows about a kernel. The fields after ``cases``
+    serve the data-driven layers (autotune, precision sweeps) and default
+    to a kernel with a fixed launch shape.
+
+    cost_fn follows the `core.autotune` contract:
+    ``cost_fn(grid_shape, tile, dtype_bytes) -> (smem_bytes, est_time_s)``
+    or ``None`` when a block of that tile cannot launch. ``grid_shape`` is
+    ``tuple(shape[k] for k in shape_keys)``, which ``grid_of`` recovers
+    from live arrays.
+    """
     name: str
     fn: Callable                 # the wrapper: kernel on CUDA, plain on CPU
     ref_fn: Callable             # the plain PyTorch version
@@ -34,27 +51,106 @@ class KernelSpec:
     example_inputs: Callable     # (shape=None, dtype=..., seed=0) -> dict
     tol: Mapping[str, float]     # per-dtype max abs error vs ref_fn
     cases: tuple = ()            # KernelCase sweep for tests
+    tune_space: Mapping[str, tuple] = dataclasses.field(
+        default_factory=dict)    # tile param -> candidate values
+    cost_fn: Callable | None = None       # Hopper cost model (see above)
+    flops: Callable | None = None         # (grid_shape) -> useful flops
+    grid_of: Callable | None = None       # (*args) -> grid_shape tuple
+    shape_keys: tuple = ()                # logical dims of the grid shape
+    default_shape: Mapping[str, int] = dataclasses.field(
+        default_factory=dict)             # smoke size (tests, sweeps)
+    bench_shape: Mapping[str, int] = dataclasses.field(
+        default_factory=dict)             # production size
+    dtypes: tuple = ("float32",)
+
+
+def as_spec(kernel) -> KernelSpec:
+    """Accept a spec or a registered name everywhere."""
+    if isinstance(kernel, KernelSpec):
+        return kernel
+    from repro_torch.kernels import registry
+    return registry.get(kernel)
 
 
 BACKENDS = ("cuda", "ref", "auto")
 
 
-def run(name: str, *args, backend: str = "auto", tile=None, **kwargs):
+def run(name, *args, backend: str = "auto", tile=None, **kwargs):
     """Single entry point over every registered kernel. ``backend="cuda"``
-    on CPU tensors raises, as does any ``tile``: the launch shape is
-    fixed, and a tile passed with ``"ref"`` would silently measure the
-    plain version."""
+    on CPU tensors raises. ``tile`` is taken only by a spec with a
+    ``tune_space``, only with names from it, and never with ``"ref"``
+    (the plain version takes no tile, so a tiled call would silently
+    measure it); a kernel with a fixed launch shape refuses any tile."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-    from repro_torch.kernels import registry
-    spec = registry.get(name)
+    spec = as_spec(name)
     if tile is not None:
-        raise ValueError(f"{spec.name}: tile={tile!r} — the kernel's launch "
-                         f"shape is fixed and the plain version takes no "
-                         f"tile parameters")
+        if not spec.tune_space:
+            raise ValueError(f"{spec.name}: tile={tile!r} — the kernel's "
+                             f"launch shape is fixed and the plain version "
+                             f"takes no tile parameters")
+        if backend == "ref":
+            raise ValueError(f"{spec.name}: tile={tile!r} has no effect "
+                             f"with backend='ref' — the plain version takes "
+                             f"no tile parameters; drop it or use 'cuda'")
+        unknown = set(tile) - set(spec.tune_space)
+        if unknown:
+            raise ValueError(f"{spec.name}: unknown tile params "
+                             f"{sorted(unknown)} (tunable: "
+                             f"{sorted(spec.tune_space)})")
     if backend == "ref":
         return spec.ref_fn(*args, **kwargs)
     if backend == "cuda" and not args[0].is_cuda:
         raise ValueError(f"{spec.name}: backend='cuda' needs CUDA tensors, "
                          f"got {args[0].device}")
-    return spec.fn(*args, **kwargs)
+    if tile is None and backend == "auto" and spec.tune_space \
+            and args[0].is_cuda:
+        tile = resolve_tile(spec, args)
+    return spec.fn(*args, **(tile or {}), **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Tile resolution (NERO knee point), cached per (kernel, grid, dtype)
+# ---------------------------------------------------------------------------
+_KNEES: dict[tuple, tuple] = {}    # (name, grid, dtype) -> frozen tile
+
+
+def resolve_tile(kernel, args) -> dict:
+    """Knee-point tile for these arguments, from the spec's cost model."""
+    spec = as_spec(kernel)
+    grid = tuple(int(n) for n in spec.grid_of(*args))
+    dtype = str(args[0].dtype).removeprefix("torch.")
+    key = (spec.name, grid, dtype)
+    tile = _KNEES.get(key)
+    if tile is None:
+        from repro_torch.core.autotune import autotune_kernel
+        knee = autotune_kernel(spec, grid, dtype=dtype)["knee"]
+        tile = _KNEES[key] = tuple(sorted(knee.params.items()))
+    return dict(tile)
+
+
+# ---------------------------------------------------------------------------
+# Numpy adapter for the precision layers (Ch. 4 sweeps take numpy fns)
+# ---------------------------------------------------------------------------
+def numpy_fn(kernel, device: str = "cuda", backend: str = "auto") -> Callable:
+    """fn(**inputs) running ``run(kernel, ..., backend=backend)`` on
+    `device` with numpy inputs and a numpy output: the shape
+    `precision_sweep` / `search_fixed_point` expect. Inexact inputs are
+    cast to fp32 (integer inputs keep their dtype). On the card ``auto``
+    goes through the kernel, never the plain version."""
+    spec = as_spec(kernel)
+
+    def fn(**inputs):
+        import torch
+
+        def cast(v):
+            v = np.asarray(v)
+            if not np.issubdtype(v.dtype, np.integer):
+                v = v.astype(np.float32)
+            return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+        args = [cast(inputs[n]) for n in spec.arg_names]
+        out = run(spec.name, *args, backend=backend)
+        return out.float().cpu().numpy()
+
+    return fn

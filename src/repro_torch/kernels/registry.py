@@ -8,7 +8,8 @@ import importlib
 from repro_torch.kernels.api import KernelSpec
 
 _REGISTRY: dict[str, KernelSpec] = {}
-_BUILTIN = ("paged_attention", "flash_attention", "ssd_scan", "rglru_scan")
+_BUILTIN = ("paged_attention", "flash_attention", "ssd_scan", "rglru_scan",
+            "hdiff", "vadvc")
 
 
 def register(spec: KernelSpec) -> KernelSpec:
@@ -35,3 +36,7 @@ def get(name: str) -> KernelSpec:
 def names() -> list[str]:
     _load_builtin()
     return sorted(_REGISTRY)
+
+
+def all_kernels() -> list[KernelSpec]:
+    return [_REGISTRY[n] for n in names()]

@@ -1,0 +1,89 @@
+"""COSMO vertical advection: the wrapper of the CUDA kernel in
+``csrc/vadvc.cu``.
+
+On CUDA tensors `vadvc` checks its arguments, allocates the output and
+launches the kernel on the current stream at the given tile, or raises:
+there is no fallback. On CPU tensors it runs the plain version
+(`repro_torch.kernels.vadvc.ref.vadvc`), and the tile has no effect.
+``vadvc.launches`` counts kernel launches and ``vadvc.plain_calls`` the
+calls that went to the plain version because the tensors lay on the CPU.
+
+The tile is the kernel's launch shape: a block of ``tile_x`` x
+``tile_y`` threads, one per (y, x) column, with the forward sweep's
+ccol and dcol of every level in shared memory.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.autotune import MAX_THREADS, SMEM_BYTES
+from repro_torch.kernels.vadvc import ref
+
+
+@functools.cache
+def _lib():
+    from repro_torch.kernels.build import load
+    lib = load("vadvc")
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.vadvc_launch.argtypes = [vp] * 6 + [i32] * 3 + [i64] * 2 \
+        + [i32] * 2 + [f32] * 3 + [vp]
+    lib.vadvc_launch.restype = i32
+    lib.vadvc_error_string.argtypes = [i32]
+    lib.vadvc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(nz: int, tile_x: int, tile_y: int) -> int:
+    """Shared memory of one block: ccol and dcol of every level, fp32."""
+    return 2 * nz * tile_x * tile_y * 4
+
+
+def vadvc(ustage, upos, utens, utens_stage, wcon, *, tile_x: int = 32,
+          tile_y: int = 4):
+    """Fields (nz, ny, nx) and wcon (nz+1, ny, nx+1), float32 -> out
+    (nz, ny, nx) float32, as `ref.vadvc`."""
+    fields = (ustage, upos, utens, utens_stage)
+    if not ustage.is_cuda:
+        vadvc.plain_calls += 1
+        return ref.vadvc(*fields, wcon)
+    shape = tuple(ustage.shape)
+    if len(shape) != 3 or ustage.numel() == 0 \
+            or any(tuple(f.shape) != shape for f in fields) \
+            or tuple(wcon.shape) != (shape[0] + 1, shape[1], shape[2] + 1):
+        raise ValueError(f"fields {[tuple(f.shape) for f in fields]}, wcon "
+                         f"{tuple(wcon.shape)}: expected four non-empty "
+                         f"(nz, ny, nx) fields and wcon (nz+1, ny, nx+1)")
+    if any(t.device != ustage.device for t in (*fields, wcon)):
+        raise ValueError("all inputs must lie on one device")
+    if any(t.dtype != torch.float32 for t in (*fields, wcon)):
+        raise TypeError("the kernel takes float32")
+    if not all(f.is_contiguous() for f in fields) or wcon.stride(2) != 1:
+        raise ValueError("the fields must be contiguous and wcon's rows "
+                         "dense")
+    nz, ny, nx = shape
+    if min(tile_x, tile_y) < 1 or tile_x * tile_y > MAX_THREADS \
+            or smem_bytes(nz, tile_x, tile_y) > SMEM_BYTES:
+        raise ValueError(f"tile ({tile_x}, {tile_y}) at nz={nz}: a block "
+                         f"takes at most {MAX_THREADS} threads and "
+                         f"{SMEM_BYTES} bytes of shared memory")
+    out = torch.empty_like(ustage)
+    lib = _lib()
+    with torch.cuda.device(ustage.device):
+        err = lib.vadvc_launch(
+            *(t.data_ptr() for t in (*fields, wcon, out)), nz, ny, nx,
+            wcon.stride(0), wcon.stride(1), tile_x, tile_y, ref.DTR_STAGE,
+            ref.BET_M, ref.BET_P,
+            torch.cuda.current_stream(ustage.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"vadvc kernel launch failed: "
+                           f"{lib.vadvc_error_string(err).decode()}")
+    vadvc.launches += 1
+    return out
+
+
+vadvc.launches = 0
+vadvc.plain_calls = 0

@@ -1,5 +1,7 @@
 """The port stands alone: importing `repro_torch` and every one of its
-modules loads no ``jax`` and nothing of the JAX package ``repro``."""
+modules loads no ``jax`` and nothing of the JAX package ``repro``, and
+``chip_smoke.py`` imports neither."""
+import ast
 import json
 import os
 import pkgutil
@@ -42,5 +44,24 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "kernels.rglru_scan.rglru_scan", "kernels.rglru_scan.ref",
                  "kernels.rglru_scan.spec",
                  "models.ssm", "models.rglru", "serve.paged_state",
-                 "configs.mamba2_780m", "configs.recurrentgemma_2b"):
+                 "configs.mamba2_780m", "configs.recurrentgemma_2b",
+                 "configs.cosmo_stencil", "core.autotune", "core.precision",
+                 "core.precision_search", "kernels.hdiff.hdiff",
+                 "kernels.hdiff.ref", "kernels.hdiff.spec",
+                 "kernels.vadvc.vadvc", "kernels.vadvc.ref",
+                 "kernels.vadvc.spec", "launch.weather_stencil"):
         assert f"repro_torch.{name}" in result["modules"]
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_repro():
+    """Every import in ``chip_smoke.py``, at top level or inside a
+    function, names neither ``jax`` (nor ``jaxlib``) nor ``repro``."""
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}
