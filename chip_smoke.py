@@ -16,12 +16,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    at starcoder2-7b's shapes with the same inputs on both sides, held per
    element to 2 ulps of |want| in the output dtype: paged attention at
    b=4, hq=36, hkv=4, d=128, T=128, L=32 (mixed fast/slow pages, one dead
-   row) with 1, 4 and 128 query rows per sequence; flash attention at
-   b=1, causal, s = 2048, 1000 (ragged) and 600, and at recurrentgemma-
-   2b's local-attention prefill (the generate prefill's b=2, s = 2300,
-   hq=10, hkv=1, d=256, window 2048). The SSD scan (5 spec cases, then mamba2-780m's B=1, S=2048,
-   H=48, P=64, G=1, N=128 in bf16 and fp32, ragged S=1000 and the
-   generate prefill's B=3, S=1536; y and the final state) and the RG-LRU
+   row) with 1, 4 and 128 query rows per sequence. Flash attention:
+   every spec case cast to bf16 and five edge shapes (sq != skv, one
+   position, b=3 at d=256) through the route each takes (`route`: wgmma
+   or simt), then b=1, s = 2048, 1000 (ragged) and 600, causal and
+   not, and recurrentgemma-2b's local-attention prefill (the generate
+   prefill's b=2, s = 2300, hq=10, hkv=1, d=256, window 2048), each row
+   checking its route and timed by `device_ms` beside SDPA's; at s =
+   2048 two broken plain variants (P rounded to bf16 once, the last
+   128-key tile dropped) must exceed the limit, and at s = 2048 and at
+   recurrentgemma's shape the kernel bf16 took before the redesign (the
+   simt route) and the wgmma route run in 10 alternating pairs. The SSD
+   scan (5 spec cases, then mamba2-780m's B=1, S=2048, H=48, P=64, G=1,
+   N=128 in bf16 and fp32, ragged S=1000 and the generate prefill's B=3,
+   S=1536; y and the final state) and the RG-LRU
    scan (5 spec cases, then W=2560 at S=2048, ragged S=1000 and the
    generate prefill's B=2, S=2300). The SSD scan chunks differently from
    its plain version, so it is held to a limit scaled by max |want| and
@@ -42,9 +50,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    tokens) with ``max_active=2`` and one prefill pass per prompt. Checks
    outputs, an empty pool, paged-attention launches == decode steps x
    layers, flash-attention launches == prefills x layers and 2 transfers
-   per steady token. Then 16 decode steps of the same model (2 rows,
-   500-token context) timed bare and under ``torch.profiler``: device
-   busy share, kernels per step, the largest kernels.
+   per steady token, every flash launch on the wgmma route. Then 16
+   decode steps of the same model (2 rows, 500-token context) timed bare
+   and under ``torch.profiler``: device busy share, kernels per step, the
+   largest kernels.
 5. chunked — the default ``serve`` path (chunked prefill + radix prefix
    cache) on 6 prompts sharing a 512-token head: prefix hit rate, chunk
    and decode step times, time to first token, an empty pool after
@@ -56,10 +65,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
    ``generate`` (prompts 2300 and 1000, 40 new tokens: a ring page drops
    during decode) and the default ``serve`` (3 short prompts). Checks
-   SSD / RG-LRU / flash launches per prefill, no scan launch from
-   ``serve`` (its prompts stream through the one-token cores, as in the
-   reference), 2 transfers per steady token, no recurrent-store readback,
-   live ring pages within ``ring_pages()``.
+   SSD / RG-LRU / flash launches per prefill (flash on the wgmma
+   route), no scan launch from ``serve`` (its prompts stream through
+   the one-token cores, as in the reference), 2 transfers per steady
+   token, no recurrent-store readback, live ring pages within
+   ``ring_pages()``.
 
 8. stencil — NERO's COSMO stencils, hdiff and vadvc: every spec case at
    every tile of the kernel's tune space that fits, held to the plain
@@ -366,12 +376,17 @@ def ssd_check(got, want):
 
 
 def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
-                     extra, check=ulp_check, rule=ULP_RULE) -> dict:
+                     extra, check=ulp_check, rule=ULP_RULE,
+                     device: bool = False) -> dict:
     """Hold a kernel to its plain version on the same inputs with
     `check` (default: per element to 2 ulps of |want| in the output
     dtype), then time kernel, plain version and library call (None when
-    no PyTorch call computes the function) in alternation. Returns the
-    row, with the bound from this call's bytes and flops."""
+    no PyTorch call computes the function) in alternation. With
+    ``device`` the kernel's and the library call's ``kernel_ms`` and
+    ``library_ms`` (and so the bound share) are `device_ms`, the card's
+    time without the host's enqueue; the event times stay beside them as
+    ``event_ms``. Returns the row, with the bound from this call's bytes
+    and flops."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err, tol, over = check(got, want)
@@ -390,9 +405,18 @@ def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
            "kernel_ms": times["kernel"][0], "plain_ms": times["plain"][0],
            "library_ms": times["library"][0] if library else None,
            "host_ms": {k: v[1] for k, v in times.items()},
+           "timing": "cuda events, one call",
            "bytes": nbytes, "flops": flops,
            "bound_ms": max(t_bytes, t_flops),
            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+    if device:
+        row["event_ms"] = {"kernel": row["kernel_ms"],
+                           "library": row["library_ms"]}
+        row["kernel_ms"] = device_ms(kernel)
+        if library is not None:
+            row["library_ms"] = device_ms(library)
+        row["timing"] = ("device_ms: 20 calls queued behind a sleep, "
+                         "median of 5")
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     emit(row)
     return row
@@ -501,19 +525,180 @@ def ssd_bytes_and_flops(args):
     return nbytes, {FP32_FLOPS: cb + fp32}
 
 
+def flash_routes() -> dict:
+    """The flash wrapper's launch counts by route ("wgmma", "simt")."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    return dict(flash_attention.launches_by_route)
+
+
+def flash_route_taken(fn) -> str:
+    """Run `fn`, which must launch the flash kernel once, and return the
+    route whose count rose."""
+    before = flash_routes()
+    fn()
+    torch.cuda.synchronize()
+    after = flash_routes()
+    taken = [r for r in after if after[r] != before[r]]
+    if len(taken) != 1 or after[taken[0]] != before[taken[0]] + 1:
+        raise AssertionError(f"flash routes {before} -> {after}: want one "
+                             f"launch")
+    return taken[0]
+
+
+FLASH_FAULTS = ("bf16_p", "drop_last_tile")
+
+
+def flash_variant(q, k, v, *, causal=True, window=0, fault):
+    """The plain version broken on purpose, to show that
+    `same_input_limit` tells a right flash kernel from a wrong one:
+    "bf16_p" rounds P to bf16 once before P V (the JAX model's
+    `attention_core` form; l stays the fp32 sum), "drop_last_tile" leaves
+    out the keys of the last 128-key tile."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float() * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.float())
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window:
+        ok &= k_pos > q_pos - window
+    if fault == "drop_last_tile":
+        ok &= k_pos < (skv - 1) // 128 * 128
+    s = torch.where(ok, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    if fault == "bf16_p":
+        p = p.to(torch.bfloat16).float()
+    acc = torch.einsum("bhgqs,bshd->bhgqd", p, v.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+# shapes the kernels take that no spec case has, each row seeing at least
+# one key: sq != skv (causal, windowed), one position, batch > 1 at d = 256
+FLASH_EDGE_CASES = (
+    ({"b": 1, "sq": 1, "skv": 1, "hq": 2, "hkv": 1, "d": 64}, {}),
+    ({"b": 2, "sq": 5, "skv": 300, "hq": 4, "hkv": 2, "d": 128}, {}),
+    ({"b": 1, "sq": 300, "skv": 77, "hq": 9, "hkv": 1, "d": 128}, {}),
+    ({"b": 3, "sq": 129, "skv": 129, "hq": 6, "hkv": 3, "d": 256},
+     {"window": 64}),
+    ({"b": 1, "sq": 200, "skv": 333, "hq": 2, "hkv": 2, "d": 64},
+     {"causal": False, "window": 100}),
+)
+
+
+def flash_cases_bf16():
+    """Every flash spec case cast to bf16, then `FLASH_EDGE_CASES`, through
+    the route each takes (`route`: wgmma at d = 64, 128, 256, simt at
+    d = 32), held to the plain version on the same bf16 inputs by
+    `same_input_limit`."""
+    from repro_torch.kernels import api, registry
+    from repro_torch.kernels.flash_attention.flash_attention import route
+    spec = registry.get("flash_attention")
+    cases = [(dict(c.shape), dict(c.kwargs), [
+        torch.from_numpy(v).cuda().to(torch.bfloat16)
+        for v in spec.example_inputs(shape=dict(c.shape)).values()])
+        for c in spec.cases]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases += [(shape, kw, flash_inputs(gen, dtype=torch.bfloat16, **shape))
+              for shape, kw in FLASH_EDGE_CASES]
+    for i, (shape, kw, args) in enumerate(cases):
+        got = {}
+        taken = flash_route_taken(lambda: got.setdefault("out", api.run(
+            "flash_attention", *args, backend="cuda", **kw)))
+        want = api.run("flash_attention", *args, backend="ref", **kw)
+        err, tol, over = ulp_check(got["out"], want)
+        expect = route(torch.bfloat16, shape["d"])
+        emit({"phase": "kernel", "kernel": "flash_attention",
+              "case": i if i < len(spec.cases) else f"edge {i}",
+              "dtype": "bfloat16", "shape": shape, "kwargs": kw,
+              "route": taken, "max_abs_err": err, "tol": tol,
+              "tol_rule": ULP_RULE, "max_err_over_limit": over})
+        if taken != expect or not over <= 1.0:
+            raise AssertionError(f"flash {shape} {kw} in bf16: route {taken} "
+                                 f"(want {expect}), {over:.2f}x the limit")
+
+
+def flash_broken_variants(q, k, v, label, **kw) -> dict:
+    """Each `flash_variant` against the plain version on the same inputs:
+    its error over `same_input_limit` must exceed 1."""
+    from repro_torch.kernels import api
+    want = api.run("flash_attention", q, k, v, backend="ref", **kw)
+    out = {}
+    for fault in FLASH_FAULTS:
+        err, tol, over = ulp_check(flash_variant(q, k, v, fault=fault, **kw),
+                                   want)
+        out[fault] = over
+        emit({"phase": "kernel", "case": f"{label} broken: {fault}",
+              "kernel": "flash_attention", "fault": fault,
+              "max_abs_err": err, "max_err_over_limit": over})
+        if not over > 1.0:
+            raise AssertionError(f"{label}: the {fault} variant passes the "
+                                 f"limit ({over:.2f}x)")
+    return out
+
+
+def flash_before_after(q, k, v, label, pairs: int = 10, **kw) -> dict:
+    """The redesign against the kernel it replaced, on one card: bf16
+    inputs through the simt route (the first prefill slice's kernel,
+    unchanged, which bf16 took before the wgmma route existed) and the
+    wgmma route, `pairs` pairs of `device_ms`, alternating which runs
+    first. Launched through the library directly, so no launch counts."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        LOG2E, _lib
+    lib = _lib()
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    causal, window = int(kw.get("causal", True)), kw.get("window", 0)
+    scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, hq, hkv, d, causal, window)
+
+    def simt():
+        if lib.flash_attention_launch(
+                *args, scale, 1, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("simt launch failed")
+
+    def wgmma():
+        if lib.flash_attention_wgmma_launch(
+                *args, scale * LOG2E, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("wgmma launch failed")
+
+    times = {"simt": [], "wgmma": []}
+    for i in range(pairs):
+        for name, fn in ((("simt", simt), ("wgmma", wgmma)) if i % 2 == 0
+                         else (("wgmma", wgmma), ("simt", simt))):
+            times[name].append(device_ms(fn, calls=5, reps=3))
+    q1, q3 = np.percentile(times["simt"], [25, 75])
+    row = {"phase": "kernel", "case": f"{label}: simt (before) vs wgmma",
+           "kernel": "flash_attention", "pairs": pairs, "device_ms": times,
+           "median_ms": {n: statistics.median(t) for n, t in times.items()},
+           "simt_iqr_ms": q3 - q1,
+           "wgmma_wins": sum(w < s for w, s in zip(times["wgmma"],
+                                                   times["simt"]))}
+    emit(row)
+    return row
+
+
 def flash_inputs(gen, *, b, sq, skv, hq, hkv, d, dtype):
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
             for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
 
 
-def flash_bytes_and_flops(q, k, v, window: int = 0):
+def flash_bytes_and_flops(q, k, v, window: int = 0, causal: bool = True):
     """Bytes of q, k, v and out, each once; 4 d flops per (query, key) pair
-    the causal mask (and the window) lets through (queries and keys
-    aligned at 0)."""
+    the mask lets through: with `causal` kp <= qp, with `window`
+    kp > qp - window (queries and keys aligned at 0)."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    pairs = sum(min(i + 1, skv) - (max(0, i - window + 1) if window else 0)
+    pairs = sum((min(i + 1, skv) if causal else skv)
+                - (max(0, i - window + 1) if window else 0)
                 for i in range(sq))
     return nbytes, 4 * b * hq * d * pairs
 
@@ -550,37 +735,70 @@ def phase_kernel() -> dict:
                                         "beforehand (omits gather and "
                                         "dequant)"})
             del args
-    # flash attention at starcoder2-7b prefill shapes: b=1, 36 query heads
-    # over 4 kv heads, d=128, causal; 600 is the main path's longest prompt
-    for sq, dtypes in ((2048, ("bfloat16", "float32")),
-                       (1000, ("bfloat16", "float32")), (600, ("bfloat16",))):
-        for name in dtypes:
-            dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    flash_cases_bf16()
+    full.update(flash_full_width(gen))
+    full.update(scan_kernels())
+    torch.cuda.empty_cache()
+    return full
+
+
+def flash_full_width(gen) -> dict:
+    """Flash attention at full width: starcoder2-7b's prefill (b=1, 36
+    query heads over 4 kv heads, d=128; 600 is the serve phase's longest
+    prompt), causal and not, and recurrentgemma-2b's local-attention
+    prefill at the hybrid phase's `generate` batch (2 prompts padded to
+    2300: MQA, 10 query heads, d=256, window 2048; SDPA takes the window
+    as a boolean mask). Each row checks the route its launch took and is
+    timed by `device_ms`; at s = 2048 the two broken variants must fail
+    the limit the kernel meets."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.flash_attention.flash_attention import route
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    rows = {}
+    shapes = [(2048, True, ("bfloat16", "float32")),
+              (2048, False, ("bfloat16",)),
+              (1000, True, ("bfloat16", "float32")),
+              (1000, False, ("bfloat16",)),
+              (600, True, ("bfloat16",)), (600, False, ("bfloat16",))]
+    for sq, causal, names in shapes:
+        for name in names:
+            dtype = dtypes[name]
             q, k, v = flash_inputs(gen, b=1, sq=sq, skv=sq, hq=36, hkv=4,
                                    d=128, dtype=dtype)
-            nbytes, flops = flash_bytes_and_flops(q, k, v)
+            nbytes, flops = flash_bytes_and_flops(q, k, v, causal=causal)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            full[("flash_attention", sq, name)] = compare_and_time(
-                f"flash_attention starcoder2-7b prefill s={sq} {name}",
+
+            def kernel():
+                return api.run("flash_attention", q, k, v, causal=causal,
+                               backend="cuda")
+
+            taken = flash_route_taken(kernel)
+            if taken != route(dtype, 128):
+                raise AssertionError(f"s={sq} {name}: route {taken}")
+            label = (f"flash_attention starcoder2-7b prefill s={sq} "
+                     f"{'causal' if causal else 'non-causal'} {name}")
+            key = ("flash_attention", sq, name) + (() if causal
+                                                   else ("non-causal",))
+            rows[key] = compare_and_time(
+                label, kernel,
                 lambda: api.run("flash_attention", q, k, v,  # noqa
-                                causal=True, backend="cuda"),
-                lambda: api.run("flash_attention", q, k, v,  # noqa
-                                causal=True, backend="ref"),
+                                causal=causal, backend="ref"),
                 lambda: F.scaled_dot_product_attention(  # noqa
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
                 nbytes, flops,
                 BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
-                {"kernel": "flash_attention", "dtype": name,
+                {"kernel": "flash_attention", "dtype": name, "route": taken,
                  "shape": {"b": 1, "sq": sq, "skv": sq, "hq": 36, "hkv": 4,
-                           "d": 128, "causal": True},
-                 "library": "scaled_dot_product_attention(is_causal=True, "
-                            "enable_gqa=True) on (b, h, s, d) copies made "
-                            "beforehand"})
+                           "d": 128, "causal": causal},
+                 "library": f"scaled_dot_product_attention(is_causal="
+                            f"{causal}, enable_gqa=True) on (b, h, s, d) "
+                            f"copies made beforehand"}, device=True)
+            if sq == 2048 and causal and name == "bfloat16":
+                rows[key]["broken_over_limit"] = flash_broken_variants(
+                    q, k, v, label, causal=True)
+                rows[key]["before_after"] = flash_before_after(
+                    q, k, v, label, causal=True)
             del q, k, v, qt, kt, vt
-    # flash attention at recurrentgemma-2b's local-attention prefill, at
-    # the hybrid phase's generate batch (2 prompts padded to 2300): MQA,
-    # 10 query heads, d=256 (6 positions x 10 heads per block, ~197 KB of
-    # shared memory), window 2048; SDPA takes the window as a boolean mask
     q, k, v = flash_inputs(gen, b=2, sq=2300, skv=2300, hq=10, hkv=1,
                            d=256, dtype=torch.bfloat16)
     nbytes, flops = flash_bytes_and_flops(q, k, v, window=2048)
@@ -588,28 +806,34 @@ def phase_kernel() -> dict:
     mask = (pos[None, :] <= pos[:, None]) \
         & (pos[None, :] > pos[:, None] - 2048)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    full[("flash_attention", "recurrentgemma", "bfloat16")] = \
+
+    def kernel():
+        return api.run("flash_attention", q, k, v, causal=True, window=2048,
+                       backend="cuda")
+
+    taken = flash_route_taken(kernel)
+    if taken != "wgmma":
+        raise AssertionError(f"recurrentgemma flash: route {taken}")
+    rows[("flash_attention", "recurrentgemma", "bfloat16")] = \
         compare_and_time(
             "flash_attention recurrentgemma-2b prefill b=2 s=2300 "
-            "window=2048 "
-            "bfloat16",
-            lambda: api.run("flash_attention", q, k, v, causal=True,
-                            window=2048, backend="cuda"),
+            "window=2048 bfloat16", kernel,
             lambda: api.run("flash_attention", q, k, v, causal=True,
                             window=2048, backend="ref"),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
             nbytes, flops, BF16_FLOPS,
             {"kernel": "flash_attention", "dtype": "bfloat16",
+             "route": taken,
              "shape": {"b": 2, "sq": 2300, "skv": 2300, "hq": 10, "hkv": 1,
                        "d": 256, "causal": True, "window": 2048},
              "library": "scaled_dot_product_attention(attn_mask=causal "
                         "window mask, enable_gqa=True) on (b, h, s, d) "
-                        "copies made beforehand"})
-    del q, k, v, qt, kt, vt, mask
-    full.update(scan_kernels())
-    torch.cuda.empty_cache()
-    return full
+                        "copies made beforehand"}, device=True)
+    flash_before_after(q, k, v, "flash_attention recurrentgemma-2b prefill "
+                       "b=2 s=2300 window=2048 bfloat16", causal=True,
+                       window=2048)
+    return rows
 
 
 def scan_kernels() -> dict:
@@ -843,6 +1067,8 @@ def _counters():
 def reset_launches():
     for fn in _counters().values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def read_launches() -> dict:
@@ -884,6 +1110,10 @@ def phase_serve() -> dict:
         raise AssertionError(f"{launches} launches for {steps} steps")
     if launches["flash_attention"] != len(reqs) * cfg.num_layers:
         raise AssertionError(f"{launches} launches for {len(reqs)} prefills")
+    routes = flash_routes()
+    if routes != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise AssertionError(f"flash launches by route {routes}: the bf16 "
+                             f"prefill must take the wgmma route")
     steady = eng.last_steady_transfers
     if not steady or any(s != (1, 1) for s in steady):
         raise AssertionError(f"steady-state transfers {steady}")
@@ -907,6 +1137,7 @@ def phase_serve() -> dict:
            "init_s": init_s, "requests": len(reqs), "prompt_lengths": lengths,
            "max_new": 32, "max_active": 2, "page_tokens": 128,
            "wall_s": wall_s, "decode_steps": steps, "launches": launches,
+           "flash_launches_by_route": routes,
            "prefill_ms_per_request": eng.stats["prefill_s"] / len(reqs) * 1e3,
            "prefill_forward_ms_by_prompt": {
                "kernel": [statistics.median(ab["kernel"][2 * i:2 * i + 2])
@@ -1065,10 +1296,14 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    routes = flash_routes()
     _check_outs(outs, reqs, eng.cfg.vocab_size)
     for name, n in n_layers_by_kernel.items():
         if launches[name] != n:       # one batched prefill per generate
             raise AssertionError(f"{launches} launches, want {name} == {n}")
+    if routes != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise AssertionError(f"flash launches by route {routes}: the bf16 "
+                             f"windowed prefill must take the wgmma route")
     steps = eng.stats["decode_steps"] - st0["decode_steps"]
     store = eng.last_rec_store
     # the prefill installs one block per recurrent tensor and sequence;
@@ -1079,7 +1314,8 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
                              f"{n_names * len(reqs)} writes, 0 reads")
     h2d, d2h = eng.last_transfers
     seqs = list(range(seq0, eng._next_seq))
-    return {"outs": outs, "launches": launches, "steps": steps,
+    return {"outs": outs, "launches": launches,
+            "flash_launches_by_route": routes, "steps": steps,
             "wall_s": wall_s, "seqs": seqs, "transfers": [h2d, d2h],
             "rec_store": dict(store),
             "prefill_ms_per_request":
@@ -1600,8 +1836,8 @@ def phase_stencil():
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
-    the longest serve prompt (600 tokens), launches from the serve
-    phase's run; the SSD scan at mamba2-780m's generate prefill (B=3,
+    the longest serve prompt (600 tokens, its `device_ms`), launches from
+    the serve phase's run; the SSD scan at mamba2-780m's generate prefill (B=3,
     S=1536) and the RG-LRU scan at recurrentgemma-2b's (B=2, S=2300),
     launches from the hybrid phase's generate calls; hdiff and vadvc at
     the COSMO grid in fp32, launches from the stencil phase's main path.
@@ -1620,12 +1856,14 @@ def kernels_line(full, launches, stencil=None) -> dict:
     for name, k in rows:
         source, replaces = KERNELS[name]
         out.append({
-            "name": name, "route": "cuda", "impl": "cuda", "source": source,
+            "name": name, "route": "cuda", "impl": "cuda",
+            "kernel_route": k.get("route", "simt"), "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
             "tol": k["tol"], "tol_rule": k["tol_rule"],
             "max_err_over_limit": k["max_err_over_limit"],
             "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
+            "timing": k.get("timing"),
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "library": k.get("library"), "shape": k["shape"]})

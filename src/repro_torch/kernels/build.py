@@ -3,11 +3,12 @@
 Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface under ``build/kernels/`` at
 the repository root (listed in ``.gitignore``). A library's file name
-carries a digest of its source and flags, so an edited source rebuilds
-and an unchanged one is reused. All missing libraries build at once, one
-``nvcc`` per source started together. A failed build raises with the
-compiler's output; ``ptxas -v`` (registers, shared memory, spills) is
-kept beside each library as ``<name>.log``.
+carries a digest of every file in its ``csrc/`` (the ``.cu`` and the
+headers it includes) and of the compiler flags, so an edited source or
+header rebuilds and an unchanged one is reused. All missing libraries
+build at once, one ``nvcc`` per source started together. A failed build
+raises with the compiler's output; ``ptxas -v`` (registers, shared
+memory, spills) is kept beside each library as ``<name>.log``.
 """
 from __future__ import annotations
 
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    csrc = sources()[name].parent
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        digest.update(f"\0{f.relative_to(csrc)}\0".encode())
+        digest.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -5,220 +5,661 @@
 // q (b, sq, hq, d) and k, v (b, skv, hkv, d) give out (b, sq, hq, d), query
 // head h attending kv head h / g (g = hq / hkv). With `causal`, key position
 // kp is visible to query position qp when kp <= qp; with `window` > 0, when
-// kp > qp - window. The softmax is fp32 online softmax as in the Pallas
-// kernel: q is scaled in fp32, masked scores are -1e30, the normaliser is
-// clamped at 1e-30. Unlike the Pallas kernel (which asserts that the block
-// sizes divide sq and skv) any sq and skv are taken: the ragged last tiles
-// are masked here, so prompts need no padding.
+// kp > qp - window (positions aligned at 0). Scores, probabilities and sums
+// are fp32 as in the Pallas kernel; masked scores are -1e30 and the
+// normaliser is clamped at 1e-30. Any sq and skv are taken: ragged tiles are
+// masked here, so prompts need no padding.
 //
-// Design. The TPU grid walks the kv blocks in order and carries (m, l, acc)
-// in VMEM scratch from one grid step to the next; CUDA blocks run in no
-// order, so the kv walk is a loop inside one block. One block per (block of
-// bq query positions, kv head, sequence): its rows are the bq positions
-// times the g query heads of the kv head (row r = position r / g, head
-// r % g), so the g heads share every K/V tile staged in shared memory. bq is
-// chosen so a block holds about 64 rows (bq = 7 at starcoder2-7b's g = 9).
-// The block loads its rows of q into shared memory as fp32, pre-scaled, then
-// walks only the keys its rows can see -- up to its last position when
-// causal, from its first position's window start -- in tiles of 32
-// positions: load the K and V tile as fp32, score every row against it with
-// plain fp32 FMAs (one thread per (row, position) pair; no TF32 or tensor
-// cores, so fp32 inputs meet the 5e-5 tolerance), update the per-row (m, l)
-// with one warp per row, and add p @ V into an fp32 accumulator in shared
-// memory.
+// Two routes, chosen by the wrapper from the dtype and the head dim alone:
+// "wgmma" (this file) for bf16 at d = 64, 128 and 256; "simt"
+// (flash_simt.cuh) for fp32 inputs, whose 5e-5 tolerance the tensor cores
+// cannot meet, and for any other d.
 //
 // Bound. Prefill attention does 4 d flops per visible (query, key) pair and
-// reads q, k and v once: at d = 128 that is far above the card's ratio of
-// flops to bytes, so the least time is the flops over the card's peak rate
-// (989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s for fp32 FMAs). This
-// first version is simple and far from that bound: every FMA reads both of
-// its operands from shared memory, loads and math do not overlap, and bf16
-// inputs run on the fp32 FMA pipe. A tensor-core (wgmma) version with TMA
-// loads is for a later change.
+// moves q, k, v and out once. At starcoder2-7b's causal prefill (s = 2048,
+// 36 heads, d = 128) that is 38.7 GFLOP against 21 MB, far above the card's
+// 295 flops per byte, so the least time is the flops over the bf16 tensor
+// cores' 989 TFLOP/s: 0.039 ms. What keeps a kernel from it is feeding the
+// tensor cores: loads that do not overlap the math, and the softmax's
+// exponentials and shuffles between the two products.
+//
+// Design of the wgmma route:
+// - Work split. One block of two warpgroups (256 threads) per (128 query
+//   positions, query head, sequence); warpgroup c owns rows 64 c .. 64 c +
+//   63. Block ids run over the heads fastest, so the g heads of one kv head
+//   are neighbours and read its K/V tiles from L2; then over the sequences;
+//   then over the query blocks, last first, so that under a causal mask the
+//   longest blocks start first and the grid's tail is short.
+// - Loads. TMA, into a ring of 2 stages of key tiles in shared memory:
+//   BN = 128 keys at d <= 128 (Q 32 KB + 2 x 64 KB), 64 keys at d = 256
+//   (Q 64 KB + 2 x 64 KB); a third stage, or 64-key tiles at d = 128,
+//   measured no faster on the card. Per stage a K and a V barrier that the
+//   TMA completes, so S = Q K^T starts before V has landed. Thread 0 loads
+//   Q and the first stages; after that the warpgroup that releases a stage
+//   last (a count per stage in shared memory) loads the tile kStages ahead
+//   into it. The tensor maps are 4-D over the contiguous (b, s, h, d)
+//   tensors with the 128-byte swizzle, whose box is at most 64 bf16 wide:
+//   a row of d is d / 64 boxes, and every wgmma descriptor uses the same
+//   swizzle. TMA fills rows past sq and skv with zeros; such keys are
+//   masked all the same, and no output row >= sq is written.
+// - Why no producer warp. FlashAttention-3 gives one warpgroup to the
+//   loads and moves registers to the consumers with setmaxnreg. ptxas
+//   (CUDA 12.9) compiled that 384-thread layout at the launch bound's 168
+//   registers a thread whatever setmaxnreg asked, spilled 112-256 bytes of
+//   stack at d = 128 and 256 and serialised the wgmmas: 17% slower at
+//   starcoder2-7b's s = 2048, 90% at recurrentgemma-2b's d = 256. A single
+//   producer warp (9 warps, 3 on one of the SM's four register files) gets
+//   168 as well (tools/flash_variants.py). With 8 warps a thread may hold
+//   255 registers, and the loads cost one thread a few instructions per
+//   tile.
+// - Math, per key tile and warpgroup: S = Q K^T by wgmma with both operands
+//   in shared memory (bf16 products, fp32 sums); the softmax scale times
+//   log2(e) applied in fp32 after the product, for exp2; masking only on
+//   tiles that cross the diagonal, the window's edge or skv (tiles that no
+//   row of the block can see are never loaded); the row max and sum by
+//   quad shuffles on the accumulator fragment, O corrected in registers;
+//   then O += P V by wgmma with P from registers (the accumulator's layout
+//   is the A operand's) and V read as a transposed, MN-major operand, n =
+//   d per product. exp2 is the special-function unit's ex2.approx (3-6%
+//   faster than exp2f). The two warpgroups run unsynchronised
+//   but for the loads, so one's softmax overlaps the other's products.
+// - Epilogue. O / max(l, 1e-30) in fp32, rounded to bf16, stored from
+//   registers.
+//
+// Why P is split. The function keeps P in fp32 (the TPU kernel and the
+// plain version do), and the card holds this kernel to the plain version at
+// 2 ulps of |want| in bf16 + 1e-6 per element. Rounding P to bf16 once
+// before P V, as the JAX model's attention_core does, misses that limit
+// 180-710 fold; two bf16 pieces, hi + lo (16 significant bits), still miss
+// it 1.16-1.24 fold at s = 600 with g = 10 and at d = 256 with a window,
+// where outputs near 0 are held to about 1e-6 (CPU emulations of this
+// kernel's arithmetic in tests/test_torch_flash_attention.py). So
+// P = hi + mid + lo, three bf16 pieces with fp32's 24 significant bits, and
+// P V is three products into one fp32 accumulator: the kernel does 8 d
+// flops per visible pair on the tensor cores, twice the function's.
+//
+// ptxas (sm_90a, nvcc 12.9; registers a thread): d = 64 243, d = 128 244,
+// d = 256 230, no spills; the simt kernels 64 (fp32 and bf16).
 
+#include <cuda.h>  // CUtensorMap and the driver's enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_simt.cuh"
 
-constexpr int kTile = 32;       // key positions per step: one per lane in the softmax
-constexpr int kThreads = 256;
-constexpr int kRowTarget = 64;  // query rows (positions x heads) per block
+namespace wg {
+
+constexpr int kBM = 128;                  // query positions per block
+constexpr int kConsumers = 2;             // warpgroups of 64 query rows
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kStages = 2;                // depth of the K/V ring
+constexpr int kRow = 128;                 // bytes of one swizzled row: 64 bf16
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// error codes of the launch beside cudaError_t's (which are >= 0)
+constexpr int kNoEncoder = -1;
+constexpr int kEncodeFailed = -2;
+constexpr int kBadHeadDim = -3;
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  int sq, skv, hq, hkv, d;
-  int bq;           // query positions per block
-  int causal;
-  int window;       // 0: no window
-  float scale;      // softmax scale
+template <int D>
+struct Tile {
+  static constexpr int kBN = D <= 128 ? 128 : 64;    // keys per tile
+  static constexpr int kBoxes = D / 64;               // 64-wide boxes per row
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBytes = kBN * D * 2;        // one K or one V tile
+  // barriers: Q, then K and V per stage; then a release count per stage
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages) + 4 * kStages;
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte atom
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
 };
 
-size_t smem_floats(int rows, int d) {
-  return (size_t)rows * d            // q rows
-       + (size_t)kTile * (d + 1)     // K tile, rows padded against bank conflicts
-       + (size_t)kTile * d           // V tile
-       + (size_t)rows * kTile        // scores, then probabilities
-       + (size_t)rows * d            // accumulator
-       + 3 * (size_t)rows;           // m, l, correction
+struct Params {
+  __nv_bfloat16* out;
+  int b, sq, skv, hq, hkv;
+  int causal, window;
+  float scale_log2;  // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
-  const int q0 = blockIdx.x * a.bq;
-  const int h = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int g = a.hq / a.hkv;
-  const int nq = min(a.bq, a.sq - q0);
-  const int rows = nq * g;
-  const int d = a.d;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + rows * d;
-  float* v_s = k_s + kTile * (d + 1);
-  float* p_s = v_s + kTile * d;
-  float* acc = p_s + rows * kTile;
-  float* m_s = acc + rows * d;
-  float* l_s = m_s + rows;
-  float* c_s = l_s + rows;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-  for (int i = tid; i < rows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    const int64_t off =
-        (((int64_t)bi * a.sq + q0 + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
-    q_s[i] = to_f32(q[off]) * a.scale;
-    acc[i] = 0.f;
+// Returns once the barrier's phase of the given parity has completed. A
+// wait that outlasts kWaitCycles (seconds; a tile takes microseconds) can
+// only be a fault of the ring's bookkeeping: it traps, so the launch fails
+// with an error instead of holding the card.
+constexpr long long kWaitCycles = 20000000000ll;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > kWaitCycles) __trap();
   }
-  for (int r = tid; r < rows; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+}
+
+// One TMA box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completes `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// bar.sync on a named barrier (1-15; __syncthreads uses 0) for `count`
+// threads: here the 128 of one warpgroup.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of accumulator registers across the
+// wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, both bf16 K-major in shared
+// memory; `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) += A (64 x 16) * B (128 x 16)^T, both bf16 K-major in shared
+// memory; `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x N),
+// B bf16 MN-major (transposed) in shared memory; N = 64, 128, 256.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to 0, which no row sum can notice).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as three bf16 pairs hi + mid + lo: each piece is the bf16 rounding
+// of what the pieces before it left (exact fp32 differences), so the sum
+// holds x and y to fp32's 24 significant bits. The lower column goes in the
+// low half, as the A fragment wants it.
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  using T = Tile<D>;
+  constexpr int BN = T::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = s_q + T::kQBytes;             // kStages K tiles
+  const uint32_t s_v = s_k + kStages * T::kKVBytes;  // kStages V tiles
+  const uint32_t s_bar = s_v + kStages * T::kKVBytes;
+  const uint32_t bar_q = s_bar;
+  auto bar_k = [=](int s) { return s_bar + 8u * (1 + s); };
+  auto bar_v = [=](int s) { return s_bar + 8u * (1 + kStages + s); };
+  // per stage, how many times a warpgroup has released it
+  uint32_t* released = reinterpret_cast<uint32_t*>(
+      smem_raw + (s_bar - raw) + 8 * (1 + 2 * kStages));
+
+  // block -> (query block, query head, sequence)
+  const int nqb = (p.sq + kBM - 1) / kBM;
+  int id = blockIdx.x;
+  const int h = id % p.hq;
+  id /= p.hq;
+  const int bi = id % p.b;
+  const int q0 = (nqb - 1 - id / p.b) * kBM;
+  const int kvh = h / (p.hq / p.hkv);
+  // the key tiles any row of the block can see: [t0, t0 + n_tiles)
+  const int q_end = min(q0 + kBM, p.sq);
+  int k_lo = 0, k_hi = p.skv;
+  if (p.causal) k_hi = min(p.skv, q_end);
+  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  const int t0 = k_lo / BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BN - 1) / BN - t0 : 0;
+
+  // key tile t into stage t % kStages: its K and its V, each completing
+  // its own barrier, so that S = Q K^T can start before V has landed
+  auto load_tile = [&](int t) {
+    const int st = t % kStages;
+    const int k0 = (t0 + t) * BN;
+    mbar_expect_tx(bar_k(st), T::kKVBytes);
+    for (int j = 0; j < T::kBoxes; ++j)
+      tma_load(s_k + st * T::kKVBytes + j * BN * kRow, &tk, bar_k(st), 64 * j,
+               kvh, k0, bi);
+    mbar_expect_tx(bar_v(st), T::kKVBytes);
+    for (int j = 0; j < T::kBoxes; ++j)
+      tma_load(s_v + st * T::kKVBytes + j * BN * kRow, &tv, bar_v(st), 64 * j,
+               kvh, k0, bi);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, T::kQBytes);
+    for (int j = 0; j < T::kBoxes; ++j)
+      tma_load(s_q + j * kBM * kRow, &tq, bar_q, 64 * j, h, q0, bi);
+    for (int t = 0; t < min(kStages, n_tiles); ++t) load_tile(t);
   }
   __syncthreads();
 
-  // keys any row of the block can see: [k_lo, k_hi)
-  int k_lo = 0, k_hi = a.skv;
-  if (a.causal) k_hi = min(a.skv, q0 + nq);
-  if (a.window > 0) k_lo = max(0, q0 - a.window + 1);
+  // warpgroup c owns query rows 64 c .. 64 c + 63 of the block
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
+  // this thread's query positions in the accumulator fragment: row0 and
+  // row0 + 8; its columns in each 8-column chunk: col and col + 1
+  const int row0 = q0 + 64 * c + 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int wq_lo = q0 + 64 * c, wq_hi = wq_lo + 63;
+  const uint32_t q_rows = s_q + 64 * c * kRow;
 
-  for (int t0 = k_lo; t0 < k_hi; t0 += kTile) {
-    const int cnt = min(kTile, k_hi - t0);
-    for (int i = tid; i < cnt * d; i += kThreads) {
-      const int j = i / d, c = i % d;
-      const int64_t off = (((int64_t)bi * a.skv + t0 + j) * a.hkv + h) * d + c;
-      k_s[j * (d + 1) + c] = to_f32(k[off]);
-      v_s[j * d + c] = to_f32(v[off]);
+  float o[D / 2];  // the 64 x d accumulator fragment: d / 2 a thread
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = (t0 + t) * BN;
+    const uint32_t k_tile = s_k + s * T::kKVBytes;
+    const uint32_t v_tile = s_v + s * T::kKVBytes;
+
+    // S = Q K^T over d in steps of 16 (32 bytes of a 128-byte row)
+    float sc[BN / 2];
+    mbar_wait(bar_k(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da =
+          desc(q_rows + (kk / 4) * kBM * kRow + (kk % 4) * 32, 16, 1024);
+      const uint64_t db =
+          desc(k_tile + (kk / 4) * BN * kRow + (kk % 4) * 32, 16, 1024);
+      if constexpr (BN == 128)
+        wgmma_ss_n128(sc, da, db, kk);
+      else
+        wgmma_ss_n64(sc, da, db, kk);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
 
-    for (int i = tid; i < rows * kTile; i += kThreads) {
-      const int r = i / kTile, j = i % kTile;
-      const int qp = q0 + r / g, kp = t0 + j;
-      float s = kNegInf;
-      if (j < cnt && (!a.causal || kp <= qp) &&
-          (a.window <= 0 || kp > qp - a.window)) {
-        const float* qr = q_s + r * d;
-        const float* kr = k_s + j * (d + 1);
-        float dot = 0.f;
-        for (int c = 0; c < d; ++c) dot = fmaf(qr[c], kr[c], dot);
-        s = dot;
+    // scale (log2 domain), mask, online softmax
+    const bool masked = k0 + BN > p.skv || (p.causal && k0 + BN - 1 > wq_lo) ||
+                        (p.window > 0 && k0 <= wq_hi - p.window);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      float x = __fmul_rn(sc[i], p.scale_log2);
+      if (masked) {
+        const int kp = k0 + 8 * (i / 4) + col + (i & 1);
+        const int qp = row0 + 8 * ((i >> 1) & 1);
+        if (kp >= p.skv || (p.causal && kp > qp) ||
+            (p.window > 0 && kp <= qp - p.window))
+          x = kNegInf;
       }
-      p_s[i] = s;
+      sc[i] = x;
     }
-    __syncthreads();
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      mx[r] = fmaxf(mx[r], sc[i]);
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2(sc[i] - m[r]);
+      sum[r] += sc[i];
+    }
+    // per-thread partial row sums; the quad's are added at the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      const float s = p_s[r * kTile + lane];
-      float mx = s;
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = lane < cnt ? expf(s - m_new) : 0.f;
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[r * kTile + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+    // P as A fragments, three bf16 pieces: k-step kk holds keys 16 kk ..
+    // 16 kk + 15, register r the pair sc[8 kk + 2 r], sc[8 kk + 2 r + 1]
+    uint32_t pa[3][BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pa[0][kk][r],
+               pa[1][kk][r], pa[2][kk][r]);
+
+    // O += P V: V's rows are keys (the K dimension) with d contiguous, an
+    // MN-major operand. One n = d product per 16 keys and piece: the
+    // descriptor's 64-wide swizzle atoms of d lie BN rows apart (leading
+    // byte offset), its 8-key groups 1024 bytes apart (stride byte offset).
+    mbar_wait(bar_v(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t db = desc(v_tile + kk * 16 * kRow, BN * kRow, 1024);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece) {
+        if constexpr (D == 64)
+          wgmma_rs_n64(o, pa[piece][kk], db);
+        else if constexpr (D == 128)
+          wgmma_rs_n128(o, pa[piece][kk], db);
+        else
+          wgmma_rs_n256(o, pa[piece][kk], db);
       }
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
 
-    for (int i = tid; i < rows * d; i += kThreads) {
-      const int r = i / d, c = i % d;
-      const float* pr = p_s + r * kTile;
-      float pv = 0.f;
-      for (int j = 0; j < cnt; ++j) pv = fmaf(pr[j], v_s[j * d + c], pv);
-      acc[i] = acc[i] * c_s[r] + pv;
+    // the stage is free once both warpgroups are done with it: the one
+    // that releases it last loads tile t + kStages into it
+    named_barrier_sync(1 + c, 128);
+    if (tid == 0 && atomicAdd(&released[s], 1u) % kConsumers == kConsumers - 1
+        && t + kStages < n_tiles) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load_tile(t + kStages);
     }
-    __syncthreads();
   }
 
-  for (int i = tid; i < rows * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    const int64_t off =
-        (((int64_t)bi * a.sq + q0 + r / g) * a.hq + (int64_t)h * g + r % g) * d + c;
-    store(out + off, acc[i] / fmaxf(l_s[r], 1e-30f));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= p.sq) continue;
+    __nv_bfloat16* dst =
+        p.out + (((int64_t)bi * p.sq + qp) * p.hq + h) * D + col;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) = __floats2bfloat162_rn(
+          o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  const int rows = a.bq * (a.hq / a.hkv);
-  const size_t smem = smem_floats(rows, a.d) * sizeof(float);
-  auto kernel = flash_attention_kernel<T>;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver entry point, through the runtime (no
+// -lcuda); null when the driver lacks it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map of a contiguous bf16 (batch, seq, heads, d) tensor: a box is
+// 64 of d by `rows` positions of one head, 128-byte swizzled.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
+              int heads, int seq, int batch, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int sq, int skv, int hq, int hkv, int causal, int window,
+           float scale_log2, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return kNoEncoder;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(enc, &tq, q, D, hq, sq, b, kBM) ||
+      !make_map(enc, &tk, k, D, hkv, skv, b, Tile<D>::kBN) ||
+      !make_map(enc, &tv, v, D, hkv, skv, b, Tile<D>::kBN))
+    return kEncodeFailed;
+  const Params p{static_cast<__nv_bfloat16*>(out), b, sq, skv, hq, hkv,
+                 causal, window, scale_log2};
+  auto kernel = flash_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + a.bq - 1) / a.bq, a.hkv, b);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const int blocks = (sq + kBM - 1) / kBM * hq * b;
+  kernel<<<blocks, kThreads, Tile<D>::kSmem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace wg
 
 extern "C" {
 
-// Query positions per block for g query heads per kv head.
-int flash_attention_block_q(int g) { return g >= kRowTarget ? 1 : kRowTarget / g; }
-
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
-// q, k, v and out are contiguous and share one dtype: bf16 if `bf16`, else
-// fp32. sq, skv >= 1; hq is a multiple of hkv; d <= 256.
+// The simt route. Launches on `stream` and returns the launch's cudaError_t
+// (0 on success). q, k, v and out are contiguous and share one dtype: bf16
+// if `bf16`, else fp32. sq, skv >= 1; hq is a multiple of hkv; d <= 256.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int sq, int skv, int hq, int hkv,
                            int d, int causal, int window, float scale,
                            int bf16, void* stream) {
-  Args a{q, k, v, out, sq, skv, hq, hkv, d,
-         flash_attention_block_q(hq / hkv), causal, window, scale};
+  simt::Args a{q, k, v, out, sq, skv, hq, hkv, d,
+               simt::block_q(hq / hkv), causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? launch<__nv_bfloat16>(a, b, s) : launch<float>(a, b, s);
+  cudaError_t err = bf16 ? simt::launch<__nv_bfloat16>(a, b, s)
+                         : simt::launch<float>(a, b, s);
   return (int)err;
 }
 
+// The wgmma route: bf16 q, k, v and out, contiguous, 16-byte aligned;
+// d in {64, 128, 256}; `scale_log2` is the softmax scale times log2(e).
+// Returns 0, a cudaError_t, or one of wg's negative codes.
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* out, int b, int sq, int skv, int hq,
+                                 int hkv, int d, int causal, int window,
+                                 float scale_log2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return wg::launch<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window,
+                            scale_log2, s);
+    case 128:
+      return wg::launch<128>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                             window, scale_log2, s);
+    case 256:
+      return wg::launch<256>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                             window, scale_log2, s);
+    default:
+      return wg::kBadHeadDim;
+  }
+}
+
 const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case wg::kNoEncoder:
+      return "the driver has no cuTensorMapEncodeTiled";
+    case wg::kEncodeFailed:
+      return "cuTensorMapEncodeTiled refused a tensor map";
+    case wg::kBadHeadDim:
+      return "the wgmma route takes head dims 64, 128 and 256";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 }  // extern "C"

@@ -1,12 +1,19 @@
-"""Prefill attention: the wrapper of the CUDA kernel in
+"""Prefill attention: the wrapper of the CUDA kernels in
 ``csrc/flash_attention.cu``.
 
-On CUDA tensors `flash_attention` checks its arguments, allocates the
-output and launches the kernel on the current stream, or raises: there is
-no fallback. On CPU tensors it runs the plain version
+Two routes, chosen by `route` from the dtype and the head dim alone:
+"wgmma", the Hopper tensor-core kernel (TMA ring, warp-specialised), for
+bf16 at head dims 64, 128 and 256; "simt", the fp32-FMA kernel of
+``csrc/flash_simt.cuh``, for fp32 inputs (whose 5e-5 tolerance the tensor
+cores cannot meet) and any other head dim. On CUDA tensors
+`flash_attention` checks its arguments, allocates the output and launches
+its route's kernel on the current stream, or raises: no route is ever
+taken because another failed, and there is no fallback to the plain
+version. On CPU tensors it runs the plain version
 (`repro_torch.kernels.flash_attention.ref`). ``flash_attention.launches``
-counts kernel launches and ``flash_attention.plain_calls`` the calls that
-went to the plain version because the tensors lay on the CPU.
+counts kernel launches, ``flash_attention.launches_by_route`` splits them
+by route, and ``flash_attention.plain_calls`` counts the calls that went
+to the plain version because the tensors lay on the CPU.
 """
 from __future__ import annotations
 
@@ -19,7 +26,17 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 256)
+ROUTES = ("wgmma", "simt")
+LOG2E = math.log2(math.e)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def route(dtype, d: int) -> str:
+    """The kernel a launch on `dtype` inputs of head dim `d` takes:
+    "wgmma" for bf16 at d in `WGMMA_HEAD_DIMS`, else "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
+        else "simt"
 
 
 @functools.cache
@@ -30,6 +47,9 @@ def _lib():
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [i32] * 8 + [ctypes.c_float, i32, vp])
     lib.flash_attention_launch.restype = i32
+    lib.flash_attention_wgmma_launch.argtypes = (
+        [vp] * 4 + [i32] * 8 + [ctypes.c_float, vp])
+    lib.flash_attention_wgmma_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -57,6 +77,11 @@ def _check(q, k, v, window):
                          f"must be a multiple of hkv")
     if sq < 1 or skv < 1 or window < 0:
         raise ValueError(f"sq {sq}, skv {skv}, window {window}")
+    if route(q.dtype, d) == "wgmma":
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned: the wgmma "
+                                 f"route loads it by TMA")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -71,20 +96,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    kind = route(q.dtype, d)
     lib = _lib()
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, hq, hkv, d, int(bool(causal)), int(window), scale,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "wgmma":
+            err = lib.flash_attention_wgmma_launch(
+                *ptrs, b, sq, skv, hq, hkv, d, int(bool(causal)), int(window),
+                scale * LOG2E, stream)
+        else:
+            err = lib.flash_attention_launch(
+                *ptrs, b, sq, skv, hq, hkv, d, int(bool(causal)), int(window),
+                scale, int(q.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel launch failed ({kind} "
+                           f"route): "
                            f"{lib.flash_attention_error_string(err).decode()}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[kind] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.plain_calls = 0

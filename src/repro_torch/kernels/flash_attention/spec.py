@@ -3,8 +3,11 @@
 The validation cases, tolerances and input generator are copies of the
 JAX package's ``repro/kernels/flash_attention/spec.py`` so that the CPU
 tests and `chip_smoke.py` hold the kernel to the same cases. The launch
-shape is fixed (about 64 query rows per block), so the spec has no
-tunable tiles.
+shapes are fixed by the route (`flash_attention.route`), so the spec has
+no tunable tiles: the wgmma route (bf16, d = 64, 128, 256) runs 128 query
+positions of one head per block against key tiles of 128 (64 at d =
+256); the simt route about 64 query rows per block (positions times the
+g heads of a kv head) against key tiles of 32.
 """
 from __future__ import annotations
 

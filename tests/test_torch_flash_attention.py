@@ -2,9 +2,17 @@
 against the JAX oracle (`ref.attention`) and the Pallas kernel run in
 interpret mode, on every case of the JAX spec at the spec's tolerance,
 plus a g = 9 (starcoder2-7b's grouping) and a ragged-length case against
-the oracle; the dispatch contract and the CUDA wrapper's argument checks;
-and the port's prefill, which now attends through the flash wrapper,
-against the JAX prefill."""
+the oracle; the dispatch contract, the routes and the CUDA wrapper's
+argument checks; the Hopper (wgmma) kernel's arithmetic, emulated here,
+against the plain version at the limit `chip_smoke.py` holds the card to,
+with P in three bf16 pieces passing it and P in one or two pieces
+failing it, and `chip_smoke.py`'s broken variants failing it too; and the
+port's prefill, which now attends through the flash wrapper, against the
+JAX prefill."""
+import importlib.util
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,12 +30,23 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import api, registry
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    _check, flash_attention)
+    WGMMA_HEAD_DIMS, _check, flash_attention, route)
 from repro_torch.models.transformer import Model
 
 SPEC = registry.get("flash_attention")
+ROOT = Path(__file__).resolve().parents[1]
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """`chip_smoke.py` as a module (its helpers run on any device)."""
+    mod_spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
 
 
 def _args(inp, dtype, lib):
@@ -102,9 +121,11 @@ def test_run_dispatch_and_plain_call_count():
     with pytest.raises(ValueError, match="tile"):
         api.run("flash_attention", *args, tile={"block_q": 64})
     launches, plain = flash_attention.launches, flash_attention.plain_calls
+    routes = dict(flash_attention.launches_by_route)
     out = api.run("flash_attention", *args, causal=False)   # auto on CPU
     assert flash_attention.plain_calls == plain + 1
     assert flash_attention.launches == launches
+    assert flash_attention.launches_by_route == routes
     np.testing.assert_array_equal(
         out.numpy(), ref.attention(*args, causal=False).numpy())
     assert "flash_attention" in registry.names()
@@ -138,6 +159,161 @@ def test_cuda_wrapper_checks_raise(breakage):
     with pytest.raises((ValueError, TypeError)):
         _check(q, k, v, window)
     _check(*_args(inp, "bfloat16", "torch"), 0)     # valid arguments pass
+
+
+def wgmma_emulation(q, k, v, *, causal=True, window=0, pieces=3):
+    """The Hopper kernel's arithmetic (`csrc/flash_attention.cu`, wgmma
+    route) in plain PyTorch, used by nothing but these tests: query blocks
+    of 128 positions; key tiles of 128 (d <= 128) or 64 (d = 256) over
+    the range the block's rows can see, from the tile holding its first
+    window position; S = Q K^T with fp32 sums, then one fp32 multiply by
+    scale * log2(e); masked scores -1e30; online softmax in exp2; P cut
+    into `pieces` bf16 pieces (each the rounding of what the ones before
+    left), each multiplied by V and added into the fp32 O; O / max(l,
+    1e-30) in the input dtype."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    bn = 128 if d <= 128 else 64
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d) * math.log2(math.e),
+                              dtype=torch.float32)
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
+    out = torch.empty(b, hq, sq, d)
+    for q0 in range(0, sq, 128):
+        rows = min(128, sq - q0)
+        qp = torch.arange(q0, q0 + rows)[:, None]
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(skv, q0 + rows) if causal else skv
+        m = torch.full((b, hq, rows), -1e30)
+        l = torch.zeros(b, hq, rows)
+        o = torch.zeros(b, hq, rows, d)
+        for k0 in range(k_lo // bn * bn, k_hi, bn):
+            kt, vt = kf[:, :, k0:k0 + bn], vf[:, :, k0:k0 + bn]
+            kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            t = (qf[:, :, q0:q0 + rows] @ kt.transpose(-1, -2)) * scale_log2
+            ok = torch.ones(rows, kt.shape[2], dtype=torch.bool)
+            if causal:
+                ok &= kp <= qp
+            if window:
+                ok &= kp > qp - window
+            t = torch.where(ok, t, torch.tensor(-1e30))
+            m_new = torch.maximum(m, t.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(t - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            m = m_new
+            o = o * corr[..., None]
+            rest = p
+            for _ in range(pieces):
+                piece = rest.to(torch.bfloat16).float()
+                rest = rest - piece
+                o = o + piece @ vt
+        out[:, :, q0:q0 + rows] = o / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+EMULATED = [
+    # starcoder2-7b's g = 9, causal, sq = 300: a ragged last query block
+    ({"b": 2, "sq": 300, "skv": 300, "hq": 9, "hkv": 1, "d": 128}, {}),
+    # recurrentgemma-2b's g = 10 at d = 256 (64-key tiles), windowed
+    ({"b": 1, "sq": 700, "skv": 700, "hq": 10, "hkv": 1, "d": 256},
+     {"window": 200}),
+    # ragged sq = 1000, g = 10, causal
+    ({"b": 1, "sq": 1000, "skv": 1000, "hq": 10, "hkv": 1, "d": 128}, {}),
+    # non-causal at d = 64
+    ({"b": 1, "sq": 1000, "skv": 1000, "hq": 4, "hkv": 2, "d": 64},
+     {"causal": False}),
+    # non-causal with sq != skv, both ragged
+    ({"b": 1, "sq": 200, "skv": 333, "hq": 2, "hkv": 2, "d": 64},
+     {"causal": False}),
+]
+
+
+def _bf16_inputs(shape, seed=0):
+    inp = SPEC.example_inputs(shape=shape, seed=seed)
+    return [torch.from_numpy(inp[n]).to(torch.bfloat16)
+            for n in SPEC.arg_names]
+
+
+@pytest.mark.parametrize("shape,kw", EMULATED,
+                         ids=["g9_causal", "g10_d256_window",
+                              "g10_ragged_1000", "noncausal_d64",
+                              "noncausal_sq_ne_skv"])
+def test_wgmma_arithmetic_within_the_card_limit(chip_smoke, shape, kw):
+    """P in three bf16 pieces (the kernel's form) stays within the limit
+    `chip_smoke.py` holds the kernel to, 2 ulps of |want| in bf16 + 1e-6,
+    of the plain version on the same bf16 inputs; P rounded to bf16 once
+    (the JAX model's `attention_core` form) exceeds it."""
+    q, k, v = _bf16_inputs(shape)
+    want = ref.attention(q, k, v, **kw)
+    got = wgmma_emulation(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert chip_smoke.ulp_check(got, want)[2] <= 1.0
+    single = wgmma_emulation(q, k, v, pieces=1, **kw)
+    assert chip_smoke.ulp_check(single, want)[2] > 10.0
+
+
+def test_two_bf16_pieces_are_not_enough(chip_smoke):
+    """hi + lo (16 significant bits of P) misses the limit where outputs
+    near 0 are held to about 1e-6; hi + mid + lo does not."""
+    q, k, v = _bf16_inputs(EMULATED[0][0])
+    want = ref.attention(q, k, v)
+    assert chip_smoke.ulp_check(wgmma_emulation(q, k, v, pieces=2),
+                                want)[2] > 1.0
+    assert chip_smoke.ulp_check(wgmma_emulation(q, k, v, pieces=3),
+                                want)[2] <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["bf16_p", "drop_last_tile"])
+def test_chip_smoke_broken_variants_fail_the_limit(chip_smoke, fault):
+    """The two broken plain versions `chip_smoke.py` holds against the
+    limit on the card fail it here too; unbroken, the same code is the
+    plain version."""
+    shape = {"b": 1, "sq": 300, "skv": 300, "hq": 4, "hkv": 1, "d": 128}
+    q, k, v = _bf16_inputs(shape, seed=2)
+    want = ref.attention(q, k, v)
+    assert fault in chip_smoke.FLASH_FAULTS
+    assert chip_smoke.ulp_check(
+        chip_smoke.flash_variant(q, k, v, fault=fault), want)[2] > 1.0
+    torch.testing.assert_close(
+        chip_smoke.flash_variant(q, k, v, fault=None), want, atol=0, rtol=0)
+
+
+def test_chip_smoke_counts_noncausal_pairs(chip_smoke):
+    q = torch.zeros(2, 10, 3, 8)
+    k = torch.zeros(2, 12, 1, 8)
+    _, causal = chip_smoke.flash_bytes_and_flops(q, k, k)
+    _, full = chip_smoke.flash_bytes_and_flops(q, k, k, causal=False)
+    assert full == 4 * 2 * 3 * 8 * 10 * 12
+    assert causal == 4 * 2 * 3 * 8 * sum(range(1, 11))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16, torch.float64])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 200, 256])
+def test_route_is_chosen_by_dtype_and_head_dim(dtype, d):
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) \
+        else "simt"
+    assert route(dtype, d) == want
+    assert WGMMA_HEAD_DIMS == (64, 128, 256)
+
+
+def test_wgmma_route_needs_16_byte_aligned_tensors():
+    """TMA loads need 16-byte aligned bases: the wgmma route's check
+    refuses a misaligned tensor; the simt route does not need it."""
+    shape = {"b": 1, "sq": 8, "skv": 8, "hq": 2, "hkv": 1, "d": 64}
+    q, k, v = _bf16_inputs(shape)
+    base = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    shifted = base[1:].view(q.shape)              # 2 bytes past alignment
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    _check(q, k, v, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check(shifted, k, v, 0)
+    wide = torch.zeros(q.numel() // 2 + 1, dtype=torch.float32)[1:]
+    _check(wide.view(1, 8, 2, 32), k.float()[..., :32].contiguous(),
+           v.float()[..., :32].contiguous(), 0)         # simt: accepted
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-7b", "llama3-405b"])
