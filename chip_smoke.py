@@ -9,14 +9,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 1. device  — the card, ``nvidia-smi``'s name and power limit, versions.
    Builds the CUDA kernels from the sources in the checkout (into
-   ``build/kernels/``) and prints what ``ptxas -v`` reported.
+   ``build/kernels/``) and prints what ``ptxas -v`` reported, per paged
+   route with the dynamic shared memory its launch asks for.
 2. kernel  — each kernel against its plain PyTorch version on its spec's
    cases (paged attention: flat and layer-stacked pools; bf16 inputs
    against the fp32 plain version, held to the spec's tolerance), then
    at starcoder2-7b's shapes with the same inputs on both sides, held per
    element to 2 ulps of |want| in the output dtype: paged attention at
    b=4, hq=36, hkv=4, d=128, T=128, L=32 (mixed fast/slow pages, one dead
-   row) with 1, 4 and 128 query rows per sequence. Flash attention:
+   row) with 1, 4 and 128 query rows per sequence, each row checking the
+   route it took (`route`: split, wgmma or simt) and timed by
+   `device_ms` beside SDPA's; at k = 1 and 128 in bf16 three broken
+   plain variants (K's float tier in one bf16 piece, the last split
+   dropped, the int8 scale left off) must exceed the limit, and the
+   kernel before the redesign (the simt route) and the new route run in
+   10 alternating pairs; then edge shapes through the wgmma route (d =
+   64, 128, 256, a ragged block of rows, length 1, a dead row, 16-token
+   pages, bf16 pools) and the split route (g = 9 at lengths 1, 129, 384,
+   a page, 16-token pages with bf16 pools). Flash
+   attention:
    every spec case cast to bf16 and five edge shapes (sq != skv, one
    position, b=3 at d=256) through the route each takes (`route`: wgmma
    or simt), then b=1, s = 2048, 1000 (ragged) and 600, causal and
@@ -50,16 +61,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    tokens) with ``max_active=2`` and one prefill pass per prompt. Checks
    outputs, an empty pool, paged-attention launches == decode steps x
    layers, flash-attention launches == prefills x layers and 2 transfers
-   per steady token, every flash launch on the wgmma route. Then 16
-   decode steps of the same model (2 rows, 500-token context) timed bare
-   and under ``torch.profiler``: device busy share, kernels per step, the
-   largest kernels.
+   per steady token, every flash launch on the wgmma route and every
+   paged launch on the split route. Then 16 decode steps of the same
+   model (2 rows, 500-token context) timed bare and under
+   ``torch.profiler``: device busy share, kernels per step, the largest
+   kernels.
 5. chunked — the default ``serve`` path (chunked prefill + radix prefix
    cache) on 6 prompts sharing a 512-token head: prefix hit rate, chunk
    and decode step times, time to first token, an empty pool after
-   ``close``.
+   ``close``, the chunk-fill (k = 128) steps' paged launches on the wgmma
+   route and the others' on split; then 4 chunk-fill steps of 2 rows
+   traced (the paged kernel's share of the device's busy time).
 6. spec    — k = 4 speculative ``serve`` with n-gram drafts on the serve
-   phase's prompts: accept rate, tokens per verify step.
+   phase's prompts: accept rate, tokens per verify step; verify steps on
+   the split route, chunk-fill steps on wgmma.
 7. hybrid  — the hybrid stacks at full depth, bf16, seeded weights:
    mamba2-780m ``generate`` (prompts 256/700/1536, 32 new tokens) and
    the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
@@ -92,6 +107,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -125,6 +141,16 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "vadvc": (
         "src/repro_torch/kernels/vadvc/csrc/vadvc.cu",
         "src/repro/kernels/vadvc/vadvc.py:83"),
+}
+
+# routes whose kernel lives in a header the library's source includes
+ROUTE_SOURCES = {
+    ("paged_attention", "split"):
+        "src/repro_torch/kernels/paged_attention/csrc/paged_split.cuh",
+    ("paged_attention", "simt"):
+        "src/repro_torch/kernels/paged_attention/csrc/paged_simt.cuh",
+    ("flash_attention", "simt"):
+        "src/repro_torch/kernels/flash_attention/csrc/flash_simt.cuh",
 }
 
 
@@ -242,6 +268,47 @@ def over_ssd_limit(got, want) -> float:
 # ---------------------------------------------------------------------------
 # 1. device + build
 # ---------------------------------------------------------------------------
+def ptxas_by_kernel(log: str) -> dict:
+    """`ptxas -v`'s report per entry function (mangled name): registers,
+    stack frame and spill bytes."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+    return out
+
+
+def paged_ptxas(log: str) -> dict:
+    """Registers, spills and dynamic shared memory of each paged route's
+    kernels (ptxas reports only static shared memory; the dynamic size
+    is what the launch asks for at starcoder2-7b's shapes: d = 128, fp32
+    pools, k * g = 9 and 36 rows on split)."""
+    from repro_torch.kernels.paged_attention.paged_attention import _lib
+    lib = _lib()
+    smem = {"split": {f"rows={kg}": lib.paged_attention_split_smem(kg, 128, 0)
+                      for kg in (9, 36)},
+            "wgmma": {"d=128": lib.paged_attention_wgmma_smem(128, 0)}}
+    out = {}
+    for name, info in ptxas_by_kernel(log).items():
+        kind = ("split" if "split_kernel" in name else
+                "wgmma" if "wgmma_kernel" in name else "simt")
+        out.setdefault(kind, {"kernels": {}, "dynamic_smem": smem.get(kind)})
+        out[kind]["kernels"][name] = info
+    return out
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -260,7 +327,8 @@ def phase_device() -> dict:
             "nvidia_smi": smi, "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0], "build_s": build_s,
-            "ptxas": ptxas}
+            "ptxas": ptxas, "paged_ptxas": paged_ptxas(
+                (build.BUILD_DIR / "paged_attention.log").read_text())}
     emit(info)
     return info
 
@@ -350,6 +418,226 @@ def sdpa_yardstick(args, layer, rows: int = 1):
     mask = mask[:, None]                                # (b, 1, rows, s)
     qq = q.reshape(b, rows, hq, d).transpose(1, 2).contiguous()
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+
+
+# bf16 products the wgmma route issues per 64-position tile, by the part
+# of the tile that holds a nonzero value (a part that is zero throughout
+# the tile is skipped)
+WGMMA_PRODUCTS = {"k_float": 3, "k_int8": 1, "v_float": 6, "v_int8": 3}
+
+
+def paged_tc_products(args, layer, rows: int):
+    """The bf16 products the wgmma route issues on these inputs, and
+    their flops: per block (128 rows, kv head, sequence) and tile of 64
+    positions (16 at d = 256) up to the last position its last row sees,
+    `WGMMA_PRODUCTS` for each part of K and V holding a nonzero value;
+    each a 64-row product per warpgroup, 2 warpgroups a block, 2 * 64 *
+    tile * d flops."""
+    q, kf, vf, kq, vq = args[:5]
+    table, lens = args[7], args[8]
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    t, hkv = kf.shape[-3], kf.shape[-2]
+    g, bn = hq // hkv, 64 if d <= 128 else 16
+    kg = rows * g
+    tab = table.long()
+    span = tab.shape[1] * t
+
+    def nonzero(pool):                        # (b, positions, hkv)
+        return (pool[layer][tab] != 0).any(-1).reshape(b, span, hkv)
+
+    parts = [(nonzero(x), WGMMA_PRODUCTS[n]) for x, n in (
+        (kf, "k_float"), (kq, "k_int8"), (vf, "v_float"), (vq, "v_int8"))]
+    total = 0
+    for bi, n in enumerate(lens.tolist()):
+        for r0 in range(0, kg, 128):
+            end = min(n + (min(r0 + 128, kg) - 1) // g, span)
+            tiles = -(-end // bn)
+            for nz, w in parts:
+                m = torch.zeros(tiles * bn, hkv, dtype=torch.bool,
+                                device=nz.device)
+                m[:end] = nz[bi, :end]
+                total += w * int(m.view(tiles, bn, hkv).any(1).sum())
+    products = 2 * total
+    return products, products * 2 * 64 * bn * d
+
+
+PAGED_FAULTS = ("k_one_piece", "drop_last_split", "no_int8_scale")
+
+
+def paged_variant(args, layer, rows: int = 1, *, fault):
+    """The plain version broken on purpose, to show that
+    `same_input_limit` tells a right paged kernel from a wrong one:
+    "k_one_piece" rounds K's float tier to bf16 once (the wgmma route with
+    one piece of K), "drop_last_split" leaves out each sequence's
+    positions from the start of the split (`split_plan`) that holds its
+    last row's last position, "no_int8_scale" reads the int8 tier of K
+    without its scale."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        _sm_count, split_plan)
+    from repro_torch.kernels.paged_attention.ref import dequantize_pool
+    q, kf, vf, kq, vq, ks, vs, table, lens = args
+    kf, vf, kq, vq, ks, vs = (x[layer] for x in (kf, vf, kq, vq, ks, vs))
+    if fault == "k_one_piece":
+        kf = kf.to(torch.bfloat16).float()
+    if fault == "no_int8_scale":
+        ks = torch.ones_like(ks)
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    t, hkv = kf.shape[-3], kf.shape[-2]
+    g = hq // hkv
+    tab = table.long()
+    span = tab.shape[1] * t
+    k = dequantize_pool(kf[tab], kq[tab], ks[tab]).reshape(b, span, hkv, d)
+    v = dequantize_pool(vf[tab], vq[tab], vs[tab]).reshape(b, span, hkv, d)
+    qg = q.reshape(b, rows, hkv, g, d).float() * (1.0 / math.sqrt(d))
+    s = torch.einsum("bkhgd,bshd->bhkgs", qg, k)
+    pos = torch.arange(span, device=q.device)
+    limit = lens.long()[:, None] + torch.arange(rows, device=q.device)
+    ok = pos[None, None, :] < limit[..., None]              # (b, rows, S)
+    if fault == "drop_last_split":
+        _, chunk = split_plan(b, hkv, span, d, _sm_count(q.device.index))
+        last = (lens.long() + rows - 2) // chunk * chunk    # (b,)
+        ok &= (pos[None, :] < last[:, None])[:, None, :] | (last == 0)[
+            :, None, None]
+    s = torch.where(ok[:, None, :, None, :], s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhkgs,bshd->bkhgd", p, v)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def paged_broken_variants(args, layer, rows, label) -> dict:
+    """Each `paged_variant` against the plain version on the same inputs:
+    its error over `same_input_limit` must exceed 1."""
+    from repro_torch.kernels import api
+    want = api.run("paged_attention", *args, layer, backend="ref")
+    out = {}
+    for fault in PAGED_FAULTS:
+        err, tol, over = ulp_check(paged_variant(args, layer, rows,
+                                                 fault=fault), want)
+        out[fault] = over
+        emit({"phase": "kernel", "case": f"{label} broken: {fault}",
+              "kernel": "paged_attention", "fault": fault,
+              "max_abs_err": err, "max_err_over_limit": over})
+        if not over > 1.0:
+            raise AssertionError(f"{label}: the {fault} variant passes the "
+                                 f"limit ({over:.2f}x)")
+    return out
+
+
+def paged_before_after(args, layer, rows, label, pairs: int = 10) -> dict:
+    """The redesign against the kernel it replaced, on one card: the same
+    inputs through the simt route (the first kernel, unchanged, which
+    every call took before the redesign) and through
+    the route `route` picks, `pairs` pairs of `device_ms`, alternating
+    which runs first. Launched through the library directly, so no
+    launch counts."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        LOG2E, _lib, route, split_scratch)
+    lib = _lib()
+    q, kf = args[0], args[1]
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    pages, t, hkv = kf.shape[-4], kf.shape[-3], kf.shape[-2]
+    slots = args[7].shape[1]
+    kg = rows * (hq // hkv)
+    scale = 1.0 / math.sqrt(d)
+    q_bf16 = int(q.dtype == torch.bfloat16)
+    pool_bf16 = int(kf.dtype == torch.bfloat16)
+    out = torch.empty_like(q)
+    ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+    shape = (b, rows, hq, hkv, d, pages, t, slots, layer)
+    new = route(q.dtype, kg, d)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def simt():
+        if lib.paged_attention_launch(*ptrs, *shape, scale, q_bf16,
+                                      pool_bf16, stream):
+            raise RuntimeError("simt launch failed")
+
+    if new == "split":
+        splits, chunk, *scratch, _keep = split_scratch(
+            q.device, b, hkv, kg, d, slots * t)
+
+        def after():
+            if lib.paged_attention_split_launch(
+                    *ptrs, *scratch, *shape, scale, splits, chunk, q_bf16,
+                    pool_bf16, stream):
+                raise RuntimeError("split launch failed")
+    else:
+        def after():
+            if lib.paged_attention_wgmma_launch(
+                    *ptrs, *shape, scale * LOG2E, pool_bf16, stream):
+                raise RuntimeError("wgmma launch failed")
+
+    times = {"simt": [], new: []}
+    for i in range(pairs):
+        for name, fn in ((("simt", simt), (new, after)) if i % 2 == 0
+                         else ((new, after), ("simt", simt))):
+            times[name].append(device_ms(fn, calls=5, reps=3))
+    q1, q3 = np.percentile(times["simt"], [25, 75])
+    row = {"phase": "kernel", "case": f"{label}: simt (before) vs {new}",
+           "kernel": "paged_attention", "pairs": pairs, "device_ms": times,
+           "median_ms": {n: statistics.median(v) for n, v in times.items()},
+           "simt_iqr_ms": q3 - q1,
+           "new_route_wins": sum(w < s for w, s in zip(times[new],
+                                                       times["simt"]))}
+    emit(row)
+    if row["new_route_wins"] != pairs:
+        raise AssertionError(f"{label}: the {new} route won "
+                             f"{row['new_route_wins']} of {pairs} pairs")
+    return row
+
+
+# shapes in bf16 that reach the wgmma route (k * g > 64) and no spec case
+# has: d = 64, 128, 256; a ragged last block of rows; a row of length 1;
+# a dead row (length 1, zero table); pages shorter than a tile; bf16
+# pools; and split-route shapes at g = 9: lengths 1, a split edge, a
+# page + 1. (shape, rows, route, pools in bf16)
+PAGED_EDGE_CASES = (
+    (dict(b=3, hq=18, hkv=2, d=64, t=64, n_layers=2, lengths=[300, 1, 77],
+          dead=[1]), 40, "wgmma", False),
+    (dict(b=2, hq=36, hkv=4, d=128, t=128, n_layers=2, lengths=[1, 900],
+          dead=[]), 13, "wgmma", False),
+    (dict(b=2, hq=20, hkv=2, d=256, t=32, n_layers=2, lengths=[200, 1],
+          dead=[]), 13, "wgmma", False),
+    (dict(b=2, hq=9, hkv=1, d=128, t=16, n_layers=2, lengths=[150, 33],
+          dead=[]), 8, "wgmma", False),
+    (dict(b=2, hq=36, hkv=4, d=128, t=128, n_layers=2, lengths=[600, 1],
+          dead=[1]), 8, "wgmma", True),
+    (dict(b=3, hq=36, hkv=4, d=128, t=128, n_layers=2,
+          lengths=[1, 129, 384], dead=[0]), 1, "split", False),
+    (dict(b=2, hq=36, hkv=4, d=128, t=128, n_layers=2, lengths=[128, 1],
+          dead=[1]), 4, "split", False),
+    (dict(b=2, hq=36, hkv=4, d=128, t=16, n_layers=2, lengths=[300, 17],
+          dead=[]), 1, "split", True),
+)
+
+
+def paged_edge_cases():
+    """`PAGED_EDGE_CASES` through the route each must take, held to the
+    plain version on the same inputs by `same_input_limit`."""
+    from repro_torch.kernels import api
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for i, (shape, rows, expect, pool_bf16) in enumerate(PAGED_EDGE_CASES):
+        args = decode_inputs(gen, q_dtype=torch.bfloat16, rows=rows,
+                             **shape)
+        if pool_bf16:
+            for j in (1, 2, 5, 6):
+                args[j] = args[j].to(torch.bfloat16)
+        got = {}
+        taken = route_taken("paged_attention", lambda: got.setdefault(
+            "out", api.run("paged_attention", *args, 1,  # noqa: B023
+                           backend="cuda")))
+        want = api.run("paged_attention", *args, 1, backend="ref")
+        err, tol, over = ulp_check(got["out"], want)
+        emit({"phase": "kernel", "kernel": "paged_attention",
+              "case": f"edge {i}", "dtype": "bfloat16", "rows": rows,
+              "shape": shape, "pools": "bfloat16" if pool_bf16 else
+              "float32", "route": taken, "max_abs_err": err,
+              "tol": tol, "tol_rule": ULP_RULE, "max_err_over_limit": over})
+        if taken != expect or not over <= 1.0:
+            raise AssertionError(f"paged edge {shape} k={rows}: route "
+                                 f"{taken} (want {expect}), {over:.2f}x "
+                                 f"the limit")
 
 
 ULP_RULE = ("per element: 2 ulps of |want| in the output dtype + 1e-6; "
@@ -525,23 +813,21 @@ def ssd_bytes_and_flops(args):
     return nbytes, {FP32_FLOPS: cb + fp32}
 
 
-def flash_routes() -> dict:
-    """The flash wrapper's launch counts by route ("wgmma", "simt")."""
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
-    return dict(flash_attention.launches_by_route)
+def routes(kernel: str) -> dict:
+    """A kernel wrapper's launch counts by route ("wgmma", "simt", ...)."""
+    return dict(_counters()[kernel].launches_by_route)
 
 
-def flash_route_taken(fn) -> str:
-    """Run `fn`, which must launch the flash kernel once, and return the
-    route whose count rose."""
-    before = flash_routes()
+def route_taken(kernel: str, fn) -> str:
+    """Run `fn`, which must launch `kernel` once, and return the route
+    whose count rose."""
+    before = routes(kernel)
     fn()
     torch.cuda.synchronize()
-    after = flash_routes()
+    after = routes(kernel)
     taken = [r for r in after if after[r] != before[r]]
     if len(taken) != 1 or after[taken[0]] != before[taken[0]] + 1:
-        raise AssertionError(f"flash routes {before} -> {after}: want one "
+        raise AssertionError(f"{kernel} routes {before} -> {after}: want one "
                              f"launch")
     return taken[0]
 
@@ -608,8 +894,9 @@ def flash_cases_bf16():
               for shape, kw in FLASH_EDGE_CASES]
     for i, (shape, kw, args) in enumerate(cases):
         got = {}
-        taken = flash_route_taken(lambda: got.setdefault("out", api.run(
-            "flash_attention", *args, backend="cuda", **kw)))
+        taken = route_taken("flash_attention", lambda: got.setdefault(
+            "out", api.run("flash_attention", *args,  # noqa: B023
+                           backend="cuda", **kw)))  # noqa: B023
         want = api.run("flash_attention", *args, backend="ref", **kw)
         err, tol, over = ulp_check(got["out"], want)
         expect = route(torch.bfloat16, shape["d"])
@@ -704,14 +991,33 @@ def flash_bytes_and_flops(q, k, v, window: int = 0, causal: bool = True):
 
 
 def phase_kernel() -> dict:
-    from repro_torch.kernels import api
     spec_cases("paged_attention", _paged_case)
     spec_cases("flash_attention", _flash_case)
     gen = torch.Generator(device="cuda").manual_seed(0)
     full = {}
-    # paged attention at the starcoder2-7b shapes of the main path: one
-    # decode row, a k = 4 verify step and a k = 128 chunk-fill step (1152
-    # query rows per kv head, 18 blocks of 64 rows)
+    full.update(paged_full_width(gen))
+    paged_edge_cases()
+    flash_cases_bf16()
+    full.update(flash_full_width(gen))
+    full.update(scan_kernels())
+    torch.cuda.empty_cache()
+    return full
+
+
+def paged_full_width(gen) -> dict:
+    """Paged attention at the starcoder2-7b shapes of the main path (b=4,
+    36 query heads over 4 kv heads, d=128, 128-token pages, 32 layers,
+    mixed tiers, one dead row): one decode row, a k = 4 verify step (the
+    split route) and a k = 128 chunk-fill step (1152 query rows per kv
+    head: the wgmma route in bf16, simt in fp32). Each row checks its
+    route and is timed by `device_ms` beside SDPA's; the wgmma row adds
+    its bound at the bf16 peak and the products it issues. At k = 1 and
+    k = 128 in bf16 the broken variants must fail the limit the kernel
+    meets, and the simt route (the kernel before the redesign) and the
+    new route run in 10 alternating pairs."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.paged_attention.paged_attention import route
+    rows_out = {}
     shape = dict(b=4, hq=36, hkv=4, d=128, t=128, n_layers=32,
                  lengths=[2048, 700, 1, 1500], dead=[2])
     layer = 17
@@ -721,25 +1027,46 @@ def phase_kernel() -> dict:
             dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
             args = decode_inputs(gen, q_dtype=dtype, rows=rows, **shape)
             nbytes, flops = bytes_and_flops(args, rows)
-            full[("paged_attention", rows, name)] = compare_and_time(
-                f"paged_attention starcoder2-7b k={rows} {name}",
-                lambda: api.run("paged_attention", *args, layer,  # noqa
-                                backend="cuda"),
+
+            def kernel():
+                return api.run("paged_attention", *args, layer,  # noqa: B023
+                               backend="cuda")
+
+            taken = route_taken("paged_attention", kernel)
+            if taken != route(dtype, rows * 9, 128):
+                raise AssertionError(f"paged k={rows} {name}: route {taken}")
+            extra = {"kernel": "paged_attention", "rows": rows, "dtype": name,
+                     "route": taken, "shape": shape, "layer": layer,
+                     "library": "scaled_dot_product_attention over K/V "
+                                "gathered and dequantized beforehand "
+                                "(omits gather and dequant)"}
+            if taken == "wgmma":
+                products, tc_flops = paged_tc_products(args, layer, rows)
+                extra.update(
+                    bound_ms_fp32_peak=max(nbytes / HBM_BYTES_PER_S,
+                                           flops / FP32_FLOPS) * 1e3,
+                    bound_ms_bf16_peak=max(nbytes / HBM_BYTES_PER_S,
+                                           flops / BF16_FLOPS) * 1e3,
+                    bf16_products=products,
+                    bf16_products_per_tile=WGMMA_PRODUCTS,
+                    bf16_product_flops=tc_flops,
+                    bf16_product_ms_at_peak=tc_flops / BF16_FLOPS * 1e3)
+            label = f"paged_attention starcoder2-7b k={rows} {name}"
+            key = ("paged_attention", rows, name)
+            rows_out[key] = compare_and_time(
+                label, kernel,
                 lambda: api.run("paged_attention", *args, layer,  # noqa
                                 backend="ref"),
                 sdpa_yardstick(args, layer, rows), nbytes, flops,
-                FP32_FLOPS, {"kernel": "paged_attention", "rows": rows,
-                             "dtype": name, "shape": shape, "layer": layer,
-                             "library": "scaled_dot_product_attention over "
-                                        "K/V gathered and dequantized "
-                                        "beforehand (omits gather and "
-                                        "dequant)"})
+                FP32_FLOPS, extra, device=True)
+            if name == "bfloat16" and rows in (1, 128):
+                rows_out[key]["broken_over_limit"] = paged_broken_variants(
+                    args, layer, rows, label)
+                rows_out[key]["before_after"] = paged_before_after(
+                    args, layer, rows, label)
             del args
-    flash_cases_bf16()
-    full.update(flash_full_width(gen))
-    full.update(scan_kernels())
-    torch.cuda.empty_cache()
-    return full
+            torch.cuda.empty_cache()
+    return rows_out
 
 
 def flash_full_width(gen) -> dict:
@@ -772,7 +1099,7 @@ def flash_full_width(gen) -> dict:
                 return api.run("flash_attention", q, k, v, causal=causal,
                                backend="cuda")
 
-            taken = flash_route_taken(kernel)
+            taken = route_taken("flash_attention", kernel)
             if taken != route(dtype, 128):
                 raise AssertionError(f"s={sq} {name}: route {taken}")
             label = (f"flash_attention starcoder2-7b prefill s={sq} "
@@ -811,7 +1138,7 @@ def flash_full_width(gen) -> dict:
         return api.run("flash_attention", q, k, v, causal=True, window=2048,
                        backend="cuda")
 
-    taken = flash_route_taken(kernel)
+    taken = route_taken("flash_attention", kernel)
     if taken != "wgmma":
         raise AssertionError(f"recurrentgemma flash: route {taken}")
     rows[("flash_attention", "recurrentgemma", "bfloat16")] = \
@@ -1110,10 +1437,15 @@ def phase_serve() -> dict:
         raise AssertionError(f"{launches} launches for {steps} steps")
     if launches["flash_attention"] != len(reqs) * cfg.num_layers:
         raise AssertionError(f"{launches} launches for {len(reqs)} prefills")
-    routes = flash_routes()
-    if routes != {"wgmma": launches["flash_attention"], "simt": 0}:
-        raise AssertionError(f"flash launches by route {routes}: the bf16 "
+    flash = routes("flash_attention")
+    if flash != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise AssertionError(f"flash launches by route {flash}: the bf16 "
                              f"prefill must take the wgmma route")
+    paged = routes("paged_attention")
+    if paged != {"split": launches["paged_attention"], "wgmma": 0,
+                 "simt": 0}:
+        raise AssertionError(f"paged launches by route {paged}: decode must "
+                             f"take the split route")
     steady = eng.last_steady_transfers
     if not steady or any(s != (1, 1) for s in steady):
         raise AssertionError(f"steady-state transfers {steady}")
@@ -1137,7 +1469,8 @@ def phase_serve() -> dict:
            "init_s": init_s, "requests": len(reqs), "prompt_lengths": lengths,
            "max_new": 32, "max_active": 2, "page_tokens": 128,
            "wall_s": wall_s, "decode_steps": steps, "launches": launches,
-           "flash_launches_by_route": routes,
+           "flash_launches_by_route": flash,
+           "paged_launches_by_route": paged,
            "prefill_ms_per_request": eng.stats["prefill_s"] / len(reqs) * 1e3,
            "prefill_forward_ms_by_prompt": {
                "kernel": [statistics.median(ab["kernel"][2 * i:2 * i + 2])
@@ -1209,6 +1542,18 @@ def _check_outs(outs, reqs, vocab):
             raise AssertionError(f"bad output {o}")
 
 
+def check_paged_routes(run, n_layers) -> dict:
+    """A session's paged launches by route: its chunk-fill (k = 128) steps
+    on the wgmma route, its other steps (decode, k = 4 verify) on split."""
+    paged = routes("paged_attention")
+    chunk = len(run["wide_ms"])
+    want = {"split": (run["steps"] - chunk) * n_layers,
+            "wgmma": chunk * n_layers, "simt": 0}
+    if paged != want:
+        raise AssertionError(f"paged launches by route {paged}, want {want}")
+    return paged
+
+
 def phase_chunked(base) -> dict:
     """The reference's default `serve` path at full width: 6 requests whose
     prompts share a 512-token head (4 pages), prefilled in page-sized
@@ -1233,11 +1578,13 @@ def phase_chunked(base) -> dict:
     if launches["paged_attention"] != run["steps"] * cfg.num_layers or \
             launches["flash_attention"]:
         raise AssertionError(f"{launches} launches for {run['steps']} steps")
+    paged = check_paged_routes(run, cfg.num_layers)
     row = {"phase": "chunked", "config": "starcoder2-7b, 32 layers, bf16",
            "path": "default serve: chunked prefill + radix prefix cache",
            "requests": len(reqs), "shared_prefix": 512,
            "prompt_lengths": [len(r.prompt) for r in reqs], "max_new": 32,
            "max_active": 2, "page_tokens": 128, "launches": launches,
+           "paged_launches_by_route": paged,
            "steps": run["steps"], "chunk_steps": len(run["wide_ms"]),
            "prefix_hit_rate": run["hit_rate"], "wall_s": run["wall_s"],
            "ttft_ms": run["ttft_ms"],
@@ -1246,6 +1593,7 @@ def phase_chunked(base) -> dict:
            "decode_ms_per_step": statistics.mean(run["narrow_ms"]),
            "decode_steps": len(run["narrow_ms"])}
     emit(row)
+    row["profile"] = phase_profile(eng, steps=4, k=128)
     return row
 
 
@@ -1263,6 +1611,7 @@ def phase_spec(base) -> dict:
         raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
     if launches["paged_attention"] != run["steps"] * cfg.num_layers:
         raise AssertionError(f"{launches} launches for {run['steps']} steps")
+    paged = check_paged_routes(run, cfg.num_layers)
     proposed = sum(d["proposed"] for d in run["stats"])
     accepted = sum(d["accepted"] for d in run["stats"])
     decode_tokens = sum(d["tokens"] - 1 for d in run["stats"])
@@ -1270,8 +1619,8 @@ def phase_spec(base) -> dict:
     row = {"phase": "spec", "config": "starcoder2-7b, 32 layers, bf16",
            "path": "default serve, speculate=4, n-gram draft",
            "requests": len(reqs), "max_new": 32, "max_active": 2,
-           "launches": launches, "steps": run["steps"],
-           "chunk_steps": len(run["wide_ms"]),
+           "launches": launches, "paged_launches_by_route": paged,
+           "steps": run["steps"], "chunk_steps": len(run["wide_ms"]),
            "accept_rate": accepted / proposed if proposed else None,
            "tokens_per_step": decode_tokens / verify_steps,
            "per_request": [{k: d[k] for k in ("accept_rate",
@@ -1296,13 +1645,13 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
-    routes = flash_routes()
+    flash = routes("flash_attention")
     _check_outs(outs, reqs, eng.cfg.vocab_size)
     for name, n in n_layers_by_kernel.items():
         if launches[name] != n:       # one batched prefill per generate
             raise AssertionError(f"{launches} launches, want {name} == {n}")
-    if routes != {"wgmma": launches["flash_attention"], "simt": 0}:
-        raise AssertionError(f"flash launches by route {routes}: the bf16 "
+    if flash != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise AssertionError(f"flash launches by route {flash}: the bf16 "
                              f"windowed prefill must take the wgmma route")
     steps = eng.stats["decode_steps"] - st0["decode_steps"]
     store = eng.last_rec_store
@@ -1315,7 +1664,7 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
     h2d, d2h = eng.last_transfers
     seqs = list(range(seq0, eng._next_seq))
     return {"outs": outs, "launches": launches,
-            "flash_launches_by_route": routes, "steps": steps,
+            "flash_launches_by_route": flash, "steps": steps,
             "wall_s": wall_s, "seqs": seqs, "transfers": [h2d, d2h],
             "rec_store": dict(store),
             "prefill_ms_per_request":
@@ -1441,13 +1790,16 @@ def _union_us(intervals) -> float:
     return total
 
 
-def phase_profile(eng, steps: int = 16) -> dict:
-    """Decode steps of 2 rows at ~500 tokens of context, timed without
-    and then with `torch.profiler`: device busy share of the traced window
-    (union of kernel intervals over its wall time), kernels per step, the
-    port's kernels' share of the busy time and the kernels that take the
-    most device time. Any stack the engine serves (the hybrids' decode
-    runs none of the port's kernels: their recurrent and ring layers step
+def phase_profile(eng, steps: int = 16, k: int = 1) -> dict:
+    """Steps of 2 rows at ~500 tokens of context, timed without and then
+    with `torch.profiler`: device busy share of the traced window (union
+    of kernel intervals over its wall time), kernels per step, the paged
+    kernel's and the port's kernels' share of the busy time and the
+    kernels that take the most device time. ``k`` = 1: decode steps; k >
+    1: chunk-fill steps, each feeding k tokens a row through the k-row
+    step (`build_fused_step(k=...)`) as the default `serve()` feeds a
+    prompt chunk. Any stack the engine serves (the hybrids' decode runs
+    none of the port's kernels: their recurrent and ring layers step
     through plain PyTorch, as the reference's do through jnp)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1455,33 +1807,44 @@ def phase_profile(eng, steps: int = 16) -> dict:
                                                 build_fused_step,
                                                 extract_prefill_pages)
     cfg = eng.cfg
-    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+    rng = np.random.default_rng(3)
+    prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, 500)).astype(np.int32)).cuda()
-    state = PagedKVState(eng.kv_pool, 500 + 2 * steps + 8, eng.layout,
-                         cfg.num_kv_heads, cfg.head_dim, batch_hint=2)
+    state = PagedKVState(eng.kv_pool, 500 + (2 * steps + 3) * k + 8,
+                         eng.layout, cfg.num_kv_heads, cfg.head_dim,
+                         batch_hint=2, device=eng.device)
     logits, caches = eng.model.forward_prefill(prompts)
     seqs = [10_000, 10_001]
     extract_prefill_pages(eng.model, caches, state, seqs)
     del caches
-    step_fn = build_fused_step(eng.model, state.slots, layout=eng.layout)
+    step_fn = build_fused_step(eng.model, state.slots, k=k,
+                               layout=eng.layout)
     tok = torch.argmax(logits, -1).to(torch.int32)
     pos = 500
-    for _ in range(3):                              # warm-up
-        _, tok = state.run_fused(step_fn, tok, seqs, pos)
-        pos += 1
+
+    def one_step():
+        nonlocal tok, pos
+        if k == 1:
+            _, tok = state.run_fused(step_fn, tok, seqs, pos)
+        else:
+            chunk = rng.integers(0, cfg.vocab_size, (2, k)).astype(np.int32)
+            state.run_spec(step_fn, chunk, seqs, pos)
+            state.end_step(seqs, [k, k])
+        pos += k
+
+    for _ in range(3 if k == 1 else 1):              # warm-up
+        one_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        _, tok = state.run_fused(step_fn, tok, seqs, pos)
-        pos += 1
+        one_step()
     plain_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            _, tok = state.run_fused(step_fn, tok, seqs, pos)
-            pos += 1
+            one_step()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1498,8 +1861,8 @@ def phase_profile(eng, steps: int = 16) -> dict:
         state.free_seq(seq)
     row = {"phase": "profile", "config": f"{cfg.name}, {cfg.num_layers} "
            f"layers, {cfg.compute_dtype}", "rows": 2, "context": 500,
-           "steps": steps,
-           "decode_ms_per_step": plain_ms,
+           "k": k, "steps": steps,
+           ("decode_ms_per_step" if k == 1 else "chunk_step_ms"): plain_ms,
            "traced_ms_per_step": traced_s / steps * 1e3,
            "device_busy_share": busy_us / (traced_s * 1e6),
            "kernels_per_step": len(kernels) / steps,
@@ -1855,6 +2218,7 @@ def kernels_line(full, launches, stencil=None) -> dict:
     out = []
     for name, k in rows:
         source, replaces = KERNELS[name]
+        source = ROUTE_SOURCES.get((name, k.get("route")), source)
         out.append({
             "name": name, "route": "cuda", "impl": "cuda",
             "kernel_route": k.get("route", "simt"), "source": source,

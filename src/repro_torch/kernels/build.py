@@ -2,10 +2,12 @@
 
 Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface under ``build/kernels/`` at
-the repository root (listed in ``.gitignore``). A library's file name
-carries a digest of every file in its ``csrc/`` (the ``.cu`` and the
-headers it includes) and of the compiler flags, so an edited source or
-header rebuilds and an unchanged one is reused. All missing libraries
+the repository root (listed in ``.gitignore``), with ``kernels/include/``
+(headers shared by several kernels) on the include path. A library's
+file name carries a digest of every file in its ``csrc/``, of each
+shared header those files include (directly or through each other) and
+of the compiler flags, so an edited source or header rebuilds the
+kernels that use it and an unchanged one is reused. All missing libraries
 build at once, one ``nvcc`` per source started together. A failed build
 raises with the compiler's output; ``ptxas -v`` (registers, shared
 memory, spills) is kept beside each library as ``<name>.log``.
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +27,13 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def include_dir() -> Path:
+    return KERNELS_DIR / "include"
 
 
 def sources() -> dict[str, Path]:
@@ -40,11 +50,34 @@ def _nvcc() -> str:
     return nvcc
 
 
+def shared_headers(name: str) -> list[Path]:
+    """The files of `include_dir` that kernel `name`'s ``csrc/`` includes
+    (a quoted ``#include`` that its own directory does not resolve),
+    directly or through each other."""
+    csrc, inc = sources()[name].parent, include_dir()
+    todo = [p for p in csrc.rglob("*") if p.is_file()]
+    found: set[Path] = set()
+    while todo:
+        f = todo.pop()
+        for m in _INCLUDE.finditer(f.read_bytes()):
+            rel = m.group(1).decode()
+            h = inc / rel
+            if not (f.parent / rel).is_file() and h.is_file() \
+                    and h not in found:
+                found.add(h)
+                todo.append(h)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     csrc = sources()[name].parent
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
-        digest.update(f"\0{f.relative_to(csrc)}\0".encode())
+    files = [(f, f.relative_to(csrc)) for f in sorted(
+        p for p in csrc.rglob("*") if p.is_file())]
+    files += [(h, Path("include") / h.relative_to(include_dir()))
+              for h in shared_headers(name)]
+    for f, rel in files:
+        digest.update(f"\0{rel}\0".encode())
         digest.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -61,7 +94,8 @@ def build_all() -> dict[str, Path]:
         for name, lib in missing.items():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])],
+                [nvcc, *NVCC_FLAGS, "-I", str(include_dir()), "-o", str(tmp),
+                 str(sources()[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, proc) in procs.items():

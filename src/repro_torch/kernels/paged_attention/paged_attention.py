@@ -1,12 +1,24 @@
-"""Paged decode attention: the wrapper of the CUDA kernel in
+"""Paged attention: the wrapper of the CUDA kernels in
 ``csrc/paged_attention.cu``.
 
-On CUDA tensors `paged_attention` checks its arguments, allocates the
-output and launches the kernel on the current stream, or raises: there
-is no fallback. On CPU tensors it runs the plain version
-(`repro_torch.kernels.paged_attention.ref`). ``paged_attention.launches``
-counts kernel launches and ``paged_attention.plain_calls`` the calls
-that went to the plain version because the tensors lay on the CPU.
+Three routes, chosen by `route` from q's dtype, the query rows per kv
+head (k * g) and the head dim alone: "split" (``csrc/paged_split.cuh``)
+for at most 64 rows (decode, the k = 4 verify) at head dims 16-256 that
+are powers of two, the positions split over blocks whose count `split_plan`
+takes from static shapes (never from the lengths, which would be a read
+from the card); "wgmma" (the Hopper tensor-core kernel of
+``csrc/paged_attention.cu``) for bf16 q at more rows (chunk-fill steps)
+and head dims 64, 128, 256; "simt" (``csrc/paged_simt.cuh``, the first
+port) for the rest. On CUDA tensors `paged_attention` checks its
+arguments, allocates the output and launches its route's kernel on the
+current stream, or raises: no route is ever taken because another
+failed, and there is no fallback to the plain version. On CPU tensors it
+runs the plain version (`repro_torch.kernels.paged_attention.ref`).
+``paged_attention.launches`` counts kernel launches (one per call),
+``paged_attention.launches_by_route`` splits them by route, and
+``paged_attention.plain_calls`` counts the calls that went to the plain
+version because the tensors lay on the CPU. The split route's launches
+on one device share a counter buffer: launch them on one stream.
 """
 from __future__ import annotations
 
@@ -19,7 +31,77 @@ import torch
 from repro_torch.kernels.paged_attention import ref
 
 MAX_HEAD_DIM = 256
+ROUTES = ("split", "wgmma", "simt")
+SPLIT_MAX_ROWS = 64          # k * g rows per kv head on the split route
+SPLIT_HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_SPLITS = 64              # split::kMaxSplits
+WGMMA_HEAD_DIMS = (64, 128, 256)
+LOG2E = math.log2(math.e)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def route(q_dtype, rows: int, d: int) -> str:
+    """The kernel a launch takes for `rows` = k * g query rows per kv head
+    at head dim `d`: "split" for at most 64 rows at d in
+    `SPLIT_HEAD_DIMS`, "wgmma" for bf16 q at more rows and d in
+    `WGMMA_HEAD_DIMS`, else "simt"."""
+    if rows <= SPLIT_MAX_ROWS:
+        return "split" if d in SPLIT_HEAD_DIMS else "simt"
+    if q_dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def split_tile(d: int) -> int:
+    """Positions per tile of the split route (split::tile_positions)."""
+    return 32 if d <= 128 else 16
+
+
+def split_plan(b: int, hkv: int, positions: int, d: int,
+               sms: int) -> tuple[int, int]:
+    """(splits, positions per split) for the split route: enough splits
+    that b * hkv * splits blocks fill `sms` SMs twice, at most one per
+    tile of the table's `positions` (slots * T) and `MAX_SPLITS`; each
+    split a whole number of tiles, together covering every position."""
+    tp = split_tile(d)
+    want = -(-2 * sms // (b * hkv))
+    splits = max(1, min(want, -(-positions // tp), MAX_SPLITS))
+    chunk = -(-(-(-positions // splits)) // tp) * tp
+    return -(-positions // chunk), chunk
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict = {}     # device index -> int32 zeros, one per (b, kv head)
+
+
+def split_scratch(device, b: int, hkv: int, kg: int, d: int,
+                  positions: int) -> tuple:
+    """The split route's plan and scratch for a launch: ``(splits, chunk,
+    (m, l) pointer, accumulator pointer, counters pointer, keep)``; the
+    pointers stay valid while ``keep`` is referenced."""
+    splits, chunk = split_plan(b, hkv, positions, d, _sm_count(device.index))
+    # (m, l) of every split's rows, then (16-byte aligned) their
+    # accumulators; one split writes O itself and needs none
+    n_rows = b * hkv * splits * kg if splits > 1 else 0
+    n_ml = -(-2 * n_rows // 4) * 4
+    part = torch.empty(n_ml + n_rows * d, device=device)
+    counters = _counters(device, b * hkv)
+    return (splits, chunk, part.data_ptr(), part.data_ptr() + 4 * n_ml,
+            counters.data_ptr(), (part, counters))
+
+
+def _counters(device, n: int):
+    """The split route's completion counters: zeros, which every launch
+    leaves at zero."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
 
 
 @functools.cache
@@ -31,6 +113,14 @@ def _lib():
         [vp] * 10 + [i32] * 5 + [i64, i32, i32, i64, ctypes.c_float,
                                  i32, i32, vp])
     lib.paged_attention_launch.restype = i32
+    lib.paged_attention_split_launch.argtypes = (
+        [vp] * 13 + [i32] * 5 + [i64, i32, i32, i64, ctypes.c_float]
+        + [i32] * 4 + [vp])
+    lib.paged_attention_split_launch.restype = i32
+    lib.paged_attention_wgmma_launch.argtypes = (
+        [vp] * 10 + [i32] * 5 + [i64, i32, i32, i64, ctypes.c_float, i32,
+                                 vp])
+    lib.paged_attention_wgmma_launch.restype = i32
     lib.paged_attention_error_string.argtypes = [i32]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,6 +179,17 @@ def _check(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
                          f"{tuple(lengths.shape)} for a batch of {b}")
     if stacked and not 0 <= int(layer) < pool_shape[0]:
         raise ValueError(f"layer {int(layer)} outside {pool_shape[0]} layers")
+    rows = (q.shape[1] if q.ndim == 4 else 1) * (hq // hkv)
+    kind = route(q.dtype, rows, d)
+    if kind != "simt":
+        # 16-byte copies of pool rows (and, on the wgmma route, of q rows)
+        names = ("k_pages", "v_pages", "k_quant", "v_quant") + (
+            ("q",) if kind == "wgmma" else ())
+        for name in names:
+            if tensors[name].data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned: the {kind} "
+                                 f"route loads it 16 bytes at a time")
+    return kind
 
 
 def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
@@ -101,30 +202,47 @@ def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
         return ref.paged_attention(q, k_pages, v_pages, k_quant, v_quant,
                                    k_scale, v_scale, page_table, lengths,
                                    layer, softmax_scale=softmax_scale)
-    _check(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
-           page_table, lengths, layer)
+    kind = _check(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
+                  page_table, lengths, layer)
     rows = q.shape[1] if q.ndim == 4 else 1
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     pages, t, hkv = k_pages.shape[-4], k_pages.shape[-3], k_pages.shape[-2]
+    slots = page_table.shape[1]
     lib = _lib()
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.paged_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_quant.data_ptr(), v_quant.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, rows, hq, hkv, d, pages, t,
-            page_table.shape[1], 0 if layer is None else int(layer), scale,
-            int(q.dtype == torch.bfloat16),
-            int(k_pages.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr())
+    lyr = 0 if layer is None else int(layer)
+    q_bf16 = int(q.dtype == torch.bfloat16)
+    pool_bf16 = int(k_pages.dtype == torch.bfloat16)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "split":
+            splits, chunk, *scratch, _keep = split_scratch(
+                q.device, b, hkv, rows * (hq // hkv), d, slots * t)
+            err = lib.paged_attention_split_launch(
+                *ptrs, *scratch, b, rows, hq, hkv, d, pages, t, slots, lyr,
+                scale, splits, chunk, q_bf16, pool_bf16, stream)
+        elif kind == "wgmma":
+            err = lib.paged_attention_wgmma_launch(
+                *ptrs, b, rows, hq, hkv, d, pages, t, slots, lyr,
+                scale * LOG2E, pool_bf16, stream)
+        else:
+            err = lib.paged_attention_launch(
+                *ptrs, b, rows, hq, hkv, d, pages, t, slots, lyr, scale,
+                q_bf16, pool_bf16, stream)
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
+        raise RuntimeError(f"paged_attention kernel launch failed ({kind} "
+                           f"route): "
                            f"{lib.paged_attention_error_string(err).decode()}")
     paged_attention.launches += 1
+    paged_attention.launches_by_route[kind] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 paged_attention.plain_calls = 0

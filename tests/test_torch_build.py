@@ -1,7 +1,8 @@
 """`repro_torch.kernels.build`: a kernel's library is named by a digest of
-every file in its ``csrc/`` and of the compiler flags, so an edited
-header rebuilds it; run on a copy of the flash-attention sources under
-``tmp_path`` with a stand-in compiler (there is no ``nvcc`` here)."""
+every file in its ``csrc/``, of the shared headers of ``kernels/include/``
+it includes and of the compiler flags, so an edited header rebuilds the
+kernels that use it and no other; run on copies of the kernel sources
+under ``tmp_path`` with a stand-in compiler (there is no ``nvcc`` here)."""
 import os
 import shutil
 import stat
@@ -63,6 +64,43 @@ def test_library_path_digests_every_csrc_file_and_the_flags(kernels,
                         build.NVCC_FLAGS + ("-I/usr/local/cutlass/include",))
     assert build.library_path("flash_attention") not in (first, edited,
                                                          added)
+
+
+@pytest.fixture
+def three_kernels(tmp_path, monkeypatch):
+    """A kernels directory holding copies of the flash- and paged-attention
+    and hdiff sources and of the shared headers."""
+    root = tmp_path / "kernels"
+    for name in ("flash_attention", "paged_attention", "hdiff"):
+        shutil.copytree(build.KERNELS_DIR / name / "csrc",
+                        root / name / "csrc")
+    shutil.copytree(build.include_dir(), root / "include")
+    monkeypatch.setattr(build, "KERNELS_DIR", root)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    return root
+
+
+def test_shared_header_edit_changes_only_the_kernels_that_include_it(
+        three_kernels):
+    names = ("flash_attention", "paged_attention", "hdiff")
+    header = three_kernels / "include" / "hopper.cuh"
+    for name in ("flash_attention", "paged_attention"):
+        assert build.shared_headers(name) == [header]
+    assert build.shared_headers("hdiff") == []
+    before = {n: build.library_path(n) for n in names}
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["paged_attention"] != before["paged_attention"]
+    assert after["hdiff"] == before["hdiff"]
+
+
+def test_build_all_puts_the_shared_headers_on_the_include_path(
+        three_kernels, fake_nvcc):
+    build.build_all()
+    calls = _calls(fake_nvcc)
+    assert len(calls) == 3
+    assert all(f"-I {three_kernels / 'include'} " in c for c in calls)
 
 
 def test_build_all_rebuilds_after_a_header_edit_only(kernels, fake_nvcc):

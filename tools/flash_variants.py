@@ -177,7 +177,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = build(names, kbuild._nvcc(), kbuild.NVCC_FLAGS,
+    libs = build(names, kbuild._nvcc(),
+                 kbuild.NVCC_FLAGS + ("-I", str(kbuild.include_dir())),
                  Path(tempfile.mkdtemp()))
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = [(dict(b=2, sq=300, skv=300, hq=4, hkv=2, d=64), True, 0),
