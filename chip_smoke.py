@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 1. device  — the card, ``nvidia-smi``'s name and power limit, versions.
    Builds the CUDA kernels from the sources in the checkout (into
    ``build/kernels/``) and prints what ``ptxas -v`` reported, per paged
-   route with the dynamic shared memory its launch asks for.
+   route with the dynamic shared memory its launch asks for, per scan
+   kernel with the SSD wgmma route's chunk-scan shared memory.
 2. kernel  — each kernel against its plain PyTorch version on its spec's
    cases (paged attention: flat and layer-stacked pools; bf16 inputs
    against the fp32 plain version, held to the spec's tolerance), then
@@ -38,16 +39,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    128-key tile dropped) must exceed the limit, and at s = 2048 and at
    recurrentgemma's shape the kernel bf16 took before the redesign (the
    simt route) and the wgmma route run in 10 alternating pairs. The SSD
-   scan (5 spec cases, then mamba2-780m's B=1, S=2048, H=48, P=64, G=1,
-   N=128 in bf16 and fp32, ragged S=1000 and the generate prefill's B=3,
-   S=1536; y and the final state) and the RG-LRU
-   scan (5 spec cases, then W=2560 at S=2048, ragged S=1000 and the
-   generate prefill's B=2, S=2300). The SSD scan chunks differently from
-   its plain version, so it is held to a limit scaled by max |want| and
-   sqrt(S) (`ssd_limit`), which two deliberately broken chunk loops
-   (`ssd_chunk_loop`) must exceed. Times kernel, plain version and one
-   PyTorch call (``scaled_dot_product_attention``; none computes either
-   scan) with CUDA events, in alternation within one run.
+   scan (5 spec cases, on the simt route; five edge shapes on the wgmma
+   route: S < the chunk, S = 1, G = 2, N = 64, B = 3 ragged; then
+   mamba2-780m's B=1, S=2048, H=48, P=64, G=1, N=128 in bf16 (wgmma)
+   and fp32 (simt), ragged S=1000 and the generate prefill's B=3,
+   S=1536; y and the final state) and the RG-LRU scan (5 spec cases,
+   serial at S = 1 and 4, chunked above; three edge shapes on the
+   chunked route; then W=2560 at S=2048, ragged S=1000 and the generate
+   prefill's B=2, S=2300), each row checking the route it took and
+   timed by `device_ms`. The SSD scan chunks differently from its plain
+   version, so it is held to a limit scaled by max |want| and sqrt(S)
+   (`ssd_limit`), which deliberately broken loops must exceed: the simt
+   route's 64-chunk loop (`ssd_chunk_loop`) without an inter-chunk term
+   or the ragged chunk, the wgmma route's arithmetic (`ssd_wgmma_loop`)
+   with a chunk left out of the state pass or the scores or w . x in
+   one bf16 piece (h_prev in one piece is recorded: the limit does not
+   reject it). The RG-LRU scan is held to 2 ulps, which the chunked
+   loop with a dropped carry (`rglru_chunked_loop`) must exceed. At the
+   generate prefills' shapes the kernel before the redesign (simt,
+   serial) and the new route run in 10 alternating pairs. Times kernel,
+   plain version and one PyTorch call (``scaled_dot_product_attention``;
+   none computes either scan) in alternation within one run.
 3. exact   — starcoder2-7b at full width, 2 layers, fp32, seeded weights:
    identical greedy tokens with the kernels and with the plain versions
    for ``generate``, monolithic ``serve``, the default chunked + radix
@@ -80,11 +92,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
    ``generate`` (prompts 2300 and 1000, 40 new tokens: a ring page drops
    during decode) and the default ``serve`` (3 short prompts). Checks
-   SSD / RG-LRU / flash launches per prefill (flash on the wgmma
-   route), no scan launch from ``serve`` (its prompts stream through
-   the one-token cores, as in the reference), 2 transfers per steady
-   token, no recurrent-store readback, live ring pages within
-   ``ring_pages()``.
+   SSD / RG-LRU / flash launches per prefill (SSD and flash on the wgmma
+   route, RG-LRU on the chunked route), no scan launch from ``serve``
+   (its prompts stream through the one-token cores, as in the
+   reference), 2 transfers per steady token, no recurrent-store
+   readback, live ring pages within ``ring_pages()``.
 
 8. stencil — NERO's COSMO stencils, hdiff and vadvc: every spec case at
    every tile of the kernel's tune space that fits, held to the plain
@@ -151,6 +163,10 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/paged_attention/csrc/paged_simt.cuh",
     ("flash_attention", "simt"):
         "src/repro_torch/kernels/flash_attention/csrc/flash_simt.cuh",
+    ("ssd_scan", "simt"):
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_simt.cuh",
+    ("rglru_scan", "serial"):
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_serial.cuh",
 }
 
 
@@ -265,6 +281,122 @@ def over_ssd_limit(got, want) -> float:
                / ssd_limit(w, s_len) for g, w in zip(got, want))
 
 
+def bf16_pieces(t, n: int):
+    """fp32 `t` as n bf16 pieces (returned as fp32 tensors): each the bf16
+    rounding of what the pieces before it left, as the kernels'
+    `split_pieces` cuts an operand for the tensor cores."""
+    out, rest = [], t.float()
+    for _ in range(n):
+        p = rest.to(torch.bfloat16).float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def ssd_wgmma_loop(x, b_mat, c_mat, dt, a, *, chunk=None, pieces=None,
+                   score_pieces=None, wx_pieces=None, state_pieces=None,
+                   fault=None):
+    """The ssd_scan kernel's wgmma route in plain PyTorch: chunks of
+    `chunk` positions (the last one short), all chunks at once; the chunk
+    states (w . x)^T B with w . x in `wx_pieces` bf16 pieces; the state
+    pass over the chunks in fp32; y = exp(cum_i) C_i . h_prev (h_prev in
+    `state_pieces` pieces) + s . x, the scores s in `score_pieces` pieces.
+    Each product of pieces is exact in fp32 (bf16 x bf16), as on the
+    tensor cores; x, B and C are taken as given (bf16 on the route).
+    Unset piece counts are `pieces`, by default the route's. ``fault``
+    breaks it on purpose, in the design's own way: "skip_state_chunk"
+    leaves chunk 1's state out of the state pass, "one_piece_state" takes
+    h_prev in one bf16 piece."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import WGMMA_CHUNK, \
+        WGMMA_PIECES
+    Q = chunk or WGMMA_CHUNK
+    pieces = pieces or WGMMA_PIECES
+    score_pieces = score_pieces or pieces
+    wx_pieces = wx_pieces or pieces
+    state_pieces = 1 if fault == "one_piece_state" else \
+        (state_pieces or pieces)
+    B, S, H, P = x.shape
+    G, N = b_mat.shape[2], b_mat.shape[3]
+    rep = H // G
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((B, pad) + t.shape[2:])], dim=1)
+        return t.reshape((B, nc, Q) + t.shape[2:])
+
+    xc, bc, cc, dtc = chunks(x), chunks(b_mat), chunks(c_mat), chunks(dt)
+    bh = bc.repeat_interleave(rep, dim=3)                 # (B, nc, Q, H, N)
+    ch = cc.repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dtc * a.float(), dim=2)            # (B, nc, Q, H)
+    last = cum[:, :, -1:]
+    # 1. chunk states
+    wx = (torch.exp(last - cum) * dtc)[..., None] * xc    # (B, nc, Q, H, P)
+    states = sum(torch.einsum("bcqhp,bcqhn->bchpn", piece, bh)
+                 for piece in bf16_pieces(wx, wx_pieces))
+    # 2. state pass
+    decay = torch.exp(last[:, :, 0])                      # (B, nc, H)
+    h = torch.zeros(B, H, P, N, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        add = 0.0 if fault == "skip_state_chunk" and c == 1 else states[:, c]
+        h = h * decay[:, c, :, None, None] + add
+    h_prev = torch.stack(h_prev, dim=1)                   # (B, nc, H, P, N)
+    # 3. chunk scan
+    inter = sum(torch.einsum("bcqhn,bchpn->bcqhp", ch, piece)
+                for piece in bf16_pieces(h_prev, state_pieces))
+    y = inter * torch.exp(cum)[..., None]
+    cb = torch.einsum("bcihn,bcjhn->bchij", ch, bh)
+    ii = torch.arange(Q, device=x.device)[:, None]
+    jj = torch.arange(Q, device=x.device)[None, :]
+    diff = torch.where((ii >= jj)[None, None, None],
+                       cum.permute(0, 1, 3, 2)[..., :, None]
+                       - cum.permute(0, 1, 3, 2)[..., None, :],
+                       float("-inf"))
+    s = cb * torch.exp(diff) * dtc.permute(0, 1, 3, 2)[..., None, :]
+    y = y + sum(torch.einsum("bchij,bcjhp->bcihp", piece, xc)
+                for piece in bf16_pieces(s, score_pieces))
+    return y.reshape(B, nc * Q, H, P)[:, :S], h
+
+
+RGLRU_FAULTS = ("drop_carry",)
+
+
+def rglru_chunked_loop(a, b, chunk=None, fault=None):
+    """The rglru_scan kernel's chunked route in plain PyTorch, step for
+    step (a product, then a sum, each rounded to fp32): per chunk of
+    `chunk` positions the product of its a's and its scan from zero, the
+    carry chained over the chunks, then each chunk's recurrence from its
+    carry. ``fault`` "drop_carry" sets the carry entering the middle chunk
+    to 0, to show that `same_input_limit` catches such a kernel."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import CHUNK
+    L = chunk or CHUNK
+    B, S, W = a.shape
+    nc = -(-S // L)
+    pad = nc * L - S
+    ac = torch.cat([a.float(), a.new_ones(B, pad, W)], 1).reshape(B, nc, L, W)
+    bc = torch.cat([b.float(), b.new_zeros(B, pad, W)], 1).reshape(B, nc, L,
+                                                                   W)
+    local = torch.zeros(B, nc, W, device=a.device)
+    prod = torch.ones(B, nc, W, device=a.device)
+    for t in range(L):
+        local = ac[:, :, t] * local + bc[:, :, t]
+        prod = prod * ac[:, :, t]
+    carry = [torch.zeros(B, W, device=a.device)]
+    for c in range(1, nc):
+        carry.append(prod[:, c - 1] * carry[-1] + local[:, c - 1])
+    if fault == "drop_carry":
+        carry[nc // 2] = torch.zeros_like(carry[0])
+    h = torch.stack(carry, dim=1)                          # (B, nc, W)
+    out = torch.empty(B, nc, L, W, device=a.device)
+    for t in range(L):
+        h = ac[:, :, t] * h + bc[:, :, t]
+        out[:, :, t] = h
+    return out.reshape(B, nc * L, W)[:, :S]
+
+
 # ---------------------------------------------------------------------------
 # 1. device + build
 # ---------------------------------------------------------------------------
@@ -309,6 +441,25 @@ def paged_ptxas(log: str) -> dict:
     return out
 
 
+def scan_ptxas(build) -> dict:
+    """Registers and spills of each scan kernel (`ptxas -v`), the
+    warpgroup arrives ptxas added to the SSD kernels, and the
+    dynamic shared memory of the SSD wgmma route's chunk-scan block (its
+    largest) at its chunk and pieces, N = 128 and 64."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import _lib
+    logs = {name: (build.BUILD_DIR / f"{name}.log").read_text()
+            for name in ("ssd_scan", "rglru_scan")}
+    out = {name: ptxas_by_kernel(log) for name, log in logs.items()}
+    # ptxas note C7519: a warpgroup.arrive it added before a wgmma that
+    # reads registers written since the last one
+    for fn in re.findall(r"C7519\).*in function '([^']+)'", logs["ssd_scan"]):
+        entry = out["ssd_scan"].setdefault(fn, {})
+        entry["wgmma_arrives_added"] = entry.get("wgmma_arrives_added", 0) + 1
+    out["ssd_wgmma_scan_smem"] = {f"N={n}": _lib().ssd_scan_wgmma_smem(n)
+                                  for n in (128, 64)}
+    return out
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -321,14 +472,16 @@ def phase_device() -> dict:
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in
                     (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if ("registers" in ln or "spill" in ln)
+                    and "C7519" not in ln]
              for name in libs if (build.BUILD_DIR / f"{name}.log").exists()}
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi, "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0], "build_s": build_s,
             "ptxas": ptxas, "paged_ptxas": paged_ptxas(
-                (build.BUILD_DIR / "paged_attention.log").read_text())}
+                (build.BUILD_DIR / "paged_attention.log").read_text()),
+            "scan_ptxas": scan_ptxas(build)}
     emit(info)
     return info
 
@@ -721,12 +874,13 @@ def spec_cases(name, run_case):
         args = [torch.from_numpy(v).cuda() for v in inputs.values()]
         want = api.run(name, *args, backend="ref", **case.kwargs)
         errs = run_case(spec, case, args, want, dtypes[case.dtype])
+        taken = errs.pop("route", None)
         tol = spec.tol[case.dtype]
         err = max(errs.values())
         emit({"phase": "kernel", "kernel": name, "case": i,
               "shape": dict(case.shape), "kwargs": dict(case.kwargs),
               "dtype": case.dtype, "max_abs_err": errs, "tol": tol,
-              "ok": err <= tol})
+              "ok": err <= tol, **({"route": taken} if taken else {})})
         if not err <= tol:
             raise AssertionError(f"{name} case {i}: error {err} > tol {tol}")
 
@@ -761,19 +915,34 @@ def _flash_case(spec, case, args, want, dtype):
 
 
 def _ssd_case(spec, case, args, want, dtype):
-    """y and the final state of the kernel against the plain version."""
+    """y and the final state of the kernel against the plain version,
+    through the route the case takes (fp32: simt)."""
     from repro_torch.kernels import api
-    got = api.run(spec.name, *args, backend="cuda")
-    torch.cuda.synchronize()
-    return {part: (g - w).abs().max().item()
-            for part, g, w in zip(("y", "state"), got, want)}
+    from repro_torch.kernels.ssd_scan.ssd_scan import route
+    got = {}
+    taken = route_taken("ssd_scan", lambda: got.setdefault(
+        "out", api.run(spec.name, *args, backend="cuda")))
+    B, S, H, P = args[0].shape
+    expect = route(args[0].dtype, S, P, args[1].shape[3], args[1].shape[2])
+    if taken != expect:
+        raise AssertionError(f"ssd_scan {dict(case.shape)}: route {taken}, "
+                             f"want {expect}")
+    return {"route": taken, **{part: (g - w).abs().max().item()
+                               for part, g, w in zip(("y", "state"),
+                                                     got["out"], want)}}
 
 
 def _rglru_case(spec, case, args, want, dtype):
+    """The kernel against the plain version through the route the case
+    takes (S up to one chunk: serial, else chunked)."""
     from repro_torch.kernels import api
-    got = api.run(spec.name, *args, backend="cuda")
-    torch.cuda.synchronize()
-    return {"h": (got - want).abs().max().item()}
+    from repro_torch.kernels.rglru_scan.rglru_scan import route
+    got = {}
+    taken = route_taken("rglru_scan", lambda: got.setdefault(
+        "out", api.run(spec.name, *args, backend="cuda")))
+    if taken != route(args[0].shape[1]):
+        raise AssertionError(f"rglru_scan {dict(case.shape)}: route {taken}")
+    return {"route": taken, "h": (got["out"] - want).abs().max().item()}
 
 
 def ssd_inputs(shape, dtype, seed):
@@ -1163,13 +1332,154 @@ def flash_full_width(gen) -> dict:
     return rows
 
 
-def scan_kernels() -> dict:
-    """The SSD and RG-LRU scans: spec cases, then full width against the
-    plain versions (SSD: `ssd_limit`, and the two broken chunk loops must
-    exceed it; RG-LRU: 2 ulps, as the two round alike)."""
+# shapes of the SSD scan's wgmma route that mamba2's prefill does not show:
+# S shorter than a chunk, one position, G = 2, N = 64, a chunk and one
+# position, B = 3 with a ragged last chunk
+SSD_EDGE_CASES = (
+    {"B": 1, "S": 50, "H": 4, "P": 64, "G": 1, "N": 128},
+    {"B": 1, "S": 1, "H": 4, "P": 64, "G": 1, "N": 128},
+    {"B": 2, "S": 300, "H": 6, "P": 64, "G": 2, "N": 128},
+    {"B": 2, "S": 129, "H": 4, "P": 64, "G": 1, "N": 64},
+    {"B": 3, "S": 1000, "H": 8, "P": 64, "G": 2, "N": 64},
+)
+# shapes of the RG-LRU scan's chunked route (B, S, W): one position past
+# whole chunks (65, 129), W not a multiple of the block, B = 3 ragged
+RGLRU_EDGE_CASES = ((1, 65, 100), (3, 1000, 130), (2, 129, 2560))
+
+
+def ssd_edge_cases():
+    """`SSD_EDGE_CASES` in bf16 through the wgmma route, held to the plain
+    version on the same inputs by `ssd_limit`."""
     from repro_torch.kernels import api
+    for i, shape in enumerate(SSD_EDGE_CASES):
+        args = ssd_inputs(shape, torch.bfloat16, seed=100 + i)
+        got = {}
+        taken = route_taken("ssd_scan", lambda: got.setdefault(  # noqa: B023
+            "out", api.run("ssd_scan", *args, backend="cuda")))  # noqa: B023
+        err, tol, over = ssd_check(got["out"], api.run("ssd_scan", *args,
+                                                      backend="ref"))
+        emit({"phase": "kernel", "kernel": "ssd_scan", "case": f"edge {i}",
+              "dtype": "bfloat16", "shape": shape, "route": taken,
+              "max_abs_err": err, "tol": tol, "tol_rule": SSD_LIMIT_RULE,
+              "max_err_over_limit": over})
+        if taken != "wgmma" or not over <= 1.0:
+            raise AssertionError(f"ssd {shape} in bf16: route {taken}, "
+                                 f"{over:.3f}x the limit")
+
+
+def rglru_edge_cases(gen):
+    """`RGLRU_EDGE_CASES` through the chunked route, held to the plain
+    version by `same_input_limit`."""
+    from repro_torch.kernels import api
+    for b, s_len, w in RGLRU_EDGE_CASES:
+        a = torch.rand(b, s_len, w, generator=gen, device="cuda") * 0.149 \
+            + 0.85
+        x = torch.randn(b, s_len, w, generator=gen, device="cuda") * 0.1
+        got = {}
+        taken = route_taken("rglru_scan", lambda: got.setdefault(  # noqa
+            "out", api.run("rglru_scan", a, x, backend="cuda")))  # noqa
+        err, tol, over = ulp_check(got["out"],
+                                   api.run("rglru_scan", a, x, backend="ref"))
+        emit({"phase": "kernel", "kernel": "rglru_scan",
+              "case": f"edge B={b} S={s_len} W={w}", "route": taken,
+              "max_abs_err": err, "tol": tol, "tol_rule": ULP_RULE,
+              "max_err_over_limit": over})
+        if taken != "chunked" or not over <= 1.0:
+            raise AssertionError(f"rglru B={b} S={s_len} W={w}: route "
+                                 f"{taken}, {over:.3f}x the limit")
+
+
+def ssd_wgmma_products(args) -> dict:
+    """The tensor-core work the SSD scan's wgmma route issues at these
+    shapes, pieces included: its wgmma instructions (one m64 x n x k16
+    bf16 product of a warpgroup each) and their flops; chunk states (w .
+    x)^T B, C B^T, C . h_prev^T (chunks after the first) and s . x (the
+    k-steps up to each warpgroup's last row)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import WGMMA_CHUNK, \
+        WGMMA_PIECES
+    q, k = WGMMA_CHUNK, WGMMA_PIECES
+    B, S, H, P = args[0].shape
+    N = args[1].shape[3]
+    nc = -(-S // q)
+    wgs = q // 64
+    intra = sum(min(q // 16, (64 * wg + 63) // 16 + 1) for wg in range(wgs))
+    per = {"chunk_states": (q // 16 * k, 2 * 64 * N * 16),
+           "c_bt": (wgs * N // 16, 2 * 64 * q * 16),
+           "c_h_prev": (wgs * k * N // 16, 2 * 64 * 64 * 16),
+           "s_x": (intra * k, 2 * 64 * 64 * 16)}
+    count = {name: B * H * (nc - 1 if name == "c_h_prev" else nc) * n
+             for name, (n, _) in per.items()}
+    flops = sum(count[name] * f for name, (_, f) in per.items())
+    return {"wgmma_instructions": count, "flops": flops,
+            "ms_at_bf16_peak": flops / BF16_FLOPS * 1e3,
+            "chunk_state_bytes": B * nc * H * P * N * 4}
+
+
+def scan_before_after(kernel, old, new, launch, label,
+                      pairs: int = 10) -> dict:
+    """The redesign against the kernel it replaced, on one card and the
+    same inputs: `launch(route)` (the wrapper's `launch`, which counts
+    nothing) through route `old` (the first port, unchanged) and route
+    `new`, `pairs` pairs of `device_ms`, alternating which runs first."""
+    times = {old: [], new: []}
+    for i in range(pairs):
+        for name in ((old, new) if i % 2 == 0 else (new, old)):
+            times[name].append(device_ms(lambda: launch(name),  # noqa: B023
+                                         calls=5, reps=3))
+    q1, q3 = np.percentile(times[old], [25, 75])
+    row = {"phase": "kernel", "case": f"{label}: {old} (before) vs {new}",
+           "kernel": kernel, "pairs": pairs, "device_ms": times,
+           "median_ms": {n: statistics.median(t) for n, t in times.items()},
+           f"{old}_iqr_ms": q3 - q1,
+           f"{new}_wins": sum(w < s for w, s in zip(times[new], times[old]))}
+    emit(row)
+    return row
+
+
+def ssd_broken_variants(args, want, label) -> dict:
+    """Plain loops broken on purpose against the plain version: the simt
+    route's 64-chunk loop without chunk 1's inter-chunk term or without
+    the ragged last chunk (`ssd_chunk_loop`), and the wgmma route's
+    arithmetic (`ssd_wgmma_loop`) with the scores or w . x in one bf16
+    piece or chunk 1's state left out of the state pass: each must exceed
+    `ssd_limit`. h_prev in one piece is recorded beside them (the limit
+    does not reject it at these shapes; the route keeps two pieces for
+    the margin), as are both correct loops, which must meet it."""
+    out = {fault: over_ssd_limit(ssd_chunk_loop(*args, fault=fault), want)
+           for fault in ("drop_inter", "skip_ragged")}
+    out["skip_state_chunk"] = over_ssd_limit(
+        ssd_wgmma_loop(*args, fault="skip_state_chunk"), want)
+    out["one_piece_scores"] = over_ssd_limit(
+        ssd_wgmma_loop(*args, score_pieces=1), want)
+    out["one_piece_wx"] = over_ssd_limit(
+        ssd_wgmma_loop(*args, wx_pieces=1), want)
+    kept = {"one_piece_state": over_ssd_limit(
+        ssd_wgmma_loop(*args, fault="one_piece_state"), want),
+        "chunk_loop": over_ssd_limit(ssd_chunk_loop(*args), want),
+        "wgmma_loop": over_ssd_limit(ssd_wgmma_loop(*args), want)}
+    emit({"phase": "kernel", "case": label, "kernel": "ssd_scan",
+          "broken_over_limit": out, "recorded_over_limit": kept})
+    if not (min(out.values()) > 1.0 >= max(kept["chunk_loop"],
+                                           kept["wgmma_loop"])):
+        raise AssertionError(f"ssd_limit does not separate broken from "
+                             f"correct: {out}, {kept}")
+    return {**out, **kept}
+
+
+def scan_kernels() -> dict:
+    """The SSD and RG-LRU scans: spec cases through the route each takes,
+    the new routes' edge shapes, then full width against the plain
+    versions, each row checking its route and timed by `device_ms` (SSD:
+    `ssd_limit`, which the broken loops must exceed; RG-LRU: 2 ulps, which
+    the chunked loop with a dropped carry must exceed), and the first
+    port's kernel against the new route in 10 alternating pairs at the
+    generate prefills' shapes."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg
+    from repro_torch.kernels.ssd_scan import ssd_scan as sd
     spec_cases("ssd_scan", _ssd_case)
     spec_cases("rglru_scan", _rglru_case)
+    ssd_edge_cases()
     full = {}
     mamba = dict(H=48, P=64, G=1, N=128)
     for (b, s_len), dtypes in (((1, 2048), ("bfloat16", "float32")),
@@ -1183,50 +1493,95 @@ def scan_kernels() -> dict:
             # one rate that gives the mix's time: flops / rate
             flops = sum(by_rate.values())
             rate = flops / sum(n / r for r, n in by_rate.items())
+
+            def kernel():
+                return api.run("ssd_scan", *args, backend="cuda")  # noqa
+
+            taken = route_taken("ssd_scan", kernel)
+            if taken != sd.route(dtype, s_len, 64, 128, 1):
+                raise AssertionError(f"ssd B={b} S={s_len} {name}: route "
+                                     f"{taken}")
+            extra = {"kernel": "ssd_scan", "dtype": name, "shape": shape,
+                     "route": taken,
+                     "flops_by_peak": {f"{r:.3g}": n
+                                       for r, n in by_rate.items()},
+                     "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "library": "none: no single PyTorch call computes the "
+                                "SSD scan"}
+            if taken == "wgmma":
+                extra["wgmma"] = ssd_wgmma_products(args)
+            label = f"ssd_scan mamba2-780m B={b} S={s_len} {name}"
             row = compare_and_time(
-                f"ssd_scan mamba2-780m B={b} S={s_len} {name}",
-                lambda: api.run("ssd_scan", *args, backend="cuda"),  # noqa
+                label, kernel,
                 lambda: api.run("ssd_scan", *args, backend="ref"),  # noqa
-                None, nbytes, flops, rate,
-                {"kernel": "ssd_scan", "dtype": name, "shape": shape,
-                 "flops_by_peak": {f"{r:.3g}": n for r, n in by_rate.items()},
-                 "library": "none: no single PyTorch call computes the SSD "
-                            "scan"},
-                check=ssd_check, rule=SSD_LIMIT_RULE)
+                None, nbytes, flops, rate, extra, check=ssd_check,
+                rule=SSD_LIMIT_RULE, device=True)
             if s_len == 1000:
-                # the limit rejects a kernel that drops a chunk's
-                # inter-chunk term or skips the ragged last chunk
                 want = api.run("ssd_scan", *args, backend="ref")
-                row["broken_over_limit"] = {
-                    fault: over_ssd_limit(ssd_chunk_loop(*args, fault=fault),
-                                          want)
-                    for fault in ("drop_inter", "skip_ragged")}
-                row["chunk_loop_over_limit"] = over_ssd_limit(
-                    ssd_chunk_loop(*args), want)
-                emit({"phase": "kernel", "case": row["case"],
-                      "broken_over_limit": row["broken_over_limit"],
-                      "chunk_loop_over_limit": row["chunk_loop_over_limit"]})
-                if not (min(row["broken_over_limit"].values()) > 1.0
-                        >= row["chunk_loop_over_limit"]):
-                    raise AssertionError(f"ssd_limit does not separate "
-                                         f"broken from correct: {row}")
+                row["broken_over_limit"] = ssd_broken_variants(
+                    args, want, label)
                 del want
+            if (b, s_len, name) == (3, 1536, "bfloat16"):
+                B, S, H, P = args[0].shape
+                y = torch.empty(B, S, H, P, device="cuda")
+                st = torch.empty(B, H, P, 128, device="cuda")
+                scratch = sd.wgmma_scratch(B, S, H, 128, "cuda")
+                row["before_after"] = scan_before_after(
+                    "ssd_scan", "simt", "wgmma",
+                    lambda r: sd.launch(*args, y, st, r,  # noqa: B023
+                                        scratch=scratch), label)
+                del y, st, scratch
             full[("ssd_scan", b, s_len, name)] = row
             del args
+            torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(1)
+    rglru_edge_cases(gen)
     for b, s_len in ((1, 2048), (1, 1000), (2, 2300)):
         a = torch.rand(b, s_len, 2560, generator=gen, device="cuda") \
             * 0.149 + 0.85
         x = torch.randn(b, s_len, 2560, generator=gen, device="cuda") * 0.1
-        full[("rglru_scan", b, s_len, "float32")] = compare_and_time(
-            f"rglru_scan recurrentgemma-2b B={b} S={s_len} W=2560 float32",
-            lambda: api.run("rglru_scan", a, x, backend="cuda"),  # noqa
+
+        def kernel():
+            return api.run("rglru_scan", a, x, backend="cuda")  # noqa
+
+        taken = route_taken("rglru_scan", kernel)
+        if taken != rg.route(s_len):
+            raise AssertionError(f"rglru S={s_len}: route {taken}")
+        label = f"rglru_scan recurrentgemma-2b B={b} S={s_len} W=2560 float32"
+        row = compare_and_time(
+            label, kernel,
             lambda: api.run("rglru_scan", a, x, backend="ref"),  # noqa
             None, 3 * a.numel() * 4, 2 * a.numel(), FP32_FLOPS,
-            {"kernel": "rglru_scan", "dtype": "float32",
-             "shape": {"B": b, "S": s_len, "W": 2560},
+            {"kernel": "rglru_scan", "dtype": "float32", "route": taken,
+             "chunk": rg.CHUNK, "shape": {"B": b, "S": s_len, "W": 2560},
              "library": "none: no single PyTorch call computes the linear "
-                        "recurrence"})
+                        "recurrence"}, device=True)
+        if (b, s_len) == (2, 2300):
+            want = api.run("rglru_scan", a, x, backend="ref")
+            loop = rglru_chunked_loop(a, x)
+            # the kernel takes the loop's operations in the loop's order
+            row["kernel_equals_chunked_loop"] = torch.equal(kernel(), loop)
+            row["chunked_loop_over_limit"] = ulp_check(loop, want)[2]
+            del loop
+            row["broken_over_limit"] = {
+                fault: ulp_check(rglru_chunked_loop(a, x, fault=fault),
+                                 want)[2] for fault in RGLRU_FAULTS}
+            emit({"phase": "kernel", "case": label, "kernel": "rglru_scan",
+                  "broken_over_limit": row["broken_over_limit"],
+                  "chunked_loop_over_limit": row["chunked_loop_over_limit"],
+                  "kernel_equals_chunked_loop":
+                      row["kernel_equals_chunked_loop"]})
+            if not (min(row["broken_over_limit"].values()) > 1.0
+                    >= row["chunked_loop_over_limit"]) \
+                    or not row["kernel_equals_chunked_loop"]:
+                raise AssertionError(f"the 2-ulp limit does not separate "
+                                     f"broken from correct: {row}")
+            h = torch.empty_like(a)
+            row["before_after"] = scan_before_after(
+                "rglru_scan", "serial", "chunked",
+                lambda r: rg.launch(a, x, h, r), label)  # noqa: B023
+            del want, h
+        full[("rglru_scan", b, s_len, "float32")] = row
         del a, x
     return full
 
@@ -1653,6 +2008,14 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
     if flash != {"wgmma": launches["flash_attention"], "simt": 0}:
         raise AssertionError(f"flash launches by route {flash}: the bf16 "
                              f"windowed prefill must take the wgmma route")
+    scans = {"ssd_scan": routes("ssd_scan"),
+             "rglru_scan": routes("rglru_scan")}
+    if scans != {"ssd_scan": {"wgmma": launches["ssd_scan"], "simt": 0},
+                 "rglru_scan": {"chunked": launches["rglru_scan"],
+                                "serial": 0}}:
+        raise AssertionError(f"scan launches by route {scans}: the bf16 SSD "
+                             f"prefill must take the wgmma route, the "
+                             f"RG-LRU prefill the chunked route")
     steps = eng.stats["decode_steps"] - st0["decode_steps"]
     store = eng.last_rec_store
     # the prefill installs one block per recurrent tensor and sequence;
@@ -1664,7 +2027,8 @@ def _hybrid_generate(eng, reqs, n_layers_by_kernel) -> dict:
     h2d, d2h = eng.last_transfers
     seqs = list(range(seq0, eng._next_seq))
     return {"outs": outs, "launches": launches,
-            "flash_launches_by_route": flash, "steps": steps,
+            "flash_launches_by_route": flash,
+            "scan_launches_by_route": scans, "steps": steps,
             "wall_s": wall_s, "seqs": seqs, "transfers": [h2d, d2h],
             "rec_store": dict(store),
             "prefill_ms_per_request":

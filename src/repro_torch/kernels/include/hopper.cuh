@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's tensor-core kernels
 // (flash_attention/csrc/flash_attention.cu, paged_attention/csrc/
-// paged_attention.cu): shared-memory addresses, mbarriers, TMA, cp.async,
-// the 128-byte-swizzle wgmma descriptor, wgmma wrappers (bf16 in, fp32
-// accumulators) and the bf16 splits of fp32 values. `kernels/build.py`
+// paged_attention.cu, ssd_scan/csrc/ssd_scan.cu): shared-memory
+// addresses, mbarriers, TMA, cp.async, the 128-byte-swizzle wgmma
+// descriptor, wgmma wrappers (bf16 in, fp32 accumulators) and the bf16
+// splits of fp32 values. `kernels/build.py`
 // compiles every kernel with this directory on the include path and
 // digests this header into the library name of each kernel that includes
 // it, so an edit rebuilds exactly those.
@@ -259,6 +260,23 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
   hi = bits(h);
   mid = bits(m);
   lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
+}
+
+// (x, y) as `Pieces` bf16 pairs: each piece is the bf16 rounding of what
+// the pieces before it left (exact fp32 differences), so two pieces hold 16
+// significant bits and three fp32's 24. The lower column goes in the low
+// half, as the A fragment wants it.
+template <int Pieces>
+__device__ __forceinline__ void split_pieces(float x, float y,
+                                             uint32_t (&out)[Pieces]) {
+#pragma unroll
+  for (int k = 0; k < Pieces; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    out[k] = bits(h);
+    x -= hf.x;
+    y -= hf.y;
+  }
 }
 
 }  // namespace hopper

@@ -2,8 +2,9 @@
 
 The validation cases, tolerance and input generator are copies of the
 JAX package's ``repro/kernels/rglru_scan/spec.py`` (the decode-shaped
-S = 1 and S = 4 cases included). The kernel runs one thread per channel
-over the whole sequence, so the spec has no tunable tiles.
+S = 1 and S = 4 cases included). The route follows from S alone (S = 1
+and 4 serial, the others chunked) and its chunk length is fixed
+(`rglru_scan.CHUNK`), so the spec has no tunable tiles.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 The validation cases, tolerance and input generator are copies of the
 JAX package's ``repro/kernels/ssd_scan/spec.py`` (the decode-shaped
 S = 1 and S = 4 cases included), so that the CPU tests and
-`chip_smoke.py` hold the kernel to the same cases. The kernel's chunk
-length is fixed (`ssd_scan.CHUNK`), so the spec has no tunable tiles.
+`chip_smoke.py` hold the kernel to the same cases (all of which take the
+simt route: their P and N are below the wgmma route's). Each route's
+chunk length is fixed (`ssd_scan.CHUNK`, `ssd_scan.WGMMA_CHUNK`), so the
+spec has no tunable tiles.
 """
 from __future__ import annotations
 

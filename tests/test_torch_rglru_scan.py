@@ -160,3 +160,88 @@ def test_local_attention_prefill_and_ring_decode_match_jax(layers):
             positions=s_len + step, cache=ring, window=w)
         np.testing.assert_allclose(got1.numpy(), np.asarray(want1),
                                    atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the chunked route: its algorithm in plain PyTorch
+# (`chip_smoke.rglru_chunked_loop`), its route rule
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """`chip_smoke.py` as a module (its helpers run on any device)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    mod_spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def long_inputs():
+    """recurrentgemma-2b's generate prefill length at a narrow width, from
+    the spec's generator, with the plain version's and the JAX oracle's
+    results."""
+    targs, jargs = _inputs({"B": 2, "S": 2300, "W": 512}, seed=3)
+    want = ref.lru_scan(*targs)
+    oracle = torch.from_numpy(np.array(jref.lru_scan(*jargs)))
+    return targs, want, oracle
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 100, 128])
+def test_chunked_within_ulp_limit(chip_smoke, long_inputs, chunk):
+    """The chunked route's algorithm -- chunk products and scans from zero,
+    the carry chained over the chunks, each chunk's recurrence rerun from
+    its carry -- stays inside the 2-ulp limit the kernel is held to on the
+    card, against the plain version and the JAX oracle, with chunks that
+    divide S (100) and that do not (32, 64, 128)."""
+    targs, want, oracle = long_inputs
+    got = chip_smoke.rglru_chunked_loop(*targs, chunk=chunk)
+    assert chip_smoke.ulp_check(got, want)[2] < 0.5
+    assert chip_smoke.ulp_check(got, oracle)[2] < 1.0
+
+
+@pytest.mark.parametrize("i", range(len(jspec.SPEC.cases)))
+def test_chunked_on_spec_cases(chip_smoke, i):
+    """The chunked algorithm on every spec case (chunks of 32: S = 1 and 4
+    are one short chunk, S = 96 three) against the JAX oracle at the
+    spec's tolerance and within the 2-ulp limit of the plain version."""
+    case = SPEC.cases[i]
+    targs, jargs = _inputs(dict(case.shape))
+    got = chip_smoke.rglru_chunked_loop(*targs, chunk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.lru_scan(*jargs)),
+                               atol=SPEC.tol[case.dtype], rtol=0)
+    assert chip_smoke.ulp_check(got, ref.lru_scan(*targs))[2] <= 1.0
+
+
+def test_dropped_carry_is_over_limit(chip_smoke, long_inputs):
+    targs, want, _ = long_inputs
+    got = chip_smoke.rglru_chunked_loop(*targs, fault="drop_carry")
+    assert chip_smoke.ulp_check(got, want)[2] > 1e3
+
+
+def test_one_chunk_is_the_serial_recurrence(chip_smoke):
+    """A sequence no longer than a chunk gives the plain version's bits."""
+    targs, _ = _inputs({"B": 2, "S": 40, "W": 16}, seed=5)
+    assert torch.equal(chip_smoke.rglru_chunked_loop(*targs, chunk=64),
+                       ref.lru_scan(*targs))
+
+
+@pytest.mark.parametrize("s_len,want", [
+    (1, "serial"), (4, "serial"), (32, "serial"), (33, "chunked"),
+    (64, "chunked"), (2300, "chunked")])
+def test_route(s_len, want):
+    from repro_torch.kernels.rglru_scan.rglru_scan import CHUNK, route
+    assert CHUNK == 32
+    assert route(s_len) == want
+
+
+def test_launch_counts_untouched_on_cpu():
+    targs, _ = _inputs(dict(SPEC.cases[1].shape))
+    launches = rglru_scan.launches
+    by_route = dict(rglru_scan.launches_by_route)
+    api.run("rglru_scan", *targs)
+    assert rglru_scan.launches == launches
+    assert rglru_scan.launches_by_route == by_route
+    assert set(by_route) == {"chunked", "serial"}

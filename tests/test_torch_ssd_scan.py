@@ -222,3 +222,160 @@ def test_bf16_intra_is_not_ported(layer):
     with pytest.raises(NotImplementedError, match="ssm_bf16_intra"):
         ssm.ssm_apply(cfg, tp, torch.zeros(1, 4, cfg.d_model),
                       mode="prefill")
+
+
+# ---------------------------------------------------------------------------
+# the wgmma route (chunk-parallel, tensor cores): its arithmetic emulated in
+# plain PyTorch (`chip_smoke.ssd_wgmma_loop`), its route rule, its checks
+# ---------------------------------------------------------------------------
+def _bf16_inputs(shape, seed):
+    """The spec's generator with x, B and C rounded to bf16 (the route's
+    inputs), as fp32 tensors for the emulation and the plain versions,
+    and the same values for JAX."""
+    targs, _ = _inputs(shape, seed)
+    targs = [t.to(torch.bfloat16).float() if i < 3 else t
+             for i, t in enumerate(targs)]
+    return targs, [jnp.asarray(t.numpy()) for t in targs]
+
+
+WGMMA_SHAPES = [
+    {"B": 1, "S": 300, "H": 3, "P": 64, "G": 1, "N": 128},
+    {"B": 2, "S": 1000, "H": 4, "P": 64, "G": 2, "N": 128},
+    {"B": 1, "S": 1536, "H": 2, "P": 64, "G": 1, "N": 128},
+    {"B": 1, "S": 1536, "H": 4, "P": 64, "G": 2, "N": 128},
+]
+WGMMA_IDS = ["S300", "S1000_G2", "S1536", "S1536_G2"]
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=WGMMA_IDS)
+def test_wgmma_arithmetic_within_limit(chip_smoke, shape):
+    """The wgmma route's arithmetic -- chunks of 128, the scores, w . x and
+    h_prev in two bf16 pieces each, exact bf16 products in fp32 -- stays
+    well inside the on-card limit against the plain version and the JAX
+    oracle (the token-level recurrence) on the same bf16-valued inputs."""
+    targs, jargs = _bf16_inputs(shape, seed=shape["S"])
+    got = chip_smoke.ssd_wgmma_loop(*targs)
+    assert chip_smoke.over_ssd_limit(got, ref.ssd_chunked(*targs)) < 0.1
+    oracle = tuple(torch.from_numpy(np.array(t)) for t in jref.ssd(*jargs))
+    assert chip_smoke.over_ssd_limit(got, oracle) < 0.1
+
+
+@pytest.mark.parametrize("i", range(len(jspec.SPEC.cases)))
+def test_wgmma_arithmetic_on_spec_cases(chip_smoke, i):
+    """The same arithmetic on the spec's cases (whose P and N the route
+    sends to simt on the card: the emulation takes any shape) against
+    the JAX oracle at the spec's tolerance and within the limit."""
+    case = SPEC.cases[i]
+    targs, jargs = _bf16_inputs(dict(case.shape), seed=0)
+    y, state = chip_smoke.ssd_wgmma_loop(*targs)
+    want_y, want_state = (np.asarray(a) for a in jref.ssd(*jargs))
+    tol = SPEC.tol["float32"]
+    np.testing.assert_allclose(y.numpy(), want_y, atol=tol, rtol=0)
+    np.testing.assert_allclose(state.numpy(), want_state, atol=tol, rtol=0)
+    # the limit is tightest at S = 1 (it grows with sqrt(S)): 0.19 there
+    assert chip_smoke.over_ssd_limit(
+        (y, state), ref.ssd_chunked(*targs)) < 0.25
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES[1:3], ids=WGMMA_IDS[1:3])
+@pytest.mark.parametrize("operand", ["score_pieces", "wx_pieces"])
+def test_one_bf16_piece_is_not_enough(chip_smoke, shape, operand):
+    """The scores or w . x in one bf16 piece miss the limit: the route
+    needs two."""
+    targs, _ = _bf16_inputs(shape, seed=shape["S"])
+    got = chip_smoke.ssd_wgmma_loop(*targs, **{operand: 1})
+    assert chip_smoke.over_ssd_limit(got, ref.ssd_chunked(*targs)) > 1.2
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES[1:3], ids=WGMMA_IDS[1:3])
+def test_wgmma_broken_variants(chip_smoke, shape):
+    """A state pass that leaves chunk 1's state out is far over the limit.
+    h_prev in one bf16 piece stays inside it at these shapes (the limit
+    does not demand the second piece; the route keeps it for margin)."""
+    targs, _ = _bf16_inputs(shape, seed=shape["S"])
+    want = ref.ssd_chunked(*targs)
+    skip = chip_smoke.ssd_wgmma_loop(*targs, fault="skip_state_chunk")
+    assert chip_smoke.over_ssd_limit(skip, want) > 10.0
+    one = chip_smoke.ssd_wgmma_loop(*targs, fault="one_piece_state")
+    over = chip_smoke.over_ssd_limit(one, want)
+    two = chip_smoke.over_ssd_limit(chip_smoke.ssd_wgmma_loop(*targs), want)
+    assert 5 * two < over < 1.0
+
+
+def test_wgmma_chunk_of_64_within_limit(chip_smoke):
+    """The route's other chunk (tools/ssd_variants.py times both)."""
+    shape = WGMMA_SHAPES[1]
+    targs, _ = _bf16_inputs(shape, seed=7)
+    got = chip_smoke.ssd_wgmma_loop(*targs, chunk=64)
+    assert chip_smoke.over_ssd_limit(got, ref.ssd_chunked(*targs)) < 0.1
+
+
+@pytest.mark.parametrize("dtype,S,P,N,G,want", [
+    (torch.bfloat16, 1536, 64, 128, 1, "wgmma"),
+    (torch.bfloat16, 1, 64, 128, 1, "wgmma"),
+    (torch.bfloat16, 1000, 64, 64, 2, "wgmma"),
+    (torch.float32, 1536, 64, 128, 1, "simt"),
+    (torch.bfloat16, 64, 16, 8, 1, "simt"),
+    (torch.bfloat16, 64, 64, 256, 1, "simt"),
+    (torch.bfloat16, 64, 128, 128, 1, "simt"),
+])
+def test_route(dtype, S, P, N, G, want):
+    from repro_torch.kernels.ssd_scan.ssd_scan import route
+    assert route(dtype, S, P, N, G) == want
+
+
+def test_spec_cases_take_simt():
+    """The spec's cases (fp32, P <= 32, N <= 16) all take the simt route,
+    as in bf16 (N below the tensor cores' depth of 16 is not padded)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import route
+    for case in SPEC.cases:
+        s = dict(case.shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert route(dtype, s["S"], s["P"], s["N"], s["G"]) == "simt"
+
+
+def test_launch_counts_untouched_on_cpu():
+    targs, _ = _inputs(dict(SPEC.cases[0].shape))
+    launches, by_route = ssd_scan.launches, dict(ssd_scan.launches_by_route)
+    api.run("ssd_scan", *targs)
+    assert ssd_scan.launches == launches
+    assert ssd_scan.launches_by_route == by_route
+    assert set(by_route) == {"wgmma", "simt"}
+
+
+def test_wgmma_route_checks_alignment():
+    """The wgmma route loads x, B and C 16 bytes a copy: a tensor that
+    starts off a 16-byte boundary raises before any launch."""
+    shape = {"B": 1, "S": 8, "H": 2, "P": 64, "G": 1, "N": 128}
+    (x, b, c, dt, a), _ = _inputs(shape)
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    _check(x, b, c, dt, a)
+    shifted = torch.empty(x.numel() + 1, dtype=torch.bfloat16)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        _check(shifted, b, c, dt, a)
+
+
+def test_wgmma_scratch_shapes():
+    from repro_torch.kernels.ssd_scan.ssd_scan import wgmma_scratch
+    states, decay = wgmma_scratch(3, 1000, 48, 128, "cpu")
+    assert tuple(states.shape) == (3, 8, 48, 64, 128)
+    assert tuple(decay.shape) == (3, 8, 48)
+    assert states.dtype == decay.dtype == torch.float32
+
+
+def test_wrapper_constants_match_the_source():
+    """The wrapper sizes the wgmma route's scratch and the emulation
+    chunks by `WGMMA_CHUNK` and `WGMMA_PIECES`; the CUDA source builds
+    its own constants (the wrapper also compares them when it loads the
+    library on the card)."""
+    import re
+    from repro_torch.kernels.ssd_scan.ssd_scan import WGMMA_CHUNK, \
+        WGMMA_PIECES
+    src = (ROOT / "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu") \
+        .read_text()
+    assert int(re.search(r"constexpr int kChunk = (\d+);", src)[1]) \
+        == WGMMA_CHUNK
+    assert int(re.search(r"constexpr int kPieces = (\d+);", src)[1]) \
+        == WGMMA_PIECES
