@@ -98,17 +98,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    reference), 2 transfers per steady token, no recurrent-store
    readback, live ring pages within ``ring_pages()``.
 
-8. stencil — NERO's COSMO stencils, hdiff and vadvc: every spec case at
-   every tile of the kernel's tune space that fits, held to the plain
-   version to the bit; at the COSMO grid (64 x 256 x 256; hdiff fp32 and
-   bf16, vadvc fp32) the knee tile against the plain version to the bit
-   and a deliberately broken variant (`hdiff_variant`, `vadvc_variant`)
-   shown to differ; device times at every tile beside the Hopper cost
-   model's estimate (inputs rotated through copies larger than L2), the
-   plain version's time and the bound; one launch's device time; then
-   the main path, `weather_stencil.main` at the COSMO grid with the
-   counts set to 0 just before it, its hdiff sweep equal to the same
-   sweep through the plain version on the card.
+8. stencil — NERO's COSMO stencils, hdiff (routes tma and simt) and
+   vadvc (prefetch and simt): every spec case and the edge grids of
+   `STENCIL_EDGE_GRIDS` (ragged against every tile; rows not a multiple
+   of 16 bytes, which hdiff sends to simt; vadvc's nz = 1, 2, 3) on each
+   route the grid can take, at every tile of the tune space the route
+   launches at, held to the plain version to the bit, the wrapper's route
+   checked; at the COSMO grid (64 x 256 x 256; hdiff fp32 and bf16,
+   vadvc fp32) the knee tile on the new route against the plain version
+   to the bit and a deliberately broken variant (`hdiff_variant`,
+   `vadvc_variant`) shown to differ; device times at every tile beside
+   the Hopper cost model's estimate (inputs rotated through copies larger
+   than L2), the plain version's time and the bound; the first port
+   (simt; hdiff at PR 14's knee) against the new route in 10 alternating
+   pairs; one launch's device time; then the main path,
+   `weather_stencil.main` at the COSMO grid with the counts set to 0 just
+   before it, every launch on the new routes, its hdiff sweep equal to
+   the same sweep through the plain version on the card; then the same
+   call once more under cProfile, its top host functions on a line of
+   their own. `hdiff_tiled_loop` and `vadvc_prefetch_loop` restate the
+   new routes' blocking in plain PyTorch for the CPU tests.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -117,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import re
@@ -167,6 +177,8 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/ssd_scan/csrc/ssd_simt.cuh",
     ("rglru_scan", "serial"):
         "src/repro_torch/kernels/rglru_scan/csrc/rglru_serial.cuh",
+    ("hdiff", "simt"): "src/repro_torch/kernels/hdiff/csrc/hdiff_simt.cuh",
+    ("vadvc", "simt"): "src/repro_torch/kernels/vadvc/csrc/vadvc_simt.cuh",
 }
 
 
@@ -460,6 +472,30 @@ def scan_ptxas(build) -> dict:
     return out
 
 
+def stencil_ptxas(build) -> dict:
+    """Registers and spills of each stencil kernel (`ptxas -v`; hdiff's
+    tma route has one entry per built tile and dtype) and the dynamic
+    shared memory of a tma block at each built tile, fp32 and bf16, as
+    the library reports it: it must equal the wrapper's
+    `tma_smem_bytes`, which the cost model prices."""
+    from repro_torch.kernels.hdiff.hdiff import _lib, tma_smem_bytes, \
+        tma_tiles
+    out = {name: ptxas_by_kernel(
+        (build.BUILD_DIR / f"{name}.log").read_text())
+        for name in ("hdiff", "vadvc")}
+    lib, smem = _lib(), {}
+    for t in tma_tiles():
+        tile = (t["tile_x"], t["tile_y"], t["block_z"])
+        got = [lib.hdiff_tma_smem(*tile, bf16) for bf16 in (0, 1)]
+        mine = [tma_smem_bytes(*tile, b) for b in (4, 2)]
+        if got != mine:
+            raise AssertionError(f"hdiff tma smem at {tile}: library {got}, "
+                                 f"wrapper {mine}")
+        smem["x".join(map(str, tile))] = got
+    out["hdiff_tma_smem"] = smem
+    return out
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -474,14 +510,16 @@ def phase_device() -> dict:
                     (build.BUILD_DIR / f"{name}.log").read_text().splitlines()
                     if ("registers" in ln or "spill" in ln)
                     and "C7519" not in ln]
-             for name in libs if (build.BUILD_DIR / f"{name}.log").exists()}
+             for name in libs if (build.BUILD_DIR / f"{name}.log").exists()
+             and name not in ("hdiff", "vadvc")}
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi, "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0], "build_s": build_s,
             "ptxas": ptxas, "paged_ptxas": paged_ptxas(
                 (build.BUILD_DIR / "paged_attention.log").read_text()),
-            "scan_ptxas": scan_ptxas(build)}
+            "scan_ptxas": scan_ptxas(build),
+            "stencil_ptxas": stencil_ptxas(build)}
     emit(info)
     return info
 
@@ -1416,7 +1454,7 @@ def ssd_wgmma_products(args) -> dict:
 
 
 def scan_before_after(kernel, old, new, launch, label,
-                      pairs: int = 10) -> dict:
+                      pairs: int = 10, phase: str = "kernel") -> dict:
     """The redesign against the kernel it replaced, on one card and the
     same inputs: `launch(route)` (the wrapper's `launch`, which counts
     nothing) through route `old` (the first port, unchanged) and route
@@ -1427,7 +1465,7 @@ def scan_before_after(kernel, old, new, launch, label,
             times[name].append(device_ms(lambda: launch(name),  # noqa: B023
                                          calls=5, reps=3))
     q1, q3 = np.percentile(times[old], [25, 75])
-    row = {"phase": "kernel", "case": f"{label}: {old} (before) vs {new}",
+    row = {"phase": phase, "case": f"{label}: {old} (before) vs {new}",
            "kernel": kernel, "pairs": pairs, "device_ms": times,
            "median_ms": {n: statistics.median(t) for n, t in times.items()},
            f"{old}_iqr_ms": q3 - q1,
@@ -2335,6 +2373,137 @@ STENCIL_FAULTS = {"hdiff": (hdiff_variant, "skip_limiter"),
                   "vadvc": (vadvc_variant, "drop_k0_correction")}
 
 
+STENCIL_ROUTES = {"hdiff": ("tma", "simt"), "vadvc": ("prefetch", "simt")}
+
+
+def hdiff_tiled_loop(src, tile_x=64, tile_y=16, block_z=1, fault=None):
+    """The hdiff kernel's tma route in plain PyTorch, item by item: the
+    box of block_z planes x (tile_y + 4) rows x `tma_box_width` columns
+    from (z0, y0 - 2, x0 - 16 bytes), zero where it leaves the grid (as
+    TMA fills it); the (tile_y + 2) x (tile_x + 2) Laplacian tile computed
+    once from the box; the limited fluxes and the output of the tile's cells from
+    the box and that tile, ring cells copied from the box; cells of the
+    ragged last tiles past the grid dropped. Each operation rounds once in
+    fp32, in the kernel's order. ``fault`` "lap_interior_only" leaves the
+    Laplacian tile's outer ring at 0 (a tile built over the output cells
+    alone), to show that `exact_check` catches such a kernel."""
+    from repro_torch.kernels.hdiff.hdiff import tma_box_width
+    from repro_torch.kernels.hdiff.ref import COEFF, HALO
+    nz, ny, nx = src.shape
+    tx, ty, p = tile_x, tile_y, block_z
+    tiles_z, tiles_y, tiles_x = -(-nz // p), -(-ny // ty), -(-nx // tx)
+    width = tma_box_width(tx, src.element_size())
+    lead = 16 // src.element_size()           # box columns before x0
+    off = lead - HALO                         # box column of x0 - 2
+    pad = src.new_zeros(tiles_z * p, tiles_y * ty + 4,
+                        (tiles_x - 1) * tx + width)
+    pad[:nz, HALO:HALO + ny, lead:lead + nx] = src
+    out = torch.empty_like(src)
+    for bz in range(tiles_z):
+        for by in range(tiles_y):
+            for bx in range(tiles_x):
+                z0, y0, x0 = bz * p, by * ty, bx * tx
+                raw = pad[z0:z0 + p, y0:y0 + ty + 4, x0:x0 + width]
+                b = raw.float()
+
+                def box(r, c, h, w):
+                    return b[:, r:r + h, off + c:off + c + w]
+                h, w = ty + 2, tx + 2
+                lap = 4.0 * box(1, 1, h, w) - (
+                    ((box(0, 1, h, w) + box(2, 1, h, w)) + box(1, 0, h, w))
+                    + box(1, 2, h, w))
+                if fault == "lap_interior_only":
+                    inner = torch.zeros_like(lap)
+                    inner[:, 1:-1, 1:-1] = lap[:, 1:-1, 1:-1]
+                    lap = inner
+
+                def lp(r, c):
+                    return lap[:, r:r + ty, c:c + tx]
+                s_c, l_c = box(2, 2, ty, tx), lp(1, 1)
+
+                def limited(flx, dif):
+                    return torch.where(flx * dif > 0, 0.0, flx)
+                flx_c = limited(lp(1, 2) - l_c, box(2, 3, ty, tx) - s_c)
+                flx_m = limited(l_c - lp(1, 0), s_c - box(2, 1, ty, tx))
+                fly_c = limited(lp(2, 1) - l_c, box(3, 2, ty, tx) - s_c)
+                fly_m = limited(l_c - lp(0, 1), s_c - box(1, 2, ty, tx))
+                res = (s_c - COEFF * ((flx_c - flx_m) + (fly_c - fly_m))
+                       ).to(src.dtype)
+                y = torch.arange(y0, y0 + ty)[:, None]
+                x = torch.arange(x0, x0 + tx)[None, :]
+                ring = (y < HALO) | (y >= ny - HALO) | (x < HALO) \
+                    | (x >= nx - HALO)
+                cells = torch.where(ring.to(src.device),
+                                    raw[:, 2:2 + ty, off + 2:off + 2 + tx],
+                                    res)
+                ze, ye, xe = min(p, nz - z0), min(ty, ny - y0), \
+                    min(tx, nx - x0)
+                out[z0:z0 + ze, y0:y0 + ye, x0:x0 + xe] = \
+                    cells[:ze, :ye, :xe]
+    return out
+
+
+def vadvc_prefetch_loop(ustage, upos, utens, utens_stage, wcon, ahead=None,
+                        fault=None):
+    """The vadvc kernel's prefetch route in plain PyTorch, over all
+    columns at once: the forward sweep takes level k's six loads
+    (ustage[k + 1] clamped, wcon[k + 1] at x and x + 1, upos, utens,
+    utens_stage at k) from slot k % `ahead` of a ring filled `ahead`
+    levels before, and refills the slot with level k + ahead's; it keeps
+    ccol, dcol and the upos it loaded for the backward sweep, which reads
+    nothing else. The arithmetic is the kernel's, each operation rounded
+    once in fp32. ``fault`` "stale_slot" skips the first refill, so level
+    `ahead` reuses level 0's loads, to show that `exact_check` catches
+    such a kernel."""
+    from repro_torch.kernels.vadvc.ref import BET_M, BET_P, DTR_STAGE
+    from repro_torch.kernels.vadvc.vadvc import AHEAD
+    ahead = ahead or AHEAD
+    nz = ustage.shape[0]
+
+    def fetch(k):
+        if k >= nz:
+            return None
+        return (ustage[min(k + 1, nz - 1)], wcon[k + 1, :, :-1],
+                wcon[k + 1, :, 1:], upos[k], utens[k], utens_stage[k])
+    ring = [fetch(j) for j in range(ahead)]
+    wsum = wcon[0, :, 1:] + wcon[0, :, :-1]
+    u_km1 = u_k = ustage[0]
+    c_prev = d_prev = torch.zeros_like(ustage[0])
+    ccols, dcols, ucols = [], [], []
+    for k in range(nz):
+        u_kp1, w0, w1, up, ut, uts = ring[k % ahead]
+        if not (fault == "stale_slot" and k == 0):
+            ring[k % ahead] = fetch(k + ahead)
+        wnext = w1 + w0
+        gav, gcv = -0.25 * wsum, 0.25 * wnext
+        as_, cs = gav * BET_M, gcv * BET_M
+        acol, ccol = gav * BET_P, gcv * BET_P
+        corr_lo = -as_ * (u_km1 - u_k)
+        corr_hi = -cs * (u_kp1 - u_k)
+        first, last = k == 0, k == nz - 1
+        corr = corr_hi if first else corr_lo if last else corr_lo + corr_hi
+        if first:
+            acol = torch.zeros_like(acol)
+        if last:
+            ccol = torch.zeros_like(ccol)
+        bcol = DTR_STAGE - acol - ccol
+        rhs = DTR_STAGE * up + ut + uts + corr
+        divided = 1.0 / (bcol - c_prev * acol)
+        c_prev = ccol * divided
+        d_prev = (rhs - d_prev * acol) * divided
+        ccols.append(c_prev)
+        dcols.append(d_prev)
+        ucols.append(up)
+        wsum, u_km1, u_k = wnext, u_k, u_kp1
+    out = torch.empty_like(ustage)
+    nxt = torch.zeros_like(ustage[0])
+    for k in range(nz - 1, -1, -1):
+        data = dcols[k] - ccols[k] * nxt
+        out[k] = DTR_STAGE * (data - ucols[k])
+        nxt = data
+    return out
+
+
 def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
     """Device time of one call of `fn` in a stream of `calls` calls, the
     median over `reps`: the card is held busy (`torch.cuda._sleep`) while
@@ -2393,68 +2562,145 @@ def spearman(xs, ys) -> float:
         / (n * (n * n - 1))
 
 
+def route_tiles(name, kind, grid, dtype_name) -> list:
+    """The tiles of the kernel's tune space route `kind` launches at on
+    this grid: the tma route's built tiles whose ring fits, the simt
+    route's blocks within the thread and shared-memory limits."""
+    from repro_torch.core.autotune import MAX_THREADS, SMEM_BYTES
+    from repro_torch.kernels import registry
+    spec = registry.get(name)
+    names = sorted(spec.tune_space)
+    tiles = [dict(zip(names, v)) for v in itertools.product(
+        *(spec.tune_space[n] for n in names))]
+    if name == "hdiff":
+        from repro_torch.kernels.hdiff.hdiff import simt_smem_bytes, \
+            tma_smem_bytes
+        esize = DTYPES[dtype_name].itemsize
+        if kind == "tma":
+            return [t for t in tiles if tma_smem_bytes(
+                t["tile_x"], t["tile_y"], t["block_z"], esize)
+                <= SMEM_BYTES]
+        return [t for t in tiles if t["tile_x"] * t["tile_y"] <= MAX_THREADS
+                and simt_smem_bytes(t["tile_x"], t["tile_y"],
+                                    t["block_z"]) <= SMEM_BYTES]
+    from repro_torch.kernels.vadvc.vadvc import PREFETCH_MAX_THREADS, \
+        simt_smem_bytes, smem_bytes
+    threads, smem = (PREFETCH_MAX_THREADS, smem_bytes) \
+        if kind == "prefetch" else (MAX_THREADS, simt_smem_bytes)
+    return [t for t in tiles if t["tile_x"] * t["tile_y"] <= threads
+            and smem(grid[0], t["tile_x"], t["tile_y"]) <= SMEM_BYTES]
+
+
+def stencil_launch(name, args, tile, kind):
+    """One launch of route `kind` at `tile` through the wrapper's
+    `launch` (no checks, no counts); returns the output."""
+    if name == "hdiff":
+        from repro_torch.kernels.hdiff.hdiff import launch
+        out = torch.empty_like(args[0])
+        launch(args[0], out, tile["tile_x"], tile["tile_y"],
+               tile["block_z"], kind)
+        return out
+    from repro_torch.kernels.vadvc.vadvc import launch
+    out = torch.empty_like(args[0])
+    launch(*args, out, tile["tile_x"], tile["tile_y"], kind)
+    return out
+
+
+# beside the spec cases: grids ragged against every tile (nz, ny, nx),
+# grids whose rows are not a multiple of 16 bytes (hdiff: simt only), and
+# vadvc's short columns
+STENCIL_EDGE_GRIDS = {
+    "hdiff": (((5, 37, 72), "float32"), ((3, 21, 40), "bfloat16"),
+              ((4, 19, 50), "float32"), ((2, 13, 36), "bfloat16")),
+    "vadvc": (((3, 5, 45), "float32"), ((1, 6, 40), "float32"),
+              ((2, 7, 33), "float32")),
+}
+
+
 def stencil_cases():
-    """Every spec case of hdiff and vadvc at every tile of the kernel's
-    tune space that fits the case's grid: the kernel against the plain
-    version on the same inputs under `EXACT_RULE`, and against the plain
-    version on fp32 inputs under the spec's tolerance."""
-    from repro_torch.core.autotune import autotune_kernel
+    """Every spec case of hdiff and vadvc and the edge grids of
+    `STENCIL_EDGE_GRIDS`, on each route the grid can take (hdiff's tma
+    route only on rows a multiple of 16 bytes), at every tile of the
+    kernel's tune space the route launches at: held to the plain version
+    on the same inputs under `EXACT_RULE`. Through the wrapper (the route
+    `route` picks: the new route on every spec case), also against the
+    plain version on fp32 inputs under the spec's tolerance."""
     from repro_torch.kernels import api, registry
+    from repro_torch.kernels.hdiff.hdiff import route as hdiff_route
     for name in ("hdiff", "vadvc"):
         spec = registry.get(name)
-        for i, case in enumerate(spec.cases):
-            inputs = spec.example_inputs(shape=dict(case.shape))
+        grids = [(dict(c.shape), c.dtype, f"case {i}")
+                 for i, c in enumerate(spec.cases)]
+        grids += [(dict(zip(spec.shape_keys, g)), d, "edge")
+                  for g, d in STENCIL_EDGE_GRIDS[name]]
+        for shape, dtype_name, label in grids:
+            inputs = spec.example_inputs(shape=shape)
             args32 = [torch.from_numpy(v).cuda() for v in inputs.values()]
-            args = [a.to(DTYPES[case.dtype]) for a in args32]
+            args = [a.to(DTYPES[dtype_name]) for a in args32]
+            grid = spec.grid_of(*args)
             want = api.run(name, *args, backend="ref")
-            want32 = api.run(name, *args32, backend="ref")
-            tiles = [c.params for c in autotune_kernel(
-                spec, spec.grid_of(*args), case.dtype)["candidates"]
-                if c.feasible]
-            mismatches, tol_err = 0, 0.0
-            for tile in tiles:
-                got = api.run(name, *args, backend="cuda", tile=tile)
-                mismatches += exact_check(got, want)["mismatches"]
-                tol_err = max(tol_err, (got.float() - want32).abs().max()
-                              .item())
-            tol = spec.tol[case.dtype]
-            emit({"phase": "stencil", "kernel": name, "case": i,
-                  "shape": dict(case.shape), "dtype": case.dtype,
-                  "tiles": len(tiles), "mismatches": mismatches,
-                  "max_abs_err_vs_fp32_plain": tol_err, "tol": tol})
-            if mismatches or not tol_err <= tol:
-                raise AssertionError(f"{name} case {i}: {mismatches} "
-                                     f"elements differ, error {tol_err} "
-                                     f"(tol {tol})")
+            kinds = STENCIL_ROUTES[name]
+            if name == "hdiff" and hdiff_route(args[0].dtype,
+                                               grid[2]) == "simt":
+                kinds = ("simt",)
+            tiles, mismatches = {}, {}
+            for kind in kinds:
+                ts = route_tiles(name, kind, grid, dtype_name)
+                tiles[kind] = len(ts)
+                mismatches[kind] = sum(exact_check(
+                    stencil_launch(name, args, t, kind), want)["mismatches"]
+                    for t in ts)
+            taken = route_taken(name, lambda: api.run(  # noqa: B023
+                name, *args, backend="auto"))
+            want_route = kinds[0]
+            got = api.run(name, *args, backend="auto")
+            tol_err = (got.float() - api.run(name, *args32, backend="ref")
+                       ).abs().max().item()
+            tol = spec.tol[dtype_name]
+            row = {"phase": "stencil", "kernel": name, "case": label,
+                   "shape": shape, "dtype": dtype_name, "route": taken,
+                   "tiles": tiles, "mismatches": mismatches,
+                   "max_abs_err_vs_fp32_plain": tol_err, "tol": tol}
+            emit(row)
+            if any(mismatches.values()) or taken != want_route \
+                    or not tol_err <= tol:
+                raise AssertionError(f"{name} {label} {shape}: {row}")
 
 
 def stencil_grid(name, dtype_name) -> dict:
     """One kernel at the COSMO grid (the spec's bench shape): the knee
-    tile (`backend="auto"`) against the plain version under `EXACT_RULE`,
-    the broken variant above it; then device times at every tile that
-    fits beside the cost model's estimate, the knee's time against the
-    fastest tile's, the plain version's time and the bound."""
-    from repro_torch.core.autotune import LAUNCH_OVERHEAD_S, autotune_kernel
+    tile (`backend="auto"`, which must take the new route) against the
+    plain version under `EXACT_RULE`, the broken variant above it; then
+    device times at every tile of the route beside the cost model's
+    estimate, the knee's time against the fastest tile's, the plain
+    version's time and the bound; then the first port (route simt: hdiff
+    at PR 14's knee, from its model and tune space; vadvc at the same
+    tile) against the new route in 10 alternating pairs."""
+    from repro_torch.core.autotune import (LAUNCH_OVERHEAD_S, autotune,
+                                           autotune_kernel, dtype_nbytes)
     from repro_torch.kernels import api, registry
     spec = registry.get(name)
     inputs = spec.example_inputs(shape=dict(spec.bench_shape))
     args = [torch.from_numpy(v).cuda().to(DTYPES[dtype_name])
             for v in inputs.values()]
     grid = spec.grid_of(*args)
+    new = STENCIL_ROUTES[name][0]
     tune = autotune_kernel(spec, grid, dtype_name)
     knee = api.resolve_tile(spec, args)
     if knee != tune["knee"].params:
         raise AssertionError(f"{name}: resolve_tile {knee} is not the knee "
                              f"{tune['knee'].params}")
     want = api.run(name, *args, backend="ref")
+    taken = route_taken(name, lambda: api.run(name, *args, backend="auto"))
     got = api.run(name, *args, backend="auto")
     torch.cuda.synchronize()
     check = exact_check(got, want)
     variant, fault = STENCIL_FAULTS[name]
     broken = exact_check(variant(*args, fault=fault), want)
-    if check["mismatches"] or not broken["mismatches"]:
-        raise AssertionError(f"{name} {dtype_name}: kernel {check}, broken "
-                             f"variant {fault} {broken} ({EXACT_RULE})")
+    if check["mismatches"] or not broken["mismatches"] or taken != new:
+        raise AssertionError(f"{name} {dtype_name}: route {taken}, kernel "
+                             f"{check}, broken variant {fault} {broken} "
+                             f"({EXACT_RULE})")
     in_bytes = sum(a.numel() * a.element_size() for a in args)
     nbytes = in_bytes + got.numel() * got.element_size()
     flops = spec.flops(grid)
@@ -2473,8 +2719,25 @@ def stencil_grid(name, dtype_name) -> dict:
                     warmup=1, rounds=5)
     fastest = min(tiles, key=lambda r: r["ms"])
     t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    if name == "hdiff":
+        from repro_torch.kernels.hdiff.spec import SIMT_TUNE_SPACE, \
+            simt_cost
+        old_tile = autotune(simt_cost, grid, SIMT_TUNE_SPACE,
+                            dtype_nbytes(dtype_name))["knee"].params
+    else:
+        old_tile = knee
+    check_old = exact_check(stencil_launch(name, args, old_tile, "simt"),
+                            want)
+    if check_old["mismatches"]:
+        raise AssertionError(f"{name} {dtype_name} simt at {old_tile}: "
+                             f"{check_old}")
+    pairs = scan_before_after(
+        name, "simt", new, lambda kind: stencil_launch(
+            name, nxt(), old_tile if kind == "simt" else knee, kind),
+        f"{name} COSMO grid {dtype_name}, simt at {old_tile}, {new} at "
+        f"{knee}", phase="stencil")
     row = {"phase": "stencil", "case": f"{name} COSMO grid {dtype_name}",
-           "kernel": name, "dtype": dtype_name,
+           "kernel": name, "dtype": dtype_name, "route": taken,
            "shape": dict(zip(spec.shape_keys, grid)),
            "knee": knee, "knee_est_ms": tune["knee"].est_time_s * 1e3,
            "max_abs_err": check["max_abs_err"], "tol": 0.0,
@@ -2494,6 +2757,10 @@ def stencil_grid(name, dtype_name) -> dict:
            "est_vs_ms_rank_correlation": spearman(
                [r["est_ms"] for r in tiles], [r["ms"] for r in tiles]),
            "launch_overhead_model_ms": LAUNCH_OVERHEAD_S * 1e3,
+           "simt_tile": old_tile,
+           "simt_mismatches": check_old["mismatches"],
+           "before_after_median_ms": pairs["median_ms"],
+           f"{new}_wins": pairs[f"{new}_wins"],
            "tiles": tiles}
     row["bound_share"] = row["bound_ms"] / kernel_ms
     emit(row)
@@ -2503,8 +2770,9 @@ def stencil_grid(name, dtype_name) -> dict:
 def stencil_main_path() -> dict:
     """The stencil path's entry point, `weather_stencil.main`, at the
     COSMO grid on the card, with the counts set to 0 just before it: the
-    kernel check, the knees and the hdiff sweep through the kernel, which
-    must equal the same sweep through the plain version on the card."""
+    kernel check, the knees and the hdiff sweep through the kernels, every
+    launch on the new routes; the sweep must equal the same sweep through
+    the plain version on the card."""
     from repro_torch.core import precision as prec
     from repro_torch.kernels import api, registry
     from repro_torch.launch import weather_stencil
@@ -2514,12 +2782,16 @@ def stencil_main_path() -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    by_route = {n: routes(n) for n in ("hdiff", "vadvc")}
     fmts = weather_stencil.SWEEP_FORMATS
     # one check each, then the sweep's exact run and one run per format
     want = {n: 0 for n in launches}
     want.update(hdiff=2 + len(fmts), vadvc=1)
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
+    if any(by_route[n][STENCIL_ROUTES[n][0]] != want[n] for n in by_route):
+        raise AssertionError(f"routes {by_route}: every launch of the main "
+                             f"path must take the new route")
     if any(res["check"].values()):
         raise AssertionError(f"kernel against plain: {res['check']}")
     inputs = registry.get("hdiff").example_inputs(shape=res["grid"],
@@ -2531,7 +2803,8 @@ def stencil_main_path() -> dict:
         raise AssertionError(f"sweep {res['sweep']} != plain {plain}")
     row = {"phase": "stencil", "path": "weather_stencil.main(['--grid', "
            "'cosmo'])", "grid": res["grid"], "wall_s": wall_s,
-           "launches": launches, "check": res["check"],
+           "launches": launches, "launches_by_route": by_route,
+           "check": res["check"],
            "knees": {f"{k[0]} {k[1]}": {"tile": v.params,
                                         "smem": v.smem_bytes,
                                         "est_ms": v.est_time_s * 1e3}
@@ -2541,21 +2814,56 @@ def stencil_main_path() -> dict:
     return row
 
 
+def stencil_host_profile(top: int = 15) -> dict:
+    """`weather_stencil.main(["--grid", "cosmo"])` once more, under
+    cProfile: where its host time goes, by cumulative and by own time
+    (the program untouched; the profiler's own cost is in the wall
+    time)."""
+    import cProfile
+    import pstats
+    from repro_torch.launch import weather_stencil
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    weather_stencil.main(["--grid", "cosmo"])
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_s = time.perf_counter() - t0
+    rows = []
+    for (path, line, fn), (_, calls, own, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        where = path.replace(str(ROOT) + "/", "")
+        if "site-packages/" in where:
+            where = where.split("site-packages/", 1)[1]
+        rows.append({"fn": f"{where}:{line}({fn})", "calls": calls,
+                     "cum_s": round(cum, 4), "own_s": round(own, 4)})
+    row = {"phase": "stencil", "case": "host profile of weather_stencil."
+           "main(['--grid', 'cosmo']) under cProfile", "wall_s": wall_s,
+           "top_cumulative": sorted(rows, key=lambda r: -r["cum_s"])[:top],
+           "top_own": sorted(rows, key=lambda r: -r["own_s"])[:top]}
+    emit(row)
+    return row
+
+
 def phase_stencil():
-    """NERO's stencils: spec cases at every tile, the COSMO grid for
-    hdiff fp32 and bf16 and vadvc fp32, one launch's device time, then
-    the main path. Returns the grid rows and the main path's launches."""
+    """NERO's stencils: spec cases and edge grids at every tile on both
+    routes, the COSMO grid for hdiff fp32 and bf16 and vadvc fp32 (with
+    the before/after pairs), one launch's device time, the main path, then
+    the main path's host profile. Returns the grid rows and the main
+    path's launches."""
     from repro_torch.kernels import api
     stencil_cases()
     rows = {(n, d): stencil_grid(n, d) for n, d in (
         ("hdiff", "float32"), ("hdiff", "bfloat16"), ("vadvc", "float32"))}
-    tiny = torch.randn(1, 8, 32, device="cuda")
+    tiny = torch.randn(1, 16, 64, device="cuda")
     launch_ms = device_ms(lambda: api.run(
         "hdiff", tiny, backend="cuda",
-        tile={"tile_x": 32, "tile_y": 8, "block_z": 1}), calls=50)
-    emit({"phase": "stencil", "case": "one launch: hdiff of one block "
-          "(1 x 8 x 32) in a stream of 50", "launch_ms": launch_ms})
+        tile={"tile_x": 64, "tile_y": 16, "block_z": 1}), calls=50)
+    emit({"phase": "stencil", "case": "one launch: hdiff of one item "
+          "(1 x 16 x 64, tma route) in a stream of 50",
+          "launch_ms": launch_ms})
     main_row = stencil_main_path()
+    stencil_host_profile()
     torch.cuda.empty_cache()
     return rows, {k: main_row["launches"][k] for k in ("hdiff", "vadvc")}
 

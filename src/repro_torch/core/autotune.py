@@ -15,7 +15,10 @@ model's own: ``LAUNCH_OVERHEAD_S``, the device time one launch adds to a
 stream of launches (``chip_smoke.py``'s stencil phase measures it: 2.9 us
 for a one-block hdiff launch on an H100 80GB HBM3 at 700 W), and
 ``MEM_LATENCY_S``, the latency of a device-memory load under load, which
-sets how many bytes must be in flight to reach the memory rate.
+sets how many bytes must be in flight to reach the memory rate. A kernel
+bound by instructions rather than bytes is priced by `issue_time`: its
+warp instructions over the SMs' issue rate (four schedulers an SM, one
+warp instruction each a cycle, at ``SM_CLOCK_HZ``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ HBM_BW = 3.35e12               # bytes/s
 PEAK_FLOPS = 67e12             # fp32 outside the tensor cores
 LAUNCH_OVERHEAD_S = 3e-6       # measured by chip_smoke.py
 MEM_LATENCY_S = 8e-7           # stated: load latency under load
+SM_CLOCK_HZ = 1.98e9           # boost clock
+ISSUE_PER_CLOCK = 4            # warp instructions an SM issues a cycle
 
 _DTYPE_BYTES = {"float64": 8, "float32": 4, "float16": 2, "bfloat16": 2,
                 "int8": 1, "fp32": 4, "bf16": 2}
@@ -62,14 +67,16 @@ def blocks_per_sm(threads: int, smem_bytes: int) -> int:
 
 
 def stream_time(nbytes: float, blocks: int, threads: int, smem_bytes: int,
-                inflight_per_thread: float) -> float | None:
+                inflight_per_thread: float,
+                min_wave_s: float = 0.0) -> float | None:
     """Estimated seconds for a kernel of `blocks` blocks that moves
     `nbytes` through device memory, each thread keeping
     `inflight_per_thread` bytes of loads in flight; None when a block
     cannot launch. The blocks run in waves of as many as the SMs hold;
     by Little's law a wave reaches the memory rate only with
     ``HBM_BW * MEM_LATENCY_S`` bytes in flight, so a small last wave, or
-    waves of few threads, run below it. Plus one launch."""
+    waves of few threads, run below it. A wave takes at least
+    `min_wave_s` (a block's own dependent chain). Plus one launch."""
     per_sm = blocks_per_sm(threads, smem_bytes)
     if not per_sm:
         return None
@@ -78,12 +85,22 @@ def stream_time(nbytes: float, blocks: int, threads: int, smem_bytes: int,
     need = HBM_BW * MEM_LATENCY_S
 
     def wave(n):
-        return n * per_block / (HBM_BW * min(
-            1.0, n * threads * inflight_per_thread / need))
+        return max(min_wave_s, n * per_block / (HBM_BW * min(
+            1.0, n * threads * inflight_per_thread / need)))
 
     full, rest = divmod(blocks, slots)
     return full * wave(slots) + (wave(rest) if rest else 0.0) \
         + LAUNCH_OVERHEAD_S
+
+
+def issue_time(warp_instructions_per_sm: float, warps_per_sm: int,
+               saturating_warps: int = 16) -> float:
+    """Seconds for an SM to issue `warp_instructions_per_sm`, with
+    `warps_per_sm` resident: ``ISSUE_PER_CLOCK`` a cycle once
+    `saturating_warps` are there to hide each other's latencies, in
+    proportion below that."""
+    rate = ISSUE_PER_CLOCK * min(1.0, warps_per_sm / saturating_warps)
+    return warp_instructions_per_sm / (rate * SM_CLOCK_HZ)
 
 
 @dataclasses.dataclass(frozen=True)

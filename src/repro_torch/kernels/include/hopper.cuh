@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the port's tensor-core kernels
+// Hopper building blocks shared by the port's kernels
 // (flash_attention/csrc/flash_attention.cu, paged_attention/csrc/
-// paged_attention.cu, ssd_scan/csrc/ssd_scan.cu): shared-memory
-// addresses, mbarriers, TMA, cp.async, the 128-byte-swizzle wgmma
-// descriptor, wgmma wrappers (bf16 in, fp32 accumulators) and the bf16
-// splits of fp32 values. `kernels/build.py`
+// paged_attention.cu, ssd_scan/csrc/ssd_scan.cu, hdiff/csrc/hdiff.cu):
+// shared-memory addresses, mbarriers, TMA loads and the driver's tensor-map
+// encoder, cp.async, the 128-byte-swizzle wgmma descriptor, wgmma wrappers
+// (bf16 in, fp32 accumulators) and the bf16 splits of fp32 values.
+// `kernels/build.py`
 // compiles every kernel with this directory on the include path and
 // digests this header into the library name of each kernel that includes
 // it, so an edit rebuilds exactly those.
@@ -70,6 +71,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One TMA box of a 3-D tensor map (coordinates innermost first, negative or
+// past the end allowed: those elements arrive as zeros) into shared memory;
+// completes `bytes` of the barrier's transaction count. The innermost
+// coordinate times the element size must be a multiple of 16: on an H100 a
+// box that starts elsewhere never completes its barrier.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Makes mbarrier inits visible to the async proxy (TMA) before first use.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor for the 128-byte swizzle: start address,
@@ -277,6 +300,33 @@ __device__ __forceinline__ void split_pieces(float x, float y,
     x -= hf.x;
     y -= hf.y;
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver entry point, through the runtime (no
+// -lcuda); null when the driver lacks it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace hopper

@@ -69,9 +69,9 @@ def test_library_path_digests_every_csrc_file_and_the_flags(kernels,
 @pytest.fixture
 def three_kernels(tmp_path, monkeypatch):
     """A kernels directory holding copies of the flash- and paged-attention
-    and hdiff sources and of the shared headers."""
+    and vadvc sources and of the shared headers."""
     root = tmp_path / "kernels"
-    for name in ("flash_attention", "paged_attention", "hdiff"):
+    for name in ("flash_attention", "paged_attention", "vadvc"):
         shutil.copytree(build.KERNELS_DIR / name / "csrc",
                         root / name / "csrc")
     shutil.copytree(build.include_dir(), root / "include")
@@ -82,17 +82,17 @@ def three_kernels(tmp_path, monkeypatch):
 
 def test_shared_header_edit_changes_only_the_kernels_that_include_it(
         three_kernels):
-    names = ("flash_attention", "paged_attention", "hdiff")
+    names = ("flash_attention", "paged_attention", "vadvc")
     header = three_kernels / "include" / "hopper.cuh"
     for name in ("flash_attention", "paged_attention"):
         assert build.shared_headers(name) == [header]
-    assert build.shared_headers("hdiff") == []
+    assert build.shared_headers("vadvc") == []
     before = {n: build.library_path(n) for n in names}
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_path(n) for n in names}
     assert after["flash_attention"] != before["flash_attention"]
     assert after["paged_attention"] != before["paged_attention"]
-    assert after["hdiff"] == before["hdiff"]
+    assert after["vadvc"] == before["vadvc"]
 
 
 def test_build_all_puts_the_shared_headers_on_the_include_path(

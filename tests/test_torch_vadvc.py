@@ -6,8 +6,8 @@ atol = tol, ``tests/test_kernels.py``: the tridiagonal systems of the
 random inputs are badly conditioned in places, so the outputs reach
 |out| ~ 200 at the spec's own cases); the end levels at nz = 1 and 2;
 `chip_smoke.py`'s broken variant against its correct form; the spec,
-the dispatch's tile rules, the wrapper's counts and its shared-memory
-limit."""
+the dispatch's tile rules, the wrapper's counts and each route's
+shared-memory limit."""
 import importlib.util
 from pathlib import Path
 
@@ -21,7 +21,8 @@ from repro.kernels.vadvc import spec as jspec
 from repro.kernels.vadvc.vadvc import vadvc_pallas
 from repro_torch.kernels import api, registry
 from repro_torch.kernels.vadvc import ref
-from repro_torch.kernels.vadvc.vadvc import smem_bytes, vadvc
+from repro_torch.kernels.vadvc.vadvc import simt_smem_bytes, smem_bytes, \
+    vadvc
 
 ROOT = Path(__file__).resolve().parents[1]
 SPEC = registry.get("vadvc")
@@ -109,7 +110,11 @@ def test_tile_rules_counts_and_shared_memory():
     launches, plain = vadvc.launches, vadvc.plain_calls
     assert torch.equal(api.run("vadvc", *targs), want)
     assert vadvc.plain_calls == plain + 1 and vadvc.launches == launches
-    # ccol and dcol of every level: 2 nz floats a column
-    assert smem_bytes(64, 128, 1) == 64 * 1024
+    # the simt route: ccol and dcol of every level, 2 nz floats a column
+    assert simt_smem_bytes(64, 128, 1) == 64 * 1024
+    assert simt_smem_bytes(64, 128, 4) > 232_448    # 128 x 4: not feasible
+    # the prefetch route keeps upos beside them: 3 nz floats a column
+    assert smem_bytes(64, 128, 1) == 96 * 1024
     cost = SPEC.cost_fn((64, 256, 256), {"tile_x": 128, "tile_y": 4}, 4)
-    assert cost[0] > 232_448          # listed, but not feasible
+    assert cost[0] == smem_bytes(64, 128, 4) > 232_448   # listed, not
+    # feasible
