@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
-                                          # spec | hybrid | stencil
+                                          # spec | overload | hybrid |
+                                          # stencil
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -63,10 +64,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 3. exact   — starcoder2-7b at full width, 2 layers, fp32, seeded weights:
    identical greedy tokens with the kernels and with the plain versions
    for ``generate``, monolithic ``serve``, the default chunked + radix
-   ``serve`` and k = 4 speculative ``serve``; then mamba2-780m (2
-   layers) and recurrentgemma-2b (3 layers, one of each kind) at full
-   width, fp32: identical tokens for ``generate``, the default ``serve``
-   and k = 4 ``serve``.
+   ``serve`` and k = 4 speculative ``serve``; preempt / resume through
+   ``ServeSession`` (one request parked mid chunk fill, one mid decode, a
+   k = 4 speculative row mid decode) giving the never-preempted run's
+   tokens; then mamba2-780m (2 layers) and recurrentgemma-2b (3 layers,
+   one of each kind) at full width, fp32: identical tokens for
+   ``generate``, the default ``serve`` and k = 4 ``serve``, and the
+   reference's swap protocol (the sequence parked at decode step 6, its
+   recurrent slot and ring pages restored) giving the uninterrupted
+   stream.
 4. serve   — the main path: starcoder2-7b, all 32 layers, bf16, seeded
    weights made on the card, a 128-token page pool with every other page
    in the int8 tier; ``serve`` 5 requests (prompts 120..600, 32 new
@@ -87,7 +93,22 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 6. spec    — k = 4 speculative ``serve`` with n-gram drafts on the serve
    phase's prompts: accept rate, tokens per verify step; verify steps on
    the split route, chunk-fill steps on wgmma.
-7. hybrid  — the hybrid stacks at full depth, bf16, seeded weights:
+7. overload — the main path under load: the reference's ``overload``
+   traffic mix (16 requests, three deadline classes, priorities 0 / 1)
+   replayed open-loop through ``traffic.run_trace`` and the async front
+   end over the serve phase's model, prompts 120-600 and 16-32 new
+   tokens, arrivals at `ARRIVAL_X_SERVICE` times the serve phase's
+   measured service rate, deadlines at `DEADLINE_X_STEP` times its decode
+   step; the pool's invariants checked after every step
+   (``REPRO_SERVE_DEBUG``). Checks every request's outcome, preemptions
+   with swap traffic both ways, an empty pool, decode / verify launches
+   on the split route and chunk fills on wgmma, 2 transfers per steady
+   token; prints the latency summary (queue wait, TTFT, TPOT p50 / p99,
+   SLO attainment) and the swap-out / swap-in ms (CUDA events). Then a
+   ``REPRO_SERVE_FAULT=swap_fail:1`` pass (the victim ends as a
+   ``swap_fail`` error, the rest finish) and one recurrentgemma-2b
+   request at full depth parked and resumed.
+8. hybrid  — the hybrid stacks at full depth, bf16, seeded weights:
    mamba2-780m ``generate`` (prompts 256/700/1536, 32 new tokens) and
    the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
    ``generate`` (prompts 2300 and 1000, 40 new tokens: a ring page drops
@@ -97,8 +118,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (its prompts stream through the one-token cores, as in the
    reference), 2 transfers per steady token, no recurrent-store
    readback, live ring pages within ``ring_pages()``.
-
-8. stencil — NERO's COSMO stencils, hdiff (routes tma and simt) and
+9. stencil — NERO's COSMO stencils, hdiff (routes tma and simt) and
    vadvc (prefetch and simt): every spec case and the edge grids of
    `STENCIL_EDGE_GRIDS` (ragged against every tile; rows not a multiple
    of 16 bytes, which hdiff sends to simt; vadvc's nz = 1, 2, 3) on each
@@ -1715,7 +1735,164 @@ def phase_exact() -> dict:
     if not all(same.values()) or not outs["auto"]["prefix_hit_rate"]:
         raise AssertionError(f"kernel and plain tokens differ, or no prefix "
                              f"was adopted: {same}, {outs}")
-    return row, exact_hybrid()
+    return row, exact_preempt(cfg), exact_hybrid(), exact_hybrid_swap()
+
+
+def _session_run(eng, reqs, *, park, max_active=2, speculate=None):
+    """Drive a `ServeSession` to its end. ``park`` maps a request index to
+    the condition on its row (``"chunk"``: still streaming prompt chunks,
+    ``"decode"``: decoding, at least 3 tokens out) under which it is
+    preempted once; the admission loop resumes it. Returns the tokens and
+    the session's preempt / resume counts."""
+    from repro_torch.serve.engine import ServeSession
+    cap = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    ses = ServeSession(eng, capacity=cap, max_active=max_active,
+                       speculate=speculate)
+    for r in reqs:
+        if not ses.submit(r):
+            raise AssertionError(f"rejected: {ses.request_stats(r)}")
+    todo = dict(park)
+    while not ses.done:
+        ses.step()
+        for i, when in list(todo.items()):
+            act = ses._recs[id(reqs[i])].active
+            if act is None:
+                continue
+            if (when == "chunk" and act.prefilling) or \
+                    (when == "decode" and len(act.outs) >= 3):
+                if not ses.preempt(reqs[i]):
+                    raise AssertionError(f"request {i} did not park")
+                del todo[i]
+    if todo:
+        raise AssertionError(f"never reached the park point: {todo}")
+    ses.close()
+    if eng.kv_pool.live_pages:
+        raise AssertionError("pages left in the pool")
+    return {"tokens": [ses.result(r).tolist() for r in reqs],
+            "preemptions": ses.preemptions, "resumes": ses.resumes,
+            "swap_out_bytes": eng.kv_pool.stats["swap_out_bytes"]}
+
+
+def exact_preempt(cfg) -> dict:
+    """Preempt / resume at full width, fp32 (2 layers): a `ServeSession`
+    with one request parked mid chunk fill and one mid decode, and a k = 4
+    speculative row parked mid decode, each resumed by the admission loop.
+    Greedy tokens equal the never-preempted session's, with the kernels
+    and with the plain versions (and kernel equals plain)."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    v = cfg.vocab_size
+    cases = {"chunk_and_decode": ({0: "chunk", 1: "decode"}, 0,
+                                  [200, 70], [12, 14]),
+             "speculative_k4": ({0: "decode"}, 4, [130], [20])}
+    out = {}
+    for backend in ("auto", "ref"):
+        for name, (park, k, lengths, new) in cases.items():
+            for parked in (False, True):
+                eng = ServeEngine(cfg, seed=0, backend=backend, speculate=k,
+                                  kv_pool=PagedKVPool(
+                                      page_tokens=64,
+                                      placement_policy=EveryOtherSlow()))
+                out[(backend, name, parked)] = _session_run(
+                    eng, _requests(v, lengths, new, 7),
+                    park=park if parked else {}, speculate=k or None)
+                del eng
+                torch.cuda.empty_cache()
+    same = {f"{name} {backend}": out[(backend, name, True)]["tokens"]
+            == out[(backend, name, False)]["tokens"]
+            for backend in ("auto", "ref") for name in cases}
+    same.update({f"{name} kernel vs plain": out[("auto", name, True)]
+                 ["tokens"] == out[("ref", name, True)]["tokens"]
+                 for name in cases})
+    row = {"phase": "exact", "config": "starcoder2-7b full width, 2 layers, "
+           "fp32", "path": "ServeSession preempt / resume (host tier)",
+           "page_tokens": 64, "identical_tokens": same,
+           **{name: {k: out[("auto", name, True)][k] for k in
+                     ("tokens", "preemptions", "resumes", "swap_out_bytes")}
+              for name in cases}}
+    emit(row)
+    parks = all(out[("auto", n, True)]["preemptions"] == len(cases[n][0])
+                == out[("auto", n, True)]["resumes"] for n in cases)
+    if not all(same.values()) or not parks:
+        raise AssertionError(f"preempted tokens differ from the "
+                             f"never-preempted run's: {same}, {out}")
+    return row
+
+
+def exact_hybrid_swap() -> list:
+    """The reference's ``test_swap_out_in_bit_identical`` protocol at full
+    width, fp32: mamba2-780m (2 SSD layers) and recurrentgemma-2b (3
+    layers: RG-LRU, RG-LRU, local attention) prefill one 200-token prompt,
+    decode 12 steps and park the sequence at step 6 — its recurrent slot
+    read back whole, its ring pages to the host tier, its tail rows read
+    back — while another sequence takes the freed slots; the resumed
+    stream equals the uninterrupted one, with the kernels and with the
+    plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.paged_decode import (PagedKVState,
+                                                build_fused_step,
+                                                extract_prefill_pages)
+    from repro_torch.serve.paged_state import StateLayout
+    from repro_torch.models import Model
+    rows = []
+    for arch, layers in (("mamba2-780m", 2), ("recurrentgemma-2b", 3)):
+        cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                         compute_dtype="float32")
+        lay = StateLayout(cfg, 64)
+        model = Model(cfg, device="cuda", seed=0)
+        prompt = torch.from_numpy(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (1, 200)).astype(np.int32)).cuda()
+        out = {}
+        for backend in ("auto", "ref"):
+            for swap_at in (None, 6):
+                pool = PagedKVPool(page_tokens=64,
+                                   placement_policy=EveryOtherSlow())
+                state = PagedKVState(pool, 256, lay, cfg.num_kv_heads,
+                                     cfg.head_dim, device="cuda")
+                logits, caches = model.forward_prefill(prompt,
+                                                       backend=backend)
+                extract_prefill_pages(model, caches, state, [0])
+                del caches
+                step = build_fused_step(model, state.slots, layout=lay,
+                                        backend=backend)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                toks, parked = [int(tok[0])], {}
+                for s in range(12):
+                    if s == swap_at:
+                        parked["out_bytes"] = state.swap_out(0)
+                        parked["host_pages"] = pool.host_pages
+                        state._ensure_rec_slot(99)   # takes the freed slots
+                        if lay.n_kv:
+                            state._ensure_tail_slot(99)
+                        parked["in_bytes"] = state.swap_in(0)
+                        tok = torch.tensor([toks[-1]], dtype=torch.int32,
+                                           device="cuda")
+                    _, tok = state.run_fused(step, tok, [0], 200 + s)
+                    toks.append(int(tok[0]))
+                for seq in (0, 99):
+                    state.free_seq(seq)
+                if pool.live_pages:
+                    raise AssertionError(f"{arch}: pages left")
+                out[(backend, swap_at)] = (toks, parked)
+        same = {b: out[(b, 6)][0] == out[(b, None)][0]
+                for b in ("auto", "ref")}
+        same["kernel vs plain"] = out[("auto", 6)][0] == out[("ref", 6)][0]
+        parked = out[("auto", 6)][1]
+        row = {"phase": "exact", "config": f"{arch} full width, {layers} "
+               "layers, fp32", "path": "PagedKVState swap_out / swap_in "
+               "at decode step 6 of 12", "prompt": 200, "page_tokens": 64,
+               "identical_tokens": same, "tokens": out[("auto", 6)][0],
+               **parked}
+        emit(row)
+        if not all(same.values()) or not parked["out_bytes"] or \
+                (lay.n_kv and not parked["host_pages"]):
+            raise AssertionError(f"{arch}: swapped run differs or nothing "
+                                 f"moved: {same}, {parked}")
+        rows.append(row)
+        del model
+        torch.cuda.empty_cache()
+    return rows
 
 
 def exact_hybrid() -> list:
@@ -2023,6 +2200,275 @@ def phase_spec(base) -> dict:
            "verify_steps": len(run["narrow_ms"]),
            "ttft_ms": run["ttft_ms"], "wall_s": run["wall_s"]}
     emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# 7. overload: the main path under load (SLO scheduling, host swap tier)
+# ---------------------------------------------------------------------------
+ARRIVAL_X_SERVICE = 2.0             # arrival rate / measured service rate
+DEADLINE_X_STEP = (10, 80, 600)     # the mix's 3 deadline classes, in steps
+OVERLOAD_PROMPTS = (120, 250, 380, 500, 600)    # the serve phase's range
+OVERLOAD_NEW = (16, 24, 32)
+
+
+class SwapTimer:
+    """CUDA events (and the host clock) around every `PagedKVState`
+    swap_out / swap_in while installed: the ms each takes on the card's
+    stream. A swap-out ends in a host copy, so its events bracket the
+    readback; a swap-in's pages upload at the next step's sync, so its
+    events bracket the tail rows' and recurrent state's writes only."""
+
+    def __init__(self):
+        from repro_torch.serve.paged_decode import PagedKVState
+        self.cls = PagedKVState
+        self.orig = {n: getattr(PagedKVState, n) for n in ("swap_out",
+                                                            "swap_in")}
+        self.events = {n: [] for n in self.orig}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def timed(state, seq):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                moved = fn(state, seq)
+                host = (time.perf_counter() - t0) * 1e3
+                end.record()
+                self.events[name].append((start, end, host))
+                return moved
+            return timed
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for name, evs in self.events.items():
+            dev = [a.elapsed_time(b) for a, b, _ in evs]
+            host = [h for _, _, h in evs]
+            out[name] = {"n": len(evs),
+                         "ms_median": statistics.median(dev) if dev else None,
+                         "ms_max": max(dev) if dev else None,
+                         "host_ms_median": statistics.median(host)
+                         if host else None}
+        return out
+
+
+def _recording_frontend():
+    """A front-end class that keeps every instance, so the phase can read
+    the session `traffic.run_trace` built (its step counts)."""
+    from repro_torch.serve.frontend import AsyncServeFrontend
+    made = []
+
+    class Recorded(AsyncServeFrontend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    return Recorded, made
+
+
+def phase_overload(base, serve_row, smi: str) -> dict:
+    """The main path under load, through the entry points a user calls:
+    the reference's ``overload`` mix (16 requests, deadline classes,
+    priorities 0 / 1) replayed open-loop by `traffic.run_trace` through
+    `AsyncServeFrontend` over the serve phase's weights (starcoder2-7b,
+    32 layers, bf16, 128-token pages, every other one int8), with the
+    mix's prompt and output lengths scaled to the serve phase's range,
+    the arrival rate set to ARRIVAL_X_SERVICE times the service rate the
+    serve phase measured and the deadlines to DEADLINE_X_STEP times its
+    decode step. ``REPRO_SERVE_DEBUG`` checks the pool invariants after
+    every step. Then a fault pass (``REPRO_SERVE_FAULT=swap_fail:1``)
+    and one recurrentgemma-2b request parked and resumed at full depth."""
+    import os
+    from repro_torch.serve import traffic
+    from repro_torch.serve.frontend import AsyncServeFrontend
+    eng = _shared_engine(base)
+    cfg = eng.cfg
+    service_rps = serve_row["requests"] / serve_row["wall_s"]
+    step_s = serve_row["decode_ms_per_step"] / 1e3
+    mix = traffic.MIXES["overload"]
+    spec = mix.override(prompt_lens=OVERLOAD_PROMPTS, new_tokens=OVERLOAD_NEW,
+                        arrival_rate=ARRIVAL_X_SERVICE * service_rps,
+                        deadlines=tuple(m * step_s for m in DEADLINE_X_STEP))
+    recorded, fronts = _recording_frontend()
+    traffic.AsyncServeFrontend = recorded
+    os.environ["REPRO_SERVE_DEBUG"] = "1"
+    reset_launches()
+    try:
+        with SwapTimer() as timer:
+            t0 = time.perf_counter()
+            summary = traffic.run_trace(eng, spec, max_active=2,
+                                        max_queue=16)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        traffic.AsyncServeFrontend = AsyncServeFrontend
+        del os.environ["REPRO_SERVE_DEBUG"]
+    launches = read_launches()
+    paged = routes("paged_attention")
+    ses = fronts[0].session
+    if not ses._debug:
+        raise AssertionError("the session did not run with "
+                             "REPRO_SERVE_DEBUG")
+    accounted = sum(summary[k] for k in ("n_done", "n_cancelled",
+                                         "n_rejected", "n_errors"))
+    want_routes = {"split": (ses.steps - ses.chunk_steps) * cfg.num_layers,
+                   "wgmma": ses.chunk_steps * cfg.num_layers, "simt": 0}
+    steady = list(ses.steady_transfers)
+    pool = eng.kv_pool
+    swaps = timer.summary()
+    row = {"phase": "overload", "config": "starcoder2-7b, 32 layers, bf16",
+           "path": "traffic.run_trace -> AsyncServeFrontend -> ServeSession "
+                   "(chunked prefill + radix, preemption on, LRU victims)",
+           "nvidia_smi": smi, "mix": "overload", "n_requests": spec.n_requests,
+           "prompt_lens": list(spec.prompt_lens),
+           "new_tokens": list(spec.new_tokens),
+           "priorities": list(spec.priorities), "max_active": 2,
+           "max_queue": 16, "page_tokens": 128,
+           "service_rate_rps": service_rps,
+           "arrival_x_service": ARRIVAL_X_SERVICE,
+           "arrival_rate_rps": spec.arrival_rate,
+           "decode_step_s": step_s, "deadline_x_step": list(DEADLINE_X_STEP),
+           "deadlines_s": list(spec.deadlines),
+           "mix_deadlines_s": list(mix.deadlines),
+           "wall_s": wall_s, "steps": ses.steps,
+           "chunk_steps": ses.chunk_steps, "launches": launches,
+           "paged_launches_by_route": paged,
+           "steady_steps": len(steady),
+           "summary": summary, "swap_ms": swaps,
+           "pool_swap": {k: pool.stats[k] for k in (
+               "swapped_out", "swapped_in", "swap_out_bytes",
+               "swap_in_bytes")},
+           "invariants_checked_every_step": True}
+    emit(row)
+    if accounted != spec.n_requests or summary["n_trace"] != spec.n_requests:
+        raise AssertionError(f"{accounted} of {spec.n_requests} requests "
+                             f"accounted for: {summary}")
+    if not summary["preemptions"] or not ses.preemptions or \
+            not summary["swap_out_bytes"] or not summary["swap_in_bytes"]:
+        raise AssertionError(f"no preemption with swap traffic: {summary}")
+    if summary["pool_live_pages_end"] or pool.live_pages:
+        raise AssertionError(f"{pool.live_pages} pages left after close")
+    if paged != want_routes:
+        raise AssertionError(f"paged launches by route {paged}, want "
+                             f"{want_routes}")
+    if any(s != (1, 1) for s in steady):
+        raise AssertionError(f"steady-state transfers {steady}")
+    row["fault"] = overload_fault_pass(eng)
+    row["hybrid"] = overload_hybrid_park()
+    return row
+
+
+def overload_fault_pass(eng) -> dict:
+    """``REPRO_SERVE_FAULT=swap_fail:1``: two priority-0 requests decode,
+    a priority-1 arrival parks one of them, and its swap-in at resume
+    fails. The victim must end as a ``swap_fail`` error event with its
+    partial tokens; the other two finish; the pool ends empty."""
+    import os
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.serve.metrics import MetricsRegistry
+    cfg = eng.cfg
+    reqs = _requests(cfg.vocab_size, [250, 380, 120], [24, 24, 16], 9)
+    reqs[2].priority = 1
+    metrics = MetricsRegistry()
+    os.environ["REPRO_SERVE_FAULT"] = "swap_fail:1"
+    try:
+        ses = ServeSession(eng, capacity=420, max_active=2, metrics=metrics)
+    finally:
+        del os.environ["REPRO_SERVE_FAULT"]
+    events = []
+    for r in reqs[:2]:
+        ses.submit(r)
+    while not all(ses._recs[id(r)].active is not None
+                  and len(ses._recs[id(r)].active.outs) >= 4
+                  for r in reqs[:2]):
+        events += ses.step()
+    ses.submit(reqs[2])
+    while not ses.done:
+        events += ses.step()
+    ses.close()
+    errors = [(next(i for i, r in enumerate(reqs) if r is ev.request),
+               ev.done) for ev in events if ev.error == "swap_fail"]
+    status = [ses._recs[id(r)].status for r in reqs]
+    s = metrics.summary()
+    row = {"phase": "overload", "case": "REPRO_SERVE_FAULT=swap_fail:1",
+           "requests": [len(r.prompt) for r in reqs],
+           "priorities": [r.priority for r in reqs],
+           "status": status, "swap_fail_events": errors,
+           "tokens": [len(ses.result(r)) for r in reqs],
+           "preemptions": ses.preemptions, "n_errors": s["n_errors"],
+           "n_done": s["n_done"], "live_pages": eng.kv_pool.live_pages}
+    emit(row)
+    if len(errors) != 1 or sorted(status) != ["done", "done", "error"] \
+            or status[2] != "done" or not errors[0][1] \
+            or eng.kv_pool.live_pages or s["n_errors"] != 1:
+        raise AssertionError(f"fault pass: {row}")
+    return row
+
+
+def overload_hybrid_park() -> dict:
+    """recurrentgemma-2b at full depth, bf16: one request parked mid
+    decode and resumed through `ServeSession.preempt` / `resume` (its
+    recurrent slots read back whole, its ring pages to the host tier).
+    Its outcome is checked: it terminates, the pool ends empty, its ring
+    pages stay within ``ring_pages()``, and the recurrent store is read
+    back only by the swap (one read per store tensor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine, ServeSession
+    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.paged_state import rec_array_names
+    cfg = get_config("recurrentgemma-2b")
+    eng = ServeEngine(cfg, seed=0, kv_pool=PagedKVPool(
+        page_tokens=128, placement_policy=EveryOtherSlow()))
+    [req] = _requests(cfg.vocab_size, [300], [24], 10)
+    ses = ServeSession(eng, capacity=324, max_active=1)
+    ses.submit(req)
+    lay, pool = eng.layout, eng.kv_pool
+    ring_max, parked = 0, None
+    with SwapTimer() as timer:
+        while not ses.done:
+            ses.step()
+            rec = ses._recs[id(req)]
+            if rec.active is not None:
+                ring_max = max(ring_max,
+                               len(pool.seq_pages(rec.active.seq, 0)))
+            if parked is None and rec.active is not None \
+                    and len(rec.active.outs) >= 8:
+                reads0 = ses.state._rec.reads
+                if not ses.preempt(req):
+                    raise AssertionError("recurrentgemma request did not park")
+                parked = {"host_pages": pool.host_pages,
+                          "rec_reads": ses.state._rec.reads - reads0,
+                          "swap_out_bytes": pool.stats["swap_out_bytes"]}
+                if not ses.resume(req):
+                    raise AssertionError("recurrentgemma request did not "
+                                         "resume")
+    ses.close()
+    n_names = len(rec_array_names(lay))
+    store = ses.state.rec_store_counts()
+    row = {"phase": "overload", "case": "recurrentgemma-2b, 26 layers, bf16:"
+           " park and resume one request", "prompt": 300, "max_new": 24,
+           "tokens": len(ses.result(req)), "status": ses._recs[id(req)].status,
+           "parked": parked, "ring_pages_max": ring_max,
+           "ring_pages_bound": lay.ring_pages(), "rec_store": store,
+           "swap_ms": timer.summary(), "live_pages": pool.live_pages,
+           "preemptions": ses.preemptions, "resumes": ses.resumes}
+    emit(row)
+    if row["status"] != "done" or row["tokens"] != 24 or pool.live_pages \
+            or ring_max > lay.ring_pages() or parked is None \
+            or not parked["host_pages"] or parked["rec_reads"] != n_names \
+            or store["reads"] != n_names:
+        raise AssertionError(f"recurrentgemma park / resume: {row}")
+    del eng, ses
+    gc.collect()
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2906,15 +3352,16 @@ def kernels_line(full, launches, stencil=None) -> dict:
     return {"kernels": out}
 
 
-PHASES = ("kernel", "exact", "serve", "chunked", "spec", "hybrid",
-          "stencil")
+PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
+          "hybrid", "stencil")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=PHASES,
                     help="run the device phase and this one phase only "
-                         "(chunked and spec build the serve phase's model)")
+                         "(chunked, spec and overload build the serve "
+                         "phase's model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2934,7 +3381,7 @@ def main(argv=None) -> int:
         full = phase_kernel()
     if run("exact"):
         phase_exact()
-    if run("serve") or run("chunked") or run("spec"):
+    if run("serve") or run("chunked") or run("spec") or run("overload"):
         serve, eng = phase_serve()
         if args.only in (None, "serve"):
             phase_profile(eng)
@@ -2942,6 +3389,8 @@ def main(argv=None) -> int:
             phase_chunked(eng)
         if run("spec"):
             phase_spec(eng)
+        if run("overload"):
+            phase_overload(eng, serve, dev["nvidia_smi"])
         del eng
         # a finished session's radix tree and its release callback form
         # reference cycles: collect them so the next phase's memory

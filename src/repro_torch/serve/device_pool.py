@@ -176,10 +176,14 @@ class DevicePagePool:
     def read_slot(self, slot: int):
         """Pull one slot's float rows for every layer back to the host —
         (num_layers, t, hkv, hd) each for K and V. Used once per *filled*
-        page by the decode step; 2 device->host transfers."""
+        page by the decode step and by a swap-out; 2 device->host
+        transfers. Always a copy (``copy=True``: on a CPU tensor
+        ``.cpu()`` would alias the pool, whose slot is reused once the
+        page leaves the device); from the card the copy waits for the
+        step's work on the current stream."""
         self.reads += 2
-        return (self.arrays[0][:, slot].cpu().numpy(),
-                self.arrays[1][:, slot].cpu().numpy())
+        return tuple(a[:, slot].to("cpu", copy=True).numpy()
+                     for a in self.arrays[:2])
 
     def check_invariants(self) -> None:
         """Structural self-check: the free list holds unique in-range

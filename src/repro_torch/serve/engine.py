@@ -28,13 +28,23 @@ slot per sequence and O(window) ring pages, and — as in the reference —
 `serve()` / `ServeSession` on such a stack always prefill in chunks,
 with no radix cache (a recurrent state is not content-addressable).
 
+Overload control, as in the reference: requests may carry a deadline and
+a priority; the scheduler sheds predicted and actual deadline misses,
+and when a strictly more urgent request is blocked, `ServeSession` parks
+an eligible active row (`preempt`: its KV pages and recurrent state swap
+to the pool's host tier) and resumes it bit-identically later, the
+victim ranked by a pluggable policy (`serve.preemption`). ``metrics=``
+collects per-request queue wait, TTFT, per-token latency and SLO
+outcomes (`serve.metrics`).
+
 Greedy decoding is argmax; temperature sampling draws from a
-``torch.Generator`` seeded with ``seed``. Preemption, deadlines and
-priorities, mesh sharding and the eager/numpy decode modes are later
-slices: the arguments that ask for them raise `NotImplementedError`.
+``torch.Generator`` seeded with ``seed``. Mesh sharding, the eager/numpy
+decode modes and the dense-cache path are later slices: the arguments
+that ask for them raise `NotImplementedError`.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -47,6 +57,7 @@ from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
                                             extract_prefill_pages, sample)
 from repro_torch.serve.paged_state import StateLayout, supports_paged_layout
+from repro_torch.serve.preemption import LRUVictimPolicy, RequestView
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import (Admission, Request, Scheduler,
                                          effective_speculate,
@@ -54,13 +65,8 @@ from repro_torch.serve.scheduler import (Admission, Request, Scheduler,
 from repro_torch.serve.speculative import SpecStats, make_draft
 from repro_torch.serve.steps import prefill_all_positions
 
-__all__ = ["Admission", "Request", "ServeEngine", "ServeSession"]
-
-
-def _check_request(req: Request):
-    if req.deadline is not None or req.priority != 0:
-        raise NotImplementedError("deadlines and priorities (SLO shedding, "
-                                  "preemption) are not ported")
+__all__ = ["Admission", "Request", "ServeEngine", "ServeSession",
+           "StreamEvent", "SwapInError"]
 
 
 class ServeEngine:
@@ -274,11 +280,10 @@ class ServeEngine:
         returned tokens (eos inclusive); the lockstep batch still decodes
         ``max_new_tokens`` steps (speculative rows advance at their own
         accept rates). The batch's pages stay live after the call unless
-        ``free_pages=True``."""
+        ``free_pages=True``. Deadlines and priorities play no part in a
+        static batch (as in the reference)."""
         spec_k, eff_ks = self._resolve_spec(requests)
         self._require_paged()
-        for r in requests:
-            _check_request(r)
         b = len(requests)
         plen = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
@@ -400,22 +405,23 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def serve(self, requests: list[Request], max_active: int = 4,
               greedy: bool = True, temperature: float = 1.0, seed: int = 0,
-              prefix_cache: bool = True,
+              prefix_cache: bool = True, metrics=None,
               chunked_prefill: Optional[bool] = None,
               prefill_budget: int = 1,
               radix: Optional[bool] = None,
-              preempt: bool = False) -> list[Optional[np.ndarray]]:
+              preempt: bool = True,
+              preempt_policy=None) -> list[Optional[np.ndarray]]:
         """Continuous-batching decode: requests join free rows mid-flight
         and retire at their own lengths; finished requests' pages are
         freed. Returns outputs in submission order; a request that can
-        never fit is rejected (its slot is None, its `Admission` verdict
-        in ``last_rejections``). ``chunked_prefill`` and ``radix``
-        default on, as in the reference (see `ServeSession`).
-        ``preempt=True`` raises: preemption is not ported (the reference
-        preempts only for deadlines and priorities, which the port
-        refuses, so its default path is this one)."""
-        if preempt:
-            raise NotImplementedError("preemption is not ported")
+        never fit, or is shed for its deadline, is rejected (its slot is
+        None, its `Admission` verdict in ``last_rejections``, its
+        ``last_request_stats`` entry carries ``rejected=<reason>``).
+        ``chunked_prefill`` and ``radix`` default on, as in the reference;
+        ``preempt`` (default on) lets a strictly more urgent request park
+        an active one on the host tier, ranked by ``preempt_policy``;
+        ``metrics`` takes a `serve.metrics.MetricsRegistry` (see
+        `ServeSession`)."""
         if not requests:
             self.last_rejections = []
             return []
@@ -427,9 +433,11 @@ class ServeEngine:
         session = ServeSession(self, capacity=cap, max_active=max_active,
                                speculate=spec_k, greedy=greedy,
                                temperature=temperature, seed=seed,
-                               prefix_cache=prefix_cache,
+                               prefix_cache=prefix_cache, metrics=metrics,
                                chunked_prefill=chunked_prefill,
-                               prefill_budget=prefill_budget, radix=radix)
+                               prefill_budget=prefill_budget, radix=radix,
+                               preempt=preempt,
+                               preempt_policy=preempt_policy)
         self.last_rejections = []
         for r in requests:
             verdict = session.submit(r)
@@ -486,11 +494,21 @@ class _Active:
                 or self.outs[-1] == self.req.eos_token)
 
 
+class SwapInError(RuntimeError):
+    """A parked sequence's host pages could not be restored to the device
+    (injected via ``REPRO_SERVE_FAULT=swap_fail:p`` for testing). The
+    session converts it into a structured per-request error event — the
+    victim's pages free, the rest of the batch is untouched."""
+
+
 class StreamEvent:
     """Per-request outcome of one `ServeSession.step`: the tokens the
     request emitted this step (the admission prefill token included) and
-    whether it just finished. ``error`` names a late rejection on a
-    terminal event."""
+    whether it just finished. The streamed tokens are already eos/max_new
+    clamped — concatenating a request's events reproduces its final
+    output exactly. ``error`` names a late rejection or a structured
+    mid-flight failure (e.g. ``"swap_fail"``) on a terminal event; the
+    tokens streamed before it stand as the partial result."""
 
     __slots__ = ("request", "tokens", "done", "error")
 
@@ -503,11 +521,14 @@ class StreamEvent:
 class _SessionRec:
     """One request's lifecycle record inside a `ServeSession`."""
 
-    __slots__ = ("req", "status", "active", "row", "result", "stats")
+    __slots__ = ("req", "status", "admission", "active", "row", "result",
+                 "stats", "metrics")
 
-    def __init__(self, req: Request):
+    def __init__(self, req: Request, admission: Admission, metrics):
         self.req = req
-        # waiting | active | done | cancelled | rejected
+        self.admission = admission
+        self.metrics = metrics
+        # waiting|active|preempted|done|cancelled|rejected|error
         self.status = "waiting"
         self.active: Optional[_Active] = None
         self.row = -1
@@ -535,17 +556,35 @@ class ServeSession:
     prefills in chunks, with no radix cache and no prefix hashing, as in
     the reference: ``chunked_prefill=False`` raises `ValueError`.
 
+    Overload: requests may carry a ``deadline`` and a ``priority``. When
+    an admission round leaves a strictly more urgent head blocked and
+    ``preempt`` is on (the default), the session parks an eligible active
+    row — the scheduler's deterministic eligibility, ``preempt_policy``
+    (default `LRUVictimPolicy`) ranking the candidates — by swapping its
+    KV pages, tail rows and recurrent state to the pool's host tier
+    (`preempt`), and resumes it at a later admission round (or `resume`)
+    bit-identically. ``metrics`` (a `serve.metrics.MetricsRegistry`)
+    collects queue wait, TTFT, per-token latency, preempt/resume spans
+    and SLO outcomes per request. The reference's test hooks hold here:
+    ``REPRO_SERVE_FAULT=swap_fail:p`` fails a resume's swap-in with
+    probability p (the victim ends as a structured ``swap_fail`` error
+    event, the batch decodes on) and ``REPRO_SERVE_DEBUG`` checks the
+    pool invariants after every step.
+
     ``steady_transfers`` lists the (host->device, device->host) transfers
     of every step that fed its tokens back on the device and neither
     synced nor read back a page: the steady state, one control upload and
-    one token download."""
+    one token download. A swap marks the rows dirty, so the step after it
+    is not a steady one; swap traffic itself is counted in the pool's
+    ``swap_out_bytes`` / ``swap_in_bytes`` stats."""
 
     def __init__(self, engine: ServeEngine, capacity: int,
                  max_active: int = 4, speculate: Optional[int] = None,
                  greedy: bool = True, temperature: float = 1.0,
-                 seed: int = 0, prefix_cache: bool = True,
+                 seed: int = 0, prefix_cache: bool = True, metrics=None,
                  chunked_prefill: Optional[bool] = None,
-                 prefill_budget: int = 1, radix: Optional[bool] = None):
+                 prefill_budget: int = 1, radix: Optional[bool] = None,
+                 preempt: bool = True, preempt_policy=None):
         engine._require_paged()
         k = max(1, engine.speculate if speculate is None else int(speculate))
         engine._check_spec_width(k)
@@ -555,6 +594,7 @@ class ServeSession:
         self.spec_k = k
         self.max_active = max_active
         self.greedy, self.temperature = greedy, float(temperature)
+        self.metrics = metrics
         hybrid = engine._hybrid
         if hybrid and chunked_prefill is not None and not chunked_prefill:
             # the monolithic prefill of a session cannot hand a recurrent
@@ -582,9 +622,12 @@ class ServeSession:
         self.state = engine._new_state(
             self.capacity, batch_hint=max_active,
             tail_slots=2 if (k > 1 or self.chunked) else 1)
-        # prefix-cache hit accounting: pages adopted / adoptable pages
+        # prefix-cache hit accounting (pages adopted / adoptable pages)
+        # and the per-token wall time of decode work that shared a step
+        # with a prefill chunk ("decode p99 during admission")
         self.pages_adopted_total = 0
         self.pages_needed_total = 0
+        self.prefill_step_decode_ms: list[float] = []
         self._rows: list[Optional[_Active]] = [None] * max_active
         self._recs: dict[int, _SessionRec] = {}
         self._gen = engine._generator(seed)
@@ -597,6 +640,30 @@ class ServeSession:
         self.chunk_steps = 0      # steps that carried a prompt chunk
         self.peak_live_pages = 0
         self.steady_transfers: list[tuple[int, int]] = []
+        # SLO-aware preemption: when the admission round leaves a
+        # strictly-more-urgent head blocked, park an eligible active row
+        # (swap its state to the host tier) to free a seat. Eligibility
+        # is the scheduler's deterministic rule; the policy only ranks.
+        self.preempt_enabled = bool(preempt)
+        self.preempt_policy = preempt_policy if preempt_policy is not None \
+            else LRUVictimPolicy()
+        # per-step reward feedback of a learned policy: a no-op for LRU
+        self._preempt_observe = getattr(self.preempt_policy, "observe",
+                                        None)
+        self.preemptions = 0      # rows parked to the host tier
+        self.resumes = 0          # parked rows re-placed
+        self._step_misses = 0     # deadline misses since last policy reward
+        self._pending_events: list[StreamEvent] = []
+        # fault injection (tests): REPRO_SERVE_FAULT=swap_fail:p makes a
+        # resume's swap-in fail with probability p — the victim surfaces
+        # a structured error event, the batch keeps decoding
+        self._fault: Optional[tuple[str, float]] = None
+        fault = os.environ.get("REPRO_SERVE_FAULT")
+        if fault:
+            kind, _, p = fault.partition(":")
+            self._fault = (kind, float(p) if p else 1.0)
+        self._fault_rng = np.random.default_rng(seed ^ 0x5EED)
+        self._debug = bool(os.environ.get("REPRO_SERVE_DEBUG"))
 
     # -- lifecycle ----------------------------------------------------------
     @property
@@ -604,11 +671,18 @@ class ServeSession:
         """True when nothing is waiting and no decode row is occupied."""
         return self.sched.done
 
+    @property
+    def queue_depth(self) -> int:
+        return len(self.sched.waiting)
+
+    @property
+    def n_active(self) -> int:
+        return sum(a is not None for a in self._rows)
+
     def submit(self, req: Request) -> Admission:
-        """Queue a request (FIFO). Returns the structured admission
-        verdict; on rejection the request is fully accounted (result
-        ``None``, stats carry the reason) but never does work."""
-        _check_request(req)
+        """Queue a request (in urgency order). Returns the structured
+        admission verdict; on rejection the request is fully accounted
+        (result ``None``, stats carry the reason) but never does work."""
         if id(req) in self._recs:
             raise ValueError("Request object already submitted to this "
                              "session")
@@ -638,28 +712,43 @@ class ServeSession:
                        f"session verify graph is {self.spec_k} wide")
         else:
             verdict = self.sched.submit(req)
-        rec = _SessionRec(req)
+        m = self.metrics.submit() if self.metrics is not None else None
+        if m is not None:
+            m.deadline_s = req.deadline
+        rec = _SessionRec(req, verdict, m)
         self._recs[id(req)] = rec
         if not verdict:
             rec.status = "rejected"
             rec.stats = {"rejected": verdict.reason, "tokens": 0,
                          **verdict.as_dict()}
+            if m is not None:
+                m.on_reject(verdict.reason)
         return verdict
 
     def cancel(self, req: Request) -> bool:
         """Cancel a submitted request: a waiting one leaves the queue; an
         active one retires — its row and reservation free immediately and
         its pool pages drop their refs (prefix-shared and pinned pages
-        survive through their other holders). The tokens streamed so far
+        survive through their other holders); a parked one frees its
+        host-tier pages and parked tail. The tokens streamed so far
         become its partial result. Returns False if it already finished
         or was never submitted."""
         rec = self._recs.get(id(req))
-        if rec is None or rec.status in ("done", "cancelled", "rejected"):
+        if rec is None or rec.status in ("done", "cancelled", "rejected",
+                                         "error"):
             return False
         outs: list = []
         stats = SpecStats()
         if rec.status == "waiting":
             self.sched.remove_waiting(req)
+        elif rec.status == "preempted":
+            # a swapped-out sequence: it sits in the waiting queue
+            # (parked) and holds no row — free its host-tier pages and
+            # parked tail, drop the scheduler's parked bookkeeping
+            act = rec.active
+            outs, stats = act.outs, act.stats
+            self.sched.remove_waiting(req)
+            self.state.free_seq(act.seq)
         else:
             act = rec.active
             outs, stats = act.outs, act.stats
@@ -674,6 +763,8 @@ class ServeSession:
         d["tokens"] = len(rec.result)
         d["cancelled"] = True
         rec.stats = d
+        if rec.metrics is not None:
+            rec.metrics.on_cancel()
         return True
 
     def result(self, req: Request) -> Optional[np.ndarray]:
@@ -685,6 +776,13 @@ class ServeSession:
     def request_stats(self, req: Request) -> Optional[dict]:
         rec = self._recs.get(id(req))
         return None if rec is None else rec.stats
+
+    def admission(self, req: Request) -> Optional[Admission]:
+        rec = self._recs.get(id(req))
+        return None if rec is None else rec.admission
+
+    def transfer_counts(self) -> tuple[int, int]:
+        return self.state.transfer_counts()
 
     def _release_pinned(self, pid: int):
         # a radix-tree unpin destroyed a pool page: recycle its device slot
@@ -719,6 +817,10 @@ class ServeSession:
     # -- the step -----------------------------------------------------------
     def _finish(self, rec: _SessionRec):
         act = rec.active
+        if rec.req.deadline is not None and self.sched.overdue(rec.req):
+            # finished past its SLO: feeds the preemption policy's
+            # per-step miss penalty (a learned victim ranking)
+            self._step_misses += 1
         self.state.free_seq(act.seq)
         self._rows[rec.row] = None
         self.sched.retire(rec.req)
@@ -728,15 +830,170 @@ class ServeSession:
         d = act.stats.as_dict()
         d["tokens"] = len(rec.result)   # eos-trimmed, prefill token incl.
         rec.stats = d
+        if rec.metrics is not None:
+            rec.metrics.on_finish(len(rec.result),
+                                  accept_rate=d.get("accept_rate"))
+
+    # -- preemption / resume ------------------------------------------------
+    def preempt(self, req: Request) -> bool:
+        """Park an active request: its KV pages swap to the host tier,
+        its row and reservation free for more urgent work, and it
+        re-enters the waiting queue at its urgency position. Resuming
+        (automatic at a later admission round, or explicit via `resume`)
+        restores its state bit-identically, so its greedy output is
+        token-for-token what the never-preempted run produces. Returns
+        False unless the request is currently active."""
+        rec = self._recs.get(id(req))
+        if rec is None or rec.status != "active":
+            return False
+        self._preempt_rec(rec)
+        return True
+
+    def resume(self, req: Request) -> bool:
+        """Explicitly un-park a preempted request now (the admission loop
+        also resumes parked requests by urgency order on its own).
+        Returns False if it is not parked or no row / page headroom is
+        free yet."""
+        rec = self._recs.get(id(req))
+        if rec is None or rec.status != "preempted":
+            return False
+        if not self.sched.try_resume(req):
+            return False
+        return self._place_resumed(rec, self._pending_events)
+
+    def _preempt_rec(self, rec: _SessionRec):
+        act = rec.active
+        self.state.swap_out(act.seq)
+        self._rows[rec.row] = None
+        rec.row = -1
+        rec.status = "preempted"
+        self.sched.preempt(rec.req)
+        self._rows_dirty = True
+        self.preemptions += 1
+        if rec.metrics is not None:
+            rec.metrics.on_preempt()
+
+    def _place_resumed(self, rec: _SessionRec, events: list) -> bool:
+        """Give a just-re-reserved parked request a decode row back and
+        swap its state in. A failed swap-in (fault injection) surfaces as
+        a structured terminal error event: the scheduler reservation and
+        every page the victim held free, nothing else in the batch is
+        touched."""
+        req, act = rec.req, rec.active
+        row_i = self._rows.index(None)
+        try:
+            if self._fault is not None and self._fault[0] == "swap_fail" \
+                    and self._fault_rng.random() < self._fault[1]:
+                # fires BEFORE any state changes: the sequence is still
+                # cleanly parked, so free_seq below releases exactly its
+                # host pages + parked tail
+                raise SwapInError(
+                    f"injected swap-in fault for seq {act.seq}")
+            self.state.swap_in(act.seq)
+        except SwapInError as e:
+            self.sched.retire(req)
+            self.state.free_seq(act.seq)
+            rec.status = "error"
+            rec.active = None
+            rec.result = np.array(act.outs[:req.max_new_tokens], np.int64)
+            d = act.stats.as_dict()
+            d["tokens"] = len(rec.result)
+            d["error"] = "swap_fail"
+            d["detail"] = str(e)
+            rec.stats = d
+            if rec.metrics is not None:
+                rec.metrics.on_error("swap_fail")
+            events.append(StreamEvent(req, [], done=True,
+                                      error="swap_fail"))
+            return False
+        self._rows[row_i] = act
+        rec.row = row_i
+        rec.status = "active"
+        self._rows_dirty = True
+        self.resumes += 1
+        if rec.metrics is not None:
+            rec.metrics.on_resume()
+        return True
+
+    def _maybe_preempt(self) -> bool:
+        """One preemption pass after a blocked admission round: if the
+        waiting head strictly outranks some active row (the scheduler's
+        deterministic eligibility), ask the policy which eligible victim
+        to park and park it. Returns True when a row was freed (the
+        caller re-runs admission). Candidates shrink every pass, so the
+        admit/preempt loop terminates."""
+        if not self.preempt_enabled:
+            return False
+        sched = self.sched
+        head = sched.head_blocked()
+        if head is None:
+            return False
+        cands = [rec for rec in self._recs.values()
+                 if rec.status == "active" and sched.preempts(head, rec.req)]
+        if not cands:
+            return False
+        now = sched._clock()
+
+        def slack(r):
+            if r.deadline is None:
+                return None
+            sub = sched._submit_s.get(id(r))
+            return None if sub is None else sub + r.deadline - now
+
+        views = []
+        for rec in cands:
+            act = rec.active
+            views.append(RequestView(
+                priority=rec.req.priority,
+                deadline_slack_s=slack(rec.req),
+                tokens_done=len(act.outs),
+                tokens_left=rec.req.max_new_tokens - len(act.outs),
+                prefilling=act.prefilling,
+                pages=len(self.pool.seq_pages(act.seq)),
+                admit_seq=sched._order.get(id(rec.req), 0)))
+        head_view = RequestView(
+            priority=head.priority, deadline_slack_s=slack(head),
+            tokens_left=head.max_new_tokens,
+            queue_depth=len(sched.waiting))
+        pick = self.preempt_policy.pick(head_view, views)
+        if pick is None:
+            return False
+        self._preempt_rec(cands[pick])
+        return True
 
     def _reject_late(self, events: list):
         """Surface the scheduler's late rejections: a queue head that can
-        never fit even after evicting every reclaimable pin."""
+        never fit even after full pin eviction, a head whose deadline
+        expired while it waited, or a parked request no batch can
+        re-host. A never-admitted request is accounted like a
+        submit-time rejection; a shed *parked* one already did work — its
+        swapped state frees and it terminates as a structured error with
+        its partial result."""
         for req, verdict in self.sched.late_rejections:
             rec = self._recs[id(req)]
+            rec.admission = verdict
+            if rec.active is not None:       # shed while parked
+                act = rec.active
+                self.state.free_seq(act.seq)
+                rec.status = "error"
+                rec.active = None
+                rec.result = np.array(act.outs[:req.max_new_tokens],
+                                      np.int64)
+                d = act.stats.as_dict()
+                d["tokens"] = len(rec.result)
+                d["error"] = verdict.reason
+                d.update(verdict.as_dict())
+                rec.stats = d
+                if rec.metrics is not None:
+                    rec.metrics.on_error(verdict.reason)
+                events.append(StreamEvent(req, [], done=True,
+                                          error=verdict.reason))
+                continue
             rec.status = "rejected"
             rec.stats = {"rejected": verdict.reason, "tokens": 0,
                          **verdict.as_dict()}
+            if rec.metrics is not None:
+                rec.metrics.on_reject(verdict.reason)
             events.append(StreamEvent(req, [], done=True,
                                       error=verdict.reason))
         self.sched.late_rejections.clear()
@@ -746,13 +1003,22 @@ class ServeSession:
         t = self.pool.page_tokens
         while True:
             # loop: an admitted request finishing at its very first token
-            # frees its row + reservation, unblocking the queue head again
+            # frees its row + reservation, unblocking the queue head
+            # again; a blocked round may park an eligible active row
+            # (preemption) and retry
             batch = self.sched.admit()
             self._reject_late(events)
             if not batch:
+                if self._maybe_preempt():
+                    continue
                 return
             for req in batch:
                 rec = self._recs[id(req)]
+                if rec.status == "preempted":
+                    # a parked request the scheduler just re-reserved:
+                    # swap its state back in and rejoin mid-decode
+                    self._place_resumed(rec, events)
+                    continue
                 seq = eng._next_seq
                 eng._next_seq += 1
                 row_i = self._rows.index(None)
@@ -783,6 +1049,8 @@ class ServeSession:
                     self._rows[row_i] = act
                     rec.active, rec.row, rec.status = act, row_i, "active"
                     self._rows_dirty = True
+                    if rec.metrics is not None:
+                        rec.metrics.on_admit()
                     continue
                 t0 = time.perf_counter()
                 logits_all, caches = eng._prefill_all(toks)
@@ -812,6 +1080,9 @@ class ServeSession:
                 self._rows[row_i] = act
                 rec.active, rec.row, rec.status = act, row_i, "active"
                 self._rows_dirty = True
+                if rec.metrics is not None:
+                    rec.metrics.on_admit()
+                    rec.metrics.on_tokens(1)
                 done = act.finished
                 if done:
                     self._finish(rec)
@@ -826,7 +1097,8 @@ class ServeSession:
         ``max(speculate, page_tokens)`` columns: up to ``prefill_budget``
         chunk rows stream one prompt page each through the verify step
         while every decode row keeps decoding in the same step."""
-        events: list[StreamEvent] = []
+        events: list[StreamEvent] = list(self._pending_events)
+        self._pending_events.clear()
         self._admit(events)
         rows = self._rows
         if all(a is None for a in rows):
@@ -914,10 +1186,12 @@ class ServeSession:
         eng.stats["decode_s"] += dt
         eng.stats["decode_steps"] += 1
         self.steps += 1
+        self.sched.observe_step(dt)   # service-rate EMA (deadline sheds)
         if self._observe is not None:
             self._observe(state.gather_s - g0,
                           pool.stats["fast_hits"] - hits0[0],
                           pool.stats["slow_hits"] - hits0[1])
+        decode_tokens = 0
         for i, act in enumerate(rows):
             if act is None:
                 continue
@@ -936,6 +1210,8 @@ class ServeSession:
                     # prompt fully resident: pin its full pages so later
                     # requests adopt them
                     self.prefix_index.insert(act.hashes)
+                if rec.metrics is not None:
+                    rec.metrics.on_tokens(1)
                 done = act.finished
                 if done:
                     self._finish(rec)
@@ -951,10 +1227,22 @@ class ServeSession:
                 act.outs.append(new[0])
                 act.stats.steps += 1
                 act.stats.tokens += 1
+            decode_tokens += len(new)
             eng.stats["tokens"] += len(new)
+            if rec.metrics is not None:
+                rec.metrics.on_tokens(len(new))
             done = act.finished
             if done:
                 self._finish(rec)
             events.append(StreamEvent(act.req, new, done=done))
+        if chunk_rows and decode_tokens:
+            self.prefill_step_decode_ms.append(dt * 1e3 / decode_tokens)
+        if self._preempt_observe is not None:
+            # per-step reward for a learned victim ranking: decode
+            # latency + the deadline misses the finishes above counted
+            self._preempt_observe(dt, self._step_misses)
+            self._step_misses = 0
+        if self._debug:     # REPRO_SERVE_DEBUG: per-step pool invariants
+            self.check_invariants()
         self.peak_live_pages = max(self.peak_live_pages, pool.live_pages)
         return events

@@ -45,6 +45,10 @@ Page lifecycle:
   ring     -> a sliding-window stack drops the front pages no future
               query can see (``_drop_ring``), O(window) pages per sequence
   attend   -> one page table per step serves every layer
+  park     -> ``swap_out`` reads the tail rows and the recurrent slot
+              back, moves the sequence's own pages to the pool's host
+              tier and frees their device slots; ``swap_in`` restores
+              them bit-identically (preemption)
   retire   -> ``free_seq`` releases the request's pool pages (ref-
               counted; prefix-shared pages survive), device slots and
               recurrent slot
@@ -130,6 +134,11 @@ class PagedKVState:
                 device=self.device)
         self._rec_slot: dict[int, int] = {}    # seq -> recurrent slot
         self._ring_base: dict[int, int] = {}   # seq -> dropped ring pages
+        # preempted sequences: seq -> host copy of its partial tail rows
+        # (num_layers, tail_len, hkv, hd) K/V, or None when the tail was
+        # empty at swap-out; seq -> its parked recurrent state blocks
+        self._parked_tail: dict[int, object] = {}
+        self._parked_rec: dict[int, dict] = {}
         self._in_step = False     # between begin_step and end_step
         self.gather_s = 0.0       # host-side bookkeeping time
         self.h2d = 0
@@ -481,18 +490,104 @@ class PagedKVState:
         sequence's pages."""
         self._device.release_pid(pid)
 
+    # -- preemption: whole-sequence swap out / in ---------------------------
+    def is_parked(self, seq: int) -> bool:
+        return seq in self._parked_tail
+
+    def swap_out(self, seq: int) -> int:
+        """Park a live sequence between steps: its partial tail rows are
+        read back to the host (``read_slot``'s ``.cpu()`` waits for the
+        step's work on the current stream, so the rows are current), its
+        tail / spill device slots are recycled, its recurrent slot is
+        read back whole and released, its exclusively-held pool pages
+        move to the host tier (`PagedKVPool.swap_out_seq` — shared and
+        pinned pages stay resident) and their device slots free. All
+        decode bookkeeping (`tail_len`, the ring base, pending chunk
+        hashes) survives, so `swap_in` followed by the next `begin_step`
+        resumes mid-decode with bit-identical state. Returns the tail and
+        recurrent bytes moved to the host (page bytes are counted in the
+        pool's ``swap_out_bytes`` stat, these too)."""
+        if seq in self._parked_tail:
+            raise RuntimeError(f"sequence {seq} is already swapped out")
+        tail_bytes = 0
+        n = self.tail_len.get(seq, 0)
+        slot = self._tail_slot.pop(seq, None)
+        if n > 0:
+            if slot is None:
+                raise RuntimeError(
+                    f"sequence {seq}: {n} tail rows but no tail slot")
+            k_all, v_all = self._device.read_slot(slot)
+            kt = np.ascontiguousarray(k_all[:, :n])
+            vt = np.ascontiguousarray(v_all[:, :n])
+            self._parked_tail[seq] = (kt, vt)
+            tail_bytes = kt.nbytes + vt.nbytes
+            self.pool.stats["swap_out_bytes"] += tail_bytes
+        else:
+            self._parked_tail[seq] = None
+        if slot is not None:
+            self._device.release_slot(slot)
+        # the spill slot only ever holds phantom (not yet kept) rows
+        # between steps — nothing to preserve
+        spill = self._spill_slot.pop(seq, None)
+        if spill is not None:
+            self._device.release_slot(spill)
+        if self._rec is not None:
+            slot = self._rec_slot.pop(seq, None)
+            if slot is not None:
+                blocks = self._rec.read_slot(slot)
+                self._parked_rec[seq] = blocks
+                self._rec.release_slot(slot)
+                rec_bytes = sum(v.nbytes for v in blocks.values())
+                self.pool.stats["swap_out_bytes"] += rec_bytes
+                tail_bytes += rec_bytes
+        for pid, _layer in self.pool.swap_out_seq(seq):
+            self._device.release_pid(pid)
+        return tail_bytes
+
+    def swap_in(self, seq: int) -> int:
+        """Un-park a sequence: pool pages return to their pre-swap device
+        tier (the next `begin_step`'s `sync` uploads them to freshly
+        allocated slots, and its page table names those), the saved tail
+        rows scatter into a new tail slot and the recurrent blocks are
+        installed whole in a new slot (`write_prefill_rec`). Returns the
+        tail and recurrent bytes restored."""
+        data = self._parked_tail.pop(seq)   # KeyError == caller bug
+        self.pool.swap_in_seq(seq)
+        tail_bytes = 0
+        n = self.tail_len.get(seq, 0)
+        if n > 0:
+            kt, vt = data
+            slot = self._ensure_tail_slot(seq)
+            slots = np.full(n, slot)
+            rows = np.arange(n)
+            for layer in range(self.num_layers):
+                self._device.write_rows(layer, slots, rows, kt[layer],
+                                        vt[layer])
+            tail_bytes = kt.nbytes + vt.nbytes
+            self.pool.stats["swap_in_bytes"] += tail_bytes
+        blocks = self._parked_rec.pop(seq, None)
+        if blocks is not None:
+            self.write_prefill_rec(seq, blocks)    # full set: bit-identical
+            rec_bytes = sum(v.nbytes for v in blocks.values())
+            self.pool.stats["swap_in_bytes"] += rec_bytes
+            tail_bytes += rec_bytes
+        return tail_bytes
+
     # -- retire -------------------------------------------------------------
     def free_seq(self, seq: int) -> list:
-        """Retire a request: drop its pool page refs (destroying pages
-        whose last holder it was) and recycle its device slots and its
-        recurrent slot. Returns the destroyed pool (page id, layer)
-        pairs."""
+        """Retire a request (live or parked): drop its pool page refs
+        (destroying pages whose last holder it was, host-tier ones
+        included) and recycle its device slots, its recurrent slot and
+        any parked tail or state. Returns the destroyed pool (page id,
+        layer) pairs."""
         destroyed = self.pool.free(seq)
         for pid, _layer in destroyed:
             self._device.release_pid(pid)
         self.tail_len.pop(seq, None)
         self._pending_hashes.pop(seq, None)
         self._ring_base.pop(seq, None)
+        self._parked_tail.pop(seq, None)
+        self._parked_rec.pop(seq, None)
         slot = self._rec_slot.pop(seq, None)
         if slot is not None:
             self._rec.release_slot(slot)

@@ -291,10 +291,13 @@ class RecurrentStore:
             for n, a in zip(self.names, self.arrays)})
 
     def read_slot(self, slot: int) -> dict:
-        """Device -> host: every tensor's per-layer blocks at one slot."""
+        """Device -> host: every tensor's per-layer blocks at one slot, as
+        fp32 copies (``copy=True``: never a view of the store, whose slot
+        is reused once a parked sequence releases it)."""
         out = {}
         for name, a in zip(self.names, self.arrays):
-            out[name] = a[:, slot].float().cpu().numpy()
+            out[name] = a[:, slot].to("cpu", torch.float32,
+                                      copy=True).numpy()
             self.reads += 1
         return out
 

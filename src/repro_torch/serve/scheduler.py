@@ -1,15 +1,15 @@
 """Continuous-batching scheduler: admit and retire requests mid-decode.
 
-The part of the JAX package's ``repro/serve/scheduler.py`` that the port's
-serving session drives (the port imports nothing of that package): FIFO
-admission over one data shard with the radix prefix index's credit,
-without deadlines, priorities or preemption. Those come with the slices
-that port them.
+The JAX package's ``repro/serve/scheduler.py`` on one data shard (the
+port imports nothing of that package): urgency-ordered admission with
+the radix prefix index's credit, deadline shedding and preemption.
 
 Admission rules (as the reference's):
 
-- FIFO, no overtaking: only the head of the waiting queue is considered;
-  if it does not fit, nothing behind it admits.
+- Urgency-ordered, no overtaking within a class: the waiting queue sorts
+  by ``(priority desc, absolute deadline asc, submit order)`` — requests
+  without deadline/priority (the defaults) are plain FIFO — and only the
+  head is considered; if it does not fit, nothing behind it admits.
 - A request admits only while a decode row is free (`max_active` bounds
   the lockstep kernel batch) AND the pool has headroom for its worst-case
   page need: ``kv_layers * (ceil((prompt + max_new) / page_tokens) + 1)``
@@ -30,11 +30,32 @@ Admission rules (as the reference's):
   `Admission` verdict instead of an exception.
 - Retiring frees the request's reservation, which unblocks the queue head
   on the next admission round.
+
+Overload control (SLO-aware):
+
+- A request may carry a ``deadline`` (seconds from submit) and a
+  ``priority``. ``submit`` sheds a request whose deadline is predicted
+  infeasible (reason ``deadline_infeasible``) from a decode-step-time
+  EMA; ``admit`` late-sheds queued requests whose deadline has already
+  expired. Shedding is structured (an `Admission` verdict), never an
+  exception. Deadlines are wall-clock: ``_clock`` (``time.monotonic``)
+  is swappable for a fake clock in tests.
+- ``preempt(req)`` parks an admitted request: its row and page
+  reservation free immediately (the session swaps its pages to the host
+  tier) and it re-enters the waiting queue at its urgency position.
+  Eligibility is the strict-urgency rule ``preempts(incoming, victim)``:
+  the incoming request must sort strictly earlier on (priority, absolute
+  deadline) — a static total order, so a victim can never preempt its
+  preemptor back and every parked request eventually resumes. Parked
+  requests resume via the normal admission path and are never
+  deadline-shed: "preempted" always ends in "resumed" (or explicit
+  cancellation).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from collections import deque
 from typing import Optional
 
@@ -46,11 +67,14 @@ class Admission:
     """Structured admission verdict — truthy iff the request was queued.
 
     ``reason`` on rejection: ``pool_capacity`` (worst-case page need
-    exceeds the pool budget that can ever be free) or ``capacity`` (the
-    session's page table cannot hold the request). ``pages_needed`` /
-    ``pages_budget`` quantify the verdict; ``detail`` is the
-    human-readable sentence. ``deadline_headroom_s`` stays None (no SLO
-    shedding in the port yet) and is kept for the reference's format."""
+    exceeds the pool budget that can ever be free), ``capacity`` (the
+    session's page table cannot hold the request), ``speculate`` (the
+    request's k exceeds the session's verify width), ``queue_full``
+    (front-end backpressure) or ``deadline_infeasible`` (SLO shedding:
+    the deadline is predicted unmeetable at submit, or expired while
+    queued). ``pages_needed`` / ``pages_budget`` quantify the pool
+    verdicts, ``deadline_headroom_s`` the SLO ones (predicted slack;
+    negative == shed); ``detail`` is the human-readable sentence."""
     admitted: bool
     reason: str = ""
     detail: str = ""
@@ -76,9 +100,14 @@ class Request:
     # tokens per decode step: None -> the engine's default; <= 1 -> plain
     # one-token decode; k > 1 -> speculative verify steps of k rows
     speculate: Optional[int] = None
-    # the reference's SLO-deadline and priority fields; the engine raises
-    # NotImplementedError on any non-default
+    # SLO budget in seconds from submit. None = best-effort (never shed
+    # for deadline, preemptable by any deadline-carrying peer of equal
+    # priority). The scheduler sheds predicted/actual misses with reason
+    # ``deadline_infeasible`` and preempts to protect tighter deadlines.
     deadline: Optional[float] = None
+    # higher admits first and may preempt strictly lower (see
+    # `Scheduler.preempts`); equal-priority order falls back to the
+    # earliest absolute deadline, then submit order
     priority: int = 0
 
 
@@ -105,7 +134,8 @@ def prefix_page_hashes(tokens: np.ndarray, page_tokens: int) -> list[str]:
 
 
 class Scheduler:
-    """FIFO waiting queue + admission gate over a `PagedKVPool`."""
+    """Urgency-ordered waiting queue + admission gate over a
+    `PagedKVPool`."""
 
     def __init__(self, pool, layout, max_active: int = 4,
                  default_speculate: int = 0, prefix_index=None):
@@ -126,6 +156,16 @@ class Scheduler:
         self.late_rejections: list[tuple] = []  # (request, Admission)
         self.waiting: deque[Request] = deque()
         self._reserved: dict[int, int] = {}    # id(request) -> page need
+        # SLO / preemption state
+        self._order: dict[int, int] = {}       # id(request) -> submit seq
+        self._submit_s: dict[int, float] = {}  # id(request) -> submit time
+        self._submit_seq = 0
+        self._parked: dict[int, int] = {}      # id(request) -> page need
+        self._blocked_head: Optional[Request] = None
+        self._step_ema: Optional[float] = None  # seconds per decode step
+        self._clock = time.monotonic           # swappable in tests
+        self.preemptions = 0
+        self.resumed = 0
         # pages already live when this serve call started (e.g. left by
         # static generate() batches sharing the pool) are never freed by
         # this scheduler's requests, so they shrink the budget throughout
@@ -195,6 +235,110 @@ class Scheduler:
                 return None
         return eff, match
 
+    # -- SLO urgency / overload control --------------------------------------
+    def _urgency(self, req: Request) -> tuple:
+        """Static total admission order: ``(-priority, absolute deadline,
+        submit seq)``, ascending. Default requests collapse to plain FIFO.
+        `preempts` compares the first two components strictly, so a
+        preempted victim always sorts AFTER its preemptor and can never
+        bounce it back (no preemption thrash)."""
+        rid = id(req)
+        abs_deadline = float("inf") if req.deadline is None \
+            else self._submit_s[rid] + req.deadline
+        return (-req.priority, abs_deadline, self._order[rid])
+
+    def _insert_waiting(self, req: Request) -> None:
+        key = self._urgency(req)
+        for i, r in enumerate(self.waiting):
+            if self._urgency(r) > key:
+                self.waiting.insert(i, req)
+                return
+        self.waiting.append(req)
+
+    def preempts(self, incoming: Request, victim: Request) -> bool:
+        """Strict-urgency eligibility: True iff `incoming` outranks
+        `victim` on (priority, absolute deadline) — strictly, so
+        preemption chains terminate. Both requests must be known to the
+        scheduler (queued, active, or parked)."""
+        return self._urgency(incoming)[:2] < self._urgency(victim)[:2]
+
+    def observe_step(self, dt: float) -> None:
+        """Feed one decode-step wall time into the service-rate EMA that
+        `estimate_completion_s` (deadline-infeasibility shedding) uses."""
+        if dt <= 0:
+            return
+        self._step_ema = dt if self._step_ema is None \
+            else 0.9 * self._step_ema + 0.1 * dt
+
+    def estimate_completion_s(self, req: Request) -> Optional[float]:
+        """Predicted seconds until `req` would finish: its own tokens cost
+        one step each, and the backlog ahead drains ``max_active`` rows
+        wide. None before the first observed step (no shedding on zero
+        evidence)."""
+        if self._step_ema is None:
+            return None
+        backlog = sum(r.max_new_tokens for r in self.waiting)
+        steps = req.max_new_tokens + backlog / max(1, self.max_active)
+        return steps * self._step_ema
+
+    def overdue(self, req: Request) -> bool:
+        """True when the request's SLO deadline has already passed."""
+        if req.deadline is None:
+            return False
+        sub = self._submit_s.get(id(req))
+        return sub is not None and self._clock() - sub > req.deadline
+
+    def is_parked(self, req: Request) -> bool:
+        return id(req) in self._parked
+
+    def head_blocked(self) -> Optional[Request]:
+        """The waiting head the last `admit()` round could not place
+        (None when the queue drained or was empty) — the session's
+        preemption pass asks this before hunting for a victim."""
+        return self._blocked_head
+
+    def preempt(self, req: Request) -> None:
+        """Park an admitted request: its row and page reservation free
+        NOW (the caller swaps its pages out), it re-enters the waiting
+        queue at its urgency position, and `admit`/`try_resume` later
+        re-reserve it."""
+        rid = id(req)
+        self._parked[rid] = self._reserved.pop(rid)
+        self.preemptions += 1
+        self._insert_waiting(req)
+
+    def try_resume(self, req: Request) -> bool:
+        """Re-admit a parked request if a row is free and the pool has
+        headroom (evicting reclaimable prefix pins on shortfall). Its
+        original worst-case reservation is restored unchanged — the
+        decode progress it already made only shrinks what is left to
+        produce, never the reservation. Returns False when it cannot be
+        placed right now."""
+        rid = id(req)
+        if rid not in self._parked or self.n_active >= self.max_active:
+            return False
+        need = self._parked[rid]
+        budget = self._budget()
+        if budget is not None:
+            pinned = self.prefix_index.pinned_pages() \
+                if self.prefix_index is not None else 0
+            shortfall = sum(self._reserved.values()) + need + pinned \
+                - budget
+            if shortfall > 0:
+                freed = self.prefix_index.make_room(shortfall) \
+                    if self.prefix_index is not None else 0
+                if freed < shortfall:
+                    return False
+        for i, r in enumerate(self.waiting):
+            if r is req:
+                del self.waiting[i]
+                break
+        del self._parked[rid]
+        self._reserved[rid] = need
+        self.resumed += 1
+        self.peak_active = max(self.peak_active, self.n_active)
+        return True
+
     def take_match(self, req: Request):
         """Pop the `PrefixMatch` recorded when `admit()` placed this
         request (None when nothing was cached): the engine adopts exactly
@@ -203,9 +347,10 @@ class Scheduler:
 
     def submit(self, req: Request) -> Admission:
         """Queue a request. A request whose worst case can never fit the
-        pool budget (after crediting its radix-cached pages) is rejected
-        immediately with a structured verdict — it is NOT queued, and
-        nothing else in the workload is affected."""
+        pool budget (after crediting its radix-cached pages), or whose
+        deadline the current service-rate estimate says cannot be met, is
+        rejected immediately with a structured verdict — it is NOT
+        queued, and nothing else in the workload is affected."""
         budget = self._budget()
         need = self.pages_needed(req)
         credit = 0
@@ -222,12 +367,32 @@ class Scheduler:
                        f"{self.pool.capacity_pages} budget are available"
                        f" ({self._base_pages} pages already "
                        f"live) — it can never be admitted")
-        self.waiting.append(req)
-        return Admission(True, pages_needed=need, pages_budget=budget)
+        headroom = None
+        if req.deadline is not None:
+            est = self.estimate_completion_s(req)
+            if est is not None:
+                headroom = req.deadline - est
+                if headroom < 0:
+                    return Admission(
+                        False, reason="deadline_infeasible",
+                        pages_needed=need, pages_budget=budget,
+                        deadline_headroom_s=headroom,
+                        detail=f"deadline {req.deadline:.3f}s but the "
+                               f"current backlog and step-time EMA "
+                               f"predict ~{est:.3f}s to completion — "
+                               f"shed instead of queueing a guaranteed "
+                               f"SLO miss")
+        rid = id(req)
+        self._order[rid] = self._submit_seq
+        self._submit_seq += 1
+        self._submit_s[rid] = self._clock()
+        self._insert_waiting(req)
+        return Admission(True, pages_needed=need, pages_budget=budget,
+                         deadline_headroom_s=headroom)
 
     def remove_waiting(self, req: Request) -> bool:
-        """Drop a still-queued request (cancellation before admission),
-        by identity."""
+        """Drop a still-queued (or parked) request — cancellation before
+        admission or while parked — by identity."""
         for i, r in enumerate(self.waiting):
             if r is req:
                 del self.waiting[i]
@@ -246,13 +411,53 @@ class Scheduler:
                                         tail_slots=tail)
 
     def admit(self) -> list[Request]:
-        """Pop every waiting request that fits right now, in FIFO order: a
-        free decode row under ``max_active`` AND page headroom for its
-        worst case on top of the active reservations (and the tree's
-        pins)."""
+        """Pop every waiting request that fits right now, in urgency
+        order: a free decode row under ``max_active`` AND page headroom
+        for its worst case on top of the active reservations (and the
+        tree's pins). Expired-deadline requests shed here with a
+        structured late rejection; parked (preempted) requests resume.
+        A head the round could not place stays in `head_blocked` for
+        the session's preemption pass."""
         out: list[Request] = []
         while self.waiting and self.n_active < self.max_active:
             req = self.waiting[0]
+            rid = id(req)
+            if req.deadline is not None and rid not in self._parked \
+                    and self.overdue(req):
+                # the deadline expired while queued — finishing it now
+                # would only miss the SLO AND delay everyone behind it
+                waited = self._clock() - self._submit_s[rid]
+                self.waiting.popleft()
+                self._drop_request_state(req)
+                self.late_rejections.append((req, Admission(
+                    False, reason="deadline_infeasible",
+                    pages_needed=self.pages_needed(req),
+                    pages_budget=self._budget(),
+                    deadline_headroom_s=req.deadline - waited,
+                    detail=f"deadline {req.deadline:.3f}s expired after "
+                           f"{waited:.3f}s in the queue — shed")))
+                continue
+            if rid in self._parked:
+                if self.try_resume(req):
+                    out.append(req)
+                    continue
+                if self.n_active == 0 and not out:
+                    # cannot re-place even with every row free: unpinnable
+                    # pages took the budget for good. Shed structurally
+                    # instead of stalling (the session frees the swapped
+                    # state). The reference's wording, shard 0.
+                    need = self._parked[rid]
+                    self.waiting.popleft()
+                    self._drop_request_state(req)
+                    self.late_rejections.append((req, Admission(
+                        False, reason="pool_capacity", pages_needed=need,
+                        pages_budget=self._budget(),
+                        detail=f"preempted request needs its {need}-page "
+                               f"reservation back on data shard 0 "
+                               f"but even an empty batch cannot host it "
+                               f"— shed")))
+                    continue
+                break
             need = self.pages_needed(req)
             fit = self._fit(req, need)
             if fit is None:
@@ -277,17 +482,23 @@ class Scheduler:
                 break
             eff, match = fit
             self.waiting.popleft()
-            self._reserved[id(req)] = eff
+            self._reserved[rid] = eff
             if match is not None and match.pages:
-                self._admit_match[id(req)] = match
+                self._admit_match[rid] = match
             out.append(req)
             self.admitted += 1
         self.peak_active = max(self.peak_active, self.n_active)
+        self._blocked_head = self.waiting[0] if self.waiting else None
         return out
 
     def _drop_request_state(self, req: Request):
         self._hashes.pop(id(req), None)
         self._admit_match.pop(id(req), None)
+        self._parked.pop(id(req), None)
+        self._order.pop(id(req), None)
+        self._submit_s.pop(id(req), None)
+        if self._blocked_head is req:
+            self._blocked_head = None
 
     def retire(self, req: Request):
         self._reserved.pop(id(req), None)

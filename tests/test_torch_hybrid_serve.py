@@ -6,10 +6,13 @@ decode steps and pool stats for `generate` (plain and k = 4) and the
 default `serve` (chunked prefill through the one-token cores, plain and
 k = 4); the prefill logits and caches through the SSD / RG-LRU scan
 wrappers and the windowed flash wrapper. Plus the port counterparts of
-``tests/test_hybrid_serve.py`` (without its mesh, swap, preemption and
-traffic tests): layout facts, ring wrap and the O(window) page bound,
-O(1) recurrent verify traffic, two transfers per token, the forced
-chunked session and admission beyond the page table."""
+``tests/test_hybrid_serve.py`` (without its mesh and traffic tests):
+layout facts, ring wrap and the O(window) page bound, O(1) recurrent
+verify traffic, two transfers per token, the forced chunked session,
+admission beyond the page table, preemption (recurrent slots and ring
+pages parked on the host and restored bit-identically, session
+preempt / resume against the JAX session) and the reference's
+short-prompt behaviour (ROADMAP Queue 3)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -358,3 +361,183 @@ def test_hybrid_two_transfers_per_token(params):
         _, tok = state.run_fused(step, tok, [0], 9 + s)
     h1, d1 = state.transfer_counts()
     assert (h1 - h0, d1 - d0) == (3, 3)
+
+
+# ---------------------------------------------------------------------------
+# Preemption: recurrent slots and ring pages park and come back whole
+# ---------------------------------------------------------------------------
+def _jax_swap_run(params, arch, swap_at):
+    """The reference test's protocol (`tests/test_hybrid_serve.py`
+    ``test_swap_out_in_bit_identical``) on the JAX state: tokens and the
+    bytes each swap moved."""
+    from repro.serve.paged_decode import PagedKVState as JaxState
+    from repro.serve.paged_decode import build_fused_step as jax_step
+    from repro.serve.paged_decode import \
+        extract_prefill_pages as jax_extract
+    cfg = jax_smoke(arch)
+    jeng, _ = _jax(params, arch)
+    layout = JaxLayout(cfg, T)
+    prompt = np.arange(10, dtype=np.int32) % cfg.vocab_size
+    state = JaxState(JaxPool(page_tokens=T), 32, cfg.num_layers,
+                     cfg.num_kv_heads, cfg.head_dim, mode="fused",
+                     layout=layout)
+    logits, caches = jax.jit(jeng.model.forward_prefill)(
+        jeng.params, {"tokens": jnp.asarray(prompt[None])})
+    jax_extract(jeng.model, caches, state, [0])
+    fused = jax_step(jeng.model, state.slots, layout=layout)
+    key = jax.random.PRNGKey(0)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    outs, moved = [int(tok[0])], None
+    for s in range(12):
+        if s == swap_at:
+            moved = (state.swap_out(0), state.swap_in(0))
+            tok = jnp.asarray([outs[-1]], jnp.int32)
+        _, tok = state.run_fused(fused, jeng.params, tok, [0], 10 + s, key)
+        outs.append(int(np.asarray(tok)[0]))
+    state.free_seq(0)
+    return outs, moved
+
+
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_swap_out_in_bit_identical(params, arch):
+    """The reference's protocol on the port's state: park a mid-decode
+    sequence (its recurrent slot read back whole, its ring pages to the
+    host tier, its tail rows read back), let another sequence take the
+    freed slots, restore it: the continued stream equals the
+    uninterrupted one token for token, and the JAX state's swapped run,
+    with the same bytes moved each way."""
+    cfg = smoke_config(arch)
+    lay = StateLayout(cfg, T)
+    model = Model(cfg, device="cpu", state=params[arch][1])
+    prompt = np.arange(10, dtype=np.int32) % cfg.vocab_size
+
+    def run(swap_at):
+        pool = PagedKVPool(page_tokens=T)
+        state = PagedKVState(pool, 32, lay, cfg.num_kv_heads, cfg.head_dim,
+                             device="cpu")
+        logits, caches = model.forward_prefill(torch.from_numpy(prompt[None]))
+        extract_prefill_pages(model, caches, state, [0])
+        step = build_fused_step(model, state.slots, layout=lay)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        outs, moved, parked = [int(tok[0])], None, None
+        for s in range(12):
+            if s == swap_at:
+                base = state._ring_base.get(0, 0)
+                out_b = state.swap_out(0)
+                parked = (state.is_parked(0), pool.host_pages,
+                          0 in state._rec_slot, pool.resident_pages)
+                # another sequence takes the freed tail and state slots
+                state._ensure_rec_slot(99)
+                if lay.n_kv:
+                    state._ensure_tail_slot(99)
+                    state._device.write_rows(
+                        0, [state._tail_slot[99]], [0],
+                        np.ones((1, cfg.num_kv_heads, cfg.head_dim)),
+                        np.ones((1, cfg.num_kv_heads, cfg.head_dim)))
+                state._rec.write_slot(state._rec_slot[99], {
+                    n: np.full((a.shape[0],) + tuple(a.shape[2:]), 7.0)
+                    for n, a in zip(state._rec.names, state._rec.arrays)})
+                in_b = state.swap_in(0)
+                assert state._ring_base.get(0, 0) == base   # base survives
+                moved = (out_b, in_b)
+                tok = torch.tensor([outs[-1]], dtype=torch.int32)
+            _, tok = state.run_fused(step, tok, [0], 10 + s)
+            outs.append(int(tok[0]))
+        pool.check_invariants()
+        state.free_seq(0)
+        state.free_seq(99)
+        assert pool.live_pages == 0
+        return outs, moved, parked, dict(pool.stats)
+
+    base, _, _, _ = run(swap_at=None)
+    swapped, moved, parked, stats = run(swap_at=6)
+    assert base == swapped
+    want, want_moved = _jax_swap_run(params, arch, swap_at=6)
+    assert swapped == want and moved == want_moved
+    assert moved[0] > 0 and moved[1] == moved[0]     # state moved both ways
+    assert parked[0] and not parked[2]               # the slot was released
+    if lay.has_ring:
+        assert parked[1] > 0 and parked[3] == 0      # ring pages on the host
+    assert stats["swap_out_bytes"] == stats["swap_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_session_preempt_resume_matches_jax(params, arch):
+    """`ServeSession.preempt` / `resume` on a hybrid stack: one request
+    parked mid chunk fill, the other mid decode, both resumed by the
+    admission loop. Tokens, request stats, pool stats (swap bytes
+    included), transfers and the preempt / resume counts equal the JAX
+    session's, and the tokens equal the never-preempted session's."""
+    from repro.serve.engine import ServeSession as JaxSession
+    pa, pb = _prompts(arch, [13, 9], seed=4)
+
+    def run(eng, pool, Session, Req, park):
+        ses = Session(eng, capacity=64, max_active=2)
+        a, b = Req(pa.copy(), 8), Req(pb.copy(), 6)
+        ses.submit(a)
+        ses.submit(b)
+        ses.step()
+        if park:
+            assert ses._recs[id(a)].active.prefilling
+            assert ses.preempt(a)                    # mid chunk fill
+        for _ in range(20):
+            ses.step()
+            if ses._recs[id(b)].active.outs:
+                break
+        if park:
+            ses.step()
+            assert ses._recs[id(b)].active.outs      # decoding
+            assert ses.preempt(b)
+        while not ses.done:
+            ses.step()
+        ses.close()
+        return ([ses.result(r).tolist() for r in (a, b)],
+                [ses.request_stats(r) for r in (a, b)], dict(pool.stats),
+                tuple(ses.transfer_counts()), ses.preemptions, ses.resumes,
+                pool.live_pages)
+
+    got = run(*_port(params, arch), ServeSession, Request, park=True)
+    want = run(*_jax(params, arch), JaxSession, JaxRequest, park=True)
+    assert got == want
+    never = run(*_port(params, arch), ServeSession, Request, park=False)
+    assert got[0] == never[0]
+    assert got[4] == got[5] == 2 and got[6] == 0
+    assert got[2]["swap_out_bytes"] > 0
+
+
+def test_session_preemption_hybrid(params):
+    """The reference's case: recurrentgemma-2b `serve()` at max_active=1
+    with a priority-5 request; outputs equal the JAX engine's."""
+    arch = "recurrentgemma-2b"
+    prompts = _prompts(arch, [10, 10, 10])
+    eng, pool = _port(params, arch)
+    jeng, jpool = _jax(params, arch)
+    reqs = [Request(p.copy(), 6) for p in prompts]
+    jreqs = [JaxRequest(p.copy(), 6) for p in prompts]
+    reqs[2].priority = jreqs[2].priority = 5
+    got = eng.serve(reqs, max_active=1)
+    want = jeng.serve(jreqs, max_active=1)
+    _check_engines(eng, pool, jeng, jpool, got, want)
+    assert pool.live_pages == 0
+
+
+# ---------------------------------------------------------------------------
+# The reference's short-prompt behaviour (ROADMAP Queue 3), pinned
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_short_prompt_generate_matches_jax(params, arch):
+    """A 1-token hybrid prompt is shorter than the conv width - 1: the
+    reference keeps too few conv rows and broadcasts one into three; the
+    port does the same, so `generate` gives the JAX tokens. A 2-token
+    prompt fails to broadcast on both (JAX raises ValueError, the port
+    RuntimeError)."""
+    eng, _ = _port(params, arch)
+    jeng, _ = _jax(params, arch)
+    one = np.array([1], np.int32)
+    _same(jeng.generate([JaxRequest(one.copy(), 3)]),
+          eng.generate([Request(one.copy(), 3)]))
+    two = np.array([1, 2], np.int32)
+    with pytest.raises(ValueError):
+        jeng.generate([JaxRequest(two.copy(), 3)])
+    with pytest.raises(RuntimeError):
+        eng.generate([Request(two.copy(), 3)])

@@ -49,7 +49,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "core.precision_search", "kernels.hdiff.hdiff",
                  "kernels.hdiff.ref", "kernels.hdiff.spec",
                  "kernels.vadvc.vadvc", "kernels.vadvc.ref",
-                 "kernels.vadvc.spec", "launch.weather_stencil"):
+                 "kernels.vadvc.spec", "launch.weather_stencil",
+                 "serve.metrics", "serve.preemption", "serve.frontend",
+                 "serve.traffic", "serve.scheduler", "serve.kvcache",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in result["modules"]
 
 

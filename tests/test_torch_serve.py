@@ -4,8 +4,9 @@ decode) on the starcoder2-7b smoke config with shared params and
 continuous ``serve`` with dead (-1) rows, an all-int8 slow tier and
 mid-run LRU demotion — the cases of ``tests/test_fused_decode.py`` — with
 the reference's transfer accounting (2 host<->device transfers per
-steady-state token), an empty pool after ``serve`` and intact pool
-invariants. On the CPU every paged attention call goes to the plain
+steady-state token), the reference's whole pool stats dict, an empty
+pool after ``serve`` and intact pool invariants; deadlines, priorities
+and preemption run as there, and what stays unported raises. On the CPU every paged attention call goes to the plain
 version; `paged_attention.plain_calls` counts them."""
 import dataclasses
 
@@ -77,12 +78,9 @@ def _assert_same(a, b):
 
 
 def _assert_same_stats(pool, jax_pool):
-    """Every stat the port's pool keeps equals the reference's; the
-    reference's swap-tier and radix stats, which the port has no code for,
-    stay 0 there."""
-    assert pool.stats == {k: jax_pool.stats[k] for k in pool.stats}
-    assert not any(v for k, v in jax_pool.stats.items()
-                   if k not in pool.stats)
+    """The port's pool keeps the reference's whole stats dict (the host
+    tier's and the swap stats included), and every value is equal."""
+    assert pool.stats == jax_pool.stats
 
 
 class AllSlow:
@@ -207,8 +205,7 @@ def test_sampling_is_seeded(params):
 
 def test_unported_options_raise(params):
     """What is still unported raises: mesh sharding, the eager/numpy
-    decode modes, preemption, deadlines and priorities, and the
-    dense-cache path without a page pool."""
+    decode modes and the dense-cache path without a page pool."""
     _, state = params
     cfg = smoke_config(ARCH)
     pool = PagedKVPool(page_tokens=4)
@@ -216,21 +213,79 @@ def test_unported_options_raise(params):
                {"decode_mode": "numpy"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
-    eng = ServeEngine(cfg, params=state, kv_pool=pool, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.serve(_reqs(Request), preempt=True)
-    late = _reqs(Request)[0]
-    late.deadline = 1.0
-    urgent = _reqs(Request)[0]
-    urgent.priority = 1
-    for req in (late, urgent):
-        with pytest.raises(NotImplementedError):
-            eng.generate([req])
-        with pytest.raises(NotImplementedError):
-            eng.serve([req])
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg, params=state, device="cpu").generate(_reqs(Request))
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, params=state, device="cpu").serve(_reqs(Request))
     assert len(pool.pages) == 0
+
+
+def test_preemption_deadlines_and_priorities_run(params):
+    """Deadlines, priorities, ``preempt=True``, ``metrics=`` and
+    ``preempt_policy=`` now run as in the reference: `generate` ignores
+    deadlines and priorities (same tokens as JAX); `serve` admits its
+    closed batch in urgency order; a `ServeSession` whose priority-1
+    arrival finds the only row taken parks that row on the host tier and
+    resumes it. Tokens, request stats, rejections, peak rows, metrics
+    counts and the whole pool stats dict (swap bytes included) equal the
+    JAX engine's. Deadlines are far (1e6 s), so the wall clock sheds
+    nothing on either side."""
+    from repro.serve.engine import ServeSession as JaxSession
+    from repro.serve.metrics import MetricsRegistry as JaxRegistry
+    from repro.serve.preemption import LRUVictimPolicy as JaxLRU
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.serve.metrics import MetricsRegistry
+    from repro_torch.serve.preemption import LRUVictimPolicy
+
+    def reqs(cls):
+        rs = _staggered(cls)
+        rs[0].deadline = 1e6
+        rs[2].priority = 1
+        rs[3].deadline, rs[3].priority = 1e6, 1
+        return rs
+
+    counts = ("n_done", "n_rejected", "tokens", "preemptions",
+              "n_preempted", "slo_attainment")
+    jeng, eng = _engines(params)
+    _assert_same(jeng.generate(reqs(JaxRequest), free_pages=True),
+                 eng.generate(reqs(Request), free_pages=True))
+    jm, m = JaxRegistry(), MetricsRegistry()
+    want = jeng.serve(reqs(JaxRequest), max_active=1, preempt=True,
+                      metrics=jm, preempt_policy=JaxLRU())
+    got = eng.serve(reqs(Request), max_active=1, preempt=True, metrics=m,
+                    preempt_policy=LRUVictimPolicy())
+    _assert_same(want, got)
+    assert eng.last_request_stats == jeng.last_request_stats
+    assert eng.last_rejections == jeng.last_rejections == [None] * 4
+    assert eng.last_peak_active == jeng.last_peak_active == 1
+    assert {k: m.summary()[k] for k in counts} == \
+        {k: jm.summary()[k] for k in counts}
+
+    def late_urgent(eng, Session, Registry, Policy, cls):
+        metrics = Registry()
+        ses = Session(eng, capacity=32, max_active=1, metrics=metrics,
+                      radix=False, preempt_policy=Policy())
+        a, b = reqs(cls)[1], reqs(cls)[3]
+        a.max_new_tokens = 8
+        ses.submit(a)
+        for _ in range(5):             # 3 chunk steps, 2 decode steps
+            ses.step()
+        ses.submit(b)                  # priority 1 finds the row taken
+        while not ses.done:
+            ses.step()
+        ses.close()
+        return ([ses.result(r).tolist() for r in (a, b)],
+                [ses.request_stats(r) for r in (a, b)],
+                {k: metrics.summary()[k] for k in counts})
+
+    jeng, eng = _engines(params)
+    assert late_urgent(eng, ServeSession, MetricsRegistry, LRUVictimPolicy,
+                       Request) == \
+        late_urgent(jeng, JaxSession, JaxRegistry, JaxLRU, JaxRequest)
+    assert eng.kv_pool.stats["swapped_out"] > 0
+    _assert_same_stats(eng.kv_pool, jeng.kv_pool)
+    assert len(eng.kv_pool.pages) == 0
+    _check_pools(eng)
 
 
 def test_session_streams_events_and_rejects_over_capacity(params):
