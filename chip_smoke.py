@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
                                           # spec | overload | hybrid |
-                                          # stencil
+                                          # stencil | sibyl
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -138,6 +138,29 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    call once more under cProfile, its top host functions on a line of
    their own. `hdiff_tiled_loop` and `vadvc_prefetch_loop` restate the
    new routes' blocking in plain PyTorch for the CPU tests.
+10. sibyl  — Sibyl (thesis Ch. 7) on the card, one JSON line per part:
+   ``storage``: `launch.sibyl_storage.main` (rsrch_0, 10,000 requests,
+   H&L, FastOnly / CDE / HPS / the DQN), latencies normalised to
+   fast_only (the simulator's NVMe + HDD model, not times of the card),
+   migrations, top features; the same run with the agent on the CPU
+   and the first decision where the two differ; the card's agent held
+   to a CPU agent from one state (Q over 256 buffered states, one
+   training step) at `tests/test_torch_sibyl.py`'s tolerance; host ms
+   per act and per training step. ``serve``: the serve phase's workload
+   with `SibylPlacement` on the card and SIBYL_FAST_PAGES fast pages
+   (below the run's peak live pages, printed), in turns with
+   `EveryOtherSlow`: outputs, both tiers used, LRU demotion, no pending
+   decision, an empty pool, paged launches = steps x layers on split, 2
+   transfers per steady token, decode ms/step, TTFT and the policy's
+   host ms per prefill and per decode step. ``exact``: starcoder2-7b at
+   full width, 2 layers, fp32, the kernel run's Sibyl decisions replayed
+   in the plain-version run: identical tokens for ``generate``,
+   monolithic and default ``serve``. ``overload``: the overload phase's
+   replay with `SibylPreemption` ranking victims beside the LRU policy:
+   every outcome, decisions, no pending transition, an empty pool, SLO
+   attainment. ``decode_trace``: the serve run's pool events
+   (`DecodeTraceRecorder`) replayed through `HssEnv` for the heuristics
+   and the DQN.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -2069,19 +2092,21 @@ def _shared_engine(eng, **kw):
                        **kw)
 
 
-def drive_session(eng, reqs, max_active=2) -> dict:
-    """The reference's default serving path, step by step: a
-    `ServeSession` with chunked prefill and the radix prefix cache on.
+def drive_session(eng, reqs, max_active=2, **session_kw) -> dict:
+    """A `ServeSession` step by step, by default the reference's default
+    serving path (chunked prefill and the radix prefix cache on).
     Returns per-request time to first token and per-step times, split
-    into steps that carried a prompt chunk and steps that only decoded."""
+    into steps that carried a prompt chunk and steps that only decoded,
+    and per step its time and the first tokens it gave (`step_log`)."""
     from repro_torch.serve.engine import ServeSession
     cap = max(len(r.prompt) + r.max_new_tokens for r in reqs)
-    session = ServeSession(eng, capacity=cap, max_active=max_active)
+    session = ServeSession(eng, capacity=cap, max_active=max_active,
+                           **session_kw)
     t0 = time.perf_counter()
     for r in reqs:
         if not session.submit(r):
             raise AssertionError(f"request rejected: {session.request_stats(r)}")
-    ttft, wide_ms, narrow_ms = {}, [], []
+    ttft, wide_ms, narrow_ms, step_log = {}, [], [], []
     while not session.done:
         chunks0 = session.chunk_steps
         t1 = time.perf_counter()
@@ -2090,9 +2115,12 @@ def drive_session(eng, reqs, max_active=2) -> dict:
         now = time.perf_counter()
         (wide_ms if session.chunk_steps > chunks0 else narrow_ms).append(
             (now - t1) * 1e3)
+        first = 0
         for ev in events:
             if ev.tokens and id(ev.request) not in ttft:
                 ttft[id(ev.request)] = (now - t0) * 1e3
+                first += 1
+        step_log.append(((now - t1) * 1e3, first))
     outs = [session.result(r) for r in reqs]
     stats = [session.request_stats(r) for r in reqs]
     hit_rate = session.prefix_hit_rate
@@ -2101,7 +2129,8 @@ def drive_session(eng, reqs, max_active=2) -> dict:
             "ttft_ms": [ttft[id(r)] for r in reqs], "wide_ms": wide_ms,
             "narrow_ms": narrow_ms, "wall_s": time.perf_counter() - t0,
             "steps": session.steps, "chunked": session.chunked,
-            "radix": session.radix,
+            "radix": session.radix, "step_log": step_log,
+            "peak_live_pages": session.peak_live_pages,
             "steady": list(session.steady_transfers)}
 
 
@@ -2294,9 +2323,7 @@ def phase_overload(base, serve_row, smi: str) -> dict:
     service_rps = serve_row["requests"] / serve_row["wall_s"]
     step_s = serve_row["decode_ms_per_step"] / 1e3
     mix = traffic.MIXES["overload"]
-    spec = mix.override(prompt_lens=OVERLOAD_PROMPTS, new_tokens=OVERLOAD_NEW,
-                        arrival_rate=ARRIVAL_X_SERVICE * service_rps,
-                        deadlines=tuple(m * step_s for m in DEADLINE_X_STEP))
+    spec = overload_spec(serve_row)
     recorded, fronts = _recording_frontend()
     traffic.AsyncServeFrontend = recorded
     os.environ["REPRO_SERVE_DEBUG"] = "1"
@@ -3314,6 +3341,581 @@ def phase_stencil():
     return rows, {k: main_row["launches"][k] for k in ("hdiff", "vadvc")}
 
 
+# ---------------------------------------------------------------------------
+# 10. Sibyl: the DQN agent, learned placement and victim ranking
+# ---------------------------------------------------------------------------
+SIBYL_FAST_PAGES = 64     # the Sibyl serve run's fast tier: below its peak
+SIBYL_TRACE_FAST_CAP = 128   # HssEnv fast capacity for the decode trace
+# `tests/test_torch_sibyl.py`'s tolerances: the card's agent against the
+# CPU agent, per tensor max |card - cpu| <= rtol x max |cpu|
+SIBYL_STATE_RTOL = 1e-5
+SIBYL_LOSS_RTOL = 1e-5
+
+
+def _sibyl_copy_state(src, dst):
+    """Copy one agent's networks and Adam state into another's."""
+    from repro_torch.core.sibyl.agent import PARAM_NAMES
+    with torch.no_grad():
+        for n in PARAM_NAMES:
+            getattr(dst.net, n).copy_(getattr(src.net, n))
+            getattr(dst.target, n).copy_(getattr(src.target, n))
+            dst.opt_m[n].copy_(src.opt_m[n])
+            dst.opt_v[n].copy_(src.opt_v[n])
+    dst.opt_step = src.opt_step
+
+
+def _scaled_err(got, want) -> float:
+    """max |got - want| / max |want| over one tensor (both on the CPU)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def sibyl_card_vs_cpu(agent) -> dict:
+    """The card's agent (after its run) against a CPU agent started from
+    the same state: Q over the first 256 buffered states, then one
+    training step on the same minibatch (loss, params, target, moments)."""
+    from repro_torch.core.sibyl.agent import (PARAM_NAMES, SibylAgent,
+                                              SibylConfig)
+    cpu = SibylAgent(SibylConfig(**vars(agent.cfg)), device="cpu")
+    _sibyl_copy_state(agent, cpu)
+    states = agent.buffer.obs(np.arange(min(256, len(agent.buffer))))
+    q_err = _scaled_err(torch.from_numpy(agent.q_batch(states)),
+                        torch.from_numpy(cpu.q_batch(states)))
+    rows = agent.buffer.gather(np.random.default_rng(0).integers(
+        0, len(agent.buffer), agent.cfg.batch_size))
+    loss_card = float(agent.train_step(rows))
+    loss_cpu = float(cpu.train_step(rows))
+    errs = {}
+    for kind, a, b in (("params", agent.net.state_dict(),
+                        cpu.net.state_dict()),
+                       ("m", agent.opt_m, cpu.opt_m),
+                       ("v", agent.opt_v, cpu.opt_v)):
+        errs[kind] = max(_scaled_err(a[n], b[n]) for n in PARAM_NAMES)
+    out = {"states": len(states), "q_scaled_err": q_err,
+           "train_loss_card": loss_card, "train_loss_cpu": loss_cpu,
+           "train_loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "train_scaled_err": errs, "rtol": SIBYL_STATE_RTOL}
+    if q_err > SIBYL_STATE_RTOL or out["train_loss_rel_err"] > \
+            SIBYL_LOSS_RTOL or max(errs.values()) > SIBYL_STATE_RTOL:
+        raise AssertionError(f"the card's agent differs from the CPU "
+                             f"agent's: {out}")
+    return out
+
+
+def sibyl_host_ms(agent, n: int = 200) -> dict:
+    """Host wall time of one `act` (a forward and its readback) and of one
+    training step (upload, forward, backward, Adam), each call closed by
+    `torch.cuda.synchronize`, medians over `n`. Runs after every
+    comparison: it moves the agent's state on."""
+    states = agent.buffer.obs(np.arange(min(n, len(agent.buffer))))
+    act_ms, train_ms = [], []
+    rng = np.random.default_rng(1)
+    for i in range(n):
+        obs = states[i % len(states)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.act(obs, 2)
+        torch.cuda.synchronize()
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+        rows = agent.buffer.gather(rng.integers(0, len(agent.buffer),
+                                                agent.cfg.batch_size))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.train_step(rows)
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    agent._pending = None
+    return {"act_ms_median": statistics.median(act_ms),
+            "train_step_ms_median": statistics.median(train_ms),
+            "calls": n}
+
+
+class _Decisions:
+    """Wraps a policy for `run_policy` and keeps its actions."""
+
+    def __init__(self, policy):
+        self.policy, self.actions = policy, []
+
+    def act(self, obs, n_devices):
+        a = self.policy.act(obs, n_devices)
+        self.actions.append(a)
+        return a
+
+    def feedback(self, reward, next_obs=None):
+        self.policy.feedback(reward, next_obs=next_obs)
+
+
+def sibyl_storage(smi: str) -> dict:
+    """`launch/sibyl_storage.main` on the card (rsrch_0, 10,000 requests,
+    H&L, FastOnly / CDE / HPS / Sibyl), its decisions recorded; the same
+    run with the agent on the CPU (the first decision where the two
+    differ); the card's agent against the CPU agent from one state; host
+    ms per act and per training step."""
+    from repro_torch.core.sibyl import agent as agent_mod
+    from repro_torch.core.sibyl.env import HssEnv, hss_config
+    from repro_torch.launch import sibyl_storage as storage
+    decisions = []
+    act = agent_mod.SibylAgent.act
+
+    def recording(self, obs, n_devices):
+        a = act(self, obs, n_devices)
+        decisions.append(a)
+        return a
+    agent_mod.SibylAgent.act = recording
+    try:
+        t0 = time.perf_counter()
+        out = storage.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        agent_mod.SibylAgent.act = act
+    agent = out["agent"]
+    if agent.device.type != "cuda" or not decisions:
+        raise AssertionError(f"the agent ran on {agent.device}")
+    cpu = _Decisions(agent_mod.SibylAgent(agent_mod.SibylConfig(seed=3),
+                                          device="cpu"))
+    t0 = time.perf_counter()
+    cpu_res = agent_mod.run_policy(HssEnv(hss_config("H&L", fast_cap=1024)),
+                                   out["trace"], cpu, warmup=2000)
+    cpu_wall_s = time.perf_counter() - t0
+    first = next((i for i, (a, b) in enumerate(zip(decisions, cpu.actions))
+                  if a != b), None)
+    if first is None and len(decisions) != len(cpu.actions):
+        first = min(len(decisions), len(cpu.actions))
+    res = out["results"]
+    row = {"phase": "sibyl", "part": "storage", "nvidia_smi": smi,
+           "path": "launch.sibyl_storage.main(['--device', 'cuda'])",
+           "workload": "rsrch_0", "requests": len(out["trace"]),
+           "trace_seed": 1, "warmup": 2000, "hss": "H&L", "fast_cap": 1024,
+           "agent_seed": 3, "latency_model": "HssEnv's NVMe + HDD service "
+           "model, not times of the card",
+           "norm_avg_latency": {k: r["norm"] for k, r in res.items()},
+           "avg_latency_us": {k: r["avg_latency_us"] for k, r in res.items()},
+           "p99_latency_us": {k: r["p99_latency_us"] for k, r in res.items()},
+           "p99_norm": {k: r["p99_latency_us"]
+                        / res["fast_only"]["p99_latency_us"]
+                        for k, r in res.items()},
+           "migrations": {k: r["migrations"] for k, r in res.items()},
+           "top_features": out["top_features"],
+           "decisions": len(decisions), "training_steps": len(agent.losses),
+           "wall_s": wall_s, "cpu_agent": {
+               "wall_s": cpu_wall_s, "avg_latency_us":
+               cpu_res["avg_latency_us"], "migrations":
+               cpu_res["migrations"], "decisions": len(cpu.actions)},
+           "first_differing_decision": "none" if first is None else first}
+    row["card_vs_cpu"] = sibyl_card_vs_cpu(agent)
+    row["host_ms"] = sibyl_host_ms(agent)
+    emit(row)
+    return row
+
+
+def _sibyl_placement_cls():
+    from repro_torch.serve.placement import SibylPlacement
+
+    class Timed(SibylPlacement):
+        """`SibylPlacement` that logs, at each `observe` (one a step), the
+        host ms its `place` and `observe` calls took since the last one
+        and the decisions they made."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.log, self.slow = [], 0
+            self._ms, self._places = 0.0, 0
+
+        def place(self, feats):
+            t0 = time.perf_counter()
+            tier = super().place(feats)
+            self._ms += (time.perf_counter() - t0) * 1e3
+            self._places += 1
+            self.slow += tier == "slow"
+            return tier
+
+        def observe(self, gather_s, fast_hits, slow_hits):
+            t0 = time.perf_counter()
+            super().observe(gather_s, fast_hits, slow_hits)
+            observe_ms = (time.perf_counter() - t0) * 1e3
+            self.log.append((self._ms, observe_ms, self._places))
+            self._ms, self._places = 0.0, 0
+    return Timed
+
+
+def policy_host_ms(run, policy) -> dict:
+    """The Timed policy's per-step log beside the session's: host ms and
+    decisions per prefill (the steps that gave first tokens, per first
+    token) and per decode step (the rest)."""
+    if len(policy.log) != len(run["step_log"]):
+        raise AssertionError(f"{len(policy.log)} observes for "
+                             f"{len(run['step_log'])} steps")
+    pre = [(p + o, n, f) for (p, o, n), (_, f) in
+           zip(policy.log, run["step_log"]) if f]
+    dec = [(p + o, n) for (p, o, n), (_, f) in
+           zip(policy.log, run["step_log"]) if not f]
+    n_pre = sum(f for *_, f in pre)
+    places = sum(n for *_, n in policy.log)
+    return {"per_prefill": sum(ms for ms, *_ in pre) / n_pre,
+            "per_decode_step": statistics.mean(ms for ms, _ in dec),
+            "per_decode_step_max": max(ms for ms, _ in dec),
+            "decisions_per_prefill": sum(n for _, n, _ in pre) / n_pre,
+            "decisions_per_decode_step": statistics.mean(
+                n for _, n in dec),
+            "place_ms_per_call": sum(p for p, *_ in policy.log)
+            / max(places, 1),
+            "observe_ms_per_call": statistics.mean(
+                o for _, o, _ in policy.log),
+            "places": places, "slow_places": policy.slow,
+            "observes": len(policy.log),
+            "training_steps": len(policy.agent.losses)}
+
+
+def _placement_engine(base, policy, fast_pages):
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    return ServeEngine(base.cfg, params=dict(base.model.weights
+                                             .named_parameters()),
+                       kv_pool=PagedKVPool(page_tokens=128,
+                                           fast_capacity_pages=fast_pages,
+                                           placement_policy=policy))
+
+
+def sibyl_serve(base, smi: str) -> tuple:
+    """The serve phase's workload (starcoder2-7b, 32 layers, bf16, its 5
+    prompts, 32 new tokens, max_active=2, 128-token pages, one prefill
+    pass per prompt) with `SibylPlacement` on the card and a fast tier of
+    SIBYL_FAST_PAGES, below the run's peak live pages, so the DQN's int8
+    placements and LRU demotion are both reached; in turns with
+    `EveryOtherSlow` (Sibyl, every-other, Sibyl, every-other). The first
+    Sibyl run is the main path: its launches counted from 0, a
+    `DecodeTraceRecorder` on its pool."""
+    from repro_torch.core.sibyl.traces import DecodeTraceRecorder
+    cfg = base.cfg
+    lengths, new = [120, 250, 380, 500, 600], [32] * 5
+    timed = _sibyl_placement_cls()
+    runs = {"sibyl": [], "every_other_slow": []}
+    recorder = launches = paged = None
+    for turn in range(2):
+        for kind in ("sibyl", "every_other_slow"):
+            policy = timed(device="cuda") if kind == "sibyl" \
+                else EveryOtherSlow()
+            eng = _placement_engine(base, policy, SIBYL_FAST_PAGES)
+            reqs = _requests(cfg.vocab_size, lengths, new, 2)
+            main = kind == "sibyl" and turn == 0
+            if main:
+                recorder = eng.kv_pool.recorder = DecodeTraceRecorder()
+                reset_launches()
+            run = drive_session(eng, reqs, chunked_prefill=False,
+                                radix=False)
+            if main:
+                launches, paged = read_launches(), routes("paged_attention")
+                flash = routes("flash_attention")
+                eng.kv_pool.recorder = None
+            _check_outs(run["outs"], reqs, cfg.vocab_size)
+            if eng.kv_pool.live_pages:
+                raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
+            pool = eng.kv_pool.stats
+            out = {"steps": run["steps"], "wall_s": run["wall_s"],
+                   "peak_live_pages": run["peak_live_pages"],
+                   "ttft_ms": run["ttft_ms"],
+                   "decode_ms_per_step": statistics.mean(
+                       ms for ms, first in run["step_log"] if not first),
+                   "steady_steps": len(run["steady"]),
+                   "pool": {k: pool[k] for k in ("fast_hits", "slow_hits",
+                                                 "evictions")}}
+            if kind == "sibyl":
+                out["policy_host_ms"] = policy_host_ms(run, policy)
+                if policy.agent.t <= 0 or policy._pending:
+                    raise AssertionError(f"agent t={policy.agent.t}, "
+                                         f"{len(policy._pending)} pending")
+                if policy.agent.device.type != "cuda":
+                    raise AssertionError(f"agent on {policy.agent.device}")
+                places = out["policy_host_ms"]["places"]
+                if not 0 < policy.slow < places or \
+                        not pool["fast_hits"] or not pool["slow_hits"]:
+                    raise AssertionError(f"one tier unused: {policy.slow} "
+                                         f"of {places} pages placed slow, "
+                                         f"{out['pool']}")
+            if not run["steady"] or any(s != (1, 1) for s in run["steady"]):
+                raise AssertionError(f"steady-state transfers "
+                                     f"{run['steady']}")
+            runs[kind].append(out)
+            del eng
+    first = runs["sibyl"][0]
+    peak = max(r["peak_live_pages"] for rs in runs.values() for r in rs)
+    want = {"split": first["steps"] * cfg.num_layers, "wgmma": 0, "simt": 0}
+    row = {"phase": "sibyl", "part": "serve", "nvidia_smi": smi,
+           "config": "starcoder2-7b, 32 layers, bf16",
+           "path": "ServeSession(chunked_prefill=False, radix=False), "
+                   "SibylPlacement(device='cuda') as the pool's policy",
+           "prompt_lengths": lengths, "max_new": 32, "max_active": 2,
+           "page_tokens": 128, "fast_capacity_pages": SIBYL_FAST_PAGES,
+           "peak_live_pages": peak, "launches": launches,
+           "paged_launches_by_route": paged,
+           "flash_launches_by_route": flash,
+           "transfers_per_steady_token": 2,
+           "turns": "sibyl, every_other_slow, sibyl, every_other_slow",
+           "runs": runs}
+    emit(row)
+    if SIBYL_FAST_PAGES >= peak or not first["pool"]["evictions"]:
+        raise AssertionError(f"fast tier {SIBYL_FAST_PAGES} pages, peak "
+                             f"{peak}: demotion not reached")
+    if launches["paged_attention"] != first["steps"] * cfg.num_layers or \
+            paged != want:
+        raise AssertionError(f"paged launches {paged}, want {want}")
+    if launches["flash_attention"] != len(lengths) * cfg.num_layers or \
+            flash["simt"]:
+        raise AssertionError(f"flash launches {flash}")
+    return row, recorder
+
+
+def sibyl_exact() -> dict:
+    """starcoder2-7b at full width, 2 layers, fp32, TF32 off: the kernel
+    run places pages with `SibylPlacement` on the card (its agent
+    exploring half the time, so each path reaches the int8 tier) and
+    records each decision; the plain-version run replays them. Greedy
+    tokens identical for ``generate``, monolithic ``serve`` and the
+    default ``serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sibyl.agent import SibylAgent, SibylConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.placement import SibylPlacement
+
+    class Recording(SibylPlacement):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.tiers = []
+
+        def place(self, feats):
+            tier = super().place(feats)
+            self.tiers.append(tier)
+            return tier
+
+    class Replay:
+        def __init__(self, tiers):
+            self.tiers = list(tiers)
+            self.n = 0
+
+        def place(self, feats):
+            self.n += 1
+            return self.tiers[self.n - 1]
+
+    cfg = get_config("starcoder2-7b", num_layers=2, param_dtype="float32",
+                     compute_dtype="float32")
+    lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    v = cfg.vocab_size
+    paths = {"generate": lambda e: e.generate(
+                 _requests(v, lengths, new, 0), free_pages=True),
+             "serve_monolithic": lambda e: e.serve(
+                 _requests(v, lengths, new, 1), max_active=2,
+                 chunked_prefill=False, radix=False),
+             "serve_chunked_radix": lambda e: e.serve(
+                 _shared_prefix_requests(v, 150, [20, 90, 45, 130], 10, 2),
+                 max_active=2)}
+    row = {"phase": "sibyl", "part": "exact",
+           "config": "starcoder2-7b full width, 2 layers, fp32",
+           "page_tokens": 64, "fast_capacity_pages": 12, "agent_eps": 0.5,
+           "identical_tokens": {}, "decisions": {}, "slow_decisions": {}}
+    for name, run in paths.items():
+        rec = Recording(agent=SibylAgent(SibylConfig(seed=0, eps=0.5),
+                                         device="cuda"))
+        if rec.agent.device.type != "cuda":
+            raise AssertionError(f"agent on {rec.agent.device}")
+        eng = ServeEngine(cfg, seed=0, backend="auto", kv_pool=PagedKVPool(
+            page_tokens=64, fast_capacity_pages=12, placement_policy=rec))
+        want = _tokens(run(eng))
+        evictions = eng.kv_pool.stats["evictions"]
+        replay = Replay(rec.tiers)
+        eng = ServeEngine(cfg, seed=0, backend="ref", kv_pool=PagedKVPool(
+            page_tokens=64, fast_capacity_pages=12, placement_policy=replay))
+        got = _tokens(run(eng))
+        if replay.n != len(rec.tiers):
+            raise AssertionError(f"{name}: replayed {replay.n} of "
+                                 f"{len(rec.tiers)} decisions")
+        row["identical_tokens"][name] = got == want
+        row["decisions"][name] = len(rec.tiers)
+        row["slow_decisions"][name] = rec.tiers.count("slow")
+        row.setdefault("evictions", {})[name] = evictions
+        del eng
+        torch.cuda.empty_cache()
+    emit(row)
+    if not all(row["identical_tokens"].values()) or \
+            not all(row["slow_decisions"].values()):
+        raise AssertionError(f"kernel and plain tokens differ under replayed "
+                             f"Sibyl decisions, or no slow page: {row}")
+    return row
+
+
+def overload_spec(serve_row):
+    """The reference's overload mix at the serve phase's prompt range,
+    arrivals at ARRIVAL_X_SERVICE times its service rate and deadlines at
+    DEADLINE_X_STEP times its decode step."""
+    from repro_torch.serve import traffic
+    service_rps = serve_row["requests"] / serve_row["wall_s"]
+    step_s = serve_row["decode_ms_per_step"] / 1e3
+    return traffic.MIXES["overload"].override(
+        prompt_lens=OVERLOAD_PROMPTS, new_tokens=OVERLOAD_NEW,
+        arrival_rate=ARRIVAL_X_SERVICE * service_rps,
+        deadlines=tuple(m * step_s for m in DEADLINE_X_STEP))
+
+
+def warm_preemption(policy, decisions: int = 24):
+    """Drive `policy` with seeded (blocked head, 1-3 eligible victims)
+    sets and step rewards until its agent holds more transitions than a
+    minibatch, and end one transition short of a training step, so the
+    replay's first transition trains on the card. Returns the agent's
+    training steps so far."""
+    from repro_torch.serve.preemption import RequestView
+    rng = np.random.default_rng(0)
+
+    def view(i):
+        return RequestView(priority=int(rng.integers(0, 2)),
+                           deadline_slack_s=float(rng.normal(0, 2)),
+                           tokens_done=int(rng.integers(0, 32)),
+                           tokens_left=int(rng.integers(0, 32)),
+                           prefilling=bool(rng.random() < 0.3),
+                           pages=int(rng.integers(1, 160)), admit_seq=i,
+                           queue_depth=int(rng.integers(0, 16)))
+    every = policy.agent.cfg.train_every
+    n = 0
+    while n < decisions or (policy.agent.t + 1) % every:
+        size = int(rng.integers(2, 5)) if n < decisions else 2
+        head, *victims = (view(i) for i in range(size))
+        policy.pick(head, victims)
+        policy.observe(float(rng.exponential(0.04)),
+                       int(rng.integers(0, 2)))
+        n += 1
+    if len(policy.agent.buffer) < policy.agent.cfg.batch_size:
+        raise AssertionError(f"warm-up left {len(policy.agent.buffer)} "
+                             f"transitions")
+    return policy.agent.opt_step
+
+
+def sibyl_overload(base, serve_row, smi: str) -> dict:
+    """The overload phase's replay with `SibylPreemption(device="cuda")`
+    ranking the victims, then with the default LRU policy, in one call:
+    every request's outcome, the policy's decisions and an empty pool.
+    The Sibyl policy starts from `warm_preemption`, so each second
+    transition of the replay takes a training step on the card."""
+    import os
+    from repro_torch.serve import traffic
+    from repro_torch.serve.placement import SibylPreemption
+    spec = overload_spec(serve_row)
+    out = {}
+    for name in ("sibyl", "lru"):
+        eng = _shared_engine(base)
+        policy = None
+        if name == "sibyl":
+            policy = SibylPreemption(device="cuda")
+            if policy.agent.device.type != "cuda":
+                raise AssertionError(f"agent on {policy.agent.device}")
+            steps0 = warm_preemption(policy)
+            t0, decisions0 = policy.agent.t, policy.decisions
+            warm = {"decisions": decisions0, "transitions": t0,
+                    "training_steps": steps0}
+        os.environ["REPRO_SERVE_DEBUG"] = "1"
+        try:
+            t0_wall = time.perf_counter()
+            summary = traffic.run_trace(eng, spec, max_active=2,
+                                        max_queue=16, preempt_policy=policy)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0_wall
+        finally:
+            del os.environ["REPRO_SERVE_DEBUG"]
+        accounted = sum(summary[k] for k in ("n_done", "n_cancelled",
+                                             "n_rejected", "n_errors"))
+        res = {"slo_attainment": summary["slo_attainment"],
+               "deadline_misses": summary["deadline_misses"],
+               "preemptions": summary["preemptions"],
+               "n_done": summary["n_done"],
+               "n_rejected": summary["n_rejected"],
+               "n_errors": summary["n_errors"],
+               "tpot_p99_ms": summary["tpot"]["p99_ms"],
+               "ttft_p99_ms": summary["ttft"]["p99_ms"], "wall_s": wall_s}
+        if policy is not None:
+            every = policy.agent.cfg.train_every
+            res.update(warm_up=warm,
+                       decisions=policy.decisions - decisions0,
+                       transitions=policy.agent.t - t0,
+                       training_steps=policy.agent.opt_step - steps0,
+                       agent_t=policy.agent.t,
+                       pending=len(policy._pending))
+            if summary["preemptions"] and not res["decisions"]:
+                raise AssertionError(f"preemptions without decisions: {res}")
+            if policy._pending:
+                raise AssertionError(f"pending transitions: {res}")
+            if res["training_steps"] != policy.agent.t // every - \
+                    t0 // every or (res["decisions"] and
+                                    not res["training_steps"]):
+                raise AssertionError(f"the replay's transitions did not "
+                                     f"train as the cadence says: {res}")
+        if accounted != spec.n_requests or \
+                summary["n_trace"] != spec.n_requests:
+            raise AssertionError(f"{name}: {accounted} of {spec.n_requests} "
+                                 f"requests accounted for: {summary}")
+        if summary["pool_live_pages_end"] or eng.kv_pool.live_pages:
+            raise AssertionError(f"{name}: pages left after the run")
+        out[name] = res
+        del eng
+    row = {"phase": "sibyl", "part": "overload", "nvidia_smi": smi,
+           "config": "starcoder2-7b, 32 layers, bf16", "mix": "overload",
+           "n_requests": spec.n_requests,
+           "arrival_rate_rps": spec.arrival_rate,
+           "deadlines_s": list(spec.deadlines),
+           "path": "traffic.run_trace(preempt_policy=SibylPreemption("
+                   "device='cuda') after warm_preemption), then the LRU "
+                   "policy",
+           **out}
+    emit(row)
+    return row
+
+
+def sibyl_decode_trace(recorder, smi: str) -> dict:
+    """The serve run's pool events (`DecodeTraceRecorder`: each put a
+    write, each gather touch a read, page ids as addresses) replayed
+    through `HssEnv` (H&L, SIBYL_TRACE_FAST_CAP pages fast) and
+    `run_policy` for the heuristics and Sibyl on the card."""
+    from repro_torch.core.sibyl.agent import (SibylAgent, SibylConfig,
+                                              run_policy)
+    from repro_torch.core.sibyl.env import HssEnv, hss_config
+    from repro_torch.core.sibyl.policies import CDE, HPS, FastOnly
+    trace = list(recorder.events)
+    res = {}
+    agent = SibylAgent(SibylConfig(seed=3), device="cuda")
+    if agent.device.type != "cuda":
+        raise AssertionError(f"agent on {agent.device}")
+    for pol in (FastOnly(), CDE(), HPS(), agent):
+        env = HssEnv(hss_config("H&L", fast_cap=SIBYL_TRACE_FAST_CAP))
+        res[pol.name] = run_policy(env, trace, pol)
+    fo = res["fast_only"]["avg_latency_us"]
+    row = {"phase": "sibyl", "part": "decode_trace", "nvidia_smi": smi,
+           "events": len(trace), "writes": sum(1 for e in trace if e[2]),
+           "pages": len({e[0] for e in trace}),
+           "hss": "H&L", "fast_cap": SIBYL_TRACE_FAST_CAP,
+           "latency_model": "HssEnv's NVMe + HDD service model, not times "
+                            "of the card",
+           "norm_avg_latency": {k: r["avg_latency_us"] / fo
+                                for k, r in res.items()},
+           "avg_latency_us": {k: r["avg_latency_us"] for k, r in res.items()},
+           "migrations": {k: r["migrations"] for k, r in res.items()},
+           "sibyl_training_steps": len(agent.losses)}
+    emit(row)
+    if not trace or not row["writes"] or row["writes"] == len(trace):
+        raise AssertionError(f"decode trace without reads or writes: {row}")
+    return row
+
+
+def phase_sibyl(base, serve_row, smi: str) -> dict:
+    """Sibyl (thesis Ch. 7) on the card: the storage simulator, learned
+    KV-page placement on the main path, its exactness under replayed
+    decisions, learned victim ranking under overload, and the serve run's
+    own pool trace replayed through the simulator."""
+    rows = {"storage": sibyl_storage(smi)}
+    rows["serve"], recorder = sibyl_serve(base, smi)
+    rows["exact"] = sibyl_exact()
+    rows["overload"] = sibyl_overload(base, serve_row, smi)
+    rows["decode_trace"] = sibyl_decode_trace(recorder, smi)
+    return rows
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -3353,15 +3955,15 @@ def kernels_line(full, launches, stencil=None) -> dict:
 
 
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "hybrid", "stencil")
+          "hybrid", "stencil", "sibyl")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=PHASES,
                     help="run the device phase and this one phase only "
-                         "(chunked, spec and overload build the serve "
-                         "phase's model)")
+                         "(chunked, spec, overload and sibyl build the "
+                         "serve phase's model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3381,7 +3983,8 @@ def main(argv=None) -> int:
         full = phase_kernel()
     if run("exact"):
         phase_exact()
-    if run("serve") or run("chunked") or run("spec") or run("overload"):
+    if run("serve") or run("chunked") or run("spec") or run("overload") \
+            or run("sibyl"):
         serve, eng = phase_serve()
         if args.only in (None, "serve"):
             phase_profile(eng)
@@ -3391,6 +3994,8 @@ def main(argv=None) -> int:
             phase_spec(eng)
         if run("overload"):
             phase_overload(eng, serve, dev["nvidia_smi"])
+        if run("sibyl"):
+            phase_sibyl(eng, serve, dev["nvidia_smi"])
         del eng
         # a finished session's radix tree and its release callback form
         # reference cycles: collect them so the next phase's memory

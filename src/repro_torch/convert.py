@@ -1,4 +1,5 @@
-"""Carry the JAX package's params into the port.
+"""Carry the JAX package's params into the port (the models', and the
+Sibyl agent's: `sibyl_params_from_numpy`).
 
 `params_from_numpy` takes the ``Model.init`` pytree of the JAX package
 with every leaf already converted to a numpy array (the caller does
@@ -31,3 +32,27 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     name and shape for shape against the port's model spec."""
     return check_state(cfg, {name: _to_torch(v)
                              for name, v in flatten(tree).items()})
+
+
+def sibyl_params_from_numpy(tree: dict) -> dict:
+    """The reference Sibyl agent's ``params`` dict (w1, b1, w2, b2, w3,
+    b3, as numpy: ``jax.tree.map(np.asarray, agent.params)``) -> a
+    `QNet` state dict of float32 CPU tensors, name for name and shape for
+    shape (both keep weights as (in, out)). Serves the target network and
+    Adam's moments too, which share the params' structure."""
+    from repro_torch.core.sibyl.agent import PARAM_NAMES
+    from repro_torch.core.sibyl.env import N_FEATURES
+    if set(tree) != set(PARAM_NAMES):
+        raise ValueError(f"Sibyl params {sorted(tree)}, want "
+                         f"{sorted(PARAM_NAMES)}")
+    state = {n: torch.from_numpy(np.array(tree[n], np.float32))
+             for n in PARAM_NAMES}
+    hidden, n_actions = state["w1"].shape[1], state["w3"].shape[1]
+    want = {"w1": (N_FEATURES, hidden), "b1": (hidden,),
+            "w2": (hidden, hidden), "b2": (hidden,),
+            "w3": (hidden, n_actions), "b3": (n_actions,)}
+    for n, shape in want.items():
+        if tuple(state[n].shape) != shape:
+            raise ValueError(f"Sibyl param {n}: shape "
+                             f"{tuple(state[n].shape)}, want {shape}")
+    return state

@@ -13,11 +13,18 @@ tensors (through the kernel's wrapper, which makes that choice). A spec
 with a ``tune_space`` (the stencils) takes a ``tile``; with ``auto`` and
 no tile its kernel launches at the knee of the spec's Hopper cost model
 (`resolve_tile`). The other kernels' launch shapes are fixed, and they
-refuse tiles.
+refuse tiles. Resolved knees persist across restarts through
+`save_knee_cache` / `load_knee_cache` (``launch.weather_stencil
+--knee-cache``), keyed by kernel, grid, dtype and the arch they were
+resolved for.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import warnings
+from pathlib import Path
 from typing import Callable, Mapping
 
 import numpy as np
@@ -112,11 +119,20 @@ def run(name, *args, backend: str = "auto", tile=None, **kwargs):
 # ---------------------------------------------------------------------------
 # Tile resolution (NERO knee point), cached per (kernel, grid, dtype)
 # ---------------------------------------------------------------------------
+# Resolved knees live in a plain dict so they can be persisted and
+# reloaded: a restart then skips re-tuning every (kernel, grid, dtype) it
+# already saw.
 _KNEES: dict[tuple, tuple] = {}    # (name, grid, dtype) -> frozen tile
+_knees_dirty = False
+# The arch the knees were resolved for. The cost models are Hopper's and
+# the kernels are built for it, so a cache file's entries of another arch
+# (a TPU knee cache, which keys on a VMEM budget instead) never load.
+KNEE_ARCH = "sm_90a"
 
 
 def resolve_tile(kernel, args) -> dict:
     """Knee-point tile for these arguments, from the spec's cost model."""
+    global _knees_dirty
     spec = as_spec(kernel)
     grid = tuple(int(n) for n in spec.grid_of(*args))
     dtype = str(args[0].dtype).removeprefix("torch.")
@@ -126,7 +142,123 @@ def resolve_tile(kernel, args) -> dict:
         from repro_torch.core.autotune import autotune_kernel
         knee = autotune_kernel(spec, grid, dtype=dtype)["knee"]
         tile = _KNEES[key] = tuple(sorted(knee.params.items()))
+        _knees_dirty = True
     return dict(tile)
+
+
+def knee_cache_path(checkpoint_dir) -> Path:
+    """Canonical knee-cache location next to a checkpoint directory."""
+    return Path(checkpoint_dir) / "knee_cache.json"
+
+
+def _entry_key(e: dict) -> tuple:
+    """(kernel, grid, dtype) of one entry of this arch, with its tile
+    checked against the spec's tune space. Raises ValueError / KeyError /
+    TypeError on an entry the port cannot launch."""
+    key = (str(e["kernel"]), tuple(int(n) for n in e["grid"]),
+           str(e["dtype"]))
+    tile = e["tile"]
+    if not isinstance(tile, dict):
+        raise TypeError(f"tile {tile!r} is not a dict")
+    space = as_spec(key[0]).tune_space
+    if set(tile) != set(space) or any(tile[k] not in space[k] for k in tile):
+        raise ValueError(f"{key[0]}: tile {tile} is not in the tune space "
+                         f"{dict(space)}")
+    return key
+
+
+def _read_entries(p: Path) -> tuple[dict, list, list]:
+    """The file's entries of this arch by (kernel, grid, dtype); its other
+    entries as they are (another arch's, or the JAX package's, which key
+    on a VMEM budget and name no arch); and the reasons for the entries of
+    this arch skipped as malformed."""
+    ours, foreign, skipped = {}, [], []
+    raw = json.loads(p.read_text())
+    if not isinstance(raw, list):
+        raise TypeError(f"{type(raw).__name__}, not a list of entries")
+    for e in raw:
+        if isinstance(e, dict) and e.get("arch") != KNEE_ARCH:
+            foreign.append(e)
+            continue
+        try:
+            ours[_entry_key(e)] = dict(e["tile"])
+        except (ValueError, KeyError, TypeError) as err:
+            skipped.append(f"{err!r}")
+    return ours, foreign, skipped
+
+
+def _warn_malformed(p, why):
+    warnings.warn(f"ignoring malformed knee cache entries in {p}: {why} "
+                  f"(knees will be re-tuned and the file rewritten)")
+
+
+def save_knee_cache(path) -> int:
+    """Write every knee resolved so far to `path` (JSON), MERGED with the
+    entries already in the file (in-memory knees win), so a process that
+    only resolved a subset never truncates knees persisted by earlier
+    runs. Entries of another arch, the JAX package's among them, are
+    written back unchanged; malformed entries of this arch, or a file
+    that is not a list of entries, are replaced with a warning. The write
+    is an atomic replace: a crash mid-write never leaves a truncated
+    file. Returns the entry count."""
+    global _knees_dirty
+    p = Path(path)
+    ours, foreign = {}, []
+    if p.exists():
+        try:
+            ours, foreign, skipped = _read_entries(p)
+        except (ValueError, TypeError) as err:
+            _warn_malformed(p, err)
+        else:
+            if skipped:
+                _warn_malformed(p, "; ".join(skipped))
+    ours.update({k: dict(t) for k, t in _KNEES.items()})
+    entries = [{"arch": KNEE_ARCH, "kernel": k[0], "grid": list(k[1]),
+                "dtype": k[2], "tile": t}
+               for k, t in sorted(ours.items())] + foreign
+    p.parent.mkdir(parents=True, exist_ok=True)
+    tmp = p.with_name(f".{p.name}.{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(entries, indent=1))
+    os.replace(tmp, p)
+    _knees_dirty = False
+    return len(entries)
+
+
+def load_knee_cache(path) -> int:
+    """Load previously persisted knees of this arch (missing file -> 0).
+    Loaded entries pre-populate the resolver, so ``backend="auto"``
+    dispatches skip the tuning sweep for shapes a previous run already
+    resolved. A malformed file, or an entry of another arch or with a tile
+    the spec's tune space cannot launch, is a warning and is skipped,
+    never a startup failure and never a launch. Returns the count loaded."""
+    p = Path(path)
+    if not p.exists():
+        return 0
+    try:
+        ours, foreign, skipped = _read_entries(p)
+    except (ValueError, TypeError) as err:
+        _warn_malformed(p, err)
+        return 0
+    for key, tile in ours.items():
+        _KNEES.setdefault(key, tuple(sorted(tile.items())))
+    skipped += [f"arch {e.get('arch')!r} is not {KNEE_ARCH!r}"
+                for e in foreign]
+    if skipped:
+        _warn_malformed(p, "; ".join(skipped))
+    return len(ours)
+
+
+def knees_dirty() -> bool:
+    """True when a knee was resolved since the last save_knee_cache."""
+    return _knees_dirty
+
+
+def invalidate_caches():
+    """Drop every resolved tile (the next ``auto`` dispatch re-tunes):
+    nothing unsaved is left, so the store is clean."""
+    global _knees_dirty
+    _KNEES.clear()
+    _knees_dirty = False
 
 
 # ---------------------------------------------------------------------------

@@ -27,11 +27,17 @@ smoke config, else its published widths, with random weights from seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --smoke --paged --continuous --frontend --trace overload
 
+    # Sibyl placement learning from real gather latency, Sibyl victim
+    # ranking under preemption:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --smoke --paged --continuous --max-active 2 --sibyl --sibyl-preempt
+
 Without ``--paged`` (or ``--continuous`` / ``--frontend`` / ``--trace``)
 the reference decodes from dense caches; that path is not ported and
-raises `NotImplementedError`, as do ``--sibyl`` / ``--sibyl-preempt``
-(Sibyl, ROADMAP Queue 1 item 5), ``--mesh`` (multi-device serving, item
-8) and ``--knee-cache`` (the knee cache's persistence, item 7).
+raises `NotImplementedError`, as do ``--mesh`` (multi-device serving,
+ROADMAP Queue 1 item 8) and ``--knee-cache``: the port's serving kernels
+launch at fixed shapes, so serving resolves no knee to persist (the
+stencils' knees persist through ``launch.weather_stencil --knee-cache``).
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fast-pages", type=int, default=1024,
                     help="fast-tier capacity before LRU int8 demotion")
     ap.add_argument("--sibyl", action="store_true",
-                    help="Sibyl DQN tier placement (not ported)")
+                    help="Sibyl DQN tier placement (reward: gather latency"
+                         " + slow-hit penalty)")
     ap.add_argument("--decode-mode", default="fused",
                     choices=("fused", "eager", "numpy"),
                     help="fused = one step per token over the device pool "
@@ -102,25 +109,31 @@ def _parser() -> argparse.ArgumentParser:
                          "eligible active requests on the host tier")
     ap.add_argument("--sibyl-preempt", action="store_true",
                     help="rank preemption victims with the Sibyl DQN "
-                         "(not ported)")
+                         "(learned from decode latency + deadline-miss "
+                         "penalties) instead of the deterministic "
+                         "least-progress fallback")
     ap.add_argument("--knee-cache", default=None, metavar="PATH",
-                    help="JSON cache of backend='auto' knee points "
-                         "(not ported)")
+                    help="JSON cache of backend='auto' knee points (not "
+                         "ported: no serving kernel has a tune space)")
     return ap
 
 
 def _refuse_unported(args):
-    if args.sibyl or args.sibyl_preempt:
-        raise NotImplementedError(
-            "Sibyl placement and preemption are not ported (ROADMAP Queue 1 "
-            "item 5)")
     if args.mesh:
         raise NotImplementedError(
             "mesh serving is not ported (ROADMAP Queue 1 item 8)")
     if args.knee_cache:
         raise NotImplementedError(
-            "the knee cache's persistence is not ported (ROADMAP Queue 1 "
-            "item 7)")
+            "the port's serving kernels launch at fixed shapes, so serving "
+            "resolves no knee to persist; the stencils' knees persist "
+            "through `launch.weather_stencil --knee-cache`")
+
+
+def _preempt_policy(args):
+    if not args.sibyl_preempt:
+        return None
+    from repro_torch.serve.placement import SibylPreemption
+    return SibylPreemption(device=args.device)
 
 
 def main(argv=None) -> dict:
@@ -135,8 +148,13 @@ def main(argv=None) -> dict:
         args.paged = True
     pool = None
     if args.paged or args.continuous:
+        policy = None
+        if args.sibyl:
+            from repro_torch.serve.placement import SibylPlacement
+            policy = SibylPlacement(device=args.device)
         pool = PagedKVPool(page_tokens=args.page_tokens,
-                           fast_capacity_pages=args.fast_pages)
+                           fast_capacity_pages=args.fast_pages,
+                           placement_policy=policy)
     if args.speculate > 1 and pool is None:
         raise SystemExit("--speculate needs --paged or --continuous")
     eng = ServeEngine(cfg, kv_pool=pool, device=args.device,
@@ -156,6 +174,7 @@ def main(argv=None) -> dict:
     reqs = [Request(rng.integers(0, cfg.vocab_size, size=args.prompt_len)
                     .astype(np.int32), args.new_tokens)
             for _ in range(args.batch)]
+    preempt_policy = _preempt_policy(args)
     t0 = time.time()
     if args.continuous:
         outs = eng.serve(reqs, max_active=args.max_active,
@@ -163,7 +182,8 @@ def main(argv=None) -> dict:
                          if args.no_chunked_prefill else None,
                          prefill_budget=args.prefill_budget,
                          radix=False if args.no_radix else None,
-                         preempt=not args.no_preempt)
+                         preempt=not args.no_preempt,
+                         preempt_policy=preempt_policy)
     else:
         outs = eng.generate(reqs, free_pages=True)
     dt = time.time() - t0
@@ -178,7 +198,8 @@ def main(argv=None) -> dict:
                   f"steps ({d['tokens_per_step']:.2f} tok/step, "
                   f"accept_rate={rate})")
     print(f"kv pool: {pool.stats} live_pages={len(pool.pages)}")
-    return {"outs": outs, "pool": dict(pool.stats)}
+    return {"outs": outs, "pool": dict(pool.stats), "engine": eng,
+            "preempt_policy": preempt_policy}
 
 
 def _print_summary(summary: dict) -> None:
@@ -226,16 +247,19 @@ def _run_frontend(args, cfg, eng, pool) -> dict:
 
     chunked = False if args.no_chunked_prefill else None
     radix = False if args.no_radix else None
+    preempt_policy = _preempt_policy(args)
     if args.trace:
         summary = run_trace(eng, parse_spec(args.trace),
                             max_active=args.max_active,
                             max_queue=args.max_queue,
                             chunked_prefill=chunked,
                             prefill_budget=args.prefill_budget,
-                            radix=radix, preempt=not args.no_preempt)
+                            radix=radix, preempt=not args.no_preempt,
+                            preempt_policy=preempt_policy)
         _print_summary(summary)
         print(f"kv pool: {pool.stats} live_pages={len(pool.pages)}")
-        return {"summary": summary, "pool": dict(pool.stats)}
+        return {"summary": summary, "pool": dict(pool.stats),
+                "engine": eng, "preempt_policy": preempt_policy}
 
     rng = np.random.default_rng(0)
     reqs = [Request(rng.integers(0, cfg.vocab_size, size=args.prompt_len)
@@ -248,7 +272,8 @@ def _run_frontend(args, cfg, eng, pool) -> dict:
                 max_active=args.max_active, max_queue=args.max_queue,
                 speculate=args.speculate or None, chunked_prefill=chunked,
                 prefill_budget=args.prefill_budget, radix=radix,
-                preempt=not args.no_preempt) as front:
+                preempt=not args.no_preempt,
+                preempt_policy=preempt_policy) as front:
             handles = [await front.submit(r) for r in reqs]
             outs = [await h.result() for h in handles]
             return front.metrics.summary(), outs
@@ -257,7 +282,8 @@ def _run_frontend(args, cfg, eng, pool) -> dict:
     _print_summary(summary)
     print(f"first row: {outs[0][:8]}")
     print(f"kv pool: {pool.stats} live_pages={len(pool.pages)}")
-    return {"summary": summary, "outs": outs, "pool": dict(pool.stats)}
+    return {"summary": summary, "outs": outs, "pool": dict(pool.stats),
+            "engine": eng, "preempt_policy": preempt_policy}
 
 
 if __name__ == "__main__":

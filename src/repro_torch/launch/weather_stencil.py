@@ -6,9 +6,13 @@ number-format sweep — the thesis's Ch. 3 + 4 flow, the counterpart of
     PYTHONPATH=src python -m repro_torch.launch.weather_stencil
     PYTHONPATH=src python -m repro_torch.launch.weather_stencil --device cpu
     PYTHONPATH=src python -m repro_torch.launch.weather_stencil --grid cosmo
+    PYTHONPATH=src python -m repro_torch.launch.weather_stencil \\
+        --knee-cache /path/to/ckpt/knee_cache.json
 
 Three steps: (1) each kernel through ``api.run`` (``auto``: the kernel at
-its knee on the card) against its plain version on the same inputs; (2)
+its knee on the card, the tile `api.resolve_tile` gives, which
+``--knee-cache`` loads before the run and saves after it when a knee was
+resolved anew) against its plain version on the same inputs; (2)
 the knee of each kernel's tune space at the COSMO production grid for
 fp32 and bf16; (3) the hdiff precision sweep over fixed(16,4),
 floatx(5,10), posit(16,2) and posit(12,2), through the kernel on the
@@ -36,11 +40,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--grid", default="smoke", choices=("smoke", "cosmo"),
                     help="grid of the kernel check and the sweep")
+    ap.add_argument("--knee-cache", default=None, metavar="PATH",
+                    help="JSON cache of the knees step 1 resolves (e.g. "
+                         "<checkpoint-dir>/knee_cache.json): loaded first, "
+                         "saved at the end, so a restart skips re-tuning")
     opts = ap.parse_args(argv)
     device = opts.device
     g = smoke_grid() if opts.grid == "smoke" else cosmo_grid()
     shape = {"nz": g.nz, "ny": g.ny, "nx": g.nx}
-    result = {"device": device, "grid": shape, "check": {}, "knee": {}}
+    result = {"device": device, "grid": shape, "check": {}, "tile": {},
+              "knee": {}}
+    if opts.knee_cache:
+        result["knees_loaded"] = api.load_knee_cache(opts.knee_cache)
 
     # 1) the kernels (plain versions on the CPU) against their plain
     #    versions, through the single registry dispatch
@@ -48,6 +59,8 @@ def main(argv=None) -> dict:
         spec = registry.get(name)
         args = [torch.from_numpy(v).to(device)
                 for v in spec.example_inputs(shape=shape).values()]
+        # the tile "auto" launches at on the card (cached per grid)
+        result["tile"][name] = api.resolve_tile(name, args)
         out_k = api.run(name, *args, backend="auto")
         out_r = api.run(name, *args, backend="ref")
         err = (out_k - out_r).abs().max().item()
@@ -74,6 +87,8 @@ def main(argv=None) -> dict:
     for r in result["sweep"]:
         print(f"hdiff @ {r['format']:12s}: accuracy "
               f"{r['accuracy_pct']:.3f}%")
+    if opts.knee_cache and api.knees_dirty():
+        result["knees_saved"] = api.save_knee_cache(opts.knee_cache)
     return result
 
 

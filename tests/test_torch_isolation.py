@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "kernels.vadvc.spec", "launch.weather_stencil",
                  "serve.metrics", "serve.preemption", "serve.frontend",
                  "serve.traffic", "serve.scheduler", "serve.kvcache",
-                 "launch.serve"):
+                 "launch.serve", "core.sibyl.env", "core.sibyl.traces",
+                 "core.sibyl.policies", "core.sibyl.agent",
+                 "serve.placement", "launch.sibyl_storage",
+                 "kernels.api", "convert"):
         assert f"repro_torch.{name}" in result["modules"]
 
 

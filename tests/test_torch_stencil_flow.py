@@ -3,9 +3,14 @@ package: the dispatch's tile rules over all six kernels, the Hopper knee
 (feasible, deterministic, cached by ``backend="auto"``), the number-format
 quantizers (equal to the bit), the precision sweep over
 ``benchmarks/bench_precision.py``'s 14 formats and the fixed-point search
-through ``api.numpy_fn`` on the CPU, and
-``repro_torch.launch.weather_stencil`` end to end."""
+through ``api.numpy_fn`` on the CPU,
+``repro_torch.launch.weather_stencil`` end to end, and the knee cache's
+persistence (``--knee-cache``): merged on save, the JAX package's own
+entries kept, a malformed file or an entry of another arch a warning,
+never a launch."""
 import importlib.util
+import json
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -180,3 +185,134 @@ def test_weather_stencil_main_on_cpu():
     assert [r["format"] for r in res["sweep"]] == [r["format"] for r in want]
     for a, b in zip(res["sweep"], want):
         assert abs(a["rel_err"] - b["rel_err"]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The knee cache
+# ---------------------------------------------------------------------------
+def _hdiff_args(nz=8, ny=32, nx=48):
+    return [torch.zeros(nz, ny, nx)]
+
+
+def test_knee_cache_persists_and_preloads(tmp_path):
+    """The port of the reference's test, on the launcher that resolves
+    knees: the first run saves the knees it resolved, a restart preloads
+    them, re-tunes nothing and leaves the file as it was."""
+    api.invalidate_caches()
+    path = api.knee_cache_path(tmp_path)
+    assert path == tmp_path / "knee_cache.json"
+    res = weather_stencil.main(["--device", "cpu", "--knee-cache",
+                                str(path)])
+    assert res["knees_loaded"] == 0 and res["knees_saved"] == 2
+    grid = [res["grid"][k] for k in ("nz", "ny", "nx")]
+    assert json.loads(path.read_text()) == [
+        {"arch": "sm_90a", "kernel": name, "grid": grid,
+         "dtype": "float32", "tile": res["tile"][name]}
+        for name in ("hdiff", "vadvc")]
+    assert not api.knees_dirty()
+    before = path.read_text()
+
+    api.invalidate_caches()
+    res2 = weather_stencil.main(["--device", "cpu", "--knee-cache",
+                                 str(path)])
+    assert res2["knees_loaded"] == 2 and "knees_saved" not in res2
+    assert res2["tile"] == res["tile"] and not api.knees_dirty()
+    assert path.read_text() == before
+
+
+def test_knee_cache_merges_on_save(tmp_path):
+    """In-memory knees win over the file's; the file's other entries, of
+    any arch, are kept."""
+    path = tmp_path / "k.json"
+    api.invalidate_caches()
+    old = api.resolve_tile("hdiff", _hdiff_args(4, 32, 48))
+    assert api.save_knee_cache(path) == 1
+    entries = json.loads(path.read_text())
+    entries.append({"arch": "tpu", "kernel": "hdiff", "grid": [1, 2, 3],
+                    "dtype": "float32", "tile": {"tile_x": 8}})
+    stale = dict(entries[0], tile={"tile_x": 128, "tile_y": 32,
+                                   "block_z": 4}, grid=[8, 32, 48])
+    entries.append(stale)
+    path.write_text(json.dumps(entries))
+    api.invalidate_caches()
+    new = api.resolve_tile("hdiff", _hdiff_args(8, 32, 48))
+    assert api.save_knee_cache(path) == 3
+    saved = {(e["arch"], tuple(e["grid"])): e["tile"]
+             for e in json.loads(path.read_text())}
+    assert saved == {("sm_90a", (4, 32, 48)): old,
+                     ("sm_90a", (8, 32, 48)): new,
+                     ("tpu", (1, 2, 3)): {"tile_x": 8}}
+    assert not list(tmp_path.glob(".*.tmp"))      # replaced atomically
+
+
+def test_knee_cache_save_keeps_jax_entries(tmp_path):
+    """A file the JAX package wrote at the same canonical path (entries
+    keyed on a VMEM budget, no arch): a save by the port adds its own
+    entries and writes the reference's back unchanged, and a load takes
+    only the port's, warning about the others."""
+    path = api.knee_cache_path(tmp_path)
+    jax_entries = [
+        {"kernel": "hdiff", "grid": [8, 32, 48], "dtype": "float32",
+         "vmem_budget": None, "tile": {"block_z": 4}},
+        {"kernel": "vadvc", "grid": [16, 64, 64], "dtype": "bfloat16",
+         "vmem_budget": 16777216, "tile": {"tile_x": 64}}]
+    path.write_text(json.dumps(jax_entries))
+    api.invalidate_caches()
+    knee = api.resolve_tile("hdiff", _hdiff_args())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert api.save_knee_cache(path) == 3
+    entries = json.loads(path.read_text())
+    assert entries == [{"arch": "sm_90a", "kernel": "hdiff",
+                        "grid": [8, 32, 48], "dtype": "float32",
+                        "tile": knee}] + jax_entries
+    api.invalidate_caches()
+    with pytest.warns(UserWarning, match="malformed knee cache"):
+        assert api.load_knee_cache(path) == 1
+    assert api._KNEES == {("hdiff", (8, 32, 48), "float32"):
+                          tuple(sorted(knee.items()))}
+
+
+def test_knee_cache_malformed_file_warns(tmp_path):
+    path = tmp_path / "k.json"
+    path.write_text("{not json")
+    api.invalidate_caches()
+    with pytest.warns(UserWarning, match="malformed knee cache"):
+        assert api.load_knee_cache(path) == 0
+    assert api.load_knee_cache(tmp_path / "missing.json") == 0
+    # a save over the malformed file replaces it
+    api.resolve_tile("hdiff", _hdiff_args())
+    with pytest.warns(UserWarning, match="malformed knee cache"):
+        assert api.save_knee_cache(path) == 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert api.load_knee_cache(path) == 1
+
+
+def test_knee_cache_skips_foreign_and_unlaunchable_entries(tmp_path):
+    """Entries of another arch (a TPU cache keys on a VMEM budget), of
+    an unknown kernel, or whose tile the tune space cannot launch are
+    skipped with the warning: the resolver never sees them."""
+    grid = [8, 32, 48]
+    good = {"arch": "sm_90a", "kernel": "hdiff", "grid": grid,
+            "dtype": "float32",
+            "tile": {"tile_x": 128, "tile_y": 16, "block_z": 2}}
+    bad = [dict(good, arch="tpu_v5e"),
+           {"kernel": "hdiff", "grid": grid, "dtype": "bfloat16",
+            "vmem_budget": None, "tile": {"block_z": 4}},
+           dict(good, kernel="no_such_kernel"),
+           dict(good, dtype="float16", tile={"tile_x": 128, "tile_y": 16}),
+           dict(good, dtype="bfloat16",
+                tile={"tile_x": 96, "tile_y": 16, "block_z": 2}),
+           dict(good, grid=[1, 1, 1], tile={"tile_x": 64, "tile_y": 16,
+                                            "block_z": 1, "vmem": 3})]
+    path = tmp_path / "k.json"
+    path.write_text(json.dumps([good] + bad))
+    api.invalidate_caches()
+    with pytest.warns(UserWarning, match="malformed knee cache") as rec:
+        assert api.load_knee_cache(path) == 1
+    assert "tpu_v5e" in str(rec[0].message)
+    assert api._KNEES == {("hdiff", tuple(grid), "float32"):
+                          tuple(sorted(good["tile"].items()))}
+    assert api.resolve_tile("hdiff", _hdiff_args()) == good["tile"]
+    assert not api.knees_dirty()           # loaded, not re-tuned
