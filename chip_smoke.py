@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
-                                          # spec | overload | hybrid |
-                                          # stencil | sibyl
+                                          # spec | overload | families |
+                                          # hybrid | stencil | sibyl
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -161,6 +161,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    attainment. ``decode_trace``: the serve run's pool events
    (`DecodeTraceRecorder`) replayed through `HssEnv` for the heuristics
    and the DQN.
+11. families — the remaining model families (it runs after the serve
+   block and before ``hybrid``). ``kernel`` rows: paged attention at
+   each paged family's heads (g = 1 / d 128 codeqwen1.5-7b, g = 3 / d 64
+   granite-moe-3b-a800m, g = 8 / d 128 qwen3-moe-30b-a3b) at k = 1 and 4
+   (split) and 128 (wgmma), flash attention at each family's prefill (s =
+   600: musicgen-medium, codeqwen, granite-moe, llama-3.2-vision-11b,
+   qwen3-moe at its generate batch of 5), bf16, held to 2 ulps and timed
+   by `device_ms` beside SDPA's. ``qwen3-moe-30b-a3b``: all 48 layers,
+   bf16, seeded weights on the card (61 GB), a 128-token pool with every
+   other page int8: the serve workload through the default ``serve()``
+   and one monolithic ``generate``: decode ms/step, TTFT, prefill ms,
+   launches by route, 2 transfers per steady token, 8 traced decode steps
+   (device busy share, the MoE layers' share through `moe_span`), peak
+   memory. The other five at published widths, 4 layers (llama-vision
+   5, one group with its cross layer): codeqwen and granite-moe through
+   ``serve()``, minicpm3-4b (MLA) through the dense-cache ``generate``,
+   llama-vision and musicgen at the ``Model`` level with seeded image /
+   frame embeddings (prefill of 2 x 600, 8 dense decode steps).
+   ``exact``: 2 layers, fp32, kernels against ``backend="ref"``:
+   identical tokens for the three paged families (``generate``, k = 4
+   ``serve``), llama-vision's and musicgen's prefill logits within 2
+   ulps, minicpm3's tokens.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -168,6 +190,7 @@ Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -2665,7 +2688,16 @@ def _union_us(intervals) -> float:
     return total
 
 
-def phase_profile(eng, steps: int = 16, k: int = 1) -> dict:
+def _device_us_under(event, skip: str) -> float:
+    """Device time of the kernels launched under a profiler CPU event (its
+    own and its descendants'), leaving out the GPU-side range of an
+    annotation named `skip`."""
+    return (sum(kern.duration for kern in event.kernels if kern.name != skip)
+            + sum(_device_us_under(c, skip) for c in event.cpu_children))
+
+
+def phase_profile(eng, steps: int = 16, k: int = 1,
+                  span: str | None = None) -> dict:
     """Steps of 2 rows at ~500 tokens of context, timed without and then
     with `torch.profiler`: device busy share of the traced window (union
     of kernel intervals over its wall time), kernels per step, the paged
@@ -2675,7 +2707,10 @@ def phase_profile(eng, steps: int = 16, k: int = 1) -> dict:
     step (`build_fused_step(k=...)`) as the default `serve()` feeds a
     prompt chunk. Any stack the engine serves (the hybrids' decode runs
     none of the port's kernels: their recurrent and ring layers step
-    through plain PyTorch, as the reference's do through jnp)."""
+    through plain PyTorch, as the reference's do through jnp). ``span``
+    names a `torch.profiler.record_function` range the caller wraps
+    around part of the step (`moe_span`): its kernels' device time per
+    step and share of the busy time join the row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.paged_decode import (PagedKVState,
@@ -2722,7 +2757,8 @@ def phase_profile(eng, steps: int = 16, k: int = 1) -> dict:
             one_step()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name != span]
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     by_name: dict = {}
@@ -2748,6 +2784,13 @@ def phase_profile(eng, steps: int = 16, k: int = 1) -> dict:
            "port_kernels_share_of_busy": port_us / busy_us if busy_us
            else None,
            "top_kernels_us_per_step": [[k[:80], v / steps] for k, v in top]}
+    if span is not None:
+        span_us = sum(_device_us_under(e, span) for e in prof.events()
+                      if e.name == span and e.device_type == DeviceType.CPU)
+        if not span_us:
+            raise AssertionError(f"no device time under {span!r}")
+        row[f"{span}_us_per_step"] = span_us / steps
+        row[f"{span}_share_of_busy"] = span_us / busy_us
     emit(row)
     return row
 
@@ -3916,6 +3959,508 @@ def phase_sibyl(base, serve_row, smi: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 11. the remaining model families
+# ---------------------------------------------------------------------------
+SERVE_PROMPTS = (120, 250, 380, 500, 600)   # the serve phase's workload
+MOE_SPAN = "moe_apply"
+# the kernels' new launch shapes: (hq, hkv, d) of each family that serves
+# through the paged path, and each family's prefill batch at s = 600
+PAGED_FAMILIES = ("codeqwen1.5-7b", "granite-moe-3b-a800m",
+                  "qwen3-moe-30b-a3b")
+FLASH_FAMILIES = (("musicgen-medium", 2), ("codeqwen1.5-7b", 1),
+                  ("granite-moe-3b-a800m", 1), ("llama-3.2-vision-11b", 2),
+                  ("qwen3-moe-30b-a3b", 5))
+
+
+@contextlib.contextmanager
+def moe_span():
+    """Wrap every `moe_apply` call in a `torch.profiler.record_function`
+    range named `MOE_SPAN`, so a trace can attribute the MoE layers'
+    kernels (`phase_profile(span=...)`)."""
+    from repro_torch.models import moe
+    plain = moe.moe_apply
+
+    def traced(*args, **kwargs):
+        with torch.profiler.record_function(MOE_SPAN):
+            return plain(*args, **kwargs)
+
+    moe.moe_apply = traced
+    try:
+        yield
+    finally:
+        moe.moe_apply = plain
+
+
+def family_kernel_rows(gen) -> dict:
+    """Paged attention at each paged family's (hq, hkv, d) — g = 1 / d 128
+    (codeqwen), g = 3 / d 64 (granite-moe), g = 8 / d 128 (qwen3-moe) —
+    at k = 1 and 4 (split route) and k = 128 (wgmma route), bf16, over
+    the kernel phase's mixed-tier pool and lengths; flash attention at
+    each family's prefill (s = 600, causal, bf16, the batch its path
+    gives it). Each row checks its route, is held to 2 ulps of the plain
+    version and timed by `device_ms` beside SDPA's; a paged row's bound
+    takes the fp32 peak (its pools are fp32), as the kernel phase's do,
+    with the bf16 peak's beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import api
+    from repro_torch.kernels.paged_attention.paged_attention import route
+    rows = {}
+    layer = 1
+    for arch in PAGED_FAMILIES:
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        shape = dict(b=4, hq=hq, hkv=hkv, d=d, t=128, n_layers=4,
+                     lengths=[2048, 700, 1, 1500], dead=[2])
+        for k in (1, 4, 128):
+            args = decode_inputs(gen, q_dtype=torch.bfloat16, rows=k,
+                                 **shape)
+            nbytes, flops = bytes_and_flops(args, k)
+
+            def kernel():
+                return api.run("paged_attention", *args, layer,  # noqa: B023
+                               backend="cuda")
+
+            taken = route_taken("paged_attention", kernel)
+            want = "split" if k < 128 else "wgmma"
+            if taken != want or route(torch.bfloat16, k * hq // hkv, d) \
+                    != want:
+                raise AssertionError(f"paged {arch} k={k}: route {taken}")
+            rows[("paged_attention", arch, k)] = compare_and_time(
+                f"paged_attention {arch} k={k} bfloat16", kernel,
+                lambda: api.run("paged_attention", *args, layer,  # noqa
+                                backend="ref"),
+                sdpa_yardstick(args, layer, k), nbytes, flops, FP32_FLOPS,
+                {"kernel": "paged_attention", "rows": k, "dtype": "bfloat16",
+                 "route": taken, "arch": arch, "g": hq // hkv,
+                 "shape": shape, "layer": layer,
+                 "bound_ms_bf16_peak": max(nbytes / HBM_BYTES_PER_S,
+                                           flops / BF16_FLOPS) * 1e3,
+                 "library": "scaled_dot_product_attention over K/V "
+                            "gathered and dequantized beforehand (omits "
+                            "gather and dequant)"}, device=True)
+            del args
+            torch.cuda.empty_cache()
+    for arch, b in FLASH_FAMILIES:
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = flash_inputs(gen, b=b, sq=600, skv=600, hq=hq, hkv=hkv,
+                               d=d, dtype=torch.bfloat16)
+        nbytes, flops = flash_bytes_and_flops(q, k, v)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def kernel():
+            return api.run("flash_attention", q, k, v, causal=True,  # noqa
+                           backend="cuda")
+
+        taken = route_taken("flash_attention", kernel)
+        if taken != "wgmma":
+            raise AssertionError(f"flash {arch}: route {taken}")
+        rows[("flash_attention", arch)] = compare_and_time(
+            f"flash_attention {arch} prefill b={b} s=600 causal bfloat16",
+            kernel,
+            lambda: api.run("flash_attention", q, k, v, causal=True,  # noqa
+                            backend="ref"),
+            lambda: F.scaled_dot_product_attention(  # noqa: B023
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            nbytes, flops, BF16_FLOPS,
+            {"kernel": "flash_attention", "dtype": "bfloat16",
+             "route": taken, "arch": arch, "g": hq // hkv,
+             "shape": {"b": b, "sq": 600, "skv": 600, "hq": hq, "hkv": hkv,
+                       "d": d, "causal": True},
+             "library": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True) on (b, h, s, d) copies made "
+                        "beforehand"}, device=True)
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _family_pool(cfg):
+    from repro_torch.serve.kvcache import PagedKVPool
+    # 128 fast page groups (one page per layer each) hold the run; every
+    # other page goes to the int8 tier, as in the serve phase
+    return PagedKVPool(page_tokens=128, fast_capacity_pages=128
+                       * cfg.num_layers, placement_policy=EveryOtherSlow())
+
+
+def _add(total: dict, launches: dict) -> dict:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def families_qwen3(total: dict) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
+    bf16, seeded weights drawn on the card): the serve workload's five
+    prompts through the default `serve()` (chunked prefill + radix), then
+    through one monolithic `generate`; then 8 decode steps of 2 rows
+    traced, the MoE layers' kernels attributed through `moe_span`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("qwen3-moe-30b-a3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, seed=0, kv_pool=_family_pool(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in eng.model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in
+                       eng.model.weights.named_parameters()
+                       if ".moe." in n and not n.endswith("router"))
+    reqs = _requests(cfg.vocab_size, SERVE_PROMPTS, [32] * 5, 2)
+    reset_launches()
+    run = drive_session(eng, reqs)
+    serve_launches = read_launches()
+    _add(total, serve_launches)
+    _check_outs(run["outs"], reqs, cfg.vocab_size)
+    paged = check_paged_routes(run, cfg.num_layers)
+    if serve_launches["flash_attention"] or not run["chunked"] \
+            or not run["radix"]:
+        raise AssertionError(f"default serve() took another path: {run}")
+    if not run["steady"] or set(run["steady"]) != {(1, 1)}:
+        raise AssertionError(f"steady-state transfers {run['steady']}")
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
+    steps0 = eng.stats["decode_steps"]
+    prefill0, decode0 = eng.stats["prefill_s"], eng.stats["decode_s"]
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(_requests(cfg.vocab_size, SERVE_PROMPTS, [32] * 5,
+                                  2), free_pages=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = read_launches()
+    _add(total, gen_launches)
+    _check_outs(outs, reqs, cfg.vocab_size)
+    gen_steps = eng.stats["decode_steps"] - steps0
+    flash, paged_gen = routes("flash_attention"), routes("paged_attention")
+    if flash != {"wgmma": cfg.num_layers, "simt": 0} or paged_gen != {
+            "split": gen_steps * cfg.num_layers, "wgmma": 0, "simt": 0}:
+        raise AssertionError(f"generate launches by route: flash {flash}, "
+                             f"paged {paged_gen}")
+    # routing must not sync the host (the fused step's 2 transfers a
+    # token): one MoE layer at the decode and the chunk-fill shapes with
+    # any synchronizing call made an error
+    moe_p = eng.model.layers[0]["moe"]
+    for rows in (1, 128):
+        h = torch.randn(2, rows, cfg.d_model, device="cuda",
+                        dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_mod.moe_apply(cfg, moe_p, h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with moe_span():
+        prof = phase_profile(eng, steps=8, span=MOE_SPAN)
+    decode_ms = statistics.median(run["narrow_ms"])
+    row = {"phase": "families", "part": "qwen3-moe-30b-a3b",
+           "config": "qwen3-moe-30b-a3b, 48 layers, 128 experts top-8, "
+                     "bf16, seeded weights", "init_s": init_s,
+           "params": sum(p.numel() for p in eng.model.parameters()),
+           "weight_gb": weight_bytes / 1e9, "expert_gb": expert_bytes / 1e9,
+           "decode_byte_floor_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+           "prompt_lengths": list(SERVE_PROMPTS), "max_new": 32,
+           "max_active": 2, "page_tokens": 128,
+           "serve": {"path": "default serve(): chunked prefill + radix",
+                     "wall_s": run["wall_s"], "steps": run["steps"],
+                     "chunk_steps": len(run["wide_ms"]),
+                     "decode_ms_per_step": decode_ms,
+                     "chunk_step_ms": statistics.median(run["wide_ms"]),
+                     "ttft_ms": run["ttft_ms"],
+                     "launches": serve_launches,
+                     "paged_launches_by_route": paged,
+                     "steady_steps": len(run["steady"]),
+                     "transfers_per_steady_token": 2},
+           "generate": {"path": "monolithic generate, 5 prompts left-padded "
+                                "to 600", "wall_s": gen_s,
+                        "prefill_ms_per_request":
+                            (eng.stats["prefill_s"] - prefill0) / 5 * 1e3,
+                        "decode_ms_per_step":
+                            (eng.stats["decode_s"] - decode0) / gen_steps
+                            * 1e3, "decode_steps": gen_steps,
+                        "launches": gen_launches,
+                        "flash_launches_by_route": flash,
+                        "paged_launches_by_route": paged_gen},
+           "traced_decode": {k: prof[k] for k in (
+               "decode_ms_per_step", "traced_ms_per_step",
+               "device_busy_share", f"{MOE_SPAN}_share_of_busy",
+               f"{MOE_SPAN}_us_per_step", "paged_attention_share_of_busy",
+               "kernels_per_step")},
+           "moe_host_syncs": "none at k = 1 and 128 "
+                             "(torch.cuda.set_sync_debug_mode('error'))",
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def families_cut(total: dict) -> list:
+    """The other five families at published widths, cut in depth (4
+    layers; llama-3.2-vision-11b 5, one group with its cross layer),
+    bf16, seeded weights: codeqwen and granite-moe through the default
+    `serve()` on the serve workload, minicpm3 (MLA) through the
+    dense-cache `generate`, llama-vision (seeded image embeddings) and
+    musicgen (seeded frame embeddings) at the `Model` level: one prefill
+    of 2 x 600 positions and 8 dense decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model, pad_caches
+    from repro_torch.serve.engine import ServeEngine
+    out = []
+    for arch in ("codeqwen1.5-7b", "granite-moe-3b-a800m"):
+        cfg = get_config(arch, num_layers=4)
+        eng = ServeEngine(cfg, seed=0, kv_pool=_family_pool(cfg))
+        reqs = _requests(cfg.vocab_size, SERVE_PROMPTS, [32] * 5, 2)
+        reset_launches()
+        run = drive_session(eng, reqs)
+        launches = read_launches()
+        _add(total, launches)
+        _check_outs(run["outs"], reqs, cfg.vocab_size)
+        paged = check_paged_routes(run, cfg.num_layers)
+        if set(run["steady"]) != {(1, 1)} or eng.kv_pool.live_pages:
+            raise AssertionError(f"{arch}: steady {run['steady']}, "
+                                 f"{eng.kv_pool.live_pages} pages left")
+        out.append({"phase": "families", "part": arch,
+                    "config": f"{arch}, 4 layers, bf16",
+                    "path": "default serve(): chunked prefill + radix",
+                    "wall_s": run["wall_s"], "steps": run["steps"],
+                    "decode_ms_per_step": statistics.median(run["narrow_ms"]),
+                    "chunk_step_ms": statistics.median(run["wide_ms"]),
+                    "ttft_ms": run["ttft_ms"], "launches": launches,
+                    "paged_launches_by_route": paged,
+                    "transfers_per_steady_token": 2})
+        emit(out[-1])
+        del eng
+        torch.cuda.empty_cache()
+    cfg = get_config("minicpm3-4b", num_layers=4)
+    eng = ServeEngine(cfg, seed=0)
+    reqs = _requests(cfg.vocab_size, SERVE_PROMPTS, [32] * 5, 2)
+    reset_launches()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    _check_outs(outs, reqs, cfg.vocab_size)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"MLA generate launched {launches}")
+    out.append({"phase": "families", "part": "minicpm3-4b",
+                "config": "minicpm3-4b, 4 layers, bf16",
+                "path": "dense-cache generate (no pool), 5 prompts "
+                        "left-padded to 600",
+                "prefill_ms_per_request": eng.stats["prefill_s"] / 5 * 1e3,
+                "decode_ms_per_step": eng.stats["decode_s"]
+                / eng.stats["decode_steps"] * 1e3,
+                "decode_steps": eng.stats["decode_steps"],
+                "launches": launches, "first_tokens": outs[0][:8].tolist()})
+    emit(out[-1])
+    del eng
+    for arch, layers in (("llama-3.2-vision-11b", 5), ("musicgen-medium", 4)):
+        cfg = get_config(arch, num_layers=layers)
+        model = Model(cfg, device="cuda", seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        b, s, new = 2, 600, 8
+
+        def draw(*shape):
+            return torch.randn(shape, generator=gen,  # noqa: B023
+                               device="cuda").to(torch.bfloat16)
+
+        kw = {}
+        if cfg.external_embed:
+            kw["embeds"] = draw(b, s, cfg.d_model)
+        else:
+            kw["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda")
+        if cfg.n_img_tokens:
+            kw["image_embeds"] = draw(b, cfg.n_img_tokens, cfg.d_model)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.forward_prefill(**kw)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        caches = pad_caches(caches, s + new, cfg)
+        tok = torch.argmax(logits, -1)
+        t0 = time.perf_counter()
+        for step in range(new):
+            if cfg.external_embed:
+                logits = model.forward_decode(None, caches, s + step,
+                                              embeds=draw(b, 1, cfg.d_model))
+            else:
+                logits = model.forward_decode(tok[:, None], caches, s + step)
+                tok = torch.argmax(logits, -1)
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{arch}: non-finite logits")
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / new * 1e3
+        launches = read_launches()
+        _add(total, launches)
+        n_self = sum(m == "attn" for m, _ in cfg.layer_kinds())
+        flash = routes("flash_attention")
+        if flash != {"wgmma": n_self, "simt": 0} or launches[
+                "paged_attention"]:
+            raise AssertionError(f"{arch}: launches {launches}, flash {flash}")
+        out.append({"phase": "families", "part": arch,
+                    "config": f"{arch}, {layers} layers, bf16",
+                    "path": "Model.forward_prefill / forward_decode with "
+                            + ("image_embeds" if cfg.n_img_tokens
+                               else "frame embeds"),
+                    "batch": b, "prefill_len": s, "prefill_ms": prefill_ms,
+                    "decode_steps": new, "decode_ms_per_step": decode_ms,
+                    "launches": launches, "flash_launches_by_route": flash,
+                    "logits_shape": list(logits.shape)})
+        emit(out[-1])
+        del model, caches, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording(kernel: str):
+    """Record the arguments of every ``api.run(kernel, ...)`` call made
+    inside the block (copies, so later in-place writes do not change
+    them); yields the list of (args, kwargs)."""
+    from repro_torch.kernels import api
+    plain_run = api.run
+    calls = []
+
+    def run(name, *args, **kwargs):
+        if name == kernel:
+            calls.append(([a.clone() for a in args], dict(kwargs)))
+        return plain_run(name, *args, **kwargs)
+
+    api.run = run
+    try:
+        yield calls
+    finally:
+        api.run = plain_run
+
+
+def families_exact() -> dict:
+    """Kernel path against plain path (``backend="ref"``), 2 layers at
+    published widths, fp32, TF32 off: identical greedy tokens for the
+    three paged families through `generate` and a k = 4 speculative
+    default `serve()`; llama-vision's (5 layers: one group with its cross
+    layer, seeded image embeddings) and musicgen's (seeded frame
+    embeddings) prefill through the flash kernel: each of its flash
+    launches within 2 ulps of the plain version on the launch's own
+    inputs, the same greedy token as the plain path, and the logits'
+    distance from the plain path's recorded beside the 2-ulp limit (each
+    layer's rounding differences feed the next, so the logits of a deep
+    stack are not held to one kernel's limit); minicpm3's dense
+    `generate` tokens (it runs no kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import api
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    lengths, new = [70, 130, 257], [9, 12, 15]
+    row = {"phase": "families", "part": "exact",
+           "config": "published widths, fp32, TF32 off; 2 layers "
+                     "(llama-3.2-vision-11b 5)",
+           "page_tokens": 64, "prompt_lengths": lengths, "max_new": new}
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    def engine(cfg, backend, speculate=0, params=None):
+        return ServeEngine(cfg, seed=0, params=params, backend=backend,
+                           speculate=speculate, kv_pool=PagedKVPool(
+                               page_tokens=64,
+                               placement_policy=EveryOtherSlow()))
+
+    for arch in PAGED_FAMILIES:
+        cfg = get_config(arch, num_layers=2, **fp32)
+        v = cfg.vocab_size
+        got = {}
+        for backend in ("auto", "ref"):
+            eng = engine(cfg, backend)
+            toks = {"generate": _tokens(eng.generate(
+                _requests(v, lengths, new, 0), free_pages=True))}
+            eng4 = engine(cfg, backend, 4,
+                          dict(eng.model.weights.named_parameters()))
+            toks["serve_speculative_k4"] = _tokens(eng4.serve(
+                _requests(v, lengths, new, 3), max_active=2))
+            if eng.kv_pool.live_pages or eng4.kv_pool.live_pages:
+                raise AssertionError(f"{arch}: pages left in the pool")
+            got[backend] = toks
+            del eng, eng4
+            torch.cuda.empty_cache()
+        same = {p: got["auto"][p] == got["ref"][p] for p in got["auto"]}
+        row[arch] = {"identical_tokens": same, **got["auto"]}
+        if not all(same.values()):
+            emit(row)
+            raise AssertionError(f"{arch}: kernel and plain tokens differ")
+    for arch, layers in (("llama-3.2-vision-11b", 5), ("musicgen-medium", 2)):
+        cfg = get_config(arch, num_layers=layers, **fp32)
+        model = Model(cfg, device="cuda", seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        kw = {}
+        if cfg.external_embed:
+            kw["embeds"] = torch.randn(2, 300, cfg.d_model, generator=gen,
+                                       device="cuda")
+        else:
+            kw["tokens"] = torch.randint(0, cfg.vocab_size, (2, 300),
+                                         generator=gen, device="cuda")
+        if cfg.n_img_tokens:
+            kw["image_embeds"] = torch.randn(2, cfg.n_img_tokens,
+                                             cfg.d_model, generator=gen,
+                                             device="cuda")
+        reset_launches()
+        with recording("flash_attention") as calls:
+            got, _ = model.forward_prefill(**kw, backend="auto")
+        launches = read_launches()
+        want, _ = model.forward_prefill(**kw, backend="ref")
+        per_launch = [ulp_check(api.run("flash_attention", *a, **dict(
+            k, backend="cuda")), api.run("flash_attention", *a, **dict(
+                k, backend="ref")))[2] for a, k in calls]
+        err, tol, over = ulp_check(got, want)
+        row[arch] = {"flash_launches": launches["flash_attention"],
+                     "per_launch_err_over_limit": per_launch,
+                     "prefill_logits_max_abs_err": err,
+                     "prefill_logits_tol": tol,
+                     "prefill_logits_err_over_limit": over,
+                     "same_greedy_token": bool(torch.equal(
+                         got.argmax(-1), want.argmax(-1))),
+                     "tol_rule": ULP_RULE}
+        n_self = sum(m == "attn" for m, _ in cfg.layer_kinds())
+        if launches["flash_attention"] != n_self or len(calls) != n_self \
+                or not max(per_launch) <= 1.0 \
+                or not row[arch]["same_greedy_token"]:
+            emit(row)
+            raise AssertionError(f"{arch}: flash launches {launches}, per "
+                                 f"launch {per_launch} of the limit, or the "
+                                 f"greedy tokens differ")
+        del model, got, want, calls
+        torch.cuda.empty_cache()
+    cfg = get_config("minicpm3-4b", num_layers=2, **fp32)
+    eng = ServeEngine(cfg, seed=0)
+    row["minicpm3-4b"] = {"dense_generate": _tokens(eng.generate(
+        _requests(cfg.vocab_size, lengths, new, 0)))}
+    del eng
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def phase_families() -> dict:
+    """The remaining model families on the card (see the module
+    docstring's phase 11). Returns the kernel launches of the paths it
+    drove, each counted from 0 just before its run."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    family_kernel_rows(torch.Generator(device="cuda").manual_seed(11))
+    families_qwen3(total)
+    families_cut(total)
+    families_exact()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "part": "summary", "launches": total,
+          "wall_s": time.perf_counter() - t0})
+    return total
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -3955,7 +4500,7 @@ def kernels_line(full, launches, stencil=None) -> dict:
 
 
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "hybrid", "stencil", "sibyl")
+          "families", "hybrid", "stencil", "sibyl")
 
 
 def main(argv=None) -> int:
@@ -4004,6 +4549,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         launches.update({k: serve["launches"][k]
                          for k in ("paged_attention", "flash_attention")})
+    if run("families"):
+        # the families' paths launch the serving kernels at new shapes:
+        # their counts join the serve phase's
+        _add(launches, phase_families())
     if run("hybrid"):
         _, hybrid_launches = phase_hybrid()
         launches["ssd_scan"] = hybrid_launches["mamba2-780m"]["ssd_scan"]

@@ -2,7 +2,7 @@
 registry, and the reduced smoke configs the tests run.
 
 A copy of the JAX package's ``repro/configs/base.py`` (the port imports
-nothing of that package), limited to the architectures the port serves."""
+nothing of that package) with the same ten architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -188,10 +188,10 @@ def register(name: str):
 
 
 def _load_builtin():
-    import repro_torch.configs.llama3_405b  # noqa: F401  (populate registry)
-    import repro_torch.configs.mamba2_780m  # noqa: F401
-    import repro_torch.configs.recurrentgemma_2b  # noqa: F401
-    import repro_torch.configs.starcoder2_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401  (populate registry)
+        codeqwen15_7b, granite_moe_3b_a800m, llama3_405b, llama32_vision_11b,
+        mamba2_780m, minicpm3_4b, musicgen_medium, qwen3_moe_30b_a3b,
+        recurrentgemma_2b, starcoder2_7b)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

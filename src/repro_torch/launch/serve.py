@@ -32,10 +32,13 @@ smoke config, else its published widths, with random weights from seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --smoke --paged --continuous --max-active 2 --sibyl --sibyl-preempt
 
-Without ``--paged`` (or ``--continuous`` / ``--frontend`` / ``--trace``)
-the reference decodes from dense caches; that path is not ported and
-raises `NotImplementedError`, as do ``--mesh`` (multi-device serving,
-ROADMAP Queue 1 item 8) and ``--knee-cache``: the port's serving kernels
+    # without --paged (or --continuous / --frontend / --trace): the
+    # dense-cache lockstep `generate`, the one path an MLA stack serves:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+        --smoke --device cpu
+
+``--mesh`` (multi-device serving, ROADMAP Queue 1 item 8) and
+``--knee-cache`` raise `NotImplementedError`: the port's serving kernels
 launch at fixed shapes, so serving resolves no knee to persist (the
 stencils' knees persist through ``launch.weather_stencil --knee-cache``).
 """
@@ -49,6 +52,7 @@ import numpy as np
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.kvcache import PagedKVPool
+from repro_torch.serve.paged_state import supports_paged_layout
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -160,7 +164,7 @@ def main(argv=None) -> dict:
     eng = ServeEngine(cfg, kv_pool=pool, device=args.device,
                       decode_mode=args.decode_mode,
                       speculate=args.speculate, draft=args.draft)
-    if pool is not None:
+    if pool is not None and supports_paged_layout(cfg):
         # per-request paged-state budget for this arch at the launch shape
         lay = eng.layout
         cap = args.prompt_len + args.new_tokens
@@ -185,7 +189,7 @@ def main(argv=None) -> dict:
                          preempt=not args.no_preempt,
                          preempt_policy=preempt_policy)
     else:
-        outs = eng.generate(reqs, free_pages=True)
+        outs = eng.generate(reqs, free_pages=pool is not None)
     dt = time.time() - t0
     tok = sum(len(o) for o in outs if o is not None)
     print(f"generated {tok} tokens in {dt:.2f}s "
@@ -197,9 +201,10 @@ def main(argv=None) -> dict:
             print(f"req {i}: {d['tokens']} tokens in {d['steps']} verify "
                   f"steps ({d['tokens_per_step']:.2f} tok/step, "
                   f"accept_rate={rate})")
-    print(f"kv pool: {pool.stats} live_pages={len(pool.pages)}")
-    return {"outs": outs, "pool": dict(pool.stats), "engine": eng,
-            "preempt_policy": preempt_policy}
+    if pool is not None:
+        print(f"kv pool: {pool.stats} live_pages={len(pool.pages)}")
+    return {"outs": outs, "pool": dict(pool.stats) if pool is not None
+            else None, "engine": eng, "preempt_policy": preempt_policy}
 
 
 def _print_summary(summary: dict) -> None:

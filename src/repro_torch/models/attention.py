@@ -1,13 +1,17 @@
-"""Self-attention (GQA/MQA/MHA by num_kv_heads): global (ATTN) and
-sliding-window (LOCAL_ATTN) layers.
+"""Attention: self-attention (GQA/MQA/MHA by num_kv_heads), global (ATTN)
+and sliding-window (LOCAL_ATTN); the cross-attention of CROSS_ATTN
+layers; and multi-head latent attention (MLA, MiniCPM3 / DeepSeek-V2
+style).
 
-Prefill attends through the flash-attention kernel
+Self-attention prefill attends through the flash-attention kernel
 (``api.run("flash_attention", ...)``, with the layer's window).
 `attention_core` is the plain masked-softmax attention of the JAX
 package's ``repro/models/attention.py`` written as tensor ops (einsum +
 fp32 softmax); it serves the dense-cache decode, where a sliding-window
-layer keeps a ring buffer of the last ``window`` positions. The paged
-decode step attends through the paged-attention kernel.
+layer keeps a ring buffer of the last ``window`` positions, and — as in
+the reference, which runs them in jnp and no Pallas kernel — every
+cross-attention and MLA product. The paged decode step attends through
+the paged-attention kernel.
 Query heads fold as (hkv, g): query head ``h`` attends kv head
 ``h // g``.
 """
@@ -58,7 +62,10 @@ def attention_core(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(v.dtype)
 
 
-def attn_spec(cfg: ModelConfig):
+def attn_spec(cfg: ModelConfig, cross: bool = False):
+    """Self-attention weights; a cross layer adds the tanh gates of its
+    attention and MLP outputs (scalars, zero init) and the q/k norms of
+    its cross branch."""
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": ParamSpec((d, hq, hd), init="fan_in"),
@@ -73,6 +80,11 @@ def attn_spec(cfg: ModelConfig):
     if cfg.qk_norm:
         s["q_norm"] = norm_spec(hd)
         s["k_norm"] = norm_spec(hd)
+    if cross:
+        s["gate_attn"] = ParamSpec((), init="zeros", dtype="float32")
+        s["gate_ffn"] = ParamSpec((), init="zeros", dtype="float32")
+        s["q_norm_x"] = norm_spec(hd)
+        s["k_norm_x"] = norm_spec(hd)
     return s
 
 
@@ -121,8 +133,25 @@ def out_proj(p, y, dtype):
     return y.to(dtype).reshape(*y.shape[:-2], h * k) @ p["wo"].reshape(h * k, d)
 
 
+def cross_apply(p, x, *, mode: str, cache=None, cross_embeds=None):
+    """The cross branch of a CROSS_ATTN layer: non-causal attention of the
+    tokens over the image embeddings, tanh-gated. Prefill projects
+    ``cross_embeds`` (b, n, d) into the ``{"xk", "xv"}`` cache; decode
+    reads it. No RoPE, no q/k/v bias. Returns (y, cache)."""
+    q = rms_norm(_proj(x, p["wq"]), p["q_norm_x"])
+    if mode == "decode":
+        k, v = cache["xk"], cache["xv"]
+    else:
+        k = rms_norm(_proj(cross_embeds, p["wk"]), p["k_norm_x"])
+        v = _proj(cross_embeds, p["wv"])
+        cache = {"xk": k, "xv": v}
+    out = out_proj(p, attention_core(q, k, v, causal=False), x.dtype)
+    return torch.tanh(p["gate_attn"]).to(out.dtype) * out, cache
+
+
 def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
-               cache=None, window: int = 0, backend: str = "auto"):
+               cache=None, window: int = 0, backend: str = "auto",
+               cross_embeds=None):
     """Returns (y, cache).
 
     mode: "prefill" (causal attention over the prompt, within `window`
@@ -131,7 +160,12 @@ def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
     "decode" (write the step's row into the cache IN PLACE at scalar
     position `positions` — slot ``pos % capacity`` of a sliding-window
     layer's ring buffer — then attend its valid rows with
-    `attention_core`)."""
+    `attention_core`). As in the reference, a layer given
+    ``cross_embeds``, or decoding over an ``"xk"`` cache, runs the cross
+    branch (`cross_apply`) instead."""
+    if cross_embeds is not None or (cache is not None and "xk" in cache):
+        return cross_apply(p, x, mode=mode, cache=cache,
+                           cross_embeds=cross_embeds)
     if mode == "decode":
         pos = int(positions)
         q, k_new, v_new = decode_qkv(cfg, p, x, pos)
@@ -156,6 +190,79 @@ def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
         y = api.run("flash_attention", q.contiguous(), k_new, v_new,
                     causal=True, window=window, backend=backend)
         cache = {"k": k_new, "v": v_new}
+    else:
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+    return out_proj(p, y, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+def mla_spec(cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wdq": ParamSpec((d, qr), init="fan_in"),
+        "q_norm": norm_spec(qr),
+        "wuq": ParamSpec((qr, h, nope + rope), init="fan_in"),
+        "wdkv": ParamSpec((d, kr + rope), init="fan_in"),
+        "kv_norm": norm_spec(kr),
+        "wuk": ParamSpec((kr, h, nope), init="fan_in"),
+        "wuv": ParamSpec((kr, h, vd), init="fan_in"),
+        "wo": ParamSpec((h, vd, d), init="fan_in"),
+    }
+
+
+def mla_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
+              cache=None):
+    """Returns (y, cache). The cache is the compressed latent ``ckv`` (b,
+    s, kv_lora_rank) and the roped shared key ``krope`` (b, s,
+    qk_rope_dim). Prefill expands the latent into per-head keys (nope +
+    rope) and values and attends causally with `attention_core` at scale
+    1/sqrt(nope + rope); decode writes the step's row IN PLACE at scalar
+    position `positions` and attends in the latent space (the absorbed
+    form: q_nope through wuk scores against ckv, the context through
+    wuv), fp32 scores."""
+    b, s, _ = x.shape
+    nope, rope, kr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    q = _proj(rms_norm(x @ p["wdq"], p["q_norm"]), p["wuq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = x @ p["wdkv"]
+    ckv_new = rms_norm(dkv[..., :kr], p["kv_norm"])
+    krope_new = dkv[..., kr:]
+
+    if mode == "decode":
+        pos = int(positions)
+        at = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+        q_rope = apply_rope(q_rope, at, cfg.rope_theta)
+        krope_new = apply_rope(krope_new[:, :, None, :], at,
+                               cfg.rope_theta)[:, :, 0, :]
+        ckv, krope = cache["ckv"], cache["krope"]
+        ckv[:, pos:pos + s] = ckv_new.to(ckv.dtype)
+        krope[:, pos:pos + s] = krope_new.to(krope.dtype)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                 krope.float())) * scale
+        k_pos = torch.arange(ckv.shape[1], device=x.device)
+        scores = torch.where(k_pos <= pos, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
+        y = torch.einsum("bshr,rhk->bshk", ctx_lat, p["wuv"])
+    elif mode == "prefill":
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        krope_r = apply_rope(krope_new[:, :, None, :], positions,
+                             cfg.rope_theta)[:, :, 0, :]
+        k_nope = _proj(ckv_new, p["wuk"])
+        v = _proj(ckv_new, p["wuv"])
+        k = torch.cat([k_nope, krope_r[:, :, None, :].expand(
+            *k_nope.shape[:3], rope)], dim=-1)
+        y = attention_core(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                           causal=True, softmax_scale=scale)
+        cache = {"ckv": ckv_new, "krope": krope_r}
     else:
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
     return out_proj(p, y, x.dtype), cache

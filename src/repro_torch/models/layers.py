@@ -73,12 +73,13 @@ def mlp_apply(cfg: ModelConfig, p, x):
 # Embedding / LM head
 # ---------------------------------------------------------------------------
 def embed_spec(cfg: ModelConfig):
+    """The LM head, and the token table unless the config takes external
+    embeddings (musicgen's frame embeddings: no ``tok`` leaf)."""
     vp = cfg.padded_vocab_size
-    if cfg.external_embed:
-        raise NotImplementedError(f"{cfg.name}: external embeddings are not "
-                                  f"ported")
-    return {"lm_head": ParamSpec((cfg.d_model, vp), init="fan_in"),
-            "tok": ParamSpec((vp, cfg.d_model))}
+    out = {"lm_head": ParamSpec((cfg.d_model, vp), init="fan_in")}
+    if not cfg.external_embed:
+        out["tok"] = ParamSpec((vp, cfg.d_model))
+    return out
 
 
 def embed_apply(cfg: ModelConfig, p, tokens):

@@ -1,6 +1,8 @@
-"""Decoder stack over the reference's parameter layout: global (ATTN) and
-sliding-window (LOCAL_ATTN) attention, Mamba2 SSD and RG-LRU mixers, with
-dense MLPs or none.
+"""Decoder stack over the reference's parameter layout: every mixer of the
+JAX package — global (ATTN) and sliding-window (LOCAL_ATTN) attention,
+cross-attention (CROSS_ATTN), multi-head latent attention (MLA), Mamba2
+SSD and RG-LRU — with dense or mixture-of-experts MLPs or none, token or
+external (frame) embeddings.
 
 Parameters keep the JAX package's pytree (``repro/models/transformer.py``):
 ``groups`` leaves carry a leading ``n_groups`` stack axis (one entry per
@@ -15,9 +17,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLP_DENSE, MLP_NONE,
-                                      RGLRU, SSD, ModelConfig)
+from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA,
+                                      MLP_DENSE, MLP_MOE, MLP_NONE, RGLRU,
+                                      SSD, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (flatten, materialize, stack_specs,
@@ -28,42 +32,61 @@ from repro_torch.models.layers import (embed_apply, embed_spec, lm_head_apply,
 
 
 def layer_spec(cfg: ModelConfig, mixer: str, mlp: str):
-    if mixer not in (ATTN, LOCAL_ATTN, SSD, RGLRU) or \
-            mlp not in (MLP_DENSE, MLP_NONE):
-        raise NotImplementedError(
-            f"{cfg.name}: layer ({mixer}, {mlp}) is not ported — the port "
-            f"runs attn/local_attn/ssd/rglru mixers with dense MLPs or none")
     d = cfg.d_model
     s = {"norm1": norm_spec(d)}
     if mixer in (ATTN, LOCAL_ATTN):
         s["attn"] = attn.attn_spec(cfg)
+    elif mixer == CROSS_ATTN:
+        s["attn"] = attn.attn_spec(cfg, cross=True)
+    elif mixer == MLA:
+        s["mla"] = attn.mla_spec(cfg)
     elif mixer == SSD:
         s["ssm"] = ssm_mod.ssm_spec(cfg)
-    else:
+    elif mixer == RGLRU:
         s["rglru"] = rglru_mod.rglru_spec(cfg)
+    else:
+        raise ValueError(mixer)
     if mlp == MLP_DENSE:
         s["norm2"] = norm_spec(d)
         s["mlp"] = mlp_spec(cfg)
+    elif mlp == MLP_MOE:
+        s["norm2"] = norm_spec(d)
+        s["moe"] = moe_mod.moe_spec(cfg)
     return s
 
 
 def mlp_tail(cfg: ModelConfig, kind, p, x):
-    """Post-mixer half of a layer (norm2 + dense MLP residual; nothing for
-    MLP_NONE) — shared by the dense stack and the serve layer's fused
-    paged decode step."""
-    if kind[1] == MLP_NONE:
+    """Post-mixer half of a layer (norm2 + dense or MoE MLP residual, the
+    MLP output tanh-gated on a cross layer; nothing for MLP_NONE) —
+    shared by the dense stack and the serve layer's fused paged decode
+    step. MoE's load-balancing loss is dropped here, as serving does in
+    the reference."""
+    mixer, mlp = kind[0], kind[1]
+    if mlp == MLP_NONE:
         return x
-    return x + mlp_apply(cfg, p["mlp"], rms_norm(x, p["norm2"]))
+    h = rms_norm(x, p["norm2"])
+    if mlp == MLP_MOE:
+        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
+    else:
+        y = mlp_apply(cfg, p["mlp"], h)
+    if mixer == CROSS_ATTN:
+        y = torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
+    return x + y
 
 
 def mixer_apply(cfg: ModelConfig, kind, p, h, *, mode, positions,
-                cache=None, backend: str = "auto"):
-    """A layer's mixer on its normed input. Returns (y, cache)."""
+                cache=None, backend: str = "auto", cross_embeds=None):
+    """A layer's mixer on its normed input. ``cross_embeds`` reaches only
+    a CROSS_ATTN layer. Returns (y, cache)."""
     mixer = kind[0]
-    if mixer in (ATTN, LOCAL_ATTN):
+    if mixer in (ATTN, LOCAL_ATTN, CROSS_ATTN):
         return attn.attn_apply(
             cfg, p["attn"], h, mode=mode, positions=positions, cache=cache,
-            window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend)
+            window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend,
+            cross_embeds=cross_embeds if mixer == CROSS_ATTN else None)
+    if mixer == MLA:
+        return attn.mla_apply(cfg, p["mla"], h, mode=mode,
+                              positions=positions, cache=cache)
     if mixer == SSD:
         return ssm_mod.ssm_apply(cfg, p["ssm"], h, mode=mode, cache=cache,
                                  backend=backend)
@@ -150,59 +173,86 @@ class Model(nn.Module):
                         for i in range(len(self.params.get("tail", {})))]
 
     # -- forward -------------------------------------------------------------
-    def embed_in(self, tokens):
-        return embed_apply(self.cfg, self.params["embed"], tokens)
+    def embed_in(self, tokens=None, embeds=None):
+        """Token ids (b, s) through the embedding table, or — for an
+        external-embedding config — ``embeds`` (b, s, d) as given, in the
+        compute dtype. As the reference's ``batch_in["embeds"]``, a
+        missing ``embeds`` raises `KeyError`."""
+        cfg = self.cfg
+        if cfg.external_embed:
+            if embeds is None:
+                raise KeyError("embeds")
+            return embeds.to(torch_dtype(cfg.compute_dtype))
+        return embed_apply(cfg, self.params["embed"], tokens)
 
     def head(self, x):
         x = rms_norm(x, self.params["final_norm"])
         return lm_head_apply(self.cfg, self.params["embed"], x)
 
     def run_stack(self, x, *, mode, positions, caches=None,
-                  backend: str = "auto"):
+                  backend: str = "auto", cross_embeds=None):
         """Every layer in order. Returns (x, per-layer caches). `backend`
-        picks the prefill kernels' implementation (`kernels.api.run`)."""
+        picks the prefill kernels' implementation (`kernels.api.run`);
+        ``cross_embeds`` (b, n, d) feed the cross-attention layers."""
         out = []
         for layer, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             h = rms_norm(x, p["norm1"])
             y, c = mixer_apply(
                 self.cfg, kind, p, h, mode=mode, positions=positions,
                 cache=caches[layer] if caches is not None else None,
-                backend=backend)
+                backend=backend, cross_embeds=cross_embeds)
             x = mlp_tail(self.cfg, kind, p, x + y)
             out.append(c)
         return x, out
 
-    def forward_prefill(self, tokens, backend: str = "auto"):
-        """tokens: (b, s). Returns (last-position logits (b, V), caches:
-        per layer ``{"k", "v"}`` of shape (b, s, hkv, hd) for attention
-        layers, ``{"conv", "state"}`` for SSD and ``{"h", "conv"}`` for
-        RG-LRU layers). Attention runs through the flash-attention kernel,
-        the SSD and RG-LRU scans through theirs (`backend` as in
-        `kernels.api.run`)."""
-        x = self.embed_in(tokens)
-        b, s = tokens.shape
+    def forward_prefill(self, tokens=None, backend: str = "auto", *,
+                        embeds=None, image_embeds=None):
+        """tokens: (b, s) — or, for an external-embedding config,
+        ``embeds`` (b, s, d); ``image_embeds`` (b, n_img_tokens, d) feed
+        the cross-attention layers. Returns (last-position logits (b, V),
+        caches: per layer ``{"k", "v"}`` of shape (b, s, hkv, hd) for
+        self-attention layers, ``{"xk", "xv"}`` (b, n, hkv, hd) for
+        cross layers, ``{"ckv", "krope"}`` for MLA, ``{"conv", "state"}``
+        for SSD and ``{"h", "conv"}`` for RG-LRU layers). Self-attention
+        runs through the flash-attention kernel, the SSD and RG-LRU scans
+        through theirs (`backend` as in `kernels.api.run`)."""
+        x = self.embed_in(tokens, embeds)
+        b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+        if image_embeds is not None:
+            image_embeds = image_embeds.to(x.dtype)
         x, caches = self.run_stack(x, mode="prefill", positions=positions,
-                                   backend=backend)
+                                   backend=backend,
+                                   cross_embeds=image_embeds)
         return self.head(x[:, -1:])[:, 0], caches
 
-    def forward_decode(self, tokens, caches, pos: int):
+    def forward_decode(self, tokens, caches, pos: int, *, embeds=None):
         """One token step over capacity-sized caches (see `pad_caches`),
-        updated in place. tokens: (b, 1). Returns logits (b, V)."""
-        x, _ = self.run_stack(self.embed_in(tokens), mode="decode",
+        updated in place. tokens: (b, 1), or ``embeds`` (b, 1, d) for an
+        external-embedding config. Returns logits (b, V)."""
+        x, _ = self.run_stack(self.embed_in(tokens, embeds), mode="decode",
                               positions=pos, caches=caches)
         return self.head(x)[:, 0]
 
 
+CACHE_KEYS = {ATTN: ("k", "v"), LOCAL_ATTN: ("k", "v"),
+              CROSS_ATTN: ("xk", "xv"), MLA: ("ckv", "krope"),
+              SSD: ("conv", "state"), RGLRU: ("conv", "h")}
+
+
 def pad_caches(caches, capacity: int, cfg: ModelConfig | None = None):
-    """Expand prefill caches to decode capacity along the sequence axis.
-    With `cfg`, a sliding-window layer's cache becomes a ring buffer of
+    """Expand prefill caches to decode capacity along the sequence axis:
+    self-attention ``k`` / ``v`` and MLA's ``ckv`` / ``krope``. With
+    `cfg`, a sliding-window layer's cache becomes a ring buffer of
     ``min(window, capacity)`` rows (the last ones of a longer prefill,
-    ring-aligned when the prefill length is a multiple of the window);
-    recurrent state passes through."""
-    kinds = cfg.layer_kinds() if cfg is not None \
-        else [(ATTN, None)] * len(caches)
+    ring-aligned when the prefill length is a multiple of the window),
+    and each layer's cache must hold its mixer's leaves: a cross layer
+    prefilled without image embeddings emits self-attention ``k`` / ``v``
+    where ``xk`` / ``xv`` belong, and that raises `ValueError`, as the
+    reference's tree map over the cache spec does. Cross-attention and
+    recurrent state pass through."""
+    kinds = cfg.layer_kinds() if cfg is not None else [None] * len(caches)
 
     def fit(a, rows):
         if a.shape[1] >= rows:
@@ -211,10 +261,14 @@ def pad_caches(caches, capacity: int, cfg: ModelConfig | None = None):
         return torch.cat([a, z], dim=1)
 
     out = []
-    for (mixer, _), c in zip(kinds, caches):
-        if "k" not in c:
-            out.append(dict(c))
-            continue
-        rows = min(cfg.window, capacity) if mixer == LOCAL_ATTN else capacity
-        out.append({"k": fit(c["k"], rows), "v": fit(c["v"], rows)})
+    for layer, (kind, c) in enumerate(zip(kinds, caches)):
+        if kind is not None and tuple(sorted(c)) != CACHE_KEYS[kind[0]]:
+            raise ValueError(
+                f"layer {layer} ({kind[0]}): cache leaves {sorted(c)}, "
+                f"want {list(CACHE_KEYS[kind[0]])}")
+        rows = capacity
+        if kind is not None and kind[0] == LOCAL_ATTN:
+            rows = min(cfg.window, capacity)
+        out.append({n: fit(a, rows) if n in ("k", "v", "ckv", "krope")
+                    else a for n, a in c.items()})
     return out

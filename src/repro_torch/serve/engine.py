@@ -1,10 +1,14 @@
-"""Serving engine over one model — the port of ``repro/serve/engine.py``
-for paged, fused decode.
+"""Serving engine over one model — the port of ``repro/serve/engine.py``:
+paged, fused decode, and the dense-cache path of an engine without a
+page pool.
 
 - `generate` — static lockstep batch: prefill the (left-padded) prompts
   through the flash-attention kernel, write their K/V into the
   `PagedKVPool`, then decode every row through the fused step
-  (`serve.paged_decode.build_fused_step`).
+  (`serve.paged_decode.build_fused_step`). Without a pool it decodes
+  from dense capacity-sized caches (`Model.forward_decode`, the batch
+  at one shared position), as the reference does — the only path that
+  serves an MLA stack (minicpm3-4b).
 - `serve` — continuous batching over a `ServeSession`: a `Scheduler`
   admits requests into free decode rows mid-flight (admission gated on
   pool headroom, crediting radix-cached prompt pages), each row decodes
@@ -38,9 +42,14 @@ collects per-request queue wait, TTFT, per-token latency and SLO
 outcomes (`serve.metrics`).
 
 Greedy decoding is argmax; temperature sampling draws from a
-``torch.Generator`` seeded with ``seed``. Mesh sharding, the eager/numpy
-decode modes and the dense-cache path are later slices: the arguments
-that ask for them raise `NotImplementedError`.
+``torch.Generator`` seeded with ``seed``. Mesh sharding and the
+eager/numpy decode modes are later slices: the arguments that ask for
+them raise `NotImplementedError`. As in the reference, `serve()` and
+`ServeSession` need a pool (`ValueError`), a paged MLA or cross-attention
+stack raises `NotImplementedError`, and the engine feeds tokens only: a
+cross-attention stack (llama-3.2-vision-11b: no image embeddings) fails
+in `pad_caches` with `ValueError`, an external-embedding one
+(musicgen-medium) in the prefill with `KeyError`.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
+from repro_torch.models.transformer import pad_caches
 from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
                                             extract_prefill_pages, sample)
@@ -122,9 +132,8 @@ class ServeEngine:
 
     def _require_paged(self):
         if self.kv_pool is None:
-            raise NotImplementedError("the dense-cache serving path is not "
-                                      "ported — construct the engine with "
-                                      "kv_pool=")
+            raise ValueError("continuous serving decodes from a page pool — "
+                             "construct the engine with kv_pool=")
         if not supports_paged_layout(self.cfg):
             raise NotImplementedError(
                 f"{self.cfg.name}: paged serving needs a stack of "
@@ -281,15 +290,22 @@ class ServeEngine:
         ``max_new_tokens`` steps (speculative rows advance at their own
         accept rates). The batch's pages stay live after the call unless
         ``free_pages=True``. Deadlines and priorities play no part in a
-        static batch (as in the reference)."""
+        static batch (as in the reference). An engine without a pool
+        decodes from dense caches (`_generate_dense`)."""
         spec_k, eff_ks = self._resolve_spec(requests)
-        self._require_paged()
         b = len(requests)
         plen = max(len(r.prompt) for r in requests)
         max_new = max(r.max_new_tokens for r in requests)
         prompts = np.zeros((b, plen), np.int32)
         for i, r in enumerate(requests):
             prompts[i, plen - len(r.prompt):] = r.prompt   # left-pad
+        if self.kv_pool is None:
+            outs = self._generate_dense(prompts, max_new, greedy,
+                                        temperature, seed)
+            return self._finish_generate(outs, requests, [SpecStats()
+                                                          for _ in requests],
+                                         max_new)
+        self._require_paged()
 
         t0 = time.perf_counter()
         logits, caches = self.model.forward_prefill(
@@ -334,7 +350,38 @@ class ServeEngine:
         if free_pages:
             for seq in seq_ids:
                 state.free_seq(seq)
+        return self._finish_generate(outs, requests, spec_stats, max_new)
 
+    def _generate_dense(self, prompts: np.ndarray, max_new: int,
+                        greedy: bool, temperature: float, seed: int):
+        """The reference's dense-cache lockstep decode: prefill, pad every
+        layer's cache to ``plen + max_new`` rows, then ``max_new - 1``
+        `Model.forward_decode` steps at the position the batch shares.
+        Returns each row's tokens (untrimmed)."""
+        plen = prompts.shape[1]
+        t0 = time.perf_counter()
+        logits, caches = self.model.forward_prefill(
+            torch.from_numpy(prompts).to(self.device), backend=self.backend)
+        caches = pad_caches(caches, plen + max_new, self.cfg)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        gen = self._generator(seed)
+        tok = sample(logits, greedy, temperature, gen)
+        outs = [[int(x)] for x in tok.cpu().numpy()]
+        t0 = time.perf_counter()
+        for step in range(max_new - 1):
+            logits = self.model.forward_decode(tok[:, None], caches,
+                                               plen + step)
+            tok = sample(logits, greedy, temperature, gen)
+            for i, x in enumerate(tok.cpu().numpy()):
+                outs[i].append(int(x))
+            self.stats["decode_steps"] += 1
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.last_rec_store = {"writes": 0, "reads": 0}
+        return outs
+
+    def _finish_generate(self, outs, requests, spec_stats, max_new):
+        """Trim each row to its request's ``max_new_tokens`` and eos, and
+        record ``stats["tokens"]`` and ``last_request_stats``."""
         def trim(o, r):
             o = o[:r.max_new_tokens]
             if r.eos_token is not None and r.eos_token in o:

@@ -377,7 +377,35 @@ def test_launcher_unported_options_raise(flag):
         main(LAUNCH + ["--continuous"] + flag)
 
 
-def test_launcher_dense_path_stays_refused():
-    from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="dense-cache"):
-        main(LAUNCH)
+def test_launcher_dense_path_stays_refused(monkeypatch, capsys):
+    """The dense-cache path, refused before this port slice, now runs:
+    without ``--paged`` the launcher calls the dense `generate` and
+    prints the reference launcher's tokens for the same arguments. Both
+    launchers draw their weights from seed 0 in their own framework, so
+    the port's engine is handed the JAX engine's seed-0 params."""
+    import sys
+    import repro.launch.serve as jax_launch
+    import repro_torch.launch.serve as launch
+    args = ["--arch", ARCH, "--smoke", "--batch", "2", "--prompt-len", "8",
+            "--new-tokens", "4"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + args)
+    jax_launch.main()
+    want = capsys.readouterr().out
+    state = params_from_numpy(smoke_config(ARCH), jax.tree.map(
+        np.asarray, JaxEngine(jax_smoke(ARCH)).params))
+
+    def engine(cfg, **kw):
+        return ServeEngine(cfg, params=state, **kw)
+
+    monkeypatch.setattr(launch, "ServeEngine", engine)
+    out = launch.main(args + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert out["pool"] is None and len(out["outs"]) == 2
+    assert out["engine"].stats["decode_steps"] == 3
+
+    def first_row(text):
+        return [ln.split("first row: ")[1] for ln in text.splitlines()
+                if "first row: " in ln]
+
+    assert first_row(got) == first_row(want) and first_row(got)
+    assert "kv pool" not in got

@@ -55,7 +55,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "launch.serve", "core.sibyl.env", "core.sibyl.traces",
                  "core.sibyl.policies", "core.sibyl.agent",
                  "serve.placement", "launch.sibyl_storage",
-                 "kernels.api", "convert"):
+                 "kernels.api", "convert", "models.moe",
+                 "configs.codeqwen15_7b", "configs.granite_moe_3b_a800m",
+                 "configs.qwen3_moe_30b_a3b", "configs.minicpm3_4b",
+                 "configs.llama32_vision_11b", "configs.musicgen_medium"):
         assert f"repro_torch.{name}" in result["modules"]
 
 

@@ -129,11 +129,22 @@ def test_random_init_is_seeded_and_reference_shaped():
 
 
 def test_unported_layers_raise():
-    # sliding-window, SSD and RG-LRU layers are ported; MLA and MoE are not
+    """MLA and MoE layers, refused before this port slice, now build: the
+    model over a pattern of each holds exactly its spec's leaves, shape
+    for shape, and nothing raises."""
     from repro_torch.configs.base import ATTN, MLA, MLP_DENSE, MLP_MOE
+    from repro_torch.models.transformer import model_spec
     import dataclasses
-    for pattern in (((MLA, MLP_DENSE),), ((ATTN, MLP_MOE),)):
-        cfg = dataclasses.replace(smoke_config("starcoder2-7b"),
-                                  pattern=pattern)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Model(cfg, device="cpu")
+    base = smoke_config("starcoder2-7b")
+    for pattern, extra in ((((MLA, MLP_DENSE),), dict(
+            q_lora_rank=32, kv_lora_rank=16, qk_rope_dim=8, qk_nope_dim=8,
+            v_head_dim=16)), (((ATTN, MLP_MOE),), dict(
+                num_experts=4, top_k=2))):
+        cfg = dataclasses.replace(base, pattern=pattern, **extra)
+        state = dict(Model(cfg, device="cpu").weights.named_parameters())
+        spec = flatten(model_spec(cfg))
+        assert set(state) == set(spec)
+        for name, ps in spec.items():
+            assert tuple(state[name].shape) == tuple(ps.shape), name
+        leaf = "mla" if pattern[0][0] == MLA else "moe"
+        assert any(f".{leaf}." in n for n in state)

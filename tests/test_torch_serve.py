@@ -204,18 +204,22 @@ def test_sampling_is_seeded(params):
 
 
 def test_unported_options_raise(params):
-    """What is still unported raises: mesh sharding, the eager/numpy
-    decode modes and the dense-cache path without a page pool."""
-    _, state = params
+    """What is still unported raises: mesh sharding and the eager/numpy
+    decode modes. Without a page pool `generate` takes the dense-cache
+    path (the reference's tokens), while `serve()` needs the pool and
+    raises `ValueError`, as the reference does."""
+    jparams, state = params
     cfg = smoke_config(ARCH)
     pool = PagedKVPool(page_tokens=4)
     for kw in ({"mesh": object()}, {"decode_mode": "eager"},
                {"decode_mode": "numpy"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params=state, device="cpu").generate(_reqs(Request))
-    with pytest.raises(NotImplementedError):
+    _assert_same(JaxEngine(jax_smoke(ARCH), params=jparams)
+                 .generate(_reqs(JaxRequest)),
+                 ServeEngine(cfg, params=state, device="cpu")
+                 .generate(_reqs(Request)))
+    with pytest.raises(ValueError, match="kv_pool"):
         ServeEngine(cfg, params=state, device="cpu").serve(_reqs(Request))
     assert len(pool.pages) == 0
 
