@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
                                           # spec | overload | families |
-                                          # hybrid | stencil | sibyl
+                                          # hybrid | train | stencil |
+                                          # sibyl
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -183,6 +184,35 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    identical tokens for the three paged families (``generate``, k = 4
    ``serve``), llama-vision's and musicgen's prefill logits within 2
    ulps, minicpm3's tokens.
+12. train — training on the card (it runs after ``hybrid``), one JSON
+   line per part. ``exact`` (fp32, TF32 off): starcoder2-7b (2 layers),
+   mamba2-780m (2) and recurrentgemma-2b (3, one group, 2560 positions
+   past its 2048 window) at full width, remat on: the loss and every
+   parameter's gradient through the kernels' autograd Functions against
+   the same step on ``backend="ref"``, each leaf within
+   `TRAIN_GRAD_LIMIT` of max |g_plain|, launches per step as
+   `expected_train_launches`; the two broken backwards of
+   `train_broken_variants` (RG-LRU's reverse scan without the shift of
+   a, flash's recompute without the window) over the limit. ``functions``:
+   each Function's backward at full width against autograd of its plain
+   version (flash at starcoder2-7b b=2 s=2048 and recurrentgemma-2b's
+   s=4096 window 2048, bf16; SSD at mamba2-780m B=4 S=2048, bf16; RG-LRU
+   at W=2560 S=4096, fp32) with the broken variants over the limit,
+   forward + backward timed beside the plain version's and SDPA's.
+   ``full`` (bf16 params, fp32 master, m and v; `TRAIN_FULL`):
+   mamba2-780m (48 layers, batch 4 x 2048), recurrentgemma-2b (26, 1 x
+   4096) and starcoder2-7b (8 of 32 layers, 2 x 2048) through `Trainer`,
+   4 steps: mamba2 and starcoder2 2 steps and the trainer's checkpoint, a
+   new trainer resuming for 2 more (mamba2's params equal to a straight
+   4-step run's to the bit); recurrentgemma in one run, its 49.7 GB
+   checkpoint being more than a call of the card's machine may write;
+   step ms, tokens/s, peak memory beside the state's bytes, launches by
+   kernel and route (flash and SSD on ``wgmma``, RG-LRU ``chunked``)
+   equal to 4 steps of `expected_train_launches`, finite losses and grad
+   norms, every parameter moved; for mamba2 and starcoder2 kernel and
+   plain steps in turns and one traced step (device busy share, top
+   device ops, the backward's recompute share). The ``full`` trainers'
+   launches join the ``kernels`` line's counts.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -4461,6 +4491,604 @@ def phase_families() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# 12. training: forward_train through the kernels' autograd Functions,
+#     AdamW with fp32 masters, the trainer, checkpoint and resume
+# ---------------------------------------------------------------------------
+# the kernels sum in other orders than their plain versions (the fp32
+# SSD kernel in 64-position chunks against 256, its forward allowed
+# 256 * 2^-23 * sqrt(S) of max |y|); a gradient that sums over every
+# position and cancels (mamba2's a_log: 7.7e-5 of its max at S = 1024)
+# shows it most. The broken backwards land at 5e-2 and more
+TRAIN_GRAD_LIMIT = 2.5e-4
+TRAIN_GRAD_RULE = ("per leaf (model) or per input (Function): max |g - "
+                   "g_plain| <= 2.5e-4 * max |g_plain|; the loss within "
+                   "1e-5 relative")
+TRAIN_OC = {"lr": 1e-4, "warmup_steps": 1, "total_steps": 8}
+# (arch, layers, batch, seq): fp32, TF32 off, the kernels against
+# backend="ref"; recurrentgemma's 2560 positions pass its 2048 window
+TRAIN_EXACT = (("starcoder2-7b", 2, 1, 1024), ("mamba2-780m", 2, 2, 1024),
+               ("recurrentgemma-2b", 3, 1, 2560))
+# (arch, layers, batch, seq, mid-run checkpoint and resume): published
+# widths, bf16; mamba2-780m and recurrentgemma-2b at full depth,
+# starcoder2-7b cut to 8 of 32 layers (its training state at 32 layers,
+# ~118 GB, does not fit one card). The card's machine allows a call 45
+# GiB of disk writes: mamba2's checkpoint (12.0 GB) and starcoder2's
+# (30.7 GB) fit, recurrentgemma-2b's (49.7 GB) alone does not, so it
+# trains its 4 steps in one run
+TRAIN_FULL = (("mamba2-780m", 48, 4, 2048, True),
+              ("recurrentgemma-2b", 26, 1, 4096, False),
+              ("starcoder2-7b", 8, 2, 2048, True))
+TRAIN_STRAIGHT = ("mamba2-780m",)     # resumed == straight, to the bit
+TRAIN_PLAIN_TURNS = ("mamba2-780m", "starcoder2-7b")   # RG-LRU's plain
+# step is a Python loop over 4096 positions: not timed at full depth
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# the Functions at full width: flash (label, b, s, hq, hkv, d, window),
+# SSD (B, S, H, P, G, N), RG-LRU (B, S, W)
+TRAIN_FLASH_SHAPES = (("starcoder2-7b", 2, 2048, 36, 4, 128, 0),
+                      ("recurrentgemma-2b", 1, 4096, 10, 1, 256, 2048))
+TRAIN_SSD_SHAPE = (4, 2048, 48, 64, 1, 128)
+TRAIN_RGLRU_SHAPE = (1, 4096, 2560)
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one training step: each attention, SSD and
+    RG-LRU layer's forward once, once more in the backward where its group
+    is rematerialised (tail layers are not), and one reverse RG-LRU scan
+    per RG-LRU layer in the backward."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD
+    n_group_layers = cfg.num_layers // cfg.group_size() * cfg.group_size()
+    out = {"flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
+    for i, (mixer, _) in enumerate(cfg.layer_kinds()):
+        runs = 1 + int(cfg.remat != "none" and i < n_group_layers)
+        if mixer in (ATTN, LOCAL_ATTN):
+            out["flash_attention"] += runs
+        elif mixer == SSD:
+            out["ssd_scan"] += runs
+        elif mixer == RGLRU:
+            out["rglru_scan"] += runs + 1
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """`module.name` replaced by `fn` for the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def train_broken_variants():
+    """name -> (module, attribute, broken function): the RG-LRU backward's
+    reverse scan without the one-step shift of a; the flash backward's
+    recompute without the window."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg
+    exact_vjp = fa.attention_vjp
+
+    def lru_vjp_unshifted(a, h, grad_h):
+        lam = rg.rglru_scan(a.flip(1).contiguous(),
+                            grad_h.flip(1).contiguous()).flip(1)
+        h_prev = torch.zeros_like(h)
+        h_prev[:, 1:] = h[:, :-1]
+        return lam * h_prev, lam
+
+    def attention_vjp_no_window(q, k, v, g, *, causal, window,
+                                softmax_scale):
+        return exact_vjp(q, k, v, g, causal=causal, window=0,
+                         softmax_scale=softmax_scale)
+
+    return {"rglru_no_shift": (rg, "lru_vjp", lru_vjp_unshifted),
+            "flash_no_window": (fa, "attention_vjp",
+                                attention_vjp_no_window)}
+
+
+def grad_ratios(got, want) -> dict:
+    """name -> max |got - want| / max |want|."""
+    out = {}
+    for name in want:
+        w = want[name].float()
+        out[name] = float((got[name].float() - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def _worst(ratios: dict) -> list:
+    name = max(ratios, key=ratios.get)
+    return [name, ratios[name]]
+
+
+def _train_batch(cfg, seq, batch, step=0):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.trainer import batch_to
+    return batch_to(TokenPipeline(cfg, seq, batch, seed=0).batch_at(step),
+                    "cuda")
+
+
+def model_grads(model, batch, backend):
+    from repro_torch.train.train_step import make_loss_fn
+    params = model.train_params()
+    total, mets = make_loss_fn(model, backend)(batch)
+    grads = torch.autograd.grad(total, list(params.values()))
+    return mets["loss"].item(), dict(zip(params, grads))
+
+
+def train_exact_model(arch, layers, batch, seq) -> dict:
+    """Loss and every parameter's gradient through the kernels against the
+    same step through the plain versions, fp32; for recurrentgemma-2b the
+    two broken backwards must land over the limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                     compute_dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    data = _train_batch(cfg, seq, batch)
+    reset_launches()
+    loss, got = model_grads(model, data, "auto")
+    launches = read_launches()
+    want_launches = expected_train_launches(cfg)
+    if {k: launches[k] for k in want_launches} != want_launches:
+        raise AssertionError(f"{arch}: launches {launches}, want "
+                             f"{want_launches}")
+    plain_loss, want = model_grads(model, data, "ref")
+    ratios = grad_ratios(got, want)
+    row = {"arch": arch, "layers": layers, "batch": batch, "seq": seq,
+           "loss": loss, "plain_loss": plain_loss,
+           "loss_rel_err": abs(loss - plain_loss) / abs(plain_loss),
+           "leaves": len(ratios), "worst_leaf": _worst(ratios),
+           "launches": {k: launches[k] for k in want_launches}}
+    if row["loss_rel_err"] > 1e-5 or row["worst_leaf"][1] > TRAIN_GRAD_LIMIT:
+        raise AssertionError(f"train exact {arch}: {row}")
+    if cfg.lru_width:
+        row["broken"] = {}
+        for name, (mod, attr, fn) in train_broken_variants().items():
+            with patched(mod, attr, fn):
+                _, bad = model_grads(model, data, "auto")
+            worst = _worst(grad_ratios(bad, want))
+            row["broken"][name] = worst
+            if worst[1] <= TRAIN_GRAD_LIMIT:
+                raise AssertionError(f"broken {name} within the limit: "
+                                     f"{worst}")
+    del model, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _grads_of(fn, inputs, weights):
+    """(gradients of sum(out * weight) over `inputs`, the outputs
+    detached)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = torch.autograd.grad(outs[:len(weights)], leaves, weights)
+    return grads, tuple(o.detach() for o in outs)
+
+
+def forward_check(name, route, want_route, check, rule, got, want) -> dict:
+    """A Function's forward output against the plain version's on the
+    same inputs by the kernel phase's `check`, on the route the kernel
+    phase holds at these dtypes. Raises when over the limit or off the
+    route."""
+    err, tol, over = check(got, want)
+    out = {"route": route, "forward_max_abs_err": err, "forward_tol": tol,
+           "forward_tol_rule": rule, "forward_err_over_limit": over}
+    if route != want_route or not over <= 1.0:
+        raise AssertionError(f"{name} forward: route {route} (want "
+                             f"{want_route}), {over:.2f}x the limit")
+    return out
+
+
+def function_rows(gen) -> list:
+    """Each Function at full width against the plain version on the same
+    inputs: its forward output (the kernel's, on the wgmma route for flash
+    and SSD, the chunked route for RG-LRU) by the kernel phase's limits,
+    its backward against autograd of the plain version, with the broken
+    variants over the limit, and the forward + backward timed (CUDA
+    events in turns): through the Function, through the plain version,
+    through one PyTorch call where there is one (SDPA). Flash's and SSD's
+    backwards recompute the plain version from the saved inputs, so
+    their gradient ratio is plain against plain (0 but for the order of
+    atomics); the kernel is held by the forward check."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rglru_scan import ref as rref
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    broken = train_broken_variants()
+    rows = []
+
+    def check(name, got, want, shape, extra):
+        ratios = {f"d{i}": r for i, r in enumerate(grad_ratios(
+            dict(enumerate(got)), dict(enumerate(want))).values())}
+        row = {"function": name, "shape": shape,
+               "worst_input": _worst(ratios), **extra}
+        if row["worst_input"][1] > TRAIN_GRAD_LIMIT:
+            raise AssertionError(f"{name} backward over the limit: {row}")
+        return row
+
+    def timed(fns, rounds=10):
+        t = cuda_ms(fns, warmup=2, rounds=rounds)
+        return {f"{n}_fwd_bwd_ms": v[0] for n, v in t.items()}
+
+    for label, b, s, hq, hkv, d, window in TRAIN_FLASH_SHAPES:
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
+        kw = {"causal": True, "window": window}
+        reset_launches()
+        got, out = _grads_of(lambda *x: fa.flash_attention(*x, **kw),
+                             (q, k, v), (w,))
+        launched = read_launches()["flash_attention"]
+        want, plain = _grads_of(lambda *x: fref.attention(*x, **kw),
+                                (q, k, v), (w,))
+        extra = {"launches": launched, **forward_check(
+            f"flash_attention ({label})", route_taken(
+                "flash_attention", lambda: fa.flash_attention(q, k, v, **kw)),
+            "wgmma", ulp_check, ULP_RULE, out[0], plain[0])}
+        if window:
+            mod, attr, fn = broken["flash_no_window"]
+            with patched(mod, attr, fn):
+                bad, _ = _grads_of(lambda *x: fa.flash_attention(*x, **kw),
+                                   (q, k, v), (w,))
+            extra["broken_flash_no_window"] = _worst(grad_ratios(
+                dict(enumerate(bad)), dict(enumerate(want))))
+            if extra["broken_flash_no_window"][1] <= TRAIN_GRAD_LIMIT:
+                raise AssertionError(f"flash without the window backward "
+                                     f"within the limit: {extra}")
+        g = hq // hkv
+        kr, vr = (x.repeat_interleave(g, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        mask = None
+        if window:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+
+        def sdpa(*x):
+            out = F.scaled_dot_product_attention(
+                x[0].transpose(1, 2), x[1], x[2], attn_mask=mask,
+                is_causal=mask is None)
+            return out.transpose(1, 2)
+
+        extra.update(timed({
+            "function": lambda: _grads_of(
+                lambda *x: fa.flash_attention(*x, **kw), (q, k, v), (w,)),
+            "plain": lambda: _grads_of(
+                lambda *x: fref.attention(*x, **kw), (q, k, v), (w,)),
+            "library": lambda: _grads_of(sdpa, (q, kr, vr), (w,))}))
+        rows.append(check(f"flash_attention ({label})", got, want,
+                          [b, s, hq, hkv, d, window], extra))
+        del q, k, v, w, kr, vr, got, want
+
+    B, S, H, P, G, N = TRAIN_SSD_SHAPE
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda").bfloat16()
+    bm = torch.randn(B, S, G, N, generator=gen, device="cuda").bfloat16()
+    cm = torch.randn(B, S, G, N, generator=gen, device="cuda").bfloat16()
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda") - 2)
+    a = -torch.rand(H, generator=gen, device="cuda") * 4 - 0.5
+    wy = torch.randn(B, S, H, P, generator=gen, device="cuda")
+    inputs = (x, bm, cm, dt, a)
+    reset_launches()
+    got, out = _grads_of(ssd.ssd_scan, inputs, (wy,))
+    extra = {"launches": read_launches()["ssd_scan"]}
+    want, plain = _grads_of(sref.ssd_chunked, inputs, (wy,))
+    extra.update(forward_check(
+        "ssd_scan (mamba2-780m)",
+        route_taken("ssd_scan", lambda: ssd.ssd_scan(*inputs)), "wgmma",
+        ssd_check, SSD_LIMIT_RULE, out, plain))
+    extra.update(timed({
+        "function": lambda: _grads_of(ssd.ssd_scan, inputs, (wy,)),
+        "plain": lambda: _grads_of(sref.ssd_chunked, inputs, (wy,))}))
+    rows.append(check("ssd_scan (mamba2-780m)", got, want, [B, S, H, P, G, N],
+                      extra))
+    del x, bm, cm, dt, a, wy, inputs, got, want
+
+    B, S, W = TRAIN_RGLRU_SHAPE
+    a = torch.rand(B, S, W, generator=gen, device="cuda") * 0.5 + 0.5
+    bb = torch.randn(B, S, W, generator=gen, device="cuda")
+    w = torch.randn(B, S, W, generator=gen, device="cuda")
+    reset_launches()
+    got, out = _grads_of(rg.rglru_scan, (a, bb), (w,))
+    extra = {"launches": read_launches()["rglru_scan"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, plain = _grads_of(rref.lru_scan, (a, bb), (w,))
+    torch.cuda.synchronize()
+    extra["plain_fwd_bwd_ms_once"] = (time.perf_counter() - t0) * 1e3
+    extra.update(forward_check(
+        "rglru_scan (recurrentgemma-2b)",
+        route_taken("rglru_scan", lambda: rg.rglru_scan(a, bb)), "chunked",
+        ulp_check, ULP_RULE, out[0], plain[0]))
+    mod, attr, fn = broken["rglru_no_shift"]
+    with patched(mod, attr, fn):
+        bad, _ = _grads_of(rg.rglru_scan, (a, bb), (w,))
+    extra["broken_rglru_no_shift"] = _worst(grad_ratios(
+        dict(enumerate(bad)), dict(enumerate(want))))
+    if extra["broken_rglru_no_shift"][1] <= TRAIN_GRAD_LIMIT:
+        raise AssertionError(f"RG-LRU without the shift within the limit: "
+                             f"{extra}")
+    extra.update(timed({
+        "function": lambda: _grads_of(rg.rglru_scan, (a, bb), (w,))}))
+    rows.append(check("rglru_scan (recurrentgemma-2b)", got, want, [B, S, W],
+                      extra))
+    return rows
+
+
+TRAIN_RANGES = ("forward", "backward", "optimizer", "remat_recompute",
+                "vjp", "plain_recompute")
+
+
+def traced_train_step(model, state, batch, oc) -> dict:
+    """One training step under `torch.profiler`, its forward, backward and
+    optimizer in named ranges, and inside the backward: the remat groups'
+    forward rerun ("remat_recompute": a layer run while autograd
+    executes), the flash / SSD Functions' backwards ("vjp") and, within
+    them, the plain version's forward they recompute
+    ("plain_recompute"). Device busy share, the top device ops, the
+    recompute's share of the backward's device time and the vjps'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import make_loss_fn
+    params = state["params"]
+    layer = model._layer
+
+    def traced_layer(*args, **kw):
+        if torch._C._current_graph_task_id() == -1:
+            return layer(*args, **kw)
+        with record_function("remat_recompute"):
+            return layer(*args, **kw)
+
+    def ranged(name, fn):
+        def inner(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return inner
+
+    model._layer = traced_layer
+    try:
+        with patched(fa, "attention_vjp", ranged("vjp", fa.attention_vjp)), \
+                patched(ssd, "ssd_vjp", ranged("vjp", ssd.ssd_vjp)), \
+                patched(fref, "attention",
+                        ranged("plain_recompute", fref.attention)), \
+                patched(sref, "ssd_chunked",
+                        ranged("plain_recompute", sref.ssd_chunked)), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function("forward"):
+                total, _ = make_loss_fn(model)(batch)
+            with record_function("backward"):
+                grads = torch.autograd.grad(total, list(params.values()))
+            with record_function("optimizer"):
+                adamw_update(params, dict(zip(params, grads)), state["opt"],
+                             oc)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+    finally:
+        del model._layer
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in TRAIN_RANGES]
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in kernels)
+    total_us = sum(e.time_range.elapsed_us() for e in kernels)
+
+    def under(name):
+        return sum(_device_us_under(e, name) for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU)
+
+    us = {name: under(name) for name in TRAIN_RANGES}
+    bwd_us = total_us - us["forward"] - us["optimizer"]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"traced_step_ms": traced_s * 1e3,
+            "device_busy_share": busy_us / (traced_s * 1e6),
+            "kernels": len(kernels), "device_ms": total_us / 1e3,
+            "forward_device_ms": us["forward"] / 1e3,
+            "backward_device_ms": bwd_us / 1e3,
+            "optimizer_device_ms": us["optimizer"] / 1e3,
+            "remat_recompute_device_ms": us["remat_recompute"] / 1e3,
+            "vjp_device_ms": us["vjp"] / 1e3,
+            "plain_recompute_device_ms": us["plain_recompute"] / 1e3,
+            "backward_recompute_share":
+                (us["remat_recompute"] + us["plain_recompute"]) / bwd_us,
+            "backward_vjp_share": us["vjp"] / bwd_us,
+            "top_device_ops_ms": [[n[:80], v / 1e3] for n, v in top]}
+
+
+def _state_bytes(state) -> int:
+    n = 0
+    for leaf in state["params"].values():
+        n += 2 * leaf.numel() * leaf.element_size()      # params and grads
+    for key in ("m", "v", "master"):
+        n += sum(t.numel() * t.element_size()
+                 for t in state["opt"].get(key, {}).values())
+    return n
+
+
+def _trainer_run(cfg, oc, batch, seq, steps, ckpt=None, save=True):
+    """`Trainer.run` over `steps` steps on the card; `save=False` skips
+    the run's closing checkpoint (a resumed run's, which is not what is
+    tested and would double the disk traffic). Returns (trainer, out)."""
+    from repro_torch.train.trainer import Trainer, TrainJobConfig
+    tr = Trainer(cfg, oc, TrainJobConfig(
+        steps=steps, seq_len=seq, global_batch=batch, checkpoint_every=1000,
+        checkpoint_dir=ckpt and str(ckpt), log_every=1), device="cuda")
+    if not save:
+        tr.ckpt.save = lambda *args, **kw: None
+    return tr, tr.run()
+
+
+def _release():
+    """Return the memory of what the caller just deleted to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full(arch, layers, batch, seq, resume, smi) -> tuple:
+    """`Trainer` at published widths, bf16 params with fp32 master, m, v,
+    4 steps: with `resume`, 2 steps and the trainer's closing checkpoint,
+    then a new trainer resuming it for 2 more (for the arch in
+    `TRAIN_STRAIGHT` also 4 steps straight, the params equal to the
+    bit); without, 4 steps in one run. Launches by kernel and route
+    against `expected_train_launches`, finite losses and grad norms,
+    every parameter moved. Then, for `TRAIN_PLAIN_TURNS`, kernel and
+    plain steps in turns and one traced step. Returns (row, launches of
+    the trainers' runs, the straight run's excluded)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.models.common import flatten
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import batch_to
+    cfg = get_config(arch, num_layers=layers)
+    oc = OptimizerConfig(**TRAIN_OC)
+    d = TRAIN_CKPT_DIR / arch
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    if resume:
+        tr, out = _trainer_run(cfg, oc, batch, seq, 2, ckpt=d)
+        histories, t_wall = out["history"], [time.perf_counter() - t0]
+        ckpt_gb = sum(f.stat().st_size for f in d.rglob("*.npy")) / 1e9
+        del tr, out
+        _release()
+        t0 = time.perf_counter()
+        tr, out = _trainer_run(cfg, oc, batch, seq, 4, ckpt=d, save=False)
+        histories = histories + out["history"]
+        t_wall.append(time.perf_counter() - t0)
+        shutil.rmtree(d, ignore_errors=True)
+    else:
+        tr, out = _trainer_run(cfg, oc, batch, seq, 4)
+        histories, t_wall, ckpt_gb = out["history"], [
+            time.perf_counter() - t0], None
+    launches = read_launches()
+    routes = {"flash_attention": dict(flash_attention.launches_by_route),
+              "ssd_scan": dict(ssd_scan.launches_by_route),
+              "rglru_scan": dict(rglru_scan.launches_by_route)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, model = out["state"], tr.model
+    # the weights every run starts from: the seeded draw, made again
+    initial = {n: p.detach().cpu() for n, p in flatten(
+        type(model)(cfg, device="cuda", seed=0).params).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = expected_train_launches(cfg)
+    want = {k: 4 * v for k, v in per_step.items()}
+    want_routes = {"flash_attention": ("wgmma", want["flash_attention"]),
+                   "ssd_scan": ("wgmma", want["ssd_scan"]),
+                   "rglru_scan": ("chunked", want["rglru_scan"])}
+    moved = {n: not torch.equal(initial[n], p.detach().cpu())
+             for n, p in state["params"].items()}
+    step_ms = [h["step_time_s"] * 1e3 for h in histories]
+    row = {"arch": arch, "layers": layers, "of_layers":
+           get_config(arch).num_layers, "batch": batch, "seq": seq,
+           "params": sum(p.numel() for p in state["params"].values()),
+           "steps": [h["step"] for h in histories],
+           "resumed_at": histories[2]["step"] if resume else None,
+           "losses": [h["loss"] for h in histories],
+           "grad_norms": [h["grad_norm"] for h in histories],
+           "step_ms": step_ms,
+           "tokens_per_s_steps_1_3": [batch * seq / (t / 1e3)
+                                       for t in (step_ms[1], step_ms[3])],
+           "trainer_wall_s": t_wall, "checkpoint_gb": ckpt_gb,
+           "peak_gb": peak_gb, "state_gb": _state_bytes(state) / 1e9,
+           "launches": {k: launches[k] for k in want},
+           "launches_expected": want, "routes": routes,
+           "every_param_moved": all(moved.values()), "nvidia_smi": smi}
+    bad = [k for k, (r, n) in want_routes.items()
+           if launches[k] != n or routes[k].get(r, 0) != n]
+    if bad or not all(math.isfinite(x) for x in row["losses"] +
+                      row["grad_norms"]) or not row["every_param_moved"] \
+            or (resume and row["resumed_at"] != 2):
+        raise AssertionError(
+            f"train full {arch}: launches / routes {bad}, not moved "
+            f"{[n for n, m in moved.items() if not m]}, {row}")
+    if arch in TRAIN_STRAIGHT:
+        final = {n: p.detach().clone() for n, p in state["params"].items()}
+        del state, model, tr, out
+        _release()
+        tr, out = _trainer_run(cfg, oc, batch, seq, 4)
+        straight = out["state"]["params"]
+        row["straight_losses"] = [h["loss"] for h in out["history"]]
+        row["resume_bit_equal"] = all(torch.equal(final[n], straight[n])
+                                      for n in final)
+        row["resume_max_abs_diff"] = max(
+            float((final[n].float() - straight[n].float()).abs().max())
+            for n in final)
+        if not row["resume_bit_equal"]:
+            raise AssertionError(f"{arch}: resumed params differ from the "
+                                 f"straight run's: {row}")
+        del final, straight
+        state, model = out["state"], tr.model
+    if arch in TRAIN_PLAIN_TURNS:
+        pipe = TokenPipeline(cfg, seq, batch, seed=0)
+        fns = {"kernel": make_train_step(model, oc),
+               "plain": make_train_step(model, oc, backend="ref")}
+        times = {"kernel": [], "plain": []}
+        step = 4
+        for order in (("kernel", "plain"), ("plain", "kernel")):
+            for name in order:
+                data = batch_to(pipe.batch_at(step), "cuda")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, mets = fns[name](state, data)
+                loss = float(mets["loss"])
+                times[name].append((time.perf_counter() - t1) * 1e3)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"{arch} {name} step loss {loss}")
+                step += 1
+        row["turns_step_ms"] = times
+        row["traced"] = traced_train_step(
+            model, state, batch_to(pipe.batch_at(step), "cuda"), oc)
+    del state, model, tr, out
+    _release()
+    return row, launches
+
+
+def phase_train(smi: str) -> dict:
+    """Part ``exact``, then ``functions``, then ``full`` (one JSON line
+    each). Returns the ``full`` part's launches: the main path's."""
+    t0 = time.perf_counter()
+    emit({"phase": "train", "part": "exact", "rule": TRAIN_GRAD_RULE,
+          "models": [train_exact_model(*c) for c in TRAIN_EXACT],
+          "wall_s": time.perf_counter() - t0})
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    t1 = time.perf_counter()
+    emit({"phase": "train", "part": "functions", "rule": TRAIN_GRAD_RULE,
+          "rows": function_rows(gen), "wall_s": time.perf_counter() - t1})
+    total: dict = {}
+    for arch, layers, batch, seq, resume in TRAIN_FULL:
+        t2 = time.perf_counter()
+        row, launches = train_full(arch, layers, batch, seq, resume, smi)
+        row["wall_s"] = time.perf_counter() - t2
+        emit({"phase": "train", "part": "full", **row})
+        _add(total, launches)
+    emit({"phase": "train", "part": "done", "launches": total,
+          "wall_s": time.perf_counter() - t0})
+    return total
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -4500,7 +5128,7 @@ def kernels_line(full, launches, stencil=None) -> dict:
 
 
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "families", "hybrid", "stencil", "sibyl")
+          "families", "hybrid", "train", "stencil", "sibyl")
 
 
 def main(argv=None) -> int:
@@ -4558,6 +5186,10 @@ def main(argv=None) -> int:
         launches["ssd_scan"] = hybrid_launches["mamba2-780m"]["ssd_scan"]
         launches["rglru_scan"] = \
             hybrid_launches["recurrentgemma-2b"]["rglru_scan"]
+    if run("train"):
+        # the training path launches flash, SSD and RG-LRU at new shapes:
+        # its trainers' counts join the serving and hybrid phases'
+        _add(launches, phase_train(dev["nvidia_smi"]))
     stencil = None
     if run("stencil"):
         stencil, stencil_launches = phase_stencil()

@@ -1,5 +1,6 @@
-"""Carry the JAX package's params into the port (the models', and the
-Sibyl agent's: `sibyl_params_from_numpy`).
+"""Carry the JAX package's params into the port (the models', a training
+state's: `train_state_from_numpy`, and the Sibyl agent's:
+`sibyl_params_from_numpy`).
 
 `params_from_numpy` takes the ``Model.init`` pytree of the JAX package
 with every leaf already converted to a numpy array (the caller does
@@ -32,6 +33,32 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     name and shape for shape against the port's model spec."""
     return check_state(cfg, {name: _to_torch(v)
                              for name, v in flatten(tree).items()})
+
+
+def train_state_from_numpy(cfg: ModelConfig, state_tree: dict) -> dict:
+    """The reference's train state ``{"params", "opt": {"step", "m", "v"[,
+    "master"]}}`` as numpy (``jax.tree.map(np.asarray, state)``) -> the
+    port's: params through `params_from_numpy`, the moments and the
+    master as flat fp32 dicts over the same names, the step an int32
+    scalar; all on the CPU. A reference ``grad_comp`` residual is
+    dropped, as the reference's own restore drops it."""
+    params = params_from_numpy(cfg, state_tree["params"])
+    opt_tree = state_tree["opt"]
+    opt = {"step": torch.tensor(int(np.asarray(opt_tree["step"])),
+                                dtype=torch.int32)}
+    for key in ("m", "v", "master"):
+        if key not in opt_tree:
+            continue
+        flat = {n: _to_torch(v).to(torch.float32)
+                for n, v in flatten(opt_tree[key]).items()}
+        if set(flat) != set(params):
+            raise ValueError(f"opt {key}: names differ from the params'")
+        for n, v in flat.items():
+            if v.shape != params[n].shape:
+                raise ValueError(f"opt {key} {n}: shape {tuple(v.shape)} "
+                                 f"!= {tuple(params[n].shape)}")
+        opt[key] = flat
+    return {"params": params, "opt": opt}
 
 
 def sibyl_params_from_numpy(tree: dict) -> dict:

@@ -9,7 +9,10 @@ all of them — the port's counterpart of ``repro/kernels/api.py``.
                                     "block_z": 1})          # a tuned kernel
 
 ``auto`` runs the kernel on CUDA tensors and the plain version on CPU
-tensors (through the kernel's wrapper, which makes that choice). A spec
+tensors (through the kernel's wrapper, which makes that choice). Under
+autograd the flash-attention, SSD and RG-LRU wrappers run through their
+autograd Functions, so ``auto`` and ``cuda`` are differentiable; ``ref``
+is differentiated through the plain version's own operations. A spec
 with a ``tune_space`` (the stencils) takes a ``tile``; with ``auto`` and
 no tile its kernel launches at the knee of the spec's Hopper cost model
 (`resolve_tile`). The other kernels' launch shapes are fixed, and they

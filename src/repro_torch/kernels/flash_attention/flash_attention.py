@@ -14,6 +14,13 @@ version. On CPU tensors it runs the plain version
 counts kernel launches, ``flash_attention.launches_by_route`` splits them
 by route, and ``flash_attention.plain_calls`` counts the calls that went
 to the plain version because the tensors lay on the CPU.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through `FlashAttentionFn`: the forward as above, the backward by
+recomputing the plain version under autograd from the saved q, k, v —
+the reference's ``custom_vjp`` ("Pallas fwd, XLA bwd via the reference
+formulation — recompute, no residuals"), with the causal mask, the
+window, the GQA grouping and the softmax scale all reaching it.
 """
 from __future__ import annotations
 
@@ -84,10 +91,47 @@ def _check(q, k, v, window):
                                  f"route loads it by TMA")
 
 
+def attention_vjp(q, k, v, grad_out, *, causal, window, softmax_scale):
+    """(dq, dk, dv): autograd of `ref.attention` at (q, k, v) against
+    `grad_out`, the forward recomputed."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ref.attention(*leaves, causal=causal, window=window,
+                            softmax_scale=softmax_scale)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention`'s forward, `attention_vjp`'s backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, softmax_scale)
+        return _forward(q, k, v, causal=causal, window=window,
+                        softmax_scale=softmax_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, softmax_scale = ctx.mask
+        grads = attention_vjp(*ctx.saved_tensors, grad_out, causal=causal,
+                              window=window, softmax_scale=softmax_scale)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softmax_scale=None):
     """Same arguments and result as `ref.attention`: q (b, sq, hq, d), k and
-    v (b, skv, hkv, d), any sq and skv."""
+    v (b, skv, hkv, d), any sq and skv. Differentiable (`FlashAttentionFn`)
+    when grad mode is on and an input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softmax_scale)
+    return _forward(q, k, v, causal=causal, window=window,
+                    softmax_scale=softmax_scale)
+
+
+def _forward(q, k, v, *, causal, window, softmax_scale):
     if not q.is_cuda:
         flash_attention.plain_calls += 1
         return ref.attention(q, k, v, causal=causal, window=window,

@@ -13,6 +13,16 @@ fallback. On CPU tensors it runs the plain version
 counts calls that launched (one per call), ``rglru_scan.launches_by_route``
 splits them by route, and ``rglru_scan.plain_calls`` counts the calls that
 went to the plain version because the tensors lay on the CPU.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through `RglruScanFn`. Its backward is the same recurrence run in
+reverse: the gradient reaching ``h_t`` is ``lam_t = g_t + a_{t+1}
+lam_{t+1}``, so ``lam = flip(scan(a', flip(g)))`` with ``a'`` the
+flipped a shifted one step (``a'_t = a_{S-t}``; its first entry meets a
+zero state and is ignored), then ``db = lam`` and ``da = lam * h_{t-1}``
+with ``h_{-1} = 0``. The reverse scan is a call of `rglru_scan` itself —
+the kernel on the card, counted as a launch — so no second kernel and no
+plain loop over S.
 """
 from __future__ import annotations
 
@@ -67,9 +77,43 @@ def launch(a, b, h, kind: str, *, chunk: int = CHUNK) -> None:
                            f"{lib.rglru_scan_error_string(err).decode()}")
 
 
+def lru_vjp(a, h, grad_h):
+    """(da, db) of ``h = scan(a, b)`` against `grad_h`, by the reverse
+    scan (see the module docstring)."""
+    a_rev = torch.zeros_like(a)
+    a_rev[:, 1:] = a[:, 1:].flip(1)
+    lam = rglru_scan(a_rev, grad_h.flip(1).contiguous()).flip(1)
+    h_prev = torch.zeros_like(h)
+    h_prev[:, 1:] = h[:, :-1]
+    return lam * h_prev, lam
+
+
+class RglruScanFn(torch.autograd.Function):
+    """`rglru_scan`'s forward, `lru_vjp`'s backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        a, h = ctx.saved_tensors
+        return lru_vjp(a, h, grad_h.to(torch.float32))
+
+
 def rglru_scan(a, b):
     """a, b: (B, S, W) float32. Returns h: (B, S, W) float32 with
-    ``h_t = a_t h_{t-1} + b_t`` from a zero state, as `ref.lru_scan`."""
+    ``h_t = a_t h_{t-1} + b_t`` from a zero state, as `ref.lru_scan`.
+    Differentiable (`RglruScanFn`) when grad mode is on and an input
+    requires grad."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return RglruScanFn.apply(a, b)
+    return _forward(a, b)
+
+
+def _forward(a, b):
     if not a.is_cuda:
         rglru_scan.plain_calls += 1
         return ref.lru_scan(a, b)

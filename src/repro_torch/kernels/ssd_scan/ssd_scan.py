@@ -15,6 +15,12 @@ the plain chunked version (`repro_torch.kernels.ssd_scan.ref.ssd_chunked`).
 the number of CUDA launches inside), ``ssd_scan.launches_by_route``
 splits them by route, and ``ssd_scan.plain_calls`` counts the calls that
 went to the plain version because the tensors lay on the CPU.
+
+Under autograd (grad mode on and an input that requires grad) the call
+goes through `SsdScanFn`: the forward as above, the backward by
+recomputing the plain chunked version under autograd from the saved
+inputs, which gives the gradients of x, B, C, dt and a (a final state
+that nothing uses sends no gradient).
 """
 from __future__ import annotations
 
@@ -136,10 +142,46 @@ def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
                            f"{lib.ssd_scan_error_string(err).decode()}")
 
 
+def ssd_vjp(inputs, grad_y, grad_state):
+    """Gradients of (x, b_mat, c_mat, dt, a): autograd of
+    `ref.ssd_chunked` at `inputs` against the output gradients (either
+    may be None), the forward recomputed."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        y, state = ref.ssd_chunked(*leaves)
+        outs, grads = zip(*[(o, g) for o, g in ((y, grad_y),
+                                                (state, grad_state))
+                            if g is not None])
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """`ssd_scan`'s forward, `ssd_vjp`'s backward."""
+
+    @staticmethod
+    def forward(ctx, x, b_mat, c_mat, dt, a):
+        ctx.save_for_backward(x, b_mat, c_mat, dt, a)
+        ctx.set_materialize_grads(False)
+        return _forward(x, b_mat, c_mat, dt, a)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        return ssd_vjp(ctx.saved_tensors, grad_y, grad_state)
+
+
 def ssd_scan(x, b_mat, c_mat, dt, a):
     """x: (B, S, H, P); b_mat, c_mat: (B, S, G, N), x's dtype (float32 or
     bfloat16); dt: (B, S, H) and a: (H,) float32. Returns fp32 ``(y (B, S,
-    H, P), final state (B, H, P, N))``, as `ref.ssd_chunked`."""
+    H, P), final state (B, H, P, N))``, as `ref.ssd_chunked`.
+    Differentiable (`SsdScanFn`) when grad mode is on and an input
+    requires grad."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, b_mat, c_mat, dt, a)):
+        return SsdScanFn.apply(x, b_mat, c_mat, dt, a)
+    return _forward(x, b_mat, c_mat, dt, a)
+
+
+def _forward(x, b_mat, c_mat, dt, a):
     if not x.is_cuda:
         ssd_scan.plain_calls += 1
         return ref.ssd_chunked(x, b_mat, c_mat, dt, a)

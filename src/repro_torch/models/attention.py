@@ -137,14 +137,15 @@ def cross_apply(p, x, *, mode: str, cache=None, cross_embeds=None):
     """The cross branch of a CROSS_ATTN layer: non-causal attention of the
     tokens over the image embeddings, tanh-gated. Prefill projects
     ``cross_embeds`` (b, n, d) into the ``{"xk", "xv"}`` cache; decode
-    reads it. No RoPE, no q/k/v bias. Returns (y, cache)."""
+    reads it; train projects them and emits no cache. No RoPE, no q/k/v
+    bias. Returns (y, cache)."""
     q = rms_norm(_proj(x, p["wq"]), p["q_norm_x"])
     if mode == "decode":
         k, v = cache["xk"], cache["xv"]
     else:
         k = rms_norm(_proj(cross_embeds, p["wk"]), p["k_norm_x"])
         v = _proj(cross_embeds, p["wv"])
-        cache = {"xk": k, "xv": v}
+        cache = {"xk": k, "xv": v} if mode == "prefill" else None
     out = out_proj(p, attention_core(q, k, v, causal=False), x.dtype)
     return torch.tanh(p["gate_attn"]).to(out.dtype) * out, cache
 
@@ -157,6 +158,8 @@ def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
     mode: "prefill" (causal attention over the prompt, within `window`
     positions when it is set, through the flash-attention kernel,
     `backend` as in `kernels.api.run`; emit the (b, s, hkv, hd) cache) |
+    "train" (the same attention, differentiable through the kernel's
+    autograd Function; no cache) |
     "decode" (write the step's row into the cache IN PLACE at scalar
     position `positions` — slot ``pos % capacity`` of a sliding-window
     layer's ring buffer — then attend its valid rows with
@@ -184,14 +187,15 @@ def attn_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
             cache["v"][:, pos:pos + s] = v_new.to(cache["v"].dtype)
             y = attention_core(q, cache["k"], cache["v"], causal=False,
                                q_offset=pos, kv_valid_len=pos + 1)
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         q, k_new, v_new = roped_qkv(cfg, p, x, positions)
         k_new, v_new = k_new.contiguous(), v_new.contiguous()
         y = api.run("flash_attention", q.contiguous(), k_new, v_new,
                     causal=True, window=window, backend=backend)
-        cache = {"k": k_new, "v": v_new}
+        cache = {"k": k_new, "v": v_new} if mode == "prefill" else None
     else:
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
+                         f"'train')")
     return out_proj(p, y, x.dtype), cache
 
 
@@ -223,7 +227,7 @@ def mla_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
     1/sqrt(nope + rope); decode writes the step's row IN PLACE at scalar
     position `positions` and attends in the latent space (the absorbed
     form: q_nope through wuk scores against ckv, the context through
-    wuv), fp32 scores."""
+    wuv), fp32 scores; train attends as prefill and emits no cache."""
     b, s, _ = x.shape
     nope, rope, kr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope)
@@ -252,7 +256,7 @@ def mla_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
         w = torch.softmax(scores, dim=-1)
         ctx_lat = torch.einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv)
         y = torch.einsum("bshr,rhk->bshk", ctx_lat, p["wuv"])
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         krope_r = apply_rope(krope_new[:, :, None, :], positions,
                              cfg.rope_theta)[:, :, 0, :]
@@ -262,7 +266,9 @@ def mla_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
             *k_nope.shape[:3], rope)], dim=-1)
         y = attention_core(torch.cat([q_nope, q_rope], dim=-1), k, v,
                            causal=True, softmax_scale=scale)
-        cache = {"ckv": ckv_new, "krope": krope_r}
+        cache = {"ckv": ckv_new, "krope": krope_r} \
+            if mode == "prefill" else None
     else:
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
+                         f"'train')")
     return out_proj(p, y, x.dtype), cache

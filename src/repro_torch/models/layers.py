@@ -83,7 +83,10 @@ def embed_spec(cfg: ModelConfig):
 
 
 def embed_apply(cfg: ModelConfig, p, tokens):
-    return p["tok"][tokens].to(torch_dtype(cfg.compute_dtype))
+    # F.embedding, not p["tok"][tokens]: the same rows, and a backward
+    # that sums repeated tokens in a fixed order (indexing's accumulates
+    # with atomics on the CPU, so training would not resume to the bit)
+    return F.embedding(tokens, p["tok"]).to(torch_dtype(cfg.compute_dtype))
 
 
 def lm_head_apply(cfg: ModelConfig, p, x):

@@ -79,20 +79,24 @@ def rglru_apply(cfg: ModelConfig, p, x, *, mode: str, cache=None,
                 backend: str = "auto"):
     """Returns (y, cache), cache = ``{"h": (B, W) fp32, "conv": (B, K-1,
     W) fp32}``. mode "prefill" runs the recurrence through the
-    `rglru_scan` kernel (`backend` as in `kernels.api.run`); "decode" runs
-    one token and updates `cache` in place."""
+    `rglru_scan` kernel (`backend` as in `kernels.api.run`); "train" does
+    the same, differentiable through the kernel's autograd Function, and
+    emits no cache; "decode" runs one token and updates `cache` in
+    place."""
     if mode == "decode":
         y, cache["h"], cache["conv"] = rglru_decode_core(
             cfg, p, x, cache["h"], cache["conv"])
         return y, cache
-    if mode != "prefill":
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
+                         f"'train')")
     u_raw = x @ p["w_in"]
     u = _conv1d(u_raw, p["conv_w"], p["conv_b"])
     a, gated = _gates(p, u)
     hh = api.run("rglru_scan", a.contiguous(), gated.contiguous(),
                  backend=backend)
     k = p["conv_w"].shape[0]
-    cache = {"h": hh[:, -1, :], "conv": u_raw[:, -(k - 1):, :].float()}
+    cache = {"h": hh[:, -1, :], "conv": u_raw[:, -(k - 1):, :].float()} \
+        if mode == "prefill" else None
     y = hh.to(x.dtype) * _gelu(x @ p["w_gate"])
     return y @ p["w_out"], cache

@@ -98,14 +98,17 @@ def ssm_apply(cfg: ModelConfig, p, x, *, mode: str, cache=None,
               backend: str = "auto"):
     """Returns (y, cache), cache = ``{"conv": (B, K-1, C), "state": (B, H,
     P, N) fp32}``. mode "prefill" scans the sequence through the
-    `ssd_scan` kernel (`backend` as in `kernels.api.run`); "decode" runs
-    one token and updates `cache` in place."""
+    `ssd_scan` kernel (`backend` as in `kernels.api.run`); "train" does
+    the same, differentiable through the kernel's autograd Function, and
+    emits no cache; "decode" runs one token and updates `cache` in
+    place."""
     if mode == "decode":
         y, cache["conv"], cache["state"] = ssd_decode_core(
             cfg, p, x, cache["conv"], cache["state"])
         return y, cache
-    if mode != "prefill":
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
+                         f"'train')")
     if cfg.ssm_bf16_intra:
         raise NotImplementedError(
             f"{cfg.name}: ssm_bf16_intra is not ported — the ssd_scan "
@@ -128,7 +131,8 @@ def ssm_apply(cfg: ModelConfig, p, x, *, mode: str, cache=None,
     y = y + p["d_skip"][None, None, :, None] * xs.float()
     y = y.reshape(B, x.shape[1], din)
     k = cfg.ssm_conv_width
-    cache = {"conv": xbc_raw[:, -(k - 1):, :], "state": h_final}
+    cache = {"conv": xbc_raw[:, -(k - 1):, :], "state": h_final} \
+        if mode == "prefill" else None
     y = y * F.silu(z.float())
     y = rms_norm(y.to(x.dtype), p["gate_norm"])
     return y @ p["out_proj"], cache

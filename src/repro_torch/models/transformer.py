@@ -11,11 +11,19 @@ period of the layer pattern) and a non-divisible remainder lives under
 exactly like the reference's pytree paths and `repro_torch.convert`
 carries params over leaf for leaf. PyTorch runs eagerly, so the stack is
 a Python loop over per-layer views of the stacked leaves.
+
+`Model.forward_train` is the reference's training forward: the views are
+taken inside each call, so that under autograd every view records its
+slice of the stacked parameter (views made before ``requires_grad`` was
+set carry no ``grad_fn``, and their gradient would be lost), and each
+layer group runs under ``torch.utils.checkpoint`` when the config asks
+for remat, as the reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA,
                                       MLP_DENSE, MLP_MOE, MLP_NONE, RGLRU,
@@ -59,19 +67,21 @@ def mlp_tail(cfg: ModelConfig, kind, p, x):
     """Post-mixer half of a layer (norm2 + dense or MoE MLP residual, the
     MLP output tanh-gated on a cross layer; nothing for MLP_NONE) —
     shared by the dense stack and the serve layer's fused paged decode
-    step. MoE's load-balancing loss is dropped here, as serving does in
-    the reference."""
+    step. Returns (x, aux): aux the MoE load-balancing loss, None for
+    other MLPs; training adds it to the loss, serving drops it, as the
+    reference's serving does."""
     mixer, mlp = kind[0], kind[1]
-    if mlp == MLP_NONE:
-        return x
-    h = rms_norm(x, p["norm2"])
-    if mlp == MLP_MOE:
-        y, _ = moe_mod.moe_apply(cfg, p["moe"], h)
-    else:
-        y = mlp_apply(cfg, p["mlp"], h)
-    if mixer == CROSS_ATTN:
-        y = torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
-    return x + y
+    aux = None
+    if mlp != MLP_NONE:
+        h = rms_norm(x, p["norm2"])
+        if mlp == MLP_MOE:
+            y, aux = moe_mod.moe_apply(cfg, p["moe"], h)
+        else:
+            y = mlp_apply(cfg, p["mlp"], h)
+        if mixer == CROSS_ATTN:
+            y = torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
+        x = x + y
+    return x, aux
 
 
 def mixer_apply(cfg: ModelConfig, kind, p, h, *, mode, positions,
@@ -164,13 +174,29 @@ class Model(nn.Module):
         # `params` in the reference layout, `layers` as per-layer views
         # of the stacked leaves in global layer order
         self.params = unflatten(dict(self.weights.named_parameters()))
-        groups = self.params["groups"]
-        n_groups = next(iter(flatten(groups).values())).shape[0]
-        self.layers = [
-            unflatten({n: t[g] for n, t in flatten(groups[f"l{i}"]).items()})
-            for g in range(n_groups) for i in range(len(groups))]
+        self.group_size = cfg.group_size()
+        self.n_groups = cfg.num_layers // self.group_size
+        self.layers = [self.group_layer(g, i)
+                       for g in range(self.n_groups)
+                       for i in range(self.group_size)]
         self.layers += [self.params["tail"][f"t{i}"]
                         for i in range(len(self.params.get("tail", {})))]
+
+    def group_layer(self, g: int, i: int) -> dict:
+        """Layer `i` of group `g`: views of the stacked leaves."""
+        return unflatten({n: t[g] for n, t in
+                          flatten(self.params["groups"][f"l{i}"]).items()})
+
+    def train_params(self) -> dict:
+        """Make every weight trainable and return them as a flat ``{name:
+        parameter}`` dict in the reference's tree order (names sorted
+        level by level, as `flatten`) — the tensors the model computes
+        with, so an in-place update is the model's. Serving never calls
+        this: its weights keep ``requires_grad=False``."""
+        params = flatten(self.params)
+        for p in params.values():
+            p.requires_grad_(True)
+        return params
 
     # -- forward -------------------------------------------------------------
     def embed_in(self, tokens=None, embeds=None):
@@ -189,19 +215,41 @@ class Model(nn.Module):
         x = rms_norm(x, self.params["final_norm"])
         return lm_head_apply(self.cfg, self.params["embed"], x)
 
+    def inputs(self, tokens=None, embeds=None, image_embeds=None):
+        """A full-sequence forward's prologue: (x (b, s, d) from
+        `embed_in`, positions (b, s) int32, ``image_embeds`` in x's
+        dtype or None)."""
+        x = self.embed_in(tokens, embeds)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        if image_embeds is not None:
+            image_embeds = image_embeds.to(x.dtype)
+        return x, positions, image_embeds
+
+    def _layer(self, kind, p, x, *, mode, positions, cache=None,
+               backend: str = "auto", cross_embeds=None):
+        """One layer: norm1, the mixer, its residual and the MLP tail.
+        Returns (x, cache, aux), aux as `mlp_tail`'s."""
+        h = rms_norm(x, p["norm1"])
+        y, c = mixer_apply(self.cfg, kind, p, h, mode=mode,
+                           positions=positions, cache=cache,
+                           backend=backend, cross_embeds=cross_embeds)
+        x, aux = mlp_tail(self.cfg, kind, p, x + y)
+        return x, c, aux
+
     def run_stack(self, x, *, mode, positions, caches=None,
                   backend: str = "auto", cross_embeds=None):
-        """Every layer in order. Returns (x, per-layer caches). `backend`
-        picks the prefill kernels' implementation (`kernels.api.run`);
-        ``cross_embeds`` (b, n, d) feed the cross-attention layers."""
+        """Every layer in order, over the views built at init. Returns
+        (x, per-layer caches). `backend` picks the prefill kernels'
+        implementation (`kernels.api.run`); ``cross_embeds`` (b, n, d)
+        feed the cross-attention layers."""
         out = []
         for layer, (kind, p) in enumerate(zip(self.kinds, self.layers)):
-            h = rms_norm(x, p["norm1"])
-            y, c = mixer_apply(
-                self.cfg, kind, p, h, mode=mode, positions=positions,
+            x, c, _ = self._layer(
+                kind, p, x, mode=mode, positions=positions,
                 cache=caches[layer] if caches is not None else None,
                 backend=backend, cross_embeds=cross_embeds)
-            x = mlp_tail(self.cfg, kind, p, x + y)
             out.append(c)
         return x, out
 
@@ -216,16 +264,49 @@ class Model(nn.Module):
         for SSD and ``{"h", "conv"}`` for RG-LRU layers). Self-attention
         runs through the flash-attention kernel, the SSD and RG-LRU scans
         through theirs (`backend` as in `kernels.api.run`)."""
-        x = self.embed_in(tokens, embeds)
-        b, s = x.shape[:2]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        if image_embeds is not None:
-            image_embeds = image_embeds.to(x.dtype)
+        x, positions, image_embeds = self.inputs(tokens, embeds,
+                                                 image_embeds)
         x, caches = self.run_stack(x, mode="prefill", positions=positions,
                                    backend=backend,
                                    cross_embeds=image_embeds)
         return self.head(x[:, -1:])[:, 0], caches
+
+    def forward_train(self, tokens=None, *, embeds=None, image_embeds=None,
+                      backend: str = "auto"):
+        """The training forward over every position, as the reference's
+        ``forward_train``: tokens (b, s), or ``embeds`` (b, s, d) for an
+        external-embedding config; ``image_embeds`` feed the cross
+        layers. Attention, SSD and RG-LRU run through their kernels'
+        autograd Functions (`backend` as in `kernels.api.run`). Each
+        layer group is one ``torch.utils.checkpoint`` segment when
+        ``cfg.remat != "none"`` (its forward recomputed in the backward);
+        tail layers are not. Returns (logits (b, s, V), aux), aux the
+        fp32 sum of the MoE layers' load-balancing losses."""
+        x, positions, image_embeds = self.inputs(tokens, embeds,
+                                                 image_embeds)
+
+        def run(kind, p, x, aux):
+            x, _, a = self._layer(kind, p, x, mode="train",
+                                  positions=positions, backend=backend,
+                                  cross_embeds=image_embeds)
+            return x, aux if a is None else aux + a
+
+        def group_body(g, x, aux):
+            for i, kind in enumerate(self.kinds[:self.group_size]):
+                x, aux = run(kind, self.group_layer(g, i), x, aux)
+            return x, aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(self.n_groups):
+            if self.cfg.remat != "none":
+                x, aux = checkpoint(group_body, g, x, aux,
+                                    use_reentrant=False)
+            else:
+                x, aux = group_body(g, x, aux)
+        tail_kinds = self.kinds[self.n_groups * self.group_size:]
+        for i, kind in enumerate(tail_kinds):
+            x, aux = run(kind, self.params["tail"][f"t{i}"], x, aux)
+        return self.head(x), aux
 
     def forward_decode(self, tokens, caches, pos: int, *, embeds=None):
         """One token step over capacity-sized caches (see `pad_caches`),

@@ -758,7 +758,7 @@ def build_fused_step(model, num_slots: int, *, k: int = 1,
                     state0)
                 for a, st in zip(stores, states):
                     rec_scatter(a, row, rec_slots, st[0])
-            x = mlp_tail(cfg, kind, p, x + y)
+            x, _ = mlp_tail(cfg, kind, p, x + y)
         logits = model.head(x)[:, 0]
         return sample(logits, greedy, temperature, generator)
 
@@ -828,7 +828,7 @@ def _build_spec_step(model, num_slots: int, k: int, *, backend: str = "auto",
                     cfg, mixer, p["ssm" if mixer == SSD else "rglru"], h,
                     state0)
                 commits += [(a, row, st) for a, st in zip(stores, states)]
-            x = mlp_tail(cfg, kind, p, x + y)
+            x, _ = mlp_tail(cfg, kind, p, x + y)
         logits = model.head(x)                             # (b, k, V)
         samp = sample(logits.reshape(b * k, -1), greedy, temperature,
                       generator).reshape(b, k)

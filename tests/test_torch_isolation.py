@@ -1,6 +1,6 @@
 """The port stands alone: importing `repro_torch` and every one of its
-modules loads no ``jax`` and nothing of the JAX package ``repro``, and
-``chip_smoke.py`` imports neither."""
+modules loads no ``jax``, no ``ml_dtypes`` and nothing of the JAX package
+``repro``, and ``chip_smoke.py`` imports none of them."""
 import ast
 import json
 import os
@@ -19,7 +19,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -58,7 +58,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "kernels.api", "convert", "models.moe",
                  "configs.codeqwen15_7b", "configs.granite_moe_3b_a800m",
                  "configs.qwen3_moe_30b_a3b", "configs.minicpm3_4b",
-                 "configs.llama32_vision_11b", "configs.musicgen_medium"):
+                 "configs.llama32_vision_11b", "configs.musicgen_medium",
+                 "data.pipeline", "train.optimizer", "train.grad_compression",
+                 "train.train_step", "train.trainer",
+                 "checkpoint.checkpointer", "ft.straggler", "ft.supervisor",
+                 "launch.train"):
         assert f"repro_torch.{name}" in result["modules"]
 
 
@@ -73,4 +77,4 @@ def test_chip_smoke_imports_no_jax_and_nothing_of_repro():
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert "repro_torch" in roots and "torch" in roots
-    assert not roots & {"jax", "jaxlib", "repro"}
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}

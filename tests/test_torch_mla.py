@@ -150,4 +150,4 @@ def test_mla_rejects_unknown_mode():
     tp = {n: torch.from_numpy(v)
           for n, v in _weights(attn.mla_spec(cfg), 0).items()}
     with pytest.raises(ValueError, match="mode"):
-        attn.mla_apply(cfg, tp, torch.zeros(1, 2, cfg.d_model), mode="train")
+        attn.mla_apply(cfg, tp, torch.zeros(1, 2, cfg.d_model), mode="sample")
