@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
                                           # spec | overload | families |
-                                          # hybrid | train | stencil |
-                                          # sibyl
+                                          # hybrid | train | napel |
+                                          # stencil | sibyl
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -213,6 +213,33 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    plain steps in turns and one traced step (device busy share, top
    device ops, the backward's recompute share). The ``full`` trainers'
    launches join the ``kernels`` line's counts.
+13. napel — the thesis's data-driven models (Ch. 5-6) on the cost
+   counter (`repro_torch.core.hlo_cost`), one JSON line per part; the
+   meta counts first, in `NAPEL_WORKERS` processes. ``dryrun``: every
+   arch x shape cell of `launch.dryrun` at mesh 1x1 on ``meta`` (status,
+   counted flops and bytes, live bytes, fits, bottleneck, wall s); an
+   error whose reason `DRYRUN_KNOWN_ERRORS` (and PERF.md) do not list
+   fails. ``count``: the train steps of `NAPEL_TRAIN` (mamba2-780m 48
+   layers 4 x 2048, recurrentgemma-2b 26 layers 1 x 4096, starcoder2-7b 8
+   of 32 layers 2 x 2048) and the prefill of `NAPEL_PREFILL`
+   (starcoder2-7b, 32 layers, 1 x 600), each counted on ``meta`` and on
+   the card: flops by class, both byte counts and every kernel entry
+   equal, each kernel's launches equal to its entries; the step's ms
+   (median of 3 after a warm step), the counted bound on `H100_SXM` and
+   the shares, the counted live bytes beside
+   ``torch.cuda.max_memory_allocated``, the top 10 ops by bytes.
+   ``energy``: NVML's energy counter (ctypes, ``libnvidia-ml.so.1``)
+   over 1.5 s idle, a bf16 matmul loop and an HBM copy loop of at least
+   `ENERGY_LOOP_S` each: pJ per flop and per HBM byte. ``corpus``:
+   NAPEL's RF / ANN / DT on the DoE points' counts, MRE on the test
+   points, predict µs against the count's wall time; the train step of
+   the `NAPEL_CARD_POINTS` cheapest points whose counted live bytes fit
+   `NAPEL_CARD_BYTES`, ms and joules beside NAPEL's predictions.
+   ``leaper``: the h100 platform fitted (copy bandwidth, empty launches,
+   matmuls of rising K), base learners on its labels of every corpus
+   point, `Leaper.transfer` on 1, 3 and 5 shots of the measured step
+   times beside a forest from scratch and the platform model alone. The
+   counted and timed steps' launches join the ``kernels`` line.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -276,6 +303,23 @@ ROUTE_SOURCES = {
     ("hdiff", "simt"): "src/repro_torch/kernels/hdiff/csrc/hdiff_simt.cuh",
     ("vadvc", "simt"): "src/repro_torch/kernels/vadvc/csrc/vadvc_simt.cuh",
 }
+
+
+PEAKS = {"bf16": BF16_FLOPS, "fp32": FP32_FLOPS}
+
+
+def work_of(kernel: str, *args, **kwargs) -> dict:
+    """The kernel's spec `work` on these inputs: {"bytes", "flops": {rate
+    class: flops}}, the function's work whatever runs it."""
+    import importlib
+    spec = importlib.import_module(f"repro_torch.kernels.{kernel}.spec")
+    return spec.work(*args, **kwargs)
+
+
+def rglru_bytes_and_flops(a, b):
+    """a, b and h each once, 2 flops an element: the spec's `work`."""
+    w = work_of("rglru_scan", a, b)
+    return w["bytes"], sum(w["flops"].values())
 
 
 def emit(obj):
@@ -668,20 +712,13 @@ def decode_inputs(gen, *, b, hq, hkv, d, t, n_layers, lengths, dead,
     return [q, kf, vf, kq, vq, ks, vs, table, lens]
 
 
-def bytes_and_flops(args, rows: int = 1):
+def bytes_and_flops(args):
     """Least bytes the function must move (q, out, and for every position
     a row can see the float, int8 and scale entries of K and V) and its
-    flops, from this call's inputs."""
-    q, kf = args[0], args[1]
-    lengths = args[8].tolist()
-    hq, d, hkv = q.shape[-2], q.shape[-1], kf.shape[-2]
-    per_pos = 2 * hkv * (d * (kf.element_size() + 1) + args[5].element_size())
-    span = sum(n + rows - 1 for n in lengths)
-    nbytes = (2 * q.numel() * q.element_size() + span * per_pos
-              + args[7].numel() * 4 + args[8].numel() * 4)
-    flops = 4 * hq * d * sum(rows * n + rows * (rows - 1) // 2
-                             for n in lengths)
-    return nbytes, flops
+    flops, from this call's inputs: the spec's `work`, the yardstick the
+    cost counter reads too."""
+    w = work_of("paged_attention", *args)
+    return w["bytes"], sum(w["flops"].values())
 
 
 def sdpa_yardstick(args, layer, rows: int = 1):
@@ -1092,28 +1129,11 @@ def ssd_inputs(shape, dtype, seed):
 
 def ssd_bytes_and_flops(args):
     """Bytes of x, B, C, dt, a, y and the final state, each once, and the
-    operations the chunked form needs at the kernel's chunk Q, by type:
-    {peak rate: flops}. Counted are the multiply-adds of its products
-    over the causal half of each chunk (pairs j <= i): C Bt once per
-    group (on the tensor cores when B and C are bf16), the scores times
-    x per head, C exp(cum) @ state per head in every chunk but the first
-    (whose incoming state is zero), and the state update per head with
-    its per-chunk decay; the O(pairs x H) decay weights are left out."""
-    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK
-    x, b_mat = args[0], args[1]
-    B, S, H, P = x.shape
-    G, N = b_mat.shape[2], b_mat.shape[3]
-    nbytes = sum(a.numel() * a.element_size() for a in args) \
-        + (B * S * H * P + B * H * P * N) * 4
-    q = min(CHUNK, S)
-    lens = [min(q, S - i) for i in range(0, S, q)]
-    pairs = sum(n * (n + 1) // 2 for n in lens)
-    cb = 2 * B * G * pairs * N
-    fp32 = B * H * (2 * pairs * P + 2 * (S - lens[0]) * N * P
-                    + 2 * S * N * P + len(lens) * N * P)
-    if b_mat.dtype == torch.bfloat16:
-        return nbytes, {BF16_FLOPS: cb, FP32_FLOPS: fp32}
-    return nbytes, {FP32_FLOPS: cb + fp32}
+    operations the chunked form needs, by type: {peak rate: flops} — the
+    spec's `work` (the causal half of each chunk of `ssd_scan.CHUNK`;
+    C Bt on the tensor cores when B and C are bf16)."""
+    w = work_of("ssd_scan", *args)
+    return w["bytes"], {PEAKS[c]: f for c, f in w["flops"].items()}
 
 
 def routes(kernel: str) -> dict:
@@ -1283,14 +1303,10 @@ def flash_inputs(gen, *, b, sq, skv, hq, hkv, d, dtype):
 def flash_bytes_and_flops(q, k, v, window: int = 0, causal: bool = True):
     """Bytes of q, k, v and out, each once; 4 d flops per (query, key) pair
     the mask lets through: with `causal` kp <= qp, with `window`
-    kp > qp - window (queries and keys aligned at 0)."""
-    b, sq, hq, d = q.shape
-    skv = k.shape[1]
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    pairs = sum((min(i + 1, skv) if causal else skv)
-                - (max(0, i - window + 1) if window else 0)
-                for i in range(sq))
-    return nbytes, 4 * b * hq * d * pairs
+    kp > qp - window (queries and keys aligned at 0) — the spec's
+    `work`."""
+    w = work_of("flash_attention", q, k, v, causal=causal, window=window)
+    return w["bytes"], sum(w["flops"].values())
 
 
 def phase_kernel() -> dict:
@@ -1329,7 +1345,7 @@ def paged_full_width(gen) -> dict:
         for name in dtypes:
             dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
             args = decode_inputs(gen, q_dtype=dtype, rows=rows, **shape)
-            nbytes, flops = bytes_and_flops(args, rows)
+            nbytes, flops = bytes_and_flops(args)
 
             def kernel():
                 return api.run("paged_attention", *args, layer,  # noqa: B023
@@ -1685,7 +1701,7 @@ def scan_kernels() -> dict:
         row = compare_and_time(
             label, kernel,
             lambda: api.run("rglru_scan", a, x, backend="ref"),  # noqa
-            None, 3 * a.numel() * 4, 2 * a.numel(), FP32_FLOPS,
+            None, *rglru_bytes_and_flops(a, x), FP32_FLOPS,
             {"kernel": "rglru_scan", "dtype": "float32", "route": taken,
              "chunk": rg.CHUNK, "shape": {"B": b, "S": s_len, "W": 2560},
              "library": "none: no single PyTorch call computes the linear "
@@ -3248,8 +3264,8 @@ def stencil_grid(name, dtype_name) -> dict:
                              f"{check}, broken variant {fault} {broken} "
                              f"({EXACT_RULE})")
     in_bytes = sum(a.numel() * a.element_size() for a in args)
-    nbytes = in_bytes + got.numel() * got.element_size()
-    flops = spec.flops(grid)
+    w = work_of(name, *args)
+    nbytes, flops = w["bytes"], sum(w["flops"].values())
     del got
     nxt = rotating(args, in_bytes)
     tiles = []
@@ -4045,7 +4061,7 @@ def family_kernel_rows(gen) -> dict:
         for k in (1, 4, 128):
             args = decode_inputs(gen, q_dtype=torch.bfloat16, rows=k,
                                  **shape)
-            nbytes, flops = bytes_and_flops(args, k)
+            nbytes, flops = bytes_and_flops(args)
 
             def kernel():
                 return api.run("paged_attention", *args, layer,  # noqa: B023
@@ -5089,6 +5105,735 @@ def phase_train(smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# 13. napel: the cost counter, the dry run, NAPEL and LEAPER on the card
+# ---------------------------------------------------------------------------
+NAPEL_TRAIN = (("mamba2-780m", 48, 4, 2048),        # the train phase's shapes
+               ("recurrentgemma-2b", 26, 1, 4096),
+               ("starcoder2-7b", 8, 2, 2048))
+NAPEL_PREFILL = ("starcoder2-7b", 32, 1, 600)   # the serve phase's model and
+#                                                 its longest prompt
+NAPEL_WORKERS = 6            # processes of the meta counts (8 cores)
+NAPEL_CARD_POINTS = 10       # corpus points trained on the card ...
+NAPEL_CARD_BYTES = 60e9      # ... whose counted live bytes fit in this
+NAPEL_SHOTS = (1, 3, 5)
+NAPEL_TIMED_STEPS = 3
+ENERGY_LOOP_S = 2.5          # each energy loop runs at least this long
+DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch"
+CORPUS_OUT = ROOT / "experiments" / "napel_corpus_torch"
+# dry-run cells allowed to end in "error", with the reason PERF.md gives
+# (substring of the recorded error); none today
+DRYRUN_KNOWN_ERRORS: dict = {}
+COUNT_KEYS = ("flops_by_class", "bytes_accessed", "bytes_accessed_fused",
+              "transcendentals", "collectives", "kernels", "kernel_routes")
+
+
+def logged_count(fn, *args, inspect=False):
+    """(fn(*args), summary, kernel entries, op log, the counter): one call
+    under `CostCounter`, each counted op logged with its output shapes so
+    two counts that differ show where."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.core.hlo_cost import CostCounter
+    log = []
+
+    class Logged(CostCounter):
+        def _count(self, func, a, kw, out):
+            shapes = [tuple(t.shape) for t in tree_leaves(out)
+                      if isinstance(t, torch.Tensor)]
+            log.append(f"{func} {shapes}")
+            return super()._count(func, a, kw, out)
+
+    t0 = time.perf_counter()
+    with Logged(inspect=inspect) as c:
+        out = fn(*args)
+    c.count_s = time.perf_counter() - t0
+    entries = [(e["kernel"], e["route"], e["bytes"], e["flops"])
+               for e in c.entries]
+    return out, c.summary(), entries, log, c
+
+
+def napel_tokens(cfg, batch: int, seq: int, device: str):
+    """Seeded int32 tokens (batch, seq) on `device`; on ``meta``, their
+    shape."""
+    if device == "meta":
+        return torch.empty(batch, seq, dtype=torch.int32, device="meta")
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def napel_train_inputs(cfg, batch: int, seq: int, device: str):
+    """(model, train step, state, batch) of `cfg` on `device` ("meta"
+    builds nothing): seeded weights, a fresh AdamW state, tokens
+    (`napel_tokens`; labels the same tensor)."""
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+    model = Model(cfg, device=device, seed=0)
+    oc = OptimizerConfig()
+    step = make_train_step(model, oc, num_microbatches=cfg.train_microbatches)
+    tok = napel_tokens(cfg, batch, seq, device)
+    return model, step, init_state(model, oc), {"tokens": tok, "labels": tok}
+
+
+def napel_prefill_inputs(cfg, batch: int, seq: int, device: str):
+    """(model, prefill step, tokens) of `cfg` on `device`."""
+    from repro_torch.models import Model
+    from repro_torch.serve.steps import make_prefill_step
+    model = Model(cfg, device=device, seed=0)
+    return model, make_prefill_step(model), napel_tokens(cfg, batch, seq,
+                                                         device)
+
+
+def _napel_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    return get_config(arch, num_layers=layers)
+
+
+def meta_task(task):
+    """One count on ``meta`` in a worker process: ("dryrun", arch, shape)
+    -> its record (written under experiments/dryrun_torch/); ("corpus",
+    tag, params) -> its record (under experiments/napel_corpus_torch/);
+    ("train" | "prefill", arch, layers, batch, seq) -> (summary, entries,
+    op log, {"count_s", "live_bytes"})."""
+    src = str(ROOT / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    torch.set_num_threads(1)
+    kind = task[0]
+    if kind == "dryrun":
+        from repro_torch.launch.dryrun import run_cell
+        return run_cell(task[1], task[2], out_dir=DRYRUN_OUT, force=True)
+    if kind == "corpus":
+        from repro_torch.core.napel.corpus import (compile_and_measure,
+                                                   make_cfg, train_shape)
+        tag, p = task[1], dict(task[2])
+        cfg = make_cfg(p)
+        rec = {**compile_and_measure(cfg, train_shape(p)), "status": "ok",
+               "tag": tag, "params": p, "mesh": [1, 1]}
+        CORPUS_OUT.mkdir(parents=True, exist_ok=True)
+        (CORPUS_OUT / f"{tag}__{cfg.name}__1x1.json").write_text(
+            json.dumps(rec))
+        return rec
+    from repro_torch.launch.dryrun import storage_bytes
+    arch, layers, batch, seq = task[1:]
+    cfg = _napel_cfg(arch, layers)
+    if kind == "train":
+        _, step, state, b = napel_train_inputs(cfg, batch, seq, "meta")
+        _, summary, entries, log, c = logged_count(step, state, b)
+        live = storage_bytes((state, b)) + summary["peak_live_bytes"]
+    else:
+        model, step, tok = napel_prefill_inputs(cfg, batch, seq, "meta")
+        _, summary, entries, log, c = logged_count(step, tok)
+        live = storage_bytes((model.params, tok)) + summary["peak_live_bytes"]
+    return summary, entries, log, {"count_s": c.count_s, "live_bytes": live}
+
+
+def napel_meta_counts() -> dict:
+    """Every meta count of the phase, in `NAPEL_WORKERS` processes: the
+    dry run's cells, the corpus points and the count part's steps."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.core.napel.corpus import corpus_points
+    from repro_torch.launch.dryrun import all_cells
+    tasks = [("train", *t) for t in NAPEL_TRAIN] \
+        + [("prefill", *NAPEL_PREFILL)] \
+        + [("dryrun", a, s) for a, s in all_cells()] \
+        + [("corpus", tag, tuple(sorted(p.items())))
+           for tag, p in corpus_points()]
+    # the slowest first, so the pool ends together
+    tasks.sort(key=lambda t: t[0] not in ("train",))
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(NAPEL_WORKERS,
+                                                mp_context=ctx) as pool:
+        results = dict(zip(tasks, pool.map(meta_task, tasks)))
+    return {"results": results, "wall_s": time.perf_counter() - t0}
+
+
+def _step_ms(fn, steps: int = NAPEL_TIMED_STEPS) -> list:
+    """`steps` calls of `fn`, each timed by CUDA events (ms)."""
+    out = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def compare_counts(label, meta, card) -> None:
+    """Raise unless the meta and card counts agree on `COUNT_KEYS` and
+    on every kernel entry; show the first ops where the logs part."""
+    import difflib
+    m_sum, m_ent, m_log = meta[:3]
+    c_sum, c_ent, c_log = card[:3]
+    bad = [k for k in COUNT_KEYS if m_sum[k] != c_sum[k]]
+    if m_ent != c_ent:
+        bad.append("entries")
+    if bad:
+        diff = list(itertools.islice(difflib.unified_diff(
+            m_log, c_log, "meta", "card", lineterm="", n=1), 40))
+        raise AssertionError(
+            f"{label}: meta and card counts differ in {bad}: "
+            f"{ {k: (m_sum[k], c_sum[k]) for k in bad if k in m_sum} }\n"
+            + "\n".join(diff))
+
+
+def napel_count_row(label, kind, meta, step_fn, cfg, shape, live_meta):
+    """The card's count of one step (a warm call first) against the meta
+    count, launches against entries, then the step timed; returns the
+    row and the launches of the counted and timed calls."""
+    from repro_torch.core import hlo_inspect
+    from repro_torch.core.roofline import (H100_SXM, compute_seconds,
+                                           model_flops, roofline_terms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_fn()
+    torch.cuda.synchronize()
+    warm = read_launches()
+    reset_launches()
+    _, summary, entries, log, c = logged_count(step_fn, inspect=True)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    compare_counts(label, meta, (summary, entries, log))
+    for name, k in summary["kernels"].items():
+        if launched[name] != k["entries"]:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launched[name]} times, counted "
+                                 f"{k['entries']} entries")
+    ms = _step_ms(step_fn)
+    total = _add(dict(warm), read_launches())      # counted + timed
+    step_s = statistics.median(ms) / 1e3
+    rl = roofline_terms(summary["flops_by_class"],
+                        summary["bytes_accessed_fused"],
+                        summary["collectives"]["total_bytes"], H100_SXM)
+    mf = model_flops(cfg, shape, 1)
+    row = {"phase": "napel", "part": "count", "case": label, "kind": kind,
+           "equal_meta_card": list(COUNT_KEYS) + ["entries"],
+           "flops": summary["flops"],
+           "flops_by_class": summary["flops_by_class"],
+           "bytes_fused": summary["bytes_accessed_fused"],
+           "bytes_unfused": summary["bytes_accessed"],
+           "ops": summary["ops"], "kernels": summary["kernels"],
+           "kernel_routes": summary["kernel_routes"],
+           "launches_counted_step": {k: v for k, v in launched.items() if v},
+           "step_ms": statistics.median(ms), "step_ms_all": ms,
+           "timing": f"cuda events, median of {NAPEL_TIMED_STEPS} after a "
+                     f"warm step",
+           "bound_ms": rl["step_time_bound_s"] * 1e3,
+           "bottleneck": rl["bottleneck"],
+           "compute_bound_ms": compute_seconds(summary["flops_by_class"],
+                                               H100_SXM) * 1e3,
+           "memory_bound_ms": rl["memory_s"] * 1e3,
+           "bound_share": rl["step_time_bound_s"] / step_s,
+           "model_flops": mf,
+           "model_flops_share": mf / (step_s * H100_SXM.peak_flops),
+           "counted_flops_share": summary["flops"] /
+           (step_s * H100_SXM.peak_flops),
+           "dryrun_live_gb": live_meta / 1e9,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "count_s_meta": meta[3]["count_s"], "count_s_card": c.count_s,
+           "top_bytes_ops": hlo_inspect.top_bytes_ops(c, 10)}
+    emit(row)
+    return row, total
+
+
+def napel_count(meta_results) -> tuple:
+    """Part ``count``: the three train steps of `NAPEL_TRAIN` and the
+    prefill of `NAPEL_PREFILL`, each counted on meta (in the pool) and on
+    the card."""
+    from repro_torch.configs.base import InputShape
+    rows, launches = [], {}
+    for arch, layers, batch, seq in NAPEL_TRAIN:
+        cfg = _napel_cfg(arch, layers)
+        meta = meta_results[("train", arch, layers, batch, seq)]
+        model, step, state, b = napel_train_inputs(cfg, batch, seq, "cuda")
+        row, n = napel_count_row(
+            f"{arch} train, {layers} layers, {batch} x {seq}", "train",
+            meta, lambda: step(state, b), cfg,  # noqa: B023
+            InputShape("train", seq, batch, "train"), meta[3]["live_bytes"])
+        rows.append(row)
+        _add(launches, n)
+        del model, step, state, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    arch, layers, batch, seq = NAPEL_PREFILL
+    cfg = _napel_cfg(arch, layers)
+    meta = meta_results[("prefill", arch, layers, batch, seq)]
+    model, step, tok = napel_prefill_inputs(cfg, batch, seq, "cuda")
+    with torch.no_grad():
+        row, n = napel_count_row(
+            f"{arch} prefill, {layers} layers, {batch} x {seq}", "prefill",
+            meta, lambda: step(tok), cfg,
+            InputShape("prefill", seq, batch, "prefill"),
+            meta[3]["live_bytes"])
+    rows.append(row)
+    _add(launches, n)
+    del model, step, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def napel_dryrun(meta_results, wall_s) -> list:
+    """Part ``dryrun``: every arch x `shapes_for` cell at 1x1, counted in
+    the pool; fails on an error whose reason PERF.md does not list."""
+    cells = []
+    for task, rec in meta_results.items():
+        if task[0] != "dryrun":
+            continue
+        cell = {"arch": rec["arch"], "shape": rec["shape"],
+                "status": rec["status"], "wall_s": rec["wall_s"]}
+        if rec["status"] == "ok":
+            cell.update(
+                flops=rec["cost"]["flops_per_device"],
+                bytes_fused=rec["cost"]["bytes_per_device"],
+                bytes_unfused=rec["cost"]["bytes_per_device_unfused"],
+                live_gb=rec["memory"]["live_bytes_per_device"] / 1e9,
+                fits_hbm=rec["memory"]["fits_hbm"],
+                bottleneck=rec["roofline"]["bottleneck"],
+                bound_s=rec["roofline"]["step_time_bound_s"],
+                kernels={k: v["entries"] for k, v in rec["kernels"].items()},
+                count_s=rec["count_s"])
+        else:
+            cell["error"] = rec["error"]
+            known = DRYRUN_KNOWN_ERRORS.get((rec["arch"], rec["shape"]))
+            if known is None or known not in rec["error"]:
+                raise AssertionError(f"dry run {rec['arch']} "
+                                     f"{rec['shape']}: {rec['error']}\n"
+                                     f"{rec.get('traceback', '')}")
+        cells.append(cell)
+    emit({"phase": "napel", "part": "dryrun", "mesh": "1x1",
+          "hardware": "h100_sxm", "cells": cells,
+          "ok": sum(c["status"] == "ok" for c in cells),
+          "pool_wall_s": wall_s,
+          "out_dir": str(DRYRUN_OUT.relative_to(ROOT))})
+    return cells
+
+
+class Nvml:
+    """NVML's energy counter and power reading through ctypes on
+    ``libnvidia-ml.so.1`` (no package): device 0, the one card."""
+
+    def __init__(self):
+        import ctypes
+        self.ct = ctypes
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        self._ok(self.lib.nvmlInit_v2(), "nvmlInit_v2")
+        self.handle = ctypes.c_void_p()
+        self._ok(self.lib.nvmlDeviceGetHandleByIndex_v2(
+            0, ctypes.byref(self.handle)), "nvmlDeviceGetHandleByIndex_v2")
+
+    def _ok(self, rc, name):
+        if rc != 0:
+            raise RuntimeError(f"NVML {name} returned {rc}")
+
+    def energy_j(self) -> float:
+        """The card's energy counter, joules (it only grows)."""
+        mj = self.ct.c_ulonglong()
+        self._ok(self.lib.nvmlDeviceGetTotalEnergyConsumption(
+            self.handle, self.ct.byref(mj)),
+            "nvmlDeviceGetTotalEnergyConsumption")
+        return mj.value / 1e3
+
+    def power_w(self) -> float:
+        mw = self.ct.c_uint()
+        self._ok(self.lib.nvmlDeviceGetPowerUsage(
+            self.handle, self.ct.byref(mw)), "nvmlDeviceGetPowerUsage")
+        return mw.value / 1e3
+
+    def close(self):
+        self.lib.nvmlShutdown()
+
+
+def energy_window(nvml, fn, min_s: float) -> dict:
+    """Run `fn` (one unit of work, enqueued) repeatedly for at least
+    `min_s` seconds of device time; the card's joules and seconds over
+    the window and the units run."""
+    torch.cuda.synchronize()
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    n = 0
+    while True:
+        for _ in range(8):
+            fn()
+        n += 8
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= min_s:
+            break
+    e1, t1 = nvml.energy_j(), time.perf_counter()
+    return {"joules": e1 - e0, "s": t1 - t0, "units": n}
+
+
+def napel_energy(smi) -> dict:
+    """Part ``energy``: the card's idle power, then a bf16 matmul loop and
+    an HBM copy loop of at least `ENERGY_LOOP_S` each under NVML's
+    energy counter. Fits pJ per HBM byte from the copy (its whole energy
+    over its bytes, idle included) and pJ per flop from the matmul (its
+    energy less its bytes' share, over its flops); the idle-subtracted
+    constants beside them."""
+    nvml = Nvml()
+    try:
+        torch.cuda.synchronize()
+        time.sleep(0.5)
+        e0, t0 = nvml.energy_j(), time.perf_counter()
+        time.sleep(1.5)
+        idle_w = (nvml.energy_j() - e0) / (time.perf_counter() - t0)
+        idle_read_w = nvml.power_w()
+        n = 8192
+        a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+        b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+        c = torch.empty(n, n, device="cuda", dtype=torch.bfloat16)
+        for _ in range(3):
+            torch.mm(a, b, out=c)
+        mm = energy_window(nvml, lambda: torch.mm(a, b, out=c),
+                           ENERGY_LOOP_S)
+        mm_flops = mm["units"] * 2 * n ** 3
+        mm_bytes = mm["units"] * 3 * n * n * 2
+        del a, b, c
+        src = torch.empty(2 ** 30, device="cuda", dtype=torch.uint8)
+        dst = torch.empty_like(src)
+        src.fill_(1)
+        for _ in range(3):
+            dst.copy_(src)
+        cp = energy_window(nvml, lambda: dst.copy_(src), ENERGY_LOOP_S)
+        cp_bytes = cp["units"] * 2 * src.numel()
+        del src, dst
+        torch.cuda.empty_cache()
+        pj_byte = cp["joules"] / cp_bytes * 1e12
+        pj_flop = (mm["joules"] - pj_byte * 1e-12 * mm_bytes) / mm_flops \
+            * 1e12
+        dyn_byte = (cp["joules"] - idle_w * cp["s"]) / cp_bytes * 1e12
+        dyn_flop = (mm["joules"] - idle_w * mm["s"]
+                    - dyn_byte * 1e-12 * mm_bytes) / mm_flops * 1e12
+        row = {"phase": "napel", "part": "energy", "nvidia_smi": smi,
+               "total_memory_bytes":
+                   torch.cuda.get_device_properties(0).total_memory,
+               "total_memory_gib":
+                   torch.cuda.get_device_properties(0).total_memory / 2 ** 30,
+               "idle_w": idle_w, "idle_power_usage_w": idle_read_w,
+               "matmul": {**mm, "n": n, "flops": mm_flops,
+                          "bytes": mm_bytes, "watts": mm["joules"] / mm["s"],
+                          "tflops": mm_flops / mm["s"] / 1e12},
+               "copy": {**cp, "bytes": cp_bytes,
+                        "watts": cp["joules"] / cp["s"],
+                        "tb_per_s": cp_bytes / cp["s"] / 1e12},
+               "pj_per_flop": pj_flop, "pj_per_hbm_byte": pj_byte,
+               "dynamic_pj_per_flop": dyn_flop,
+               "dynamic_pj_per_hbm_byte": dyn_byte,
+               "rule": "total energy of each loop (idle included) over its "
+                       "work: pJ/byte = copy J / bytes; pJ/flop = (matmul J "
+                       "- pJ/byte x its bytes) / flops; dynamic_* subtract "
+                       "idle W x s first"}
+        if not (0 < pj_flop and 0 < pj_byte):
+            raise AssertionError(f"energy fit not positive: {row}")
+        emit(row)
+        return row
+    finally:
+        nvml.close()
+
+
+def step_energy(nvml, fn, min_s: float = 1.0) -> dict:
+    """A step timed by CUDA events and its joules: steps back to back for
+    at least `min_s`, energy over all of them divided by their count."""
+    torch.cuda.synchronize()
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    ms = []
+    while True:
+        ms += _step_ms(fn, 1)
+        if time.perf_counter() - t0 >= min_s and len(ms) >= 3:
+            break
+    e1 = nvml.energy_j()
+    return {"ms": statistics.median(ms), "ms_all": ms,
+            "joules": (e1 - e0) / len(ms), "steps": len(ms)}
+
+
+def napel_learners(records):
+    """bench_napel's evaluation on the port's corpus: RF, ANN and DT fitted
+    on the DoE points' log residuals over the analytic napkin, per target
+    (flops, bytes, coll). Returns (learners by name: [model per target],
+    features and napkin of a record)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.napel.baselines import DecisionTree, MLPRegressor
+    from repro_torch.core.napel.corpus import corpus_features, make_cfg
+    from repro_torch.core.napel.features import analytic_costs
+    from repro_torch.core.napel.forest import RandomForest
+
+    def fa(r):
+        p = r["params"]
+        sh = InputShape("t", p["seq"], p["batch"], "train")
+        return corpus_features(r), analytic_costs(make_cfg(p), sh,
+                                                  tuple(r["mesh"]))
+
+    doe = [r for r in records if r["tag"] == "doe"]
+    x, a = map(np.stack, zip(*[fa(r) for r in doe]))
+    makers = {"rf": lambda: RandomForest(n_trees=80, max_depth=10,
+                                         min_samples_leaf=1,
+                                         max_features=x.shape[1]),
+              "ann": lambda: MLPRegressor(epochs=300),
+              "dt": lambda: DecisionTree()}
+    learners = {}
+    for name, mk in makers.items():
+        learners[name] = [
+            mk().fit(x, np.log2([r[t] for r in doe]) - np.log2(a[:, i]))
+            for i, t in enumerate(("flops", "bytes", "coll"))]
+    return learners, fa
+
+
+def napel_predict(models, fa, recs) -> list:
+    """(flops, bytes, coll) predicted for each record."""
+    x, a = map(np.stack, zip(*[fa(r) for r in recs]))
+    return [tuple(float(2.0 ** m.predict(x[j:j + 1])[0] * a[j, i])
+                  for i, m in enumerate(models)) for j in range(len(recs))]
+
+
+def napel_corpus(meta_results, energy, nvml_smi) -> tuple:
+    """Part ``corpus``: NAPEL's RF / ANN / DT on the DoE points, MRE on the
+    test points for flops, bytes, step time and energy (the H100 entry
+    with the energy part's constants), predict µs against the count's
+    wall time; then the
+    train step on the card at the `NAPEL_CARD_POINTS` cheapest corpus
+    points whose counted live bytes fit `NAPEL_CARD_BYTES`, measured ms
+    and joules beside the predictions."""
+    import dataclasses
+    from repro_torch.core.napel.corpus import make_cfg
+    from repro_torch.core.napel.forest import mean_relative_error
+    from repro_torch.core.napel.model import energy_joules
+    from repro_torch.core.roofline import H100_SXM, roofline_terms
+    hw = dataclasses.replace(H100_SXM, pj_per_flop=energy["pj_per_flop"],
+                             pj_per_hbm_byte=energy["pj_per_hbm_byte"])
+    records = [r for t, r in meta_results.items() if t[0] == "corpus"]
+    test = [r for r in records if r["tag"] == "test"]
+    t0 = time.perf_counter()
+    learners, fa = napel_learners(records)
+    train_s = time.perf_counter() - t0
+    mre = {}
+    for name, models in learners.items():
+        pred = napel_predict(models, fa, test)
+        row = {}
+        for i, t in enumerate(("flops", "bytes", "coll")):
+            row[f"{t}_mre"] = mean_relative_error(
+                [p[i] for p in pred], [r[t] for r in test])
+        row["perf_mre"] = mean_relative_error(
+            [roofline_terms(*p, hw)["step_time_bound_s"] for p in pred],
+            [roofline_terms(r["flops"], r["bytes"], r["coll"], hw)
+             ["step_time_bound_s"] for r in test])
+        row["energy_mre"] = mean_relative_error(
+            [energy_joules(*p, hw) for p in pred],
+            [energy_joules(r["flops"], r["bytes"], r["coll"], hw)
+             for r in test])
+        mre[name] = row
+    x_test = np.stack([fa(r)[0] for r in test])
+    rf_flops = learners["rf"][0]
+    t0 = time.perf_counter()
+    for _ in range(50):
+        rf_flops.predict(x_test)
+    predict_us = (time.perf_counter() - t0) / 50 / len(test) * 1e6
+    count_s = float(np.mean([r["compile_s"] for r in test]))
+    # the card
+    fits = sorted((r for r in records if r["live_bytes"] <= NAPEL_CARD_BYTES),
+                  key=lambda r: r["flops"])[:NAPEL_CARD_POINTS]
+    preds = napel_predict(learners["rf"], fa, fits)
+    nvml = Nvml()
+    points, launches = [], {}
+    try:
+        for r, pred in zip(fits, preds):
+            p = r["params"]
+            cfg = make_cfg(p)
+            model, step, state, b = napel_train_inputs(
+                cfg, p["batch"], p["seq"], "cuda")
+            reset_launches()
+            step(state, b)                                   # warm
+            m = step_energy(nvml, lambda: step(state, b))  # noqa: B023
+            _add(launches, read_launches())
+            bound = roofline_terms(r["flops_by_class"], r["bytes"],
+                                   r["coll"], hw)["step_time_bound_s"]
+            points.append({
+                "tag": r["tag"], "params": p, "flops": r["flops"],
+                "bytes": r["bytes"], "live_gb": r["live_bytes"] / 1e9,
+                "ms": m["ms"], "joules": m["joules"], "steps": m["steps"],
+                "counted_bound_ms": bound * 1e3,
+                "counted_energy_j": energy_joules(r["flops"], r["bytes"],
+                                                  r["coll"], hw),
+                "napel_step_ms": roofline_terms(*pred, hw)
+                ["step_time_bound_s"] * 1e3,
+                "napel_energy_j": energy_joules(*pred, hw)})
+            del model, step, state, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        nvml.close()
+    row = {"phase": "napel", "part": "corpus", "nvidia_smi": nvml_smi,
+           "points": len(records), "doe": len(records) - len(test),
+           "test": len(test), "mre_on_test_points": mre,
+           "learners": {"rf": "RandomForest(80 trees, depth 10)",
+                        "ann": "MLPRegressor(300 epochs)",
+                        "dt": "DecisionTree()"},
+           "train_all_s": train_s, "predict_us": predict_us,
+           "count_s": count_s, "speedup_over_count": count_s * 1e6 /
+           predict_us,
+           "card_points": points,
+           "card_ms_over_bound": [q["ms"] / q["counted_bound_ms"]
+                                  for q in points],
+           "card_joules_over_counted": [q["joules"] / q["counted_energy_j"]
+                                        for q in points],
+           "out_dir": str(CORPUS_OUT.relative_to(ROOT))}
+    emit(row)
+    if len(points) < 8:
+        raise AssertionError(f"{len(points)} corpus points fit "
+                             f"{NAPEL_CARD_BYTES:.0f} bytes, want 8")
+    return row, launches
+
+
+NAPEL_KNEE_K = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+NAPEL_KNEE_MN = 8192
+
+
+def napel_platform(energy) -> dict:
+    """The h100 `Platform`'s efficiency parameters from the card: mem_eff
+    from the energy part's copy loop, launch_overhead_s from empty
+    launches (``torch.cuda._sleep(0)``) back to back, compute_eff_knee
+    fitted to bf16 matmuls of rising arithmetic intensity: M = N =
+    `NAPEL_KNEE_MN`, K in `NAPEL_KNEE_K` (each long enough that its
+    launch does not set its time), ai = 2 M N K / (2 (M K + K N + M N)),
+    ceff = its flops / (its time x the bf16 peak), the knee minimising the
+    squared error of ceff = ai / (ai + knee)."""
+    from repro_torch.core.roofline import H100_SXM
+    mem_eff = energy["copy"]["tb_per_s"] * 1e12 / H100_SXM.hbm_bw
+    torch.cuda.synchronize()
+    for _ in range(100):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    launch_s = (time.perf_counter() - t0) / 2000
+    sweep = []
+    mn = NAPEL_KNEE_MN
+    c = torch.empty(mn, mn, device="cuda", dtype=torch.bfloat16)
+    for k in NAPEL_KNEE_K:
+        a = torch.randn(mn, k, device="cuda", dtype=torch.bfloat16)
+        b = torch.randn(k, mn, device="cuda", dtype=torch.bfloat16)
+        reps = max(10, min(400, int(4e13 / (mn * mn * k))))
+        for _ in range(3):
+            torch.mm(a, b, out=c)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            torch.mm(a, b, out=c)
+        end.record()
+        end.synchronize()
+        sec = start.elapsed_time(end) / 1e3 / reps
+        flops = 2 * mn * mn * k
+        sweep.append({"m": mn, "n": mn, "k": k,
+                      "ai": flops / (2 * (mn * k + k * mn + mn * mn)),
+                      "s": sec, "ceff": flops / sec / H100_SXM.peak_flops})
+        del a, b
+    del c
+    ai = np.array([p["ai"] for p in sweep])
+    ceff = np.array([p["ceff"] for p in sweep])
+    grid = np.exp(np.linspace(np.log(1.0), np.log(1e5), 4001))
+    err = [np.sum((ai / (ai + k) - ceff) ** 2) for k in grid]
+    knee = float(grid[int(np.argmin(err))])
+    return {"compute_eff_knee": knee, "mem_eff": mem_eff, "coll_eff": 1.0,
+            "launch_overhead_s": launch_s, "matmul_sweep": sweep,
+            "knee_rms_error": float(np.sqrt(min(err) / len(sweep)))}
+
+
+def napel_leaper(meta_results, corpus_row, energy) -> dict:
+    """Part ``leaper``: base learners trained on the h100 `Platform`'s
+    labels (its parameters fitted on the card here) over every corpus
+    point; `Leaper.transfer` on 1, 3 and 5 shots of the card's measured
+    step times, accuracy (100 - MRE%) on the other measured points beside
+    a forest trained from scratch on the same shots and the platform
+    model alone."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.leaper import transfer as lp
+    from repro_torch.core.napel.corpus import corpus_features
+    from repro_torch.core.napel.forest import (RandomForest,
+                                               mean_relative_error)
+    from repro_torch.core.roofline import H100_SXM
+    fit = napel_platform(energy)
+    platform = lp.Platform(H100_SXM, fit["compute_eff_knee"],
+                           fit["mem_eff"], fit["coll_eff"],
+                           fit["launch_overhead_s"])
+    platforms = {"h100": platform}
+    records = [r for t, r in meta_results.items() if t[0] == "corpus"]
+
+    def cell(r):
+        return SimpleNamespace(flops=r["flops"], bytes_=r["bytes"],
+                               coll=r["coll"])
+
+    feats = lp.invariant_features([cell(r) for r in records],
+                                  np.stack([corpus_features(r)
+                                            for r in records]))
+    y_src = lp.platform_labels("h100", [cell(r) for r in records],
+                               platforms=platforms)
+    bases = lp.base_learners(feats, y_src, seed=0)
+    key = {json.dumps(r["params"], sort_keys=True): i
+           for i, r in enumerate(records)}
+    measured = corpus_row["card_points"]
+    idx_m = [key[json.dumps(q["params"], sort_keys=True)] for q in measured]
+    x = feats[idx_m]
+    y = np.log2([q["ms"] / 1e3 for q in measured])
+    order = np.random.default_rng(0).permutation(len(measured))
+    out = {}
+    for shots in NAPEL_SHOTS:
+        s_idx, t_idx = order[:shots], order[shots:]
+        learner = lp.Leaper(bases, 0).transfer(x[s_idx], y[s_idx])
+        mre_t = mean_relative_error(2.0 ** learner.predict(x[t_idx]),
+                                    2.0 ** y[t_idx])
+        if shots >= 2:
+            scratch = RandomForest(n_trees=30, seed=0).fit(x[s_idx],
+                                                           y[s_idx])
+            mre_s = mean_relative_error(2.0 ** scratch.predict(x[t_idx]),
+                                        2.0 ** y[t_idx])
+        else:
+            mre_s = None
+        mre_p = mean_relative_error(2.0 ** y_src[idx_m][t_idx],
+                                    2.0 ** y[t_idx])
+        out[shots] = {"leaper_acc_pct": 100 * (1 - min(mre_t, 1.0)),
+                      "scratch_acc_pct": None if mre_s is None
+                      else 100 * (1 - min(mre_s, 1.0)),
+                      "platform_model_acc_pct": 100 * (1 - min(mre_p, 1.0)),
+                      "n_test": len(t_idx)}
+    module = lp.PLATFORMS["h100"]
+    row = {"phase": "napel", "part": "leaper", "platform_fit": fit,
+           "platform_in_port": {k: getattr(module, k) for k in (
+               "compute_eff_knee", "mem_eff", "coll_eff",
+               "launch_overhead_s")},
+           "base_learners": len(bases), "source_cells": len(records),
+           "measured_points": len(measured), "by_shots": out}
+    emit(row)
+    return row
+
+
+def phase_napel(smi: str) -> dict:
+    """The thesis's data-driven models on the card, one JSON line per
+    part: ``count``, ``dryrun``, ``energy``, ``corpus``, ``leaper`` (see
+    the module docstring). Returns the card's kernel launches."""
+    t0 = time.perf_counter()
+    meta = napel_meta_counts()
+    results = meta["results"]
+    napel_dryrun(results, meta["wall_s"])
+    _, launches = napel_count(results)
+    energy = napel_energy(smi)
+    corpus_row, corpus_launches = napel_corpus(results, energy, smi)
+    _add(launches, corpus_launches)
+    napel_leaper(results, corpus_row, energy)
+    emit({"phase": "napel", "part": "done", "launches": launches,
+          "meta_pool_s": meta["wall_s"],
+          "wall_s": time.perf_counter() - t0})
+    return launches
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -5128,7 +5873,7 @@ def kernels_line(full, launches, stencil=None) -> dict:
 
 
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "families", "hybrid", "train", "stencil", "sibyl")
+          "families", "hybrid", "train", "napel", "stencil", "sibyl")
 
 
 def main(argv=None) -> int:
@@ -5190,6 +5935,10 @@ def main(argv=None) -> int:
         # the training path launches flash, SSD and RG-LRU at new shapes:
         # its trainers' counts join the serving and hybrid phases'
         _add(launches, phase_train(dev["nvidia_smi"]))
+    if run("napel"):
+        # the counted and timed steps launch flash, SSD and RG-LRU: their
+        # counts join the other phases'
+        _add(launches, phase_napel(dev["nvidia_smi"]))
     stencil = None
     if run("stencil"):
         stencil, stencil_launches = phase_stencil()

@@ -174,6 +174,30 @@ class ModelConfig:
         return n - n_moe_layers * (per_layer_moe - active)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str    # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shapes_for(cfg: ModelConfig) -> list[InputShape]:
+    """The assigned shape cells for an architecture (long_500k only for
+    sub-quadratic archs, per assignment)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        out.append(LONG_500K)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -188,10 +212,7 @@ def register(name: str):
 
 
 def _load_builtin():
-    from repro_torch.configs import (  # noqa: F401  (populate registry)
-        codeqwen15_7b, granite_moe_3b_a800m, llama3_405b, llama32_vision_11b,
-        mamba2_780m, minicpm3_4b, musicgen_medium, qwen3_moe_30b_a3b,
-        recurrentgemma_2b, starcoder2_7b)
+    import repro_torch.configs.all_archs  # noqa: F401  (populate registry)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -13,7 +13,9 @@ version. On CPU tensors it runs the plain version
 (`repro_torch.kernels.flash_attention.ref`). ``flash_attention.launches``
 counts kernel launches, ``flash_attention.launches_by_route`` splits them
 by route, and ``flash_attention.plain_calls`` counts the calls that went
-to the plain version because the tensors lay on the CPU.
+to the plain version because the tensors lay on the CPU. Under the cost
+counter (`repro_torch.core.hlo_cost`) a call is one entry of its
+function's work (`spec.work`; `repro_torch.kernels.count`).
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through `FlashAttentionFn`: the forward as above, the backward by
@@ -30,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import count
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
@@ -132,6 +135,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _forward(q, k, v, *, causal, window, softmax_scale):
+    def work():
+        from repro_torch.kernels.flash_attention.spec import work
+        return work(q, k, v, causal=causal, window=window)
+
+    return count.call(
+        "flash_attention", q.device, lambda: route(q.dtype, q.shape[-1]),
+        work, lambda: _run(q, k, v, causal=causal, window=window,
+                           softmax_scale=softmax_scale),
+        lambda: torch.empty_like(q))
+
+
+def _run(q, k, v, *, causal, window, softmax_scale):
     if not q.is_cuda:
         flash_attention.plain_calls += 1
         return ref.attention(q, k, v, causal=causal, window=window,

@@ -8,10 +8,17 @@ no tunable tiles: the wgmma route (bf16, d = 64, 128, 256) runs 128 query
 positions of one head per block against key tiles of 128 (64 at d =
 256); the simt route about 64 query rows per block (positions times the
 g heads of a kv head) against key tiles of 32.
+
+`work` is the function's least work, the same for every route and for
+the plain version: the bytes of q, k, v and the output, each once, and
+4 d flops per (query, key) pair the causal mask or the window lets
+through. The cost counter (`repro_torch.core.hlo_cost`) records it for
+each call and `chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.api import KernelCase, KernelSpec
@@ -19,6 +26,36 @@ from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 
 DEFAULT_SHAPE = {"b": 2, "sq": 128, "skv": 128, "hq": 4, "hkv": 2, "d": 64}
+
+
+def visible_pairs(sq: int, skv: int, causal: bool = True,
+                  window: int = 0) -> int:
+    """(query, key) pairs the mask lets through, queries and keys aligned
+    at 0: with `causal` key kp is visible to query qp when kp <= qp, with
+    `window` when kp > qp - window (the sum over queries in closed
+    form)."""
+    if causal:
+        m = min(sq, skv)
+        pairs = m * (m + 1) // 2 + (sq - m) * skv
+    else:
+        pairs = sq * skv
+    if window:
+        n = max(0, sq - window)
+        pairs -= n * (n + 1) // 2
+    return pairs
+
+
+def work(q, k, v, *, causal: bool = True, window: int = 0,
+         softmax_scale=None) -> dict:
+    """{"bytes", "flops": {rate class: flops}} of one call: q, k, v and
+    the output each once; 4 d flops per visible pair (`visible_pairs`),
+    on the tensor cores ("bf16") for bf16 inputs, else "fp32"."""
+    del softmax_scale
+    b, sq, hq, d = q.shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * b * hq * d * visible_pairs(sq, k.shape[1], causal, window)
+    cls = "bf16" if q.dtype in (torch.bfloat16, torch.float16) else "fp32"
+    return {"bytes": nbytes, "flops": {cls: flops}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

@@ -13,7 +13,8 @@ CPU tensors it runs the plain version (`repro_torch.kernels.hdiff.ref.hdiff`),
 and the tile has no effect. ``hdiff.launches`` counts kernel launches,
 ``hdiff.launches_by_route`` splits them by route and ``hdiff.plain_calls``
 counts the calls that went to the plain version because the tensor lay on
-the CPU.
+the CPU. Under the cost counter (`repro_torch.core.hlo_cost`) a call is
+one entry of its function's work (`spec.work`; `repro_torch.kernels.count`).
 
 The tile names the work of one step: ``tile_x`` x ``tile_y`` cells of
 ``block_z`` planes. The "tma" route is built for the tiles of
@@ -30,6 +31,7 @@ import itertools
 import torch
 
 from repro_torch.core.autotune import MAX_THREADS, SMEM_BYTES
+from repro_torch.kernels import count
 from repro_torch.kernels.hdiff import ref
 
 ROUTES = ("tma", "simt")
@@ -149,6 +151,17 @@ def launch(src, out, tile_x: int, tile_y: int, block_z: int, kind: str,
 def hdiff(src, coeff: float = ref.COEFF, *, tile_x: int = 64,
           tile_y: int = 16, block_z: int = 1):
     """src: (nz, ny, nx) float32 or bfloat16 -> the same, as `ref.hdiff`."""
+    def work():
+        from repro_torch.kernels.hdiff.spec import work
+        return work(src)
+
+    return count.call(
+        "hdiff", src.device, lambda: route(src.dtype, src.shape[-1]), work,
+        lambda: _run(src, coeff, tile_x, tile_y, block_z),
+        lambda: torch.empty_like(src))
+
+
+def _run(src, coeff, tile_x, tile_y, block_z):
     if not src.is_cuda:
         hdiff.plain_calls += 1
         return ref.hdiff(src, coeff)

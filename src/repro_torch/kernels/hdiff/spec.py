@@ -5,6 +5,11 @@ generator are copies of the JAX package's ``repro/kernels/hdiff/spec.py``.
 The tune space and the cost model are the Hopper kernels' own: the tiles
 the "tma" route is built for (see ``csrc/hdiff.cu``), each costed on the
 route its grid takes (`hdiff.route`).
+
+`work` is the function's work, the same for every route and for the
+plain version: the grid read and written once, `FLOPS_PER_POINT` a cell
+off the tensor cores. The cost counter (`repro_torch.core.hlo_cost`)
+records it for each call and `chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
@@ -107,6 +112,14 @@ def hdiff_cost(grid_shape, tile: dict, dtype_bytes: int) -> tuple | None:
     if grid_shape[2] * dtype_bytes % 16 == 0:
         return tma_cost(grid_shape, tile, dtype_bytes)
     return simt_cost(grid_shape, tile, dtype_bytes)
+
+
+def work(src, coeff=None) -> dict:
+    """{"bytes", "flops": {"fp32": flops}} of one call: src and out each
+    once, `FLOPS_PER_POINT` flops a cell."""
+    del coeff
+    return {"bytes": 2 * src.numel() * src.element_size(),
+            "flops": {"fp32": FLOPS_PER_POINT * src.numel()}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

@@ -18,7 +18,10 @@ runs the plain version (`repro_torch.kernels.paged_attention.ref`).
 ``paged_attention.launches_by_route`` splits them by route, and
 ``paged_attention.plain_calls`` counts the calls that went to the plain
 version because the tensors lay on the CPU. The split route's launches
-on one device share a counter buffer: launch them on one stream.
+on one device share a counter buffer: launch them on one stream. Under
+the cost counter (`repro_torch.core.hlo_cost`) a call is one entry of its
+function's work (`spec.work`, which reads the lengths of a real tensor
+and counts capacity on ``meta``; `repro_torch.kernels.count`).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import count
 from repro_torch.kernels.paged_attention import ref
 
 MAX_HEAD_DIM = 256
@@ -197,6 +201,26 @@ def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
     """Same arguments and result as `ref.paged_attention`. Page-table
     entries must name pages of the pool; entries past a sequence's last
     page (``ceil((lengths[b] + k - 1) / T)``) are never read."""
+    args = (q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
+            page_table, lengths, layer)
+
+    def work():
+        from repro_torch.kernels.paged_attention.spec import work
+        return work(*args)
+
+    def card_route():
+        rows = (q.shape[1] if q.ndim == 4 else 1) * (q.shape[-2]
+                                                     // k_pages.shape[-2])
+        return route(q.dtype, rows, q.shape[-1])
+
+    return count.call(
+        "paged_attention", q.device, card_route, work,
+        lambda: _run(*args, softmax_scale=softmax_scale),
+        lambda: torch.empty_like(q))
+
+
+def _run(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
+         page_table, lengths, layer, *, softmax_scale):
     if not q.is_cuda:
         paged_attention.plain_calls += 1
         return ref.paged_attention(q, k_pages, v_pages, k_quant, v_quant,

@@ -6,6 +6,14 @@ tests and `chip_smoke.py` hold the kernel to the same cases; one wide
 case of the port's own follows them. The launch shape is fixed (one block
 per sequence, kv head and 64 query rows), so the spec has no tunable
 tiles yet.
+
+`work` is the function's least work, the same for every route and for
+the plain version: q and the output once, and for every position a row
+can see the float, int8 and scale entries of K and V once. It depends on
+the lengths: on a real tensor it reads them (from the card, a sync), on
+``meta`` it counts every sequence at the table's capacity, and the
+record says which. The cost counter (`repro_torch.core.hlo_cost`)
+records it for each call and `chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
@@ -19,6 +27,35 @@ from repro_torch.kernels.paged_attention.quant import quantize_page
 
 DEFAULT_SHAPE = {"b": 2, "pages": 16, "page_tokens": 16, "slots": 4,
                  "hq": 4, "hkv": 2, "d": 32, "k": 1}
+
+
+def work(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
+         page_table, lengths, layer=None, *, softmax_scale=None) -> dict:
+    """{"bytes", "flops": {"fp32": flops}, "lengths"} of one call, k query
+    rows per sequence (q (b, k, hq, d), or (b, hq, d) for k = 1), row r
+    seeing lengths[b] + r positions. Bytes: q and the output, and per
+    visible position 2 hkv (d (float + int8) + scale) bytes, the table
+    and the lengths. Flops: 4 hq d per (row, visible position), at the
+    fp32 peak, the yardstick every route is held to. "lengths" is
+    "read" or, on ``meta``, "capacity": each sequence at slots x T - (k
+    - 1), its longest length."""
+    del v_pages, k_quant, v_quant, v_scale, layer, softmax_scale
+    rows = q.shape[1] if q.ndim == 4 else 1
+    hq, d, hkv = q.shape[-2], q.shape[-1], k_pages.shape[-2]
+    if lengths.device.type == "meta":
+        cap = page_table.shape[1] * k_pages.shape[-3] - (rows - 1)
+        lens, source = [cap] * lengths.shape[0], "capacity"
+    else:
+        lens, source = lengths.tolist(), "read"
+    per_pos = 2 * hkv * (d * (k_pages.element_size() + 1)
+                         + k_scale.element_size())
+    span = sum(n + rows - 1 for n in lens)
+    nbytes = (2 * q.numel() * q.element_size() + span * per_pos
+              + page_table.numel() * page_table.element_size()
+              + lengths.numel() * lengths.element_size())
+    flops = 4 * hq * d * sum(rows * n + rows * (rows - 1) // 2
+                             for n in lens)
+    return {"bytes": nbytes, "flops": {"fp32": flops}, "lengths": source}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

@@ -12,7 +12,9 @@ fallback. On CPU tensors it runs the plain version
 (`repro_torch.kernels.rglru_scan.ref.lru_scan`). ``rglru_scan.launches``
 counts calls that launched (one per call), ``rglru_scan.launches_by_route``
 splits them by route, and ``rglru_scan.plain_calls`` counts the calls that
-went to the plain version because the tensors lay on the CPU.
+went to the plain version because the tensors lay on the CPU. Under the
+cost counter (`repro_torch.core.hlo_cost`) a call is one entry of its
+function's work (`spec.work`; `repro_torch.kernels.count`).
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through `RglruScanFn`. Its backward is the same recurrence run in
@@ -31,6 +33,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import count
 from repro_torch.kernels.rglru_scan import ref
 
 CHUNK = 32               # the chunked route's chunk length
@@ -114,6 +117,15 @@ def rglru_scan(a, b):
 
 
 def _forward(a, b):
+    def work():
+        from repro_torch.kernels.rglru_scan.spec import work
+        return work(a, b)
+
+    return count.call("rglru_scan", a.device, lambda: route(a.shape[1]),
+                      work, lambda: _run(a, b), lambda: torch.empty_like(a))
+
+
+def _run(a, b):
     if not a.is_cuda:
         rglru_scan.plain_calls += 1
         return ref.lru_scan(a, b)

@@ -5,6 +5,11 @@ JAX package's ``repro/kernels/rglru_scan/spec.py`` (the decode-shaped
 S = 1 and S = 4 cases included). The route follows from S alone (S = 1
 and 4 serial, the others chunked) and its chunk length is fixed
 (`rglru_scan.CHUNK`), so the spec has no tunable tiles.
+
+`work` is the function's work, the same for every route and for the
+plain version: a and b read and h written once, a multiply and an add
+per element. The cost counter (`repro_torch.core.hlo_cost`) records it
+for each call and `chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
@@ -16,6 +21,14 @@ from repro_torch.kernels.rglru_scan import ref
 from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
 
 DEFAULT_SHAPE = {"B": 2, "S": 128, "W": 32}
+
+
+def work(a, b) -> dict:
+    """{"bytes", "flops": {"fp32": flops}} of one call: a, b and h each
+    once, 2 flops per element."""
+    return {"bytes": a.numel() * a.element_size()
+            + b.numel() * b.element_size() + a.numel() * 4,
+            "flops": {"fp32": 2 * a.numel()}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

@@ -7,17 +7,50 @@ S = 1 and S = 4 cases included), so that the CPU tests and
 simt route: their P and N are below the wgmma route's). Each route's
 chunk length is fixed (`ssd_scan.CHUNK`, `ssd_scan.WGMMA_CHUNK`), so the
 spec has no tunable tiles.
+
+`work` is the function's work, the same for every route and for the
+plain version: x, B, C, dt, a, y and the final state each once, and the
+products of the chunked form over the causal half of each chunk. The
+cost counter (`repro_torch.core.hlo_cost`) records it for each call and
+`chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.api import KernelCase, KernelSpec
 from repro_torch.kernels.ssd_scan import ref
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_scan
 
 DEFAULT_SHAPE = {"B": 2, "S": 64, "H": 4, "P": 16, "G": 1, "N": 8}
+
+
+def work(x, b_mat, c_mat, dt, a) -> dict:
+    """{"bytes", "flops": {rate class: flops}} of one call. Bytes: the
+    five inputs, y and the final state (fp32), each once. Flops: the
+    multiply-adds of the chunked form at chunk Q = `CHUNK` over the
+    causal half of each chunk (pairs j <= i): C Bt once per group (on
+    the tensor cores, "bf16", when B and C are bf16), and at "fp32" the
+    scores times x per head, C exp(cum) @ state per head in every chunk
+    but the first (whose incoming state is zero) and the state update
+    per head with its per-chunk decay; the O(pairs x H) decay weights
+    are left out."""
+    B, S, H, P = x.shape
+    G, N = b_mat.shape[2], b_mat.shape[3]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x, b_mat, c_mat, dt, a)) \
+        + (B * S * H * P + B * H * P * N) * 4
+    q = min(CHUNK, S)
+    lens = [min(q, S - i) for i in range(0, S, q)]
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    cb = 2 * B * G * pairs * N
+    fp32 = B * H * (2 * pairs * P + 2 * (S - lens[0]) * N * P
+                    + 2 * S * N * P + len(lens) * N * P)
+    if b_mat.dtype in (torch.bfloat16, torch.float16):
+        return {"bytes": nbytes, "flops": {"bf16": cb, "fp32": fp32}}
+    return {"bytes": nbytes, "flops": {"fp32": cb + fp32}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

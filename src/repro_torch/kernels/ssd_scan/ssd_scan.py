@@ -14,7 +14,9 @@ the plain chunked version (`repro_torch.kernels.ssd_scan.ref.ssd_chunked`).
 ``ssd_scan.launches`` counts calls that launched (one per call, whatever
 the number of CUDA launches inside), ``ssd_scan.launches_by_route``
 splits them by route, and ``ssd_scan.plain_calls`` counts the calls that
-went to the plain version because the tensors lay on the CPU.
+went to the plain version because the tensors lay on the CPU. Under the
+cost counter (`repro_torch.core.hlo_cost`) a call is one entry of its
+function's work (`spec.work`; `repro_torch.kernels.count`).
 
 Under autograd (grad mode on and an input that requires grad) the call
 goes through `SsdScanFn`: the forward as above, the backward by
@@ -29,6 +31,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import count
 from repro_torch.kernels.ssd_scan import ref
 
 CHUNK = 64               # the simt kernel's chunk length (positions per step)
@@ -182,6 +185,24 @@ def ssd_scan(x, b_mat, c_mat, dt, a):
 
 
 def _forward(x, b_mat, c_mat, dt, a):
+    def work():
+        from repro_torch.kernels.ssd_scan.spec import work
+        return work(x, b_mat, c_mat, dt, a)
+
+    def empty():
+        B, S, H, P = x.shape
+        N = b_mat.shape[3]
+        return (x.new_empty((B, S, H, P), dtype=torch.float32),
+                x.new_empty((B, H, P, N), dtype=torch.float32))
+
+    return count.call(
+        "ssd_scan", x.device,
+        lambda: route(x.dtype, x.shape[1], x.shape[3], b_mat.shape[3],
+                      b_mat.shape[2]),
+        work, lambda: _run(x, b_mat, c_mat, dt, a), empty)
+
+
+def _run(x, b_mat, c_mat, dt, a):
     if not x.is_cuda:
         ssd_scan.plain_calls += 1
         return ref.ssd_chunked(x, b_mat, c_mat, dt, a)

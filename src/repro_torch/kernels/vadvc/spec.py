@@ -7,6 +7,12 @@ space and the cost model are the Hopper kernel's own: a block of
 shared memory a column, on the "prefetch" route that every grid takes
 (see ``csrc/vadvc.cu``), costed by ``core.autotune.stream_time``. The
 tune space stops at 512 threads, the kernel's launch bound.
+
+`work` is the function's work, the same for every route and for the
+plain version: the four fields and wcon read and out written once,
+`FLOPS_PER_POINT` a cell off the tensor cores. The cost counter
+(`repro_torch.core.hlo_cost`) records it for each call and
+`chip_smoke.py` bounds the kernel by it.
 """
 from __future__ import annotations
 
@@ -59,6 +65,15 @@ def vadvc_cost(grid_shape, tile: dict, dtype_bytes: int) -> tuple | None:
                     bx * math.ceil(ny / ty), tx * ty, smem,
                     AHEAD * 6 * dtype_bytes, min_wave_s=chain)
     return smem, math.inf if t is None else t
+
+
+def work(ustage, upos, utens, utens_stage, wcon) -> dict:
+    """{"bytes", "flops": {"fp32": flops}} of one call: the five inputs
+    and out each once, `FLOPS_PER_POINT` flops a cell."""
+    fields = (ustage, upos, utens, utens_stage, wcon)
+    return {"bytes": sum(t.numel() * t.element_size() for t in fields)
+            + ustage.numel() * ustage.element_size(),
+            "flops": {"fp32": FLOPS_PER_POINT * ustage.numel()}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

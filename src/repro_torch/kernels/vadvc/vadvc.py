@@ -13,7 +13,9 @@ version (`repro_torch.kernels.vadvc.ref.vadvc`), and the tile has no
 effect. ``vadvc.launches`` counts kernel launches,
 ``vadvc.launches_by_route`` splits them by route and
 ``vadvc.plain_calls`` counts the calls that went to the plain version
-because the tensors lay on the CPU.
+because the tensors lay on the CPU. Under the cost counter
+(`repro_torch.core.hlo_cost`) a call is one entry of its function's work
+(`spec.work`; `repro_torch.kernels.count`).
 
 The tile is the kernel's launch shape, the same on both routes: a block
 of ``tile_x`` x ``tile_y`` threads, one per (y, x) column, with the
@@ -28,6 +30,7 @@ import functools
 import torch
 
 from repro_torch.core.autotune import MAX_THREADS, SMEM_BYTES
+from repro_torch.kernels import count
 from repro_torch.kernels.vadvc import ref
 
 ROUTES = ("prefetch", "simt")
@@ -92,6 +95,17 @@ def vadvc(ustage, upos, utens, utens_stage, wcon, *, tile_x: int = 32,
           tile_y: int = 4):
     """Fields (nz, ny, nx) and wcon (nz+1, ny, nx+1), float32 -> out
     (nz, ny, nx) float32, as `ref.vadvc`."""
+    def work():
+        from repro_torch.kernels.vadvc.spec import work
+        return work(ustage, upos, utens, utens_stage, wcon)
+
+    return count.call(
+        "vadvc", ustage.device, lambda: route(*ustage.shape), work,
+        lambda: _run(ustage, upos, utens, utens_stage, wcon, tile_x, tile_y),
+        lambda: torch.empty_like(ustage))
+
+
+def _run(ustage, upos, utens, utens_stage, wcon, tile_x, tile_y):
     fields = (ustage, upos, utens, utens_stage)
     if not ustage.is_cuda:
         vadvc.plain_calls += 1

@@ -92,5 +92,7 @@ def embed_apply(cfg: ModelConfig, p, tokens):
 def lm_head_apply(cfg: ModelConfig, p, x):
     logits = x @ p["lm_head"]
     if cfg.padded_vocab_size != cfg.vocab_size:   # mask padded vocab entries
-        logits[..., cfg.vocab_size:] = NEG_INF
+        # one ``fill_`` on every device (an indexed assignment of a Python
+        # scalar dispatches other ops on the card than on the CPU)
+        logits[..., cfg.vocab_size:].fill_(NEG_INF)
     return logits

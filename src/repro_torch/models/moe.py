@@ -83,7 +83,11 @@ def moe_apply(cfg: ModelConfig, p, x):
 
     # load-balance aux loss (Switch): e * sum_e frac_tokens_e * frac_prob_e
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(topi, e).float().sum(2).mean(dim=(0, 1))
+    # one-hot by comparison: `F.one_hot` checks its range on the host
+    # (a sync) on the CPU and the card, and dispatches other ops there
+    # than on ``meta``
+    onehot = topi[..., None] == torch.arange(e, device=topi.device)
+    ce = onehot.float().sum(2).mean(dim=(0, 1))
     aux = e * torch.sum(me * ce / k)
 
     order, e_sorted, pos, pos_tok = dispatch(cfg, topi, cap)

@@ -155,7 +155,9 @@ class Model(nn.Module):
     """Decoder stack over one config. ``state`` (a flat ``{name: tensor}``
     dict, e.g. from `repro_torch.convert.params_from_numpy`) supplies the
     weights; without it they are drawn from a ``torch.Generator`` seeded
-    with ``seed`` on ``device``."""
+    with ``seed`` on ``device``. On ``device="meta"`` without a state the
+    weights are meta tensors of the spec's shapes and dtypes (no storage,
+    no draw): the abstract model `launch.dryrun` counts a step of."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0,
                  state: dict | None = None):
@@ -163,7 +165,11 @@ class Model(nn.Module):
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
         device = torch.device(device)
-        if state is None:
+        if state is None and device.type == "meta":
+            flat = {n: torch.empty(ps.shape, device=device, dtype=torch_dtype(
+                        ps.dtype or cfg.param_dtype))
+                    for n, ps in flatten(model_spec(cfg)).items()}
+        elif state is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             flat = materialize(model_spec(cfg), gen, device, cfg.param_dtype)
         else:
@@ -299,8 +305,11 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self.n_groups):
             if self.cfg.remat != "none":
+                # the forward draws no random numbers: no RNG state to
+                # stash and restore around the recompute
                 x, aux = checkpoint(group_body, g, x, aux,
-                                    use_reentrant=False)
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
                 x, aux = group_body(g, x, aux)
         tail_kinds = self.kinds[self.n_groups * self.group_size:]

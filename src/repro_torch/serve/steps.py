@@ -1,5 +1,8 @@
-"""Serving step functions."""
+"""Serving step functions (prefill / decode), for the engine and the dry
+run (`launch.dryrun`)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import Model
 
@@ -13,3 +16,25 @@ def prefill_all_positions(model: Model, tokens, backend: str = "auto"):
     x, caches = model.run_stack(x, mode="prefill", positions=positions,
                                 backend=backend)
     return model.head(x), caches
+
+
+def make_prefill_step(model: Model, backend: str = "auto"):
+    """prefill_step(tokens (b, s) | embeds=, image_embeds=) -> (next
+    tokens (b,) int32, caches): the argmax of `Model.forward_prefill`'s
+    last-position logits, as the reference's `make_prefill_step`."""
+    def prefill_step(tokens=None, *, embeds=None, image_embeds=None):
+        logits, caches = model.forward_prefill(
+            tokens, backend, embeds=embeds, image_embeds=image_embeds)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    """decode_step(caches, tokens (b, 1) | embeds=, pos) -> next tokens
+    (b,) int32: the argmax of `Model.forward_decode`, which updates the
+    capacity-sized caches (`pad_caches`) in place, as the reference's
+    `make_decode_step` returns its new caches."""
+    def decode_step(caches, tokens, pos: int, *, embeds=None):
+        logits = model.forward_decode(tokens, caches, pos, embeds=embeds)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return decode_step
