@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
                                           # spec | overload | families |
                                           # hybrid | train | napel |
-                                          # stencil | sibyl
+                                          # stencil | sibyl | mesh
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -240,6 +240,42 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    point, `Leaper.transfer` on 1, 3 and 5 shots of the measured step
    times beside a forest from scratch and the platform model alone. The
    counted and timed steps' launches join the ``kernels`` line.
+14. mesh  — serving across devices (`serve.sharding.ServePlan`) with
+   every shard on the one card (``make_serve_mesh(d, m, devices=
+   ["cuda:0"] * n)``; it runs in the serve block, over the serve phase's
+   model), one JSON line per part. ``exact``: starcoder2-7b at full
+   width, `MESH_EXACT_LAYERS` layers, fp32, at plans 1x2, 2x1, 2x2 and
+   1x4: ``generate``, the default ``serve`` (chunked + radix) and k = 4
+   ``generate`` give the 1x1 engine's tokens, ``generate``'s transfers
+   are the 1x1 engine's and every steady step costs one upload and one
+   download; mamba2-780m (2 layers) at 2x2 and recurrentgemma-2b (3: its
+   local-attention layer's one kv head replicates) at 2x1 and 1x2
+   through ``generate`` and ``serve``; recurrentgemma's 10 heads refuse
+   1x4 with `ValueError`. Every launch shape the plans gave a kernel
+   (paged and flash attention at hq / tp heads, the scans at a shard's
+   width) is held to its plain version on the recorded inputs, paged /
+   flash / RG-LRU to 2 ulps, SSD to `ssd_limit`; recurrentgemma-2b's fp32
+   flash (d = 256, window) and RG-LRU launches, which miss 2 ulps at 1x1
+   as at every plan because of the order of their sums, to
+   `magnitude_limit` instead, beside the plain loops in the kernels'
+   orders and broken variants read over that limit. ``serve``: starcoder2-7b
+   at full width and depth (32 layers, bf16) on a 2x2 plan beside the
+   1x1 engine over the same weights: the weight bytes each holds,
+   counted from the spec before the run and equal to what the shards
+   hold; the serve workload (monolithic prefill) in turns 1x1, 2x2,
+   2x2, 1x1: decode ms/step, paged launches per step (= 4 shards x 32
+   layers, split route), flash launches (= 2 model shards x 32 layers a
+   prompt, wgmma), 2 transfers per steady token, peak memory, bf16 token
+   agreement with 1x1 (reported, not required: the seam sums two
+   partial products); the per-shard paged (b = 1, hq = 18, hkv = 2) and
+   flash (s = 600, hq = 18) launches held to 2 ulps and timed by
+   `device_ms` beside their bounds and SDPA; 16 traced decode steps
+   (`phase_profile`: device busy share, kernels per step). ``plan``:
+   `launch.dryrun.serve_plan_main` on `H100_SXM`, every arch at 1x1,
+   1x2, 2x2, 1x4 and 2x4, no device work. A plan lays position i on
+   cuda:i when the machine has a card for every position (the seams are
+   then NCCL all-reduces), else every position on cuda:0; the rows say
+   which.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
@@ -637,10 +673,11 @@ def stencil_ptxas(build) -> dict:
 
 
 def phase_device() -> dict:
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+    smi = cards[0]
     print(smi, flush=True)
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -653,7 +690,8 @@ def phase_device() -> dict:
              for name in libs if (build.BUILD_DIR / f"{name}.log").exists()
              and name not in ("hdiff", "vadvc")}
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi, "count": torch.cuda.device_count(),
+            "nvidia_smi": smi, "nvidia_smi_cards": cards,
+            "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0], "build_s": build_s,
             "ptxas": ptxas, "paged_ptxas": paged_ptxas(
@@ -2753,7 +2791,9 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
     step (`build_fused_step(k=...)`) as the default `serve()` feeds a
     prompt chunk. Any stack the engine serves (the hybrids' decode runs
     none of the port's kernels: their recurrent and ring layers step
-    through plain PyTorch, as the reference's do through jnp). ``span``
+    through plain PyTorch, as the reference's do through jnp), and a
+    mesh plan's (`eng.plan`: the two rows on their data shards, each
+    shard's kernels launched in turn). ``span``
     names a `torch.profiler.record_function` range the caller wraps
     around part of the step (`moe_span`): its kernels' device time per
     step and share of the busy time join the row."""
@@ -2763,18 +2803,28 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
                                                 build_fused_step,
                                                 extract_prefill_pages)
     cfg = eng.cfg
+    plan = getattr(eng, "plan", None)
     rng = np.random.default_rng(3)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, 500)).astype(np.int32)).cuda()
     state = PagedKVState(eng.kv_pool, 500 + (2 * steps + 3) * k + 8,
                          eng.layout, cfg.num_kv_heads, cfg.head_dim,
-                         batch_hint=2, device=eng.device)
-    logits, caches = eng.model.forward_prefill(prompts)
+                         batch_hint=2, device=eng.device, plan=plan)
     seqs = [10_000, 10_001]
+    shards = 1
+    if plan is None:
+        logits, caches = eng.model.forward_prefill(prompts)
+    else:
+        # each row on the data shard that decodes it, bound before writes
+        rows = [plan.shard_of_row(i, 2) for i in range(2)]
+        for seq, shard in zip(seqs, rows):
+            state.bind_seq(seq, shard)
+        logits, caches = eng.model.forward_prefill(prompts, row_shards=rows)
+        shards = plan.dp * plan.tp
     extract_prefill_pages(eng.model, caches, state, seqs)
     del caches
     step_fn = build_fused_step(eng.model, state.slots, k=k,
-                               layout=eng.layout)
+                               layout=eng.layout, plan=plan)
     tok = torch.argmax(logits, -1).to(torch.int32)
     pos = 500
 
@@ -2818,6 +2868,7 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
         state.free_seq(seq)
     row = {"phase": "profile", "config": f"{cfg.name}, {cfg.num_layers} "
            f"layers, {cfg.compute_dtype}", "rows": 2, "context": 500,
+           "plan": repr(plan) if plan is not None else None,
            "k": k, "steps": steps,
            ("decode_ms_per_step" if k == 1 else "chunk_step_ms"): plain_ms,
            "traced_ms_per_step": traced_s / steps * 1e3,
@@ -2826,7 +2877,7 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
            "paged_attention_share_of_busy": attn_us / busy_us if busy_us
            else None,
            "paged_attention_us_per_launch":
-               attn_us / (steps * cfg.num_layers),
+               attn_us / (steps * cfg.num_layers * shards),
            "port_kernels_share_of_busy": port_us / busy_us if busy_us
            else None,
            "top_kernels_us_per_step": [[k[:80], v / steps] for k, v in top]}
@@ -5834,6 +5885,586 @@ def phase_napel(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. serving across devices: dp x tp plans on one card
+# ---------------------------------------------------------------------------
+MESH_PLANS = ((1, 2), (2, 1), (2, 2), (1, 4))
+MESH_EXACT_LAYERS = 2
+MESH_HYBRIDS = (("mamba2-780m", 2, ((2, 2),)),
+                ("recurrentgemma-2b", 3, ((2, 1), (1, 2))))
+# kernels of an arch held to `magnitude_limit` instead of 2 ulps:
+# recurrentgemma-2b's fp32 windowed flash at d = 256 and its fp32 RG-LRU
+# scan miss 2 ulps at 1x1 as at every plan, and so do plain loops in the
+# kernels' orders of summation (`flash_online_loop`,
+# `rglru_chunked_loop`) on the same inputs (PERF.md §6-7, part
+# ``launch_checks``)
+MESH_MAGNITUDE_HELD = {"recurrentgemma-2b": ("flash_attention",
+                                             "rglru_scan")}
+MESH_PLAN_MESHES = "1x1,1x2,2x2,1x4,2x4"
+MESH_PROFILE_STEPS = 4   # traced 2x2 steps: ~10,000 kernels each
+MESH_KERNELS = ("paged_attention", "flash_attention", "ssd_scan",
+                "rglru_scan")
+
+
+def serve_mesh(d: int, m: int):
+    """A d x m serving mesh: position i on cuda:i when the machine has a
+    card for every position (the seams all-reduce over NCCL), else every
+    position on cuda:0."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    n = d * m
+    if torch.cuda.device_count() >= n:
+        return make_serve_mesh(d, m)
+    return make_serve_mesh(d, m, devices=["cuda:0"] * n)
+
+
+def mesh_layout(mesh) -> list:
+    """The devices of a mesh's positions, in order."""
+    return [str(x) for x in mesh.devices.ravel()]
+
+
+def _call_key(args, kwargs):
+    return (tuple((tuple(a.shape), a.dtype) for a in args
+                  if isinstance(a, torch.Tensor)),
+            tuple(sorted((k, v) for k, v in kwargs.items()
+                         if k != "backend")))
+
+
+@contextlib.contextmanager
+def first_calls(kernels):
+    """Record the first ``api.run(kernel, ...)`` call of every launch
+    shape (argument shapes and dtypes, keyword arguments) for each of
+    `kernels`, its tensors copied; yields ``{kernel: {key: (args,
+    kwargs)}}``."""
+    from repro_torch.kernels import api
+    plain_run = api.run
+    seen = {k: {} for k in kernels}
+
+    def run(name, *args, **kwargs):
+        if name in seen:
+            key = _call_key(args, kwargs)
+            if key not in seen[name]:
+                seen[name][key] = ([a.clone() if isinstance(a, torch.Tensor)
+                                    else a for a in args], dict(kwargs))
+        return plain_run(name, *args, **kwargs)
+
+    api.run = run
+    try:
+        yield seen
+    finally:
+        api.run = plain_run
+
+
+def flash_online_loop(q, k, v, *, causal=True, window=0, two_pass=False):
+    """The simt flash route's softmax in plain PyTorch, fp32: tiles of 32
+    keys, each row's running max and sum rescaled by exp(m_old - m_new)
+    as a later tile raises the max (``two_pass``: the row max over every
+    visible key first, so no rescale). Scores and p @ V by matmul, not
+    the kernel's FMA order."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d).float() * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg, k.float())
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    s = torch.where(ok, s, -1e30)
+    vf = v.float()
+    m = torch.full(s.shape[:-1], -1e30, device=q.device)
+    if two_pass:
+        m = s.amax(dim=-1)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
+    for t0 in range(0, skv, 32):
+        st = s[..., t0:t0 + 32]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        p = torch.exp(st - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqs,bshd->bhgqd", p, vf[:, t0:t0 + 32])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+MAGNITUDE_RULE = ("per element: 64 * 2^-23 * M + 1e-6, M the plain "
+                  "version over |v| (flash) or |b| (RG-LRU): the "
+                  "magnitudes summed into the element")
+
+
+def magnitude_limit(kernel, args, kw):
+    """Per-element limit for a flash or RG-LRU launch against its plain
+    version on the same inputs, scaled by what the element sums rather
+    than by its value: M is the plain version with |v| (flash: each
+    row's softmax weights times |v|) or |b| (RG-LRU: the decayed sum of
+    |b|). Both sides compute in fp32 and round their sums in other
+    orders, so they differ by a few roundings of M, not of the output,
+    which cancellation can make far smaller: 64 roundings of M. A kernel
+    that drops a key tile, rounds P to bf16 or drops a chunk's carry
+    misses it a hundredfold or more (`magnitude_faults`; on the CPU, at
+    recurrentgemma-2b's own 3-layer launches, 350x and more)."""
+    from repro_torch.kernels import api
+    absed = list(args)
+    i = 2 if kernel == "flash_attention" else 1
+    absed[i] = args[i].abs()
+    m = api.run(kernel, *absed, **kw, backend="ref").float()
+    return 64.0 * 2.0 ** -23 * m + 1e-6
+
+
+def limit_check(got, want, limit):
+    """`ulp_check` against a given per-element limit."""
+    diff = (got.float() - want.float()).abs()
+    worst = int(torch.argmax(diff))
+    return (diff.flatten()[worst].item(), limit.flatten()[worst].item(),
+            (diff / limit).max().item())
+
+
+def magnitude_faults(kernel, args, kw, want, limit) -> dict:
+    """Each broken variant of the kernel on the launch's own inputs over
+    `magnitude_limit` (must exceed 1): flash's `FLASH_FAULTS`, RG-LRU's
+    `RGLRU_FAULTS` (none for a sequence of one chunk, which has no
+    carry)."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import route
+    if kernel == "flash_attention":
+        variants = {f: flash_variant(*args[:3], fault=f, **kw)
+                    for f in FLASH_FAULTS}
+    elif route(args[0].shape[1]) == "chunked":
+        variants = {f: rglru_chunked_loop(*args[:2], fault=f)
+                    for f in RGLRU_FAULTS}
+    else:
+        variants = {}
+    return {f: limit_check(v, want, limit)[2] for f, v in variants.items()}
+
+
+def check_recorded(seen, label, magnitude=()) -> list:
+    """Each recorded launch shape through the kernel (``backend="cuda"``)
+    and the plain version on the same inputs: paged, flash and RG-LRU to
+    2 ulps, SSD to `ssd_limit`, the kernels in `magnitude` to
+    `magnitude_limit`. A magnitude-held launch also shows the cause of
+    its 2-ulp reading, a plain loop in the kernel's order of summation
+    on the same inputs (`flash_online_loop`, in tiles of 32 keys;
+    `rglru_chunked_loop`, whose roundings are the chunked route's, so it
+    must equal the kernel within 2 ulps), and its broken variants over
+    the limit (`magnitude_faults`). Every shape is checked and emitted;
+    then any launch past its limit raises. These launches are not the
+    main path's and count nowhere."""
+    from repro_torch.kernels import api
+    from repro_torch.kernels.rglru_scan.rglru_scan import route
+    out, bad = [], []
+    for kernel, calls in seen.items():
+        for args, kwargs in calls.values():
+            kw = {k: v for k, v in kwargs.items() if k != "backend"}
+            got = api.run(kernel, *args, **kw, backend="cuda")
+            want = api.run(kernel, *args, **kw, backend="ref")
+            torch.cuda.synchronize()
+            shape = [list(a.shape) for a in args
+                     if isinstance(a, torch.Tensor)][:3]
+            row = {"kernel": kernel, "shapes": shape,
+                   "dtype": str(args[0].dtype).replace("torch.", ""),
+                   "kwargs": {k: v for k, v in kw.items()}}
+            if kernel in magnitude:
+                limit = magnitude_limit(kernel, args, kw)
+                err, tol, over = limit_check(got, want, limit)
+                row.update(rule=MAGNITUDE_RULE,
+                           over_2ulp=ulp_check(got, want)[2],
+                           faults_over_limit=magnitude_faults(
+                               kernel, args, kw, want, limit))
+                if kernel == "flash_attention":
+                    emu = flash_online_loop(*args[:3], **kw)
+                    row["online_loop_over_2ulp"] = ulp_check(emu, want)[2]
+                    row["online_loop_over_limit"] = limit_check(
+                        emu, want, limit)[2]
+                else:
+                    emu = rglru_chunked_loop(*args[:2])
+                    row["route"] = route(args[0].shape[1])
+                    row["chunked_loop_over_2ulp"] = ulp_check(emu, want)[2]
+                    row["kernel_vs_chunked_loop_over_2ulp"] = \
+                        ulp_check(got, emu)[2]
+                    if row["route"] == "chunked" and \
+                            not row["kernel_vs_chunked_loop_over_2ulp"] <= 1:
+                        bad.append(row)
+                if not all(v > 1.0
+                           for v in row["faults_over_limit"].values()):
+                    bad.append(row)
+            else:
+                check = ssd_check if kernel == "ssd_scan" else ulp_check
+                err, tol, over = check(got, want)
+                row["rule"] = SSD_LIMIT_RULE if kernel == "ssd_scan" \
+                    else ULP_RULE
+            row.update(max_abs_err=err, tol=tol, max_err_over_limit=over)
+            if not over <= 1.0:
+                bad.append(row)
+            out.append(row)
+            del got, want
+    emit({"phase": "mesh", "part": "launch_checks", "label": label,
+          "checks": out})
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} launch shapes past their "
+                             f"limit, equal to no loop in the kernel's "
+                             f"order, or with a broken variant inside the "
+                             f"limit: {bad}")
+    return out
+
+
+def _mesh_engine(cfg, params, d, m, **kw):
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    return ServeEngine(cfg, params=params, mesh=serve_mesh(d, m)
+                       if d * m > 1 else None,
+                       kv_pool=PagedKVPool(page_tokens=64,
+                                           placement_policy=EveryOtherSlow()),
+                       **kw)
+
+
+def mesh_exact_paths(cfg, params, d, m, hybrid: bool) -> dict:
+    """One plan's tokens: ``generate``, the default ``serve`` and k = 4
+    ``generate`` (plain-attention stacks), or ``generate`` and the
+    default ``serve`` (hybrids); transfers and steady steps beside."""
+    v = cfg.vocab_size
+    lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    eng = _mesh_engine(cfg, params, d, m)
+    got = {"generate": _tokens(eng.generate(_requests(v, lengths, new, 0),
+                                            free_pages=True))}
+    got["transfers"] = list(eng.last_transfers)
+    reqs = _requests(v, lengths, new, 1) if hybrid else \
+        _shared_prefix_requests(v, 150, [20, 90, 45, 130], 10, 2)
+    got["serve"] = _tokens(eng.serve(reqs, max_active=2))
+    got["steady"] = [list(x) for x in eng.last_steady_transfers]
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{d}x{m}: pages left in the pool")
+    del eng
+    if not hybrid:
+        eng = _mesh_engine(cfg, params, d, m, speculate=4)
+        got["generate_k4"] = _tokens(eng.generate(
+            _requests(v, lengths, new, 0), free_pages=True))
+        del eng
+    torch.cuda.empty_cache()
+    return got
+
+
+def mesh_exact(smi: str) -> dict:
+    """Part ``exact``: every plan's greedy tokens against the 1x1
+    engine's over the same weights, fp32, and every launch shape the
+    plans gave a kernel against its plain version. The plans' launches,
+    counted from 0 around their runs, are returned under
+    ``"launches"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import flatten
+    from repro_torch.models.transformer import Model
+    t0 = time.perf_counter()
+    rows, shapes, launches = [], [], {}
+    cases = [("starcoder2-7b", MESH_EXACT_LAYERS, MESH_PLANS)] + \
+        list(MESH_HYBRIDS)
+    for arch, layers, plans in cases:
+        cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                         compute_dtype="float32")
+        hybrid = arch != "starcoder2-7b"
+        params = flatten(Model(cfg, device="cuda", seed=0).params)
+        magnitude = MESH_MAGNITUDE_HELD.get(arch, ())
+        with first_calls(MESH_KERNELS) as seen_1x1:
+            want = mesh_exact_paths(cfg, params, 1, 1, hybrid)
+        checked_1x1 = check_recorded(seen_1x1, f"mesh exact {arch} 1x1",
+                                     magnitude)
+        del seen_1x1
+        reset_launches()
+        with first_calls(MESH_KERNELS) as seen:
+            got = {f"{d}x{m}": mesh_exact_paths(cfg, params, d, m, hybrid)
+                   for d, m in plans}
+        _add(launches, read_launches())
+        checked = check_recorded(seen, f"mesh exact {arch}", magnitude)
+        shapes += checked
+        same = {plan: {p: g[p] == want[p] for p in want
+                       if p not in ("steady",)} for plan, g in got.items()}
+        steady_ok = {plan: bool(g["steady"]) and all(
+            x == [1, 1] for x in g["steady"]) for plan, g in got.items()}
+        row = {"phase": "mesh", "part": "exact", "nvidia_smi": smi,
+               "config": f"{arch} full width, {layers} layers, fp32",
+               "plans": list(got), "page_tokens": 64, "identical": same,
+               "steady_transfers_per_token_2": steady_ok,
+               "steady_steps": {plan: len(g["steady"])
+                                for plan, g in got.items()},
+               "transfers": {"1x1": want["transfers"],
+                             **{plan: g["transfers"]
+                                for plan, g in got.items()}},
+               "launch_shapes_checked": len(checked),
+               "worst_over_limit": max([c["max_err_over_limit"]
+                                        for c in checked], default=None),
+               "worst_over_limit_1x1": max(
+                   [c["max_err_over_limit"] for c in checked_1x1],
+                   default=None),
+               "magnitude_held": list(magnitude),
+               "devices": {f"{d}x{m}": mesh_layout(serve_mesh(d, m))
+                           for d, m in plans},
+               "generate_1x1": want["generate"]}
+        emit(row)
+        bad = [plan for plan, s in same.items() if not all(s.values())]
+        if bad or not all(steady_ok.values()):
+            raise AssertionError(f"mesh exact {arch}: plans {bad} differ "
+                                 f"from 1x1, or a steady step cost other "
+                                 f"than 2 transfers: {same} {steady_ok}")
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    # recurrentgemma-2b's 10 heads do not split 4 ways: the plan refuses
+    from repro_torch.serve.sharding import ServePlan
+    try:
+        ServePlan(serve_mesh(1, 4)).check_config(
+            get_config("recurrentgemma-2b"))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("recurrentgemma-2b accepted a 1x4 plan")
+    if "num_heads=10" not in refusal:
+        raise AssertionError(f"unexpected refusal: {refusal}")
+    row = {"phase": "mesh", "part": "exact_shapes", "nvidia_smi": smi,
+           "launch_shapes": shapes, "recurrentgemma_1x4": refusal,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return {"rows": rows, "shapes": shapes, "launches": launches}
+
+
+def _serve_turn(eng, cfg, seed: int) -> dict:
+    """The serve phase's workload (monolithic prefill) through one
+    engine, its launches counted from 0: outputs, decode ms/step,
+    launches, steady transfers, peak memory."""
+    reqs = _requests(cfg.vocab_size, list(SERVE_PROMPTS), [32] * 5, seed)
+    steps0, dec0 = eng.stats["decode_steps"], eng.stats["decode_s"]
+    pre0 = eng.stats["prefill_s"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs, max_active=2, chunked_prefill=False, radix=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = eng.stats["decode_steps"] - steps0
+    _check_outs(outs, reqs, cfg.vocab_size)
+    if eng.kv_pool.live_pages:
+        raise AssertionError(f"{eng.kv_pool.live_pages} pages left")
+    return {"outs": _tokens(outs), "wall_s": wall, "decode_steps": steps,
+            "decode_ms_per_step": (eng.stats["decode_s"] - dec0) / steps
+            * 1e3,
+            "prefill_ms_per_request": (eng.stats["prefill_s"] - pre0)
+            / len(reqs) * 1e3,
+            "launches": launches,
+            "paged_by_route": routes("paged_attention"),
+            "flash_by_route": routes("flash_attention"),
+            "steady": [list(x) for x in eng.last_steady_transfers],
+            "resident_gb": resident / 2 ** 30,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _agreement(a, b) -> dict:
+    """Position-wise equal tokens and the equal prefix per request."""
+    same = sum(x == y for o, p in zip(a, b) for x, y in zip(o, p))
+    total = sum(len(o) for o in a)
+    prefix = [next((i for i, (x, y) in enumerate(zip(o, p)) if x != y),
+                   len(o)) for o, p in zip(a, b)]
+    return {"equal_tokens": same, "tokens": total, "share": same / total,
+            "equal_prefix": prefix}
+
+
+def mesh_serve(base, smi: str) -> tuple:
+    """Part ``serve``: starcoder2-7b at full width and depth, bf16, on a
+    2x2 plan on the one card beside the 1x1 engine `base` (the serve
+    phase's) over the same weights. Returns the row and the 2x2 engine's
+    launches from its first turn."""
+    from repro_torch.kernels import api
+    from repro_torch.models.common import flatten
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.serve.sharding import ServePlan, plan_param_bytes
+    cfg = base.cfg
+    d, m = 2, 2
+    plan = ServePlan(serve_mesh(d, m))
+    counted = plan_param_bytes(cfg, plan)
+    counted_1x1 = plan_param_bytes(cfg, ServePlan(serve_mesh(1, 1)))
+    held_1x1 = sum(t.numel() * t.element_size()
+                   for t in flatten(base.model.params).values())
+    if held_1x1 != counted_1x1:
+        raise AssertionError(f"1x1 holds {held_1x1} bytes, counted "
+                             f"{counted_1x1}")
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params=flatten(base.model.params),
+                      mesh=serve_mesh(d, m),
+                      kv_pool=PagedKVPool(page_tokens=128,
+                                          placement_policy=EveryOtherSlow()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = eng.model.nbytes()
+    if held != counted:
+        raise AssertionError(f"the 2x2 shards hold {held} bytes, counted "
+                             f"{counted}")
+    turns = []
+    seen = None
+    for name, e in (("1x1", base), ("2x2", eng), ("2x2", eng),
+                    ("1x1", base)):
+        if name == "2x2" and seen is None:
+            with first_calls(("paged_attention", "flash_attention")) as seen:
+                turns.append((name, _serve_turn(e, cfg, 2)))
+        else:
+            turns.append((name, _serve_turn(e, cfg, 2)))
+    first = turns[1][1]
+    steps = first["decode_steps"]
+    launches = first["launches"]
+    want = {"paged_attention": steps * cfg.num_layers * d * m,
+            "flash_attention": len(SERVE_PROMPTS) * cfg.num_layers * m}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"2x2 {k}: {launches[k]} launches, want "
+                                 f"{n}")
+    if first["paged_by_route"]["split"] != want["paged_attention"]:
+        raise AssertionError(f"2x2 paged routes {first['paged_by_route']}")
+    if first["flash_by_route"]["wgmma"] != want["flash_attention"]:
+        raise AssertionError(f"2x2 flash routes {first['flash_by_route']}")
+    for name, t in turns:
+        if not t["steady"] or any(x != [1, 1] for x in t["steady"]):
+            raise AssertionError(f"{name} steady transfers {t['steady']}")
+    # the recorded per-shard launches held to their plain versions, the
+    # k = 1 paged launch and the longest prompt's flash launch timed
+    checked = check_recorded(seen, "mesh serve")
+    timed = {}
+    for (args, kwargs) in seen["paged_attention"].values():
+        if args[0].dim() != 3:
+            continue
+        layer = args[9]
+        nbytes, flops = bytes_and_flops(args[:9])
+        timed["paged_attention"] = compare_and_time(
+            "paged_attention starcoder2-7b 2x2 shard k=1 bfloat16",
+            lambda: api.run("paged_attention", *args, backend="cuda"),  # noqa
+            lambda: api.run("paged_attention", *args, backend="ref"),  # noqa
+            sdpa_yardstick(args[:9], layer, 1), nbytes, flops, FP32_FLOPS,
+            {"kernel": "paged_attention", "rows": 1, "dtype": "bfloat16",
+             "plan": "2x2", "nvidia_smi": smi,
+             "shape": {"b": args[0].shape[0], "hq": args[0].shape[1],
+                       "hkv": args[1].shape[-2], "d": args[0].shape[-1],
+                       "t": args[1].shape[2], "n_layers": args[1].shape[0],
+                       "lengths": args[8].tolist()},
+             "library": "scaled_dot_product_attention over K/V gathered "
+                        "and dequantized beforehand (omits gather and "
+                        "dequant)"}, device=True)
+        break
+    longest = max(seen["flash_attention"].values(),
+                  key=lambda c: c[0][0].shape[1])
+    q, k, v = longest[0][:3]
+    kw = {kk: vv for kk, vv in longest[1].items() if kk != "backend"}
+    nbytes, flops = flash_bytes_and_flops(q, k, v,
+                                          causal=kw.get("causal", True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    timed["flash_attention"] = compare_and_time(
+        f"flash_attention starcoder2-7b 2x2 shard s={q.shape[1]} bfloat16",
+        lambda: api.run("flash_attention", q, k, v, **kw, backend="cuda"),
+        lambda: api.run("flash_attention", q, k, v, **kw, backend="ref"),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        nbytes, flops, BF16_FLOPS,
+        {"kernel": "flash_attention", "dtype": "bfloat16", "plan": "2x2",
+         "nvidia_smi": smi, "shape": {"b": q.shape[0], "sq": q.shape[1],
+                                      "hq": q.shape[2], "hkv": k.shape[2],
+                                      "d": q.shape[3], "causal": True},
+         "library": "scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True) on (b, h, s, d) copies made "
+                    "beforehand"}, device=True)
+    del seen, longest, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    turns_s = time.perf_counter() - t0
+    prof = phase_profile(eng, steps=MESH_PROFILE_STEPS)
+    by_name = {"1x1": [t for n, t in turns if n == "1x1"],
+               "2x2": [t for n, t in turns if n == "2x2"]}
+    row = {"phase": "mesh", "part": "serve", "nvidia_smi": smi,
+           "config": "starcoder2-7b, 32 layers, bf16", "plan": "2x2",
+           "peak_mem_device": "cuda:0",
+           "devices": mesh_layout(plan.mesh),
+           "path": "monolithic prefill (chunked_prefill=False, radix=False)",
+           "weights_bytes_counted": {"1x1": counted_1x1, "2x2": counted},
+           "weights_bytes_held": {"1x1": held_1x1, "2x2": held},
+           "init_s": init_s,
+           "turns_and_kernels_s": turns_s,
+           "seconds": time.perf_counter() - t0,
+           "turns": [name for name, _ in turns],
+           "decode_ms_per_step": {n: [t["decode_ms_per_step"] for t in ts]
+                                  for n, ts in by_name.items()},
+           "prefill_ms_per_request": {
+               n: [t["prefill_ms_per_request"] for t in ts]
+               for n, ts in by_name.items()},
+           "wall_s": {n: [t["wall_s"] for t in ts]
+                      for n, ts in by_name.items()},
+           "decode_steps": {n: ts[0]["decode_steps"]
+                            for n, ts in by_name.items()},
+           "launches": {n: ts[0]["launches"] for n, ts in by_name.items()},
+           "paged_launches_per_step": {
+               n: ts[0]["launches"]["paged_attention"]
+               / ts[0]["decode_steps"] for n, ts in by_name.items()},
+           "paged_by_route": first["paged_by_route"],
+           "flash_by_route": first["flash_by_route"],
+           "steady_steps": {n: len(ts[0]["steady"])
+                            for n, ts in by_name.items()},
+           "peak_mem_gb": {n: [t["peak_mem_gb"] for t in ts]
+                           for n, ts in by_name.items()},
+           "resident_gb": {n: ts[0]["resident_gb"]
+                           for n, ts in by_name.items()},
+           "bf16_agreement_with_1x1": _agreement(by_name["2x2"][0]["outs"],
+                                                 by_name["1x1"][0]["outs"]),
+           "repeat_agreement_2x2": _agreement(by_name["2x2"][0]["outs"],
+                                              by_name["2x2"][1]["outs"]),
+           "shard_kernels": {k: {f: r[f] for f in (
+               "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "max_abs_err", "max_err_over_limit", "shape")}
+               for k, r in timed.items()},
+           "launch_shapes_checked": checked,
+           "profile_2x2": {k: prof[k] for k in (
+               "decode_ms_per_step", "traced_ms_per_step",
+               "device_busy_share", "kernels_per_step",
+               "paged_attention_us_per_launch",
+               "paged_attention_share_of_busy")}}
+    emit(row)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches, timed
+
+
+def mesh_plan(smi: str) -> dict:
+    """Part ``plan``: the dry run's serve-plan report on `H100_SXM`, every
+    arch at `MESH_PLAN_MESHES`; plain arithmetic, no device work."""
+    import types
+    from repro_torch.core.roofline import H100_SXM
+    from repro_torch.launch import dryrun
+    args = types.SimpleNamespace(arch=None, serve_meshes=MESH_PLAN_MESHES,
+                                 out=str(ROOT / "build" / "serve_plan"))
+    t0 = time.perf_counter()
+    recs = dryrun.serve_plan_main(args, hw=H100_SXM)
+    row = {"phase": "mesh", "part": "plan", "nvidia_smi": smi,
+           "hardware": H100_SXM.name, "meshes": MESH_PLAN_MESHES,
+           "seconds": time.perf_counter() - t0, "cells": recs}
+    emit(row)
+    return row
+
+
+def phase_mesh(base, smi: str) -> dict:
+    """Serving across devices on one card: parts ``exact``, ``serve`` and
+    ``plan`` (see the module docstring). Returns the launches of the 2x2
+    serve run and of the exact plans, for the ``kernels`` line."""
+    t0 = time.perf_counter()
+    exact = mesh_exact(smi)
+    exact_launches = exact["launches"]
+    _, serve_launches, _ = mesh_serve(base, smi)
+    mesh_plan(smi)
+    emit({"phase": "mesh", "part": "done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
+          "exact_shapes": len(exact["shapes"])})
+    total = {k: exact_launches.get(k, 0) + serve_launches.get(k, 0)
+             for k in MESH_KERNELS}
+    return total
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -5873,15 +6504,15 @@ def kernels_line(full, launches, stencil=None) -> dict:
 
 
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "families", "hybrid", "train", "napel", "stencil", "sibyl")
+          "families", "hybrid", "train", "napel", "stencil", "sibyl", "mesh")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=PHASES,
                     help="run the device phase and this one phase only "
-                         "(chunked, spec, overload and sibyl build the "
-                         "serve phase's model)")
+                         "(chunked, spec, overload, sibyl and mesh build "
+                         "the serve phase's model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5897,12 +6528,13 @@ def main(argv=None) -> int:
     run = (lambda p: args.only in (None, p))
     full = serve = None
     launches = {}
+    mesh_launches = None
     if run("kernel"):
         full = phase_kernel()
     if run("exact"):
         phase_exact()
     if run("serve") or run("chunked") or run("spec") or run("overload") \
-            or run("sibyl"):
+            or run("sibyl") or run("mesh"):
         serve, eng = phase_serve()
         if args.only in (None, "serve"):
             phase_profile(eng)
@@ -5914,6 +6546,8 @@ def main(argv=None) -> int:
             phase_overload(eng, serve, dev["nvidia_smi"])
         if run("sibyl"):
             phase_sibyl(eng, serve, dev["nvidia_smi"])
+        if run("mesh"):
+            mesh_launches = phase_mesh(eng, dev["nvidia_smi"])
         del eng
         # a finished session's radix tree and its release callback form
         # reference cycles: collect them so the next phase's memory
@@ -5943,6 +6577,10 @@ def main(argv=None) -> int:
     if run("stencil"):
         stencil, stencil_launches = phase_stencil()
         launches.update(stencil_launches)
+    if mesh_launches is not None:
+        # the plans launch the serving kernels (and the scans) at
+        # per-shard shapes: their counts join the other phases'
+        _add(launches, mesh_launches)
     if full is not None or stencil is not None:
         emit(kernels_line(full, launches, stencil))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

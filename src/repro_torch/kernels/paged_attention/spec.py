@@ -95,6 +95,40 @@ def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:
     }
 
 
+def head_sharded_specs(k: int = 1, *, data_axis: str = "data",
+                       model_axis: str = "model",
+                       layer_stacked: bool = True) -> dict:
+    """The kernel's calling convention for mesh-sharded serving: a
+    `sharding.partition.P` per argument (plus ``"out"``) such that every
+    shard's call is LOCAL, with no page gathered from another shard.
+
+    Page capacity shards over the data axis (each decode row's pages live
+    on the shard that decodes it, so the page table holds local slot
+    ids) and kv heads over the model axis. Query heads shard over the
+    model axis too: query head ``h`` attends kv head ``h // (hq / hkv)``,
+    so when the model axis divides ``hq`` and ``hkv`` shard ``s``'s
+    contiguous q-head block is exactly the ``g`` query heads of each of
+    its kv heads. Pools are the serve layer's layer-stacked ``(L, C, t,
+    hkv, hd)`` tensors (``layer_stacked=False``: the flat layout);
+    ``k > 1`` is the verify shape ``(b, k, hq, d)``."""
+    from repro_torch.sharding.partition import P
+
+    d, m = data_axis, model_axis
+    ll = (None,) if layer_stacked else ()
+    pool = P(*ll, d, None, m, None)
+    scale = P(*ll, d, None, m)
+    q = P(d, m, None) if k == 1 else P(d, None, m, None)
+    return {
+        "q": q,
+        "k_pages": pool, "v_pages": pool,
+        "k_quant": pool, "v_quant": pool,
+        "k_scale": scale, "v_scale": scale,
+        "page_table": P(d, None), "lengths": P(d),
+        "layer": P(),
+        "out": q,
+    }
+
+
 SPEC = registry.register(KernelSpec(
     name="paged_attention",
     fn=paged_attention,

@@ -5,6 +5,7 @@ its roofline inputs — the port of the JAX package's
 Usage:
   python -m repro_torch.launch.dryrun --arch mamba2-780m --shape train_4k
   python -m repro_torch.launch.dryrun --all
+  python -m repro_torch.launch.dryrun --serve-plan   # serving-memory report
 Results are cached as JSON under experiments/dryrun_torch/ (never the
 reference's experiments/dryrun/, whose readers must not load them).
 
@@ -26,9 +27,15 @@ against `roofline.H100_SXM`. The roofline's memory term reads the
 fusion-aware bytes (``bytes_accessed_fused``), as the reference's does;
 the bytes eager PyTorch moves are recorded beside them.
 
-One device only: ``--multi-pod``, ``--both-meshes``, a ``--mesh`` other
-than 1x1, a ``--variant`` other than baseline and ``--serve-plan`` need
-the port's sharding layer and raise `SystemExit` (ROADMAP Queue 1 item 6).
+``--serve-plan`` is the reference's pure-arithmetic serving report: per
+arch and dp x tp serve mesh (`serve.sharding.ServePlan` on a deviceless
+mesh), the weight and page-pool bytes one device holds against
+`roofline.H100_SXM`'s memory, at 16 decode rows of 8192 tokens.
+
+The step counts are of one device: ``--multi-pod``, ``--both-meshes``, a
+``--mesh`` other than 1x1 and a ``--variant`` other than baseline belong
+to the mesh-training slice and raise `SystemExit` (ROADMAP Queue 1 item
+6b).
 """
 from __future__ import annotations
 
@@ -42,12 +49,13 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import SHAPES, get_config, list_archs, shapes_for
+from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.core.hlo_cost import CostCounter
 from repro_torch.core.roofline import (H100_SXM, model_flops, roofline_terms,
                                        total_flops)
 from repro_torch.models import Model
-from repro_torch.models.common import torch_dtype
-from repro_torch.models.transformer import pad_caches
+from repro_torch.models.common import flatten, torch_dtype
+from repro_torch.models.transformer import model_spec, pad_caches
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import init_state, make_train_step
@@ -55,8 +63,8 @@ from repro_torch.train.train_step import init_state, make_train_step
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1x1"
 PREFILL_ROWS = 4        # positions of the prefill that shapes decode caches
-UNPORTED = ("needs the port's sharding layer (ROADMAP Queue 1 item 6): "
-            "the port's dry run counts one device, mesh 1x1")
+UNPORTED = ("belongs to the mesh-training slice (ROADMAP Queue 1 item "
+            "6b): the port's dry run counts one device, mesh 1x1")
 
 
 def _meta(shape, dtype):
@@ -213,6 +221,136 @@ def run_cell(arch: str, shape_name: str, *, out_dir: Path = OUT_DIR,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# --serve-plan: the reference's analytic serving-memory report, plain
+# arithmetic over the spec's shapes — no device, no allocation
+# ---------------------------------------------------------------------------
+SERVE_BATCH = 16           # decode rows
+SERVE_CONTEXT = 8_192      # KV tokens held per sequence
+SERVE_PAGE_TOKENS = 16     # serve launcher default page size
+SERVE_MESHES = "1x1,1x8,2x4,4x8"
+
+
+def _spec_divisor(spec, sizes: dict) -> int:
+    """How many devices one leaf is split over under a spec."""
+    div = 1
+    for entry in spec:
+        if entry is None:
+            continue
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            div *= sizes[ax]
+    return div
+
+
+def serve_plan_cell(arch: str, dp: int, tp: int, hw=H100_SXM) -> dict:
+    """Per-device serving memory of one (arch, dp x tp mesh) cell at the
+    SERVE_BATCH x SERVE_CONTEXT serving point, the reference's arithmetic:
+    weights split by `ServePlan.param_specs`, the page pool as
+    `DevicePagePool` sizes it per data shard (every layer, kv heads over
+    the model axis, fp32 K/V pages + int8 copies + fp32 scales)."""
+    from repro_torch.serve.paged_state import supports_paged_layout
+    from repro_torch.serve.sharding import ServePlan
+
+    cfg = get_config(arch)
+    rec = {"arch": arch, "mesh": f"{dp}x{tp}", "dp": dp, "tp": tp,
+           "hardware": hw.name, "status": "ok"}
+    if not supports_paged_layout(cfg):
+        rec["status"] = "no_paged_path"
+        return rec
+    plan = ServePlan(make_abstract_mesh((dp, tp), ("data", "model")))
+    try:
+        plan.check_config(cfg)
+    except ValueError as e:
+        rec["status"] = "indivisible"
+        rec["error"] = str(e)
+        return rec
+    sizes = {"data": dp, "model": tp}
+    specs = plan.param_specs(cfg)
+    params_dev = 0
+    for name, ps in flatten(model_spec(cfg)).items():
+        n = 1
+        for d in ps.shape:
+            n *= int(d)
+        total = n * torch.empty((), dtype=torch_dtype(
+            ps.dtype or cfg.param_dtype)).element_size()
+        params_dev += total // _spec_divisor(specs[name], sizes)
+    t, hkv, hd = SERVE_PAGE_TOKENS, cfg.num_kv_heads, cfg.head_dim
+    rows_per_shard = -(-SERVE_BATCH // dp)
+    slots_per_seq = -(-SERVE_CONTEXT // t) + 2     # + tail/spill headroom
+    cap_local = 1
+    while cap_local < max(8, rows_per_shard * slots_per_seq):
+        cap_local *= 2
+    hkv_local = hkv // tp
+    slot_bytes = (2 * t * hkv_local * hd * (4 + 1)    # pages + quant
+                  + 2 * t * hkv_local * 4)            # scales
+    pool_dev = cfg.num_layers * cap_local * slot_bytes
+    hbm = int(hw.hbm_gib * 2 ** 30)
+    rec.update(params_bytes_per_device=params_dev,
+               pool_bytes_per_device=pool_dev,
+               pool_slots_per_device=cap_local,
+               rows_per_shard=rows_per_shard,
+               hbm_bytes=hbm,
+               headroom_bytes=hbm - params_dev - pool_dev)
+    if rec["headroom_bytes"] < 0:
+        rec["status"] = "UNSERVABLE"
+    return rec
+
+
+def parse_meshes(spec: str) -> list:
+    """"DxM[,DxM...]" -> [(d, m), ...]."""
+    out = []
+    for part in spec.split(","):
+        try:
+            d, m = (int(x) for x in part.strip().lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--serve-meshes wants DxM[,DxM...], got "
+                             f"{part!r}")
+        out.append((d, m))
+    return out
+
+
+def serve_plan_main(args, hw=H100_SXM) -> list:
+    """Print and write (``serve_plan.json`` under ``--out``) the serve-plan
+    records of every arch (or ``--arch``) at every ``--serve-meshes``
+    mesh. Returns the records."""
+    archs = [args.arch] if args.arch else list_archs()
+    meshes = parse_meshes(args.serve_meshes)
+    gib = 2 ** 30
+    recs = []
+    n_unservable = 0
+    print(f"serving plan @ batch={SERVE_BATCH} context={SERVE_CONTEXT} "
+          f"page_tokens={SERVE_PAGE_TOKENS} hw={hw.name} "
+          f"({hw.hbm_gib:.1f} GiB/device)")
+    print(f"{'arch':24s} {'mesh':7s} {'params/dev':>11s} {'pool/dev':>11s} "
+          f"{'headroom':>11s} status")
+    for arch in archs:
+        for d, m in meshes:
+            rec = serve_plan_cell(arch, d, m, hw=hw)
+            recs.append(rec)
+            if rec["status"] == "no_paged_path":
+                print(f"{arch:24s} {rec['mesh']:7s} {'-':>11s} {'-':>11s} "
+                      f"{'-':>11s} {rec['status']}")
+                break                      # same verdict on every mesh
+            if rec["status"] == "indivisible":
+                print(f"{arch:24s} {rec['mesh']:7s} {'-':>11s} {'-':>11s} "
+                      f"{'-':>11s} indivisible")
+                continue
+            n_unservable += rec["status"] == "UNSERVABLE"
+            print(f"{arch:24s} {rec['mesh']:7s} "
+                  f"{rec['params_bytes_per_device'] / gib:10.2f}G "
+                  f"{rec['pool_bytes_per_device'] / gib:10.2f}G "
+                  f"{rec['headroom_bytes'] / gib:10.2f}G {rec['status']}")
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / "serve_plan.json"
+    out_path.write_text(json.dumps(
+        {"batch": SERVE_BATCH, "context": SERVE_CONTEXT,
+         "page_tokens": SERVE_PAGE_TOKENS, "hardware": hw.name,
+         "cells": recs}, indent=2))
+    print(f"{n_unservable} unservable cells; wrote {out_path}")
+    return recs
+
+
 def all_cells():
     return [(arch, shape.name) for arch in list_archs()
             for shape in shapes_for(get_config(arch))]
@@ -226,9 +364,6 @@ def refuse_unported(args) -> None:
     if args.variant != "baseline":
         raise SystemExit(f"--variant {args.variant} {UNPORTED} "
                          f"(launch/variants.py waits for it)")
-    if args.serve_plan:
-        raise SystemExit(f"--serve-plan {UNPORTED} (ServePlan, "
-                         f"sharding/partition.py)")
 
 
 def main(argv=None):
@@ -242,9 +377,17 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--variant", default="baseline")
-    ap.add_argument("--serve-plan", action="store_true")
+    ap.add_argument("--serve-plan", action="store_true",
+                    help="analytic serving-memory report per arch x serve "
+                         "mesh (no device): weights + page-pool bytes per "
+                         "device vs the card's memory")
+    ap.add_argument("--serve-meshes", default=SERVE_MESHES,
+                    help="comma-separated DxM serve meshes for --serve-plan")
     args = ap.parse_args(argv)
     refuse_unported(args)
+    if args.serve_plan:
+        serve_plan_main(args)
+        raise SystemExit(0)
     if not args.all and not (args.arch and args.shape):
         raise SystemExit("give --arch and --shape, or --all")
     cells = all_cells() if args.all else [(args.arch, args.shape)]

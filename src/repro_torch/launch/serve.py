@@ -37,8 +37,15 @@ smoke config, else its published widths, with random weights from seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
         --smoke --device cpu
 
-``--mesh`` (multi-device serving, ROADMAP Queue 1 item 8) and
-``--knee-cache`` raise `NotImplementedError`: the port's serving kernels
+    # a dp x tp serving mesh (decode rows over data, heads over model):
+    # 2 x 2 over the first four CUDA devices, or every shard on one
+    # device with --mesh-devices (one entry repeats for every position):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+        --paged --continuous --max-active 2 --mesh 2x2 --mesh-devices cuda:0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+        --smoke --device cpu --paged --mesh 2x2
+
+``--knee-cache`` raises `NotImplementedError`: the port's serving kernels
 launch at fixed shapes, so serving resolves no knee to persist (the
 stencils' knees persist through ``launch.weather_stencil --knee-cache``).
 """
@@ -50,6 +57,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_state import supports_paged_layout
@@ -99,7 +107,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="front-end waiting-line bound: submissions past "
                          "it are rejected (reason queue_full), not blocked")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="serving mesh 'data x model' (not ported)")
+                    help="serving mesh 'data x model', e.g. 2x2: decode "
+                         "rows shard over data, heads over model "
+                         "(requires --paged / --continuous)")
+    ap.add_argument("--mesh-devices", default=None, metavar="DEV[,DEV...]",
+                    help="devices of the mesh positions in order; one "
+                         "entry repeats for every position (default: the "
+                         "first DxM CUDA devices, or the CPU with --device "
+                         "cpu)")
     ap.add_argument("--no-chunked-prefill", action="store_true",
                     help="prefill prompts in one pass at admission instead "
                          "of streaming page-sized chunks through the steps")
@@ -123,9 +138,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args):
-    if args.mesh:
-        raise NotImplementedError(
-            "mesh serving is not ported (ROADMAP Queue 1 item 8)")
     if args.knee_cache:
         raise NotImplementedError(
             "the port's serving kernels launch at fixed shapes, so serving "
@@ -138,6 +150,24 @@ def _preempt_policy(args):
         return None
     from repro_torch.serve.placement import SibylPreemption
     return SibylPreemption(device=args.device)
+
+
+def _mesh(args):
+    """The `--mesh DxM` serving mesh over `--mesh-devices`, or None."""
+    if not args.mesh:
+        return None
+    try:
+        d, m = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DxM (e.g. 2x2), got {args.mesh!r}")
+    devices = None
+    if args.mesh_devices:
+        devices = args.mesh_devices.split(",")
+    elif args.device == "cpu":
+        devices = ["cpu"]
+    if devices is not None and len(devices) == 1:
+        devices = devices * (d * m)
+    return make_serve_mesh(d, m, devices=devices)
 
 
 def main(argv=None) -> dict:
@@ -161,9 +191,15 @@ def main(argv=None) -> dict:
                            placement_policy=policy)
     if args.speculate > 1 and pool is None:
         raise SystemExit("--speculate needs --paged or --continuous")
+    mesh = _mesh(args)
+    if mesh is not None and pool is None:
+        raise SystemExit("--mesh needs --paged or --continuous")
     eng = ServeEngine(cfg, kv_pool=pool, device=args.device,
                       decode_mode=args.decode_mode,
-                      speculate=args.speculate, draft=args.draft)
+                      speculate=args.speculate, draft=args.draft, mesh=mesh)
+    if eng.plan is not None:
+        print(f"serve plan: {eng.plan} over "
+              f"{[str(x) for x in eng.plan.devices.ravel()]}")
     if pool is not None and supports_paged_layout(cfg):
         # per-request paged-state budget for this arch at the launch shape
         lay = eng.layout

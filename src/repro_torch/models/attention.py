@@ -68,21 +68,30 @@ def attn_spec(cfg: ModelConfig, cross: bool = False):
     its cross branch."""
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, hq, hd), init="fan_in"),
-        "wk": ParamSpec((d, hkv, hd), init="fan_in"),
-        "wv": ParamSpec((d, hkv, hd), init="fan_in"),
-        "wo": ParamSpec((hq, hd, d), init="fan_in"),
+        "wq": ParamSpec((d, hq, hd), init="fan_in",
+                        logical=("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, hkv, hd), init="fan_in",
+                        logical=("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, hkv, hd), init="fan_in",
+                        logical=("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((hq, hd, d), init="fan_in",
+                        logical=("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((hq, hd), init="zeros")
-        s["bk"] = ParamSpec((hkv, hd), init="zeros")
-        s["bv"] = ParamSpec((hkv, hd), init="zeros")
+        s["bq"] = ParamSpec((hq, hd), init="zeros",
+                            logical=("heads", "head_dim"))
+        s["bk"] = ParamSpec((hkv, hd), init="zeros",
+                            logical=("kv_heads", "head_dim"))
+        s["bv"] = ParamSpec((hkv, hd), init="zeros",
+                            logical=("kv_heads", "head_dim"))
     if cfg.qk_norm:
         s["q_norm"] = norm_spec(hd)
         s["k_norm"] = norm_spec(hd)
     if cross:
-        s["gate_attn"] = ParamSpec((), init="zeros", dtype="float32")
-        s["gate_ffn"] = ParamSpec((), init="zeros", dtype="float32")
+        s["gate_attn"] = ParamSpec((), init="zeros", dtype="float32",
+                                 logical=())
+        s["gate_ffn"] = ParamSpec((), init="zeros", dtype="float32",
+                                logical=())
         s["q_norm_x"] = norm_spec(hd)
         s["k_norm_x"] = norm_spec(hd)
     return s
@@ -207,14 +216,19 @@ def mla_spec(cfg: ModelConfig):
     qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wdq": ParamSpec((d, qr), init="fan_in"),
+        "wdq": ParamSpec((d, qr), init="fan_in", logical=("embed", "q_lora")),
         "q_norm": norm_spec(qr),
-        "wuq": ParamSpec((qr, h, nope + rope), init="fan_in"),
-        "wdkv": ParamSpec((d, kr + rope), init="fan_in"),
+        "wuq": ParamSpec((qr, h, nope + rope), init="fan_in",
+                         logical=("q_lora", "heads", "head_dim")),
+        "wdkv": ParamSpec((d, kr + rope), init="fan_in",
+                          logical=("embed", "kv_lora")),
         "kv_norm": norm_spec(kr),
-        "wuk": ParamSpec((kr, h, nope), init="fan_in"),
-        "wuv": ParamSpec((kr, h, vd), init="fan_in"),
-        "wo": ParamSpec((h, vd, d), init="fan_in"),
+        "wuk": ParamSpec((kr, h, nope), init="fan_in",
+                         logical=("kv_lora", "heads", "head_dim")),
+        "wuv": ParamSpec((kr, h, vd), init="fan_in",
+                         logical=("kv_lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, vd, d), init="fan_in",
+                        logical=("heads", "head_dim", "embed")),
     }
 
 

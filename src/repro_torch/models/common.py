@@ -1,10 +1,11 @@
 """Parameter specs and their random init.
 
 A module describes its parameters as a nested dict of ``ParamSpec``
-leaves; the same tree gives the shapes, the dtypes and the seeded random
-init, so they cannot drift apart. The init rules are those of the JAX
-package's ``repro/models/common.py`` (fan_in, zeros, ones, normal, and
-the mamba2 ``alog`` and RG-LRU ``lambda`` draws), drawn from
+leaves; the same tree gives the shapes, the dtypes, the logical axis
+names that `repro_torch.sharding.partition` maps onto a mesh, and the
+seeded random init, so they cannot drift apart. The init rules are those
+of the JAX package's ``repro/models/common.py`` (fan_in, zeros, ones,
+normal, and the mamba2 ``alog`` and RG-LRU ``lambda`` draws), drawn from
 an explicit ``torch.Generator`` on the target device so that a full-width
 model is initialised on the card, never on the host.
 """
@@ -23,13 +24,29 @@ class ParamSpec:
     init: str = "normal"    # normal | zeros | ones | fan_in | alog | lambda
     scale: float = 0.02
     dtype: Optional[str] = None    # override model param dtype (e.g. fp32 norms)
+    # logical axis name per dim (None = replicated), as the reference's
+    logical: tuple = ()
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
+
+
+def psum_one(parts: list) -> list:
+    """The tensor-parallel reduction seam over a single model shard: the
+    identity. The mixers' and the MLP's bodies take one entry per model
+    shard and a ``psum`` (`serve.sharding.ServePlan.psum` under a mesh
+    plan); the unsharded model is their one-shard case."""
+    return parts
 
 
 def stack_specs(tree, n: int):
-    """Prepend a leading layer-stack dim of size n to every spec in the
-    tree (the reference's scan layout)."""
+    """Prepend a leading layer-stack dim of size n (logical axis
+    "layers") to every spec in the tree (the reference's scan layout)."""
     if isinstance(tree, ParamSpec):
-        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape))
+        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape),
+                                   logical=("layers",) + tuple(tree.logical))
     return {k: stack_specs(v, n) for k, v in tree.items()}
 
 

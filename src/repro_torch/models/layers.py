@@ -26,7 +26,7 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 def norm_spec(d: int) -> ParamSpec:
     # stored as delta around 1 (zeros init) in fp32
-    return ParamSpec((d,), init="zeros", dtype="float32")
+    return ParamSpec((d,), init="zeros", dtype="float32", logical=(None,))
 
 
 # ---------------------------------------------------------------------------
@@ -54,11 +54,13 @@ def apply_rope(x, positions, theta: float):
 def mlp_spec(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_gelu:
-        return {"up": ParamSpec((d, f), init="fan_in"),
-                "down": ParamSpec((f, d), init="fan_in")}
-    return {"gate": ParamSpec((d, f), init="fan_in"),
-            "up": ParamSpec((d, f), init="fan_in"),
-            "down": ParamSpec((f, d), init="fan_in")}
+        return {"up": ParamSpec((d, f), init="fan_in",
+                              logical=("embed", "ffn")),
+                "down": ParamSpec((f, d), init="fan_in",
+                                  logical=("ffn", "embed"))}
+    return {"gate": ParamSpec((d, f), init="fan_in", logical=("embed", "ffn")),
+            "up": ParamSpec((d, f), init="fan_in", logical=("embed", "ffn")),
+            "down": ParamSpec((f, d), init="fan_in", logical=("ffn", "embed"))}
 
 
 def mlp_apply(cfg: ModelConfig, p, x):
@@ -76,9 +78,10 @@ def embed_spec(cfg: ModelConfig):
     """The LM head, and the token table unless the config takes external
     embeddings (musicgen's frame embeddings: no ``tok`` leaf)."""
     vp = cfg.padded_vocab_size
-    out = {"lm_head": ParamSpec((cfg.d_model, vp), init="fan_in")}
+    out = {"lm_head": ParamSpec((cfg.d_model, vp), init="fan_in",
+                                 logical=("embed", "vocab"))}
     if not cfg.external_embed:
-        out["tok"] = ParamSpec((vp, cfg.d_model))
+        out["tok"] = ParamSpec((vp, cfg.d_model), logical=("vocab", "embed"))
     return out
 
 

@@ -32,11 +32,15 @@ from repro_torch.models.common import ParamSpec
 
 def moe_spec(cfg: ModelConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
-    s = {"router": ParamSpec((d, e), init="fan_in", dtype="float32"),
-         "up": ParamSpec((e, d, f), init="fan_in"),
-         "down": ParamSpec((e, f, d), init="fan_in")}
+    s = {"router": ParamSpec((d, e), init="fan_in", dtype="float32",
+                             logical=("embed", None)),
+         "up": ParamSpec((e, d, f), init="fan_in",
+                         logical=("experts", "embed", "ffn")),
+         "down": ParamSpec((e, f, d), init="fan_in",
+                           logical=("experts", "ffn", "embed"))}
     if not cfg.mlp_gelu:
-        s["gate"] = ParamSpec((e, d, f), init="fan_in")
+        s["gate"] = ParamSpec((e, d, f), init="fan_in",
+                              logical=("experts", "embed", "ffn"))
     return s
 
 

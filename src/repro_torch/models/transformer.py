@@ -32,8 +32,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (flatten, materialize, stack_specs,
-                                       torch_dtype, unflatten)
+from repro_torch.models.common import (flatten, materialize, psum_one,
+                                       stack_specs, torch_dtype, unflatten)
 from repro_torch.models.layers import (embed_apply, embed_spec, lm_head_apply,
                                        mlp_apply, mlp_spec, norm_spec,
                                        rms_norm)
@@ -63,45 +63,105 @@ def layer_spec(cfg: ModelConfig, mixer: str, mlp: str):
     return s
 
 
-def mlp_tail(cfg: ModelConfig, kind, p, x):
-    """Post-mixer half of a layer (norm2 + dense or MoE MLP residual, the
-    MLP output tanh-gated on a cross layer; nothing for MLP_NONE) —
-    shared by the dense stack and the serve layer's fused paged decode
-    step. Returns (x, aux): aux the MoE load-balancing loss, None for
-    other MLPs; training adds it to the loss, serving drops it, as the
+def mlp_tail_tp(cfg: ModelConfig, kind, ps, xs, psum):
+    """Post-mixer half of a layer over a plan's model axis (norm2 + dense
+    or MoE MLP residual, the MLP output tanh-gated on a cross layer;
+    nothing for MLP_NONE): ``ps`` and ``xs`` hold one entry per model
+    shard. A dense MLP's up / down projections are ffn-sharded, so the
+    down projection emits a partial sum that one reduction completes; MoE
+    subtrees replicate, so every shard runs the whole expert stack.
+    Returns (xs, aux): aux the MoE load-balancing loss, None for other
+    MLPs; training adds it to the loss, serving drops it, as the
     reference's serving does."""
     mixer, mlp = kind[0], kind[1]
+    if mlp == MLP_NONE:
+        return xs, None
+    hs = [rms_norm(x, p["norm2"]) for p, x in zip(ps, xs)]
     aux = None
-    if mlp != MLP_NONE:
-        h = rms_norm(x, p["norm2"])
-        if mlp == MLP_MOE:
-            y, aux = moe_mod.moe_apply(cfg, p["moe"], h)
-        else:
-            y = mlp_apply(cfg, p["mlp"], h)
-        if mixer == CROSS_ATTN:
-            y = torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
-        x = x + y
-    return x, aux
+    if mlp == MLP_MOE:
+        outs = [moe_mod.moe_apply(cfg, p["moe"], h) for p, h in zip(ps, hs)]
+        ys, aux = [y for y, _ in outs], outs[0][1]
+    else:
+        ys = psum([mlp_apply(cfg, p["mlp"], h) for p, h in zip(ps, hs)])
+    if mixer == CROSS_ATTN:
+        ys = [torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
+              for p, y in zip(ps, ys)]
+    return [x + y for x, y in zip(xs, ys)], aux
 
 
-def mixer_apply(cfg: ModelConfig, kind, p, h, *, mode, positions,
-                cache=None, backend: str = "auto", cross_embeds=None):
-    """A layer's mixer on its normed input. ``cross_embeds`` reaches only
-    a CROSS_ATTN layer. Returns (y, cache)."""
+def mlp_tail(cfg: ModelConfig, kind, p, x):
+    """`mlp_tail_tp` on one shard — shared by the dense stack and the
+    serve layer's fused paged decode step. Returns (x, aux)."""
+    xs, aux = mlp_tail_tp(cfg, kind, [p], [x], psum_one)
+    return xs[0], aux
+
+
+def mixer_apply_tp(cfg: ModelConfig, kind, ps, hs, psum, *, mode,
+                   positions, caches, backend: str = "auto",
+                   cross_embeds=None):
+    """A layer's mixer on its normed input over a plan's model axis:
+    ``ps``, ``hs``, ``positions``, ``caches`` and ``cross_embeds`` hold
+    one entry per model shard. An attention mixer runs each shard's
+    heads and its row-sharded out projection meets in one reduction; the
+    SSD and RG-LRU bodies reduce inside (`ssm_apply_tp`,
+    `rglru_apply_tp`). ``cross_embeds`` reach only a CROSS_ATTN layer.
+    Returns the lists (y, cache), y reduced."""
     mixer = kind[0]
-    if mixer in (ATTN, LOCAL_ATTN, CROSS_ATTN):
-        return attn.attn_apply(
-            cfg, p["attn"], h, mode=mode, positions=positions, cache=cache,
-            window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend,
-            cross_embeds=cross_embeds if mixer == CROSS_ATTN else None)
-    if mixer == MLA:
-        return attn.mla_apply(cfg, p["mla"], h, mode=mode,
-                              positions=positions, cache=cache)
     if mixer == SSD:
-        return ssm_mod.ssm_apply(cfg, p["ssm"], h, mode=mode, cache=cache,
-                                 backend=backend)
-    return rglru_mod.rglru_apply(cfg, p["rglru"], h, mode=mode, cache=cache,
-                                 backend=backend)
+        return ssm_mod.ssm_apply_tp(cfg, [p["ssm"] for p in ps], hs, psum,
+                                    mode=mode, caches=caches,
+                                    backend=backend)
+    if mixer == RGLRU:
+        return rglru_mod.rglru_apply_tp(cfg, [p["rglru"] for p in ps], hs,
+                                        psum, mode=mode, caches=caches,
+                                        backend=backend)
+    if mixer == MLA:
+        outs = [attn.mla_apply(cfg, p["mla"], h, mode=mode,
+                               positions=pos, cache=c)
+                for p, h, pos, c in zip(ps, hs, positions, caches)]
+    else:
+        outs = [attn.attn_apply(
+            cfg, p["attn"], h, mode=mode, positions=pos, cache=c,
+            window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend,
+            cross_embeds=xe if mixer == CROSS_ATTN else None)
+            for p, h, pos, c, xe in zip(ps, hs, positions, caches,
+                                        cross_embeds)]
+    return psum([y for y, _ in outs]), [c for _, c in outs]
+
+
+def layer_tp(cfg: ModelConfig, kind, ps, xs, psum, *, mode, positions,
+             caches, backend: str = "auto", cross_embeds=None):
+    """One layer over a plan's model axis — norm1, the mixer, its
+    residual and the MLP tail — every argument but ``kind`` and ``psum``
+    one entry per model shard. Returns (xs, caches, aux), aux as
+    `mlp_tail_tp`'s."""
+    hs = [rms_norm(x, p["norm1"]) for p, x in zip(ps, xs)]
+    ys, cs = mixer_apply_tp(cfg, kind, ps, hs, psum, mode=mode,
+                            positions=positions, caches=caches,
+                            backend=backend, cross_embeds=cross_embeds)
+    xs, aux = mlp_tail_tp(cfg, kind, ps, [x + y for x, y in zip(xs, ys)],
+                          psum)
+    return xs, cs, aux
+
+
+def run_stack_tp(cfg: ModelConfig, layers, xs, psum, *, mode, positions,
+                 caches=None, backend: str = "auto", cross_embeds=None):
+    """Every layer in order over a plan's model axis: ``layers[m]`` is
+    model shard m's per-layer params, ``xs``, ``positions`` and
+    ``cross_embeds`` one entry per shard, ``caches`` (or None) per layer
+    a list over the shards. Returns (xs, per-layer lists of per-shard
+    caches)."""
+    tp = len(xs)
+    cross_embeds = cross_embeds if cross_embeds is not None else [None] * tp
+    out = []
+    for layer, kind in enumerate(cfg.layer_kinds()):
+        xs, cs, _ = layer_tp(
+            cfg, kind, [ws[layer] for ws in layers], xs, psum, mode=mode,
+            positions=positions,
+            caches=caches[layer] if caches is not None else [None] * tp,
+            backend=backend, cross_embeds=cross_embeds)
+        out.append(cs)
+    return xs, out
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -117,6 +177,13 @@ def model_spec(cfg: ModelConfig) -> dict:
     if tail:
         s["tail"] = {f"t{i}": layer_spec(cfg, *k) for i, k in enumerate(tail)}
     return s
+
+
+def model_logical(cfg: ModelConfig) -> dict:
+    """Flat ``{name: logical axes}`` of the model's parameters, the names
+    of `model_spec` as `flatten` gives them."""
+    return {n: tuple(ps.logical) for n, ps in
+            flatten(model_spec(cfg)).items()}
 
 
 def check_state(cfg: ModelConfig, state: dict) -> dict:
@@ -235,29 +302,28 @@ class Model(nn.Module):
 
     def _layer(self, kind, p, x, *, mode, positions, cache=None,
                backend: str = "auto", cross_embeds=None):
-        """One layer: norm1, the mixer, its residual and the MLP tail.
-        Returns (x, cache, aux), aux as `mlp_tail`'s."""
-        h = rms_norm(x, p["norm1"])
-        y, c = mixer_apply(self.cfg, kind, p, h, mode=mode,
-                           positions=positions, cache=cache,
-                           backend=backend, cross_embeds=cross_embeds)
-        x, aux = mlp_tail(self.cfg, kind, p, x + y)
-        return x, c, aux
+        """One layer (`layer_tp` on one shard): norm1, the mixer, its
+        residual and the MLP tail. Returns (x, cache, aux), aux as
+        `mlp_tail`'s."""
+        xs, cs, aux = layer_tp(self.cfg, kind, [p], [x], psum_one,
+                               mode=mode, positions=[positions],
+                               caches=[cache], backend=backend,
+                               cross_embeds=[cross_embeds])
+        return xs[0], cs[0], aux
 
     def run_stack(self, x, *, mode, positions, caches=None,
                   backend: str = "auto", cross_embeds=None):
-        """Every layer in order, over the views built at init. Returns
-        (x, per-layer caches). `backend` picks the prefill kernels'
-        implementation (`kernels.api.run`); ``cross_embeds`` (b, n, d)
-        feed the cross-attention layers."""
-        out = []
-        for layer, (kind, p) in enumerate(zip(self.kinds, self.layers)):
-            x, c, _ = self._layer(
-                kind, p, x, mode=mode, positions=positions,
-                cache=caches[layer] if caches is not None else None,
-                backend=backend, cross_embeds=cross_embeds)
-            out.append(c)
-        return x, out
+        """Every layer in order, over the views built at init
+        (`run_stack_tp` on one shard). Returns (x, per-layer caches).
+        `backend` picks the prefill kernels' implementation
+        (`kernels.api.run`); ``cross_embeds`` (b, n, d) feed the
+        cross-attention layers."""
+        xs, out = run_stack_tp(
+            self.cfg, [self.layers], [x], psum_one, mode=mode,
+            positions=[positions],
+            caches=[[c] for c in caches] if caches is not None else None,
+            backend=backend, cross_embeds=[cross_embeds])
+        return xs[0], [c[0] for c in out]
 
     def forward_prefill(self, tokens=None, backend: str = "auto", *,
                         embeds=None, image_embeds=None):

@@ -41,10 +41,19 @@ victim ranked by a pluggable policy (`serve.preemption`). ``metrics=``
 collects per-request queue wait, TTFT, per-token latency and SLO
 outcomes (`serve.metrics`).
 
+Mesh serving (``mesh=``, `launch.mesh.make_serve_mesh`): a dp x tp
+`serve.sharding.ServePlan` shards the weights (heads and ffn over
+"model", the rest replicated), binds every sequence to a data shard
+before its first write, pads the decode rows to an equal block per data
+shard, and runs the fused step and the prefill per shard with the
+reduction seams between model shards; the scheduler admits per shard and
+the radix cache keeps one tree per shard. A plan of one shard is the
+unsharded engine. Mesh serving decodes from a page pool (``kv_pool=``).
+
 Greedy decoding is argmax; temperature sampling draws from a
-``torch.Generator`` seeded with ``seed``. Mesh sharding and the
-eager/numpy decode modes are later slices: the arguments that ask for
-them raise `NotImplementedError`. As in the reference, `serve()` and
+``torch.Generator`` seeded with ``seed``. The eager/numpy decode modes
+are not ported: ``decode_mode`` other than "fused" raises
+`NotImplementedError`. As in the reference, `serve()` and
 `ServeSession` need a pool (`ValueError`), a paged MLA or cross-attention
 stack raises `NotImplementedError`, and the engine feeds tokens only: a
 cross-attention stack (llama-3.2-vision-11b: no image embeddings) fails
@@ -62,7 +71,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model
-from repro_torch.models.transformer import pad_caches
+from repro_torch.models.common import flatten
+from repro_torch.models.transformer import check_state, pad_caches
 from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
                                             extract_prefill_pages, sample)
@@ -72,6 +82,7 @@ from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import (Admission, Request, Scheduler,
                                          effective_speculate,
                                          prefix_page_hashes)
+from repro_torch.serve.sharding import ServePlan, ShardedModel
 from repro_torch.serve.speculative import SpecStats, make_draft
 from repro_torch.serve.steps import prefill_all_positions
 
@@ -87,7 +98,11 @@ class ServeEngine:
     attention and the decode step's paged attention. ``speculate`` is the
     engine's default tokens per step (`Request.speculate` wins); ``draft``
     is ``"ngram[:N]"``, ``"self"`` or any ``propose(history, n)``
-    object."""
+    object. ``mesh`` (`launch.mesh.make_serve_mesh`) serves through a
+    `ServePlan` over its devices (``device`` is then unused; a mesh of one
+    position is the unsharded engine on its device): the config must
+    split over its model axis (`ServePlan.check_config`) and the engine
+    needs ``kv_pool``."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None,
                  seed: int = 0, kv_pool: Optional[PagedKVPool] = None,
@@ -97,11 +112,29 @@ class ServeEngine:
         if decode_mode not in (None, "fused"):
             raise NotImplementedError(f"decode_mode={decode_mode!r}: only "
                                       f"the fused step is ported")
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported")
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.model = Model(cfg, device=self.device, seed=seed, state=params)
+        self.plan = ServePlan.from_mesh(mesh)
+        if self.plan is None:
+            # a mesh of one position serves unsharded on its device
+            self.device = torch.device(device if mesh is None
+                                       else mesh.devices.flat[0])
+            self.model = Model(cfg, device=self.device, seed=seed,
+                               state=params)
+        else:
+            self.plan.check_config(cfg)
+            if kv_pool is None:
+                raise ValueError("mesh serving decodes from a page pool — "
+                                 "construct the engine with kv_pool=")
+            self.device = self.plan.device(0, 0)
+            if params is None:
+                # the weights the unsharded engine draws from `seed` on
+                # the controller's device, sharded, then dropped
+                full = Model(cfg, device=self.device, seed=seed)
+                self.model = ShardedModel(cfg, self.plan, flatten(full.params))
+                del full
+            else:
+                self.model = ShardedModel(cfg, self.plan,
+                                          check_state(cfg, params))
         self.kv_pool = kv_pool
         self.backend = backend
         self.layout = StateLayout(cfg, kv_pool.page_tokens) \
@@ -168,7 +201,7 @@ class ServeEngine:
         return PagedKVState(self.kv_pool, capacity, self.layout,
                             cfg.num_kv_heads, cfg.head_dim,
                             batch_hint=batch_hint, tail_slots=tail_slots,
-                            device=self.device)
+                            device=self.device, plan=self.plan)
 
     def _fused_step_fn(self, slots: int, greedy: bool, temperature: float,
                        k: int = 1):
@@ -178,18 +211,19 @@ class ServeEngine:
             fn = build_fused_step(self.model, slots, k=k,
                                   backend=self.backend, greedy=greedy,
                                   temperature=temperature,
-                                  layout=self.layout)
+                                  layout=self.layout, plan=self.plan)
             self._fused_cache[key] = fn
         return fn
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _prefill_all(self, toks: np.ndarray):
-        """All-position logits and caches of one prompt (no padding)."""
+    def _prefill_all(self, toks: np.ndarray, shard: int = 0):
+        """All-position logits and caches of one prompt (no padding); under
+        a plan on data shard `shard`, the one its sequence is bound to."""
         return prefill_all_positions(
             self.model, torch.from_numpy(toks[None]).to(self.device),
-            backend=self.backend)
+            backend=self.backend, shard=shard)
 
     def _spec_step(self, state: PagedKVState, step_fn, k: int, rows,
                    generator):
@@ -307,13 +341,29 @@ class ServeEngine:
                                          max_new)
         self._require_paged()
 
+        plan = self.plan
+        # a plan decodes n_rows >= b rows so that every data shard gets an
+        # equal block; the extra rows are seq -1 padding (trash slots)
+        n_rows = plan.pad_rows(b) if plan is not None else b
         t0 = time.perf_counter()
-        logits, caches = self.model.forward_prefill(
-            torch.from_numpy(prompts).to(self.device), backend=self.backend)
+        tokens = torch.from_numpy(prompts).to(self.device)
+        if plan is None:
+            logits, caches = self.model.forward_prefill(
+                tokens, backend=self.backend)
+        else:
+            # each row prefills on the data shard that decodes it
+            logits, caches = self.model.forward_prefill(
+                tokens, backend=self.backend,
+                row_shards=[plan.shard_of_row(i, n_rows) for i in range(b)])
         seq_ids = list(range(self._next_seq, self._next_seq + b))
         self._next_seq += b
-        state = self._new_state(plen + max_new, batch_hint=b,
+        state = self._new_state(plen + max_new, batch_hint=n_rows,
                                 tail_slots=2 if spec_k > 1 else 1)
+        if plan is not None:
+            # bind each sequence to its row's data shard BEFORE any
+            # prefill write, so its pages land where it decodes
+            for i, seq in enumerate(seq_ids):
+                state.bind_seq(seq, plan.shard_of_row(i, n_rows))
         extract_prefill_pages(self.model, caches, state, seq_ids)
         self.stats["prefill_s"] += time.perf_counter() - t0
 
@@ -329,13 +379,16 @@ class ServeEngine:
                                 gen, observe)
         else:
             step_fn = self._fused_step_fn(state.slots, greedy, temperature)
+            step_seqs = seq_ids + [-1] * (n_rows - b)
+            if n_rows > b:       # device-side pad: no extra upload
+                tok = torch.cat([tok, tok.new_zeros(n_rows - b)])
             for step in range(max_new - 1):
                 hits0 = (self.kv_pool.stats["fast_hits"],
                          self.kv_pool.stats["slow_hits"])
                 g0 = state.gather_s
                 # steady state: one control upload, one token download —
                 # `tok` stays on the device
-                tok_host, tok = state.run_fused(step_fn, tok, seq_ids,
+                tok_host, tok = state.run_fused(step_fn, tok, step_seqs,
                                                 plen + step, gen)
                 if observe is not None:
                     observe(state.gather_s - g0,
@@ -430,6 +483,8 @@ class ServeEngine:
                              "eff_k": eff_ks[i],
                              "limit": r.max_new_tokens - len(outs[i]),
                              "eos": r.eos_token, "stats": spec_stats[i]})
+            # a plan's padding rows (seq -1) up to the equal-block count
+            rows.extend([None] * (state.batch_hint - len(rows)))
             hits0 = (self.kv_pool.stats["fast_hits"],
                      self.kv_pool.stats["slow_hits"])
             g0 = state.gather_s
@@ -656,18 +711,26 @@ class ServeSession:
         self.radix = False if hybrid else \
             (bool(prefix_cache) if radix is None else bool(radix))
         self.prefix_cache = False if hybrid else prefix_cache
+        plan = engine.plan
+        # under a plan the decode batch carries an equal block of rows per
+        # data shard; admission fills rows (and page budget) per shard, so
+        # the rows round max_active up to a multiple of dp
+        n_rows = plan.pad_rows(max_active) if plan is not None \
+            else max_active
+        dp = plan.dp if plan is not None else 1
         self.prefix_index = RadixPrefixCache(
-            self.pool, engine.layout.n_kv,
-            on_release=self._release_pinned) if self.radix else None
+            self.pool, engine.layout.n_kv, on_release=self._release_pinned,
+            shards=dp) if self.radix else None
         self.sched = Scheduler(self.pool, engine.layout,
                                max_active=max_active,
                                default_speculate=engine.speculate,
-                               prefix_index=self.prefix_index)
+                               prefix_index=self.prefix_index,
+                               data_shards=dp, rows_per_shard=n_rows // dp)
         # a chunk-fill step uses the spill slot (decode rows riding a wide
         # step may cross their page boundary), so chunked sessions need the
         # second tail slot even at k == 1
         self.state = engine._new_state(
-            self.capacity, batch_hint=max_active,
+            self.capacity, batch_hint=n_rows,
             tail_slots=2 if (k > 1 or self.chunked) else 1)
         # prefix-cache hit accounting (pages adopted / adoptable pages)
         # and the per-token wall time of decode work that shared a step
@@ -675,13 +738,13 @@ class ServeSession:
         self.pages_adopted_total = 0
         self.pages_needed_total = 0
         self.prefill_step_decode_ms: list[float] = []
-        self._rows: list[Optional[_Active]] = [None] * max_active
+        self._rows: list[Optional[_Active]] = [None] * n_rows
         self._recs: dict[int, _SessionRec] = {}
         self._gen = engine._generator(seed)
         self._observe = getattr(self.pool.policy, "observe", None)
         self._step_fn = engine._fused_step_fn(self.state.slots, greedy,
                                               temperature, k=k)
-        self._tok_dev = None      # device-resident (max_active,) last tokens
+        self._tok_dev = None      # device-resident (n_rows,) last tokens
         self._rows_dirty = True   # host-known token entered/left a row
         self.steps = 0
         self.chunk_steps = 0      # steps that carried a prompt chunk
@@ -927,7 +990,7 @@ class ServeSession:
         every page the victim held free, nothing else in the batch is
         touched."""
         req, act = rec.req, rec.active
-        row_i = self._rows.index(None)
+        row_i = self._free_row(self.sched.assigned_shard(req))
         try:
             if self._fault is not None and self._fault[0] == "swap_fail" \
                     and self._fault_rng.random() < self._fault[1]:
@@ -962,6 +1025,12 @@ class ServeSession:
             rec.metrics.on_resume()
         return True
 
+    def _free_row(self, shard: int) -> int:
+        """A free decode row in `shard`'s block of rows."""
+        rps = len(self._rows) // self.sched.data_shards
+        return next(i for i in range(shard * rps, (shard + 1) * rps)
+                    if self._rows[i] is None)
+
     def _maybe_preempt(self) -> bool:
         """One preemption pass after a blocked admission round: if the
         waiting head strictly outranks some active row (the scheduler's
@@ -975,8 +1044,14 @@ class ServeSession:
         head = sched.head_blocked()
         if head is None:
             return False
+        # a parked head resumes only on its own shard: victims on other
+        # shards free nothing it can use
+        need_shard = sched.assigned_shard(head) if sched.is_parked(head) \
+            else None
         cands = [rec for rec in self._recs.values()
-                 if rec.status == "active" and sched.preempts(head, rec.req)]
+                 if rec.status == "active" and sched.preempts(head, rec.req)
+                 and (need_shard is None
+                      or sched.assigned_shard(rec.req) == need_shard)]
         if not cands:
             return False
         now = sched._clock()
@@ -1068,7 +1143,12 @@ class ServeSession:
                     continue
                 seq = eng._next_seq
                 eng._next_seq += 1
-                row_i = self._rows.index(None)
+                # the scheduler picked the request's data shard: take a row
+                # in its block and bind the sequence before any write, so
+                # its pages land on the shard that decodes it
+                shard = self.sched.assigned_shard(req)
+                row_i = self._free_row(shard)
+                self.state.bind_seq(seq, shard)
                 toks = np.asarray(req.prompt, np.int32)
                 plen = len(toks)
                 act = _Active(req, seq, plen,
@@ -1100,7 +1180,7 @@ class ServeSession:
                         rec.metrics.on_admit()
                     continue
                 t0 = time.perf_counter()
-                logits_all, caches = eng._prefill_all(toks)
+                logits_all, caches = eng._prefill_all(toks, shard)
                 want_hashes = self.prefix_cache or self.radix
                 hashes = [prefix_page_hashes(toks, t)] if want_hashes \
                     else None
@@ -1118,7 +1198,7 @@ class ServeSession:
                                       skip_pages=[adopted])
                 if self.radix and hashes:
                     # pin the prompt's full pages for later requests
-                    self.prefix_index.insert(hashes[0])
+                    self.prefix_index.insert(hashes[0], shard=shard)
                 eng.stats["prefill_s"] += time.perf_counter() - t0
                 tok = int(sample(logits_all[:, plen - 1], self.greedy,
                                  self.temperature, self._gen)[0])
@@ -1256,7 +1336,8 @@ class ServeSession:
                 if self.radix and act.hashes:
                     # prompt fully resident: pin its full pages so later
                     # requests adopt them
-                    self.prefix_index.insert(act.hashes)
+                    self.prefix_index.insert(
+                        act.hashes, shard=self.sched.assigned_shard(act.req))
                 if rec.metrics is not None:
                     rec.metrics.on_tokens(1)
                 done = act.finished

@@ -63,16 +63,16 @@ import torch
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD
 from repro_torch.kernels import api
 from repro_torch.models.attention import decode_qkv, out_proj
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import psum_one, torch_dtype
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.transformer import mlp_tail
+from repro_torch.models.transformer import mlp_tail_tp
 from repro_torch.serve.device_pool import DevicePagePool
 from repro_torch.serve.kvcache import PagedKVPool
 from repro_torch.serve.paged_state import (RecurrentStore, StateLayout,
                                            gather_ring_kv, rec_array_names,
-                                           rec_gather, rec_scan_tokens,
-                                           rec_scatter, ring_attend,
-                                           select_checkpoint)
+                                           rec_gather, rec_scan_tokens_tp,
+                                           rec_scatter,
+                                           ring_attend, select_checkpoint)
 
 
 class PagedKVState:
@@ -96,18 +96,30 @@ class PagedKVState:
 
     ``h2d`` / ``d2h`` count the explicit host->device / device->host
     transfers of the decode path; `transfer_counts` adds the device
-    pool's and the recurrent store's writes and readbacks."""
+    pool's and the recurrent store's writes and readbacks.
+
+    Under a mesh ``plan`` (`serve.sharding.ServePlan`) a sequence is bound
+    to a data shard (`bind_seq`) before its first write: its page, tail,
+    spill and recurrent slots all come from that shard, and the control
+    block carries shard-local slot ids, so its row attends only pages of
+    its own shard. The decode batch must hold an equal block of rows per
+    shard (pad with -1 rows: `ServePlan.pad_rows`); every shard has its
+    own trash slots. The control block is still one upload."""
 
     def __init__(self, pool: PagedKVPool, capacity: int,
                  layout: StateLayout, hkv: int, hd: int, *,
-                 batch_hint: int = 1, tail_slots: int = 1, device="cuda"):
+                 batch_hint: int = 1, tail_slots: int = 1, device="cuda",
+                 plan=None):
         if tail_slots not in (1, 2):
             raise ValueError(f"tail_slots must be 1 or 2, got {tail_slots}")
         self.pool = pool
         self.layout = layout
         self.num_layers = num_layers = layout.n_kv
         self.hkv, self.hd = hkv, hd
-        self.device = torch.device(device)
+        self.plan = plan
+        shards = plan.dp if plan is not None else 1
+        self.device = plan.device(0, 0) if plan is not None \
+            else torch.device(device)
         t = pool.page_tokens
         slots = -(-capacity // t)          # ceil: pages covering capacity
         if layout.has_ring:
@@ -115,6 +127,7 @@ class PagedKVState:
         # + the tail page(s), rounded to a multiple of 8
         self.slots = -(-(slots + tail_slots) // 8) * 8
         self.batch_hint = max(1, batch_hint)
+        self._shard_of: dict[int, int] = {}    # seq -> data shard
         self.tail_len: dict[int, int] = {}     # seq -> tail rows (all layers)
         self._tail_slot: dict[int, int] = {}   # seq -> device slot
         self._spill_slot: dict[int, int] = {}  # k > 1: boundary-crossing rows
@@ -122,16 +135,19 @@ class PagedKVState:
         # fills, so prompt pages built by chunk scatters dedup/share and
         # can be pinned by the radix prefix tree
         self._pending_hashes: dict[int, list] = {}
+        # init_slots is the PER-SHARD worst case: each shard carries its
+        # block of decode rows
+        rows_per_shard = -(-self.batch_hint // shards)
         self._device = DevicePagePool(num_layers, t, hkv, hd,
-                                      init_slots=self.slots * self.batch_hint,
-                                      device=self.device)
-        self._trash = self._device.alloc()
+                                      init_slots=self.slots * rows_per_shard,
+                                      device=self.device, plan=plan)
+        self._trash = [self._device.alloc(s) for s in range(shards)]
         self._rec: RecurrentStore | None = None
         if layout.has_rec:
             self._rec = RecurrentStore(
                 layout, batch_hint=self.batch_hint,
                 compute_dtype=torch_dtype(layout.cfg.compute_dtype),
-                device=self.device)
+                device=self.device, plan=plan)
         self._rec_slot: dict[int, int] = {}    # seq -> recurrent slot
         self._ring_base: dict[int, int] = {}   # seq -> dropped ring pages
         # preempted sequences: seq -> host copy of its partial tail rows
@@ -144,12 +160,35 @@ class PagedKVState:
         self.h2d = 0
         self.d2h = 0
 
+    # -- data-shard binding --------------------------------------------------
+    def bind_seq(self, seq: int, shard: int):
+        """Pin a sequence to a data shard BEFORE its first write: all of
+        its device slots (pages, tail, spill, recurrent) come from that
+        shard, so its decode row attends only local pages. Rebinding to
+        another shard is an error."""
+        prev = self._shard_of.setdefault(seq, shard)
+        if prev != shard:
+            raise RuntimeError(f"sequence {seq} already bound to data "
+                               f"shard {prev}, cannot rebind to {shard}")
+
+    def shard_of(self, seq: int) -> int:
+        if self._device.shards > 1 and seq not in self._shard_of:
+            raise RuntimeError(f"sequence {seq} not bound to a data shard "
+                               f"— call bind_seq before its first write")
+        return self._shard_of.get(seq, 0)
+
     @property
     def device_arrays(self):
         """The fused step's tensors, updated in place: the six
-        layer-stacked pool tensors, then the recurrent store's (if any)."""
-        kv = self._device.arrays
-        return kv + self._rec.arrays if self._rec is not None else kv
+        layer-stacked pool tensors, then the recurrent store's (if any).
+        Under a plan, one such tuple per shard: ``[d][m]``."""
+        rec = self._rec
+        if self.plan is None:
+            kv = self._device.arrays
+            return kv + rec.arrays if rec is not None else kv
+        return [[kv + (rec.shard_arrays[d][m] if rec is not None else ())
+                 for m, kv in enumerate(row)]
+                for d, row in enumerate(self._device.shard_arrays)]
 
     def transfer_counts(self) -> tuple[int, int]:
         """(host->device, device->host) explicit transfers so far,
@@ -220,7 +259,7 @@ class PagedKVState:
     def _ensure_tail_slot(self, seq: int) -> int:
         slot = self._tail_slot.get(seq)
         if slot is None:
-            slot = self._device.alloc()
+            slot = self._device.alloc(self.shard_of(seq))
             self._device.zero_slot(slot)
             self._tail_slot[seq] = slot
         return slot
@@ -231,7 +270,7 @@ class PagedKVState:
         actually fill the page."""
         slot = self._spill_slot.get(seq)
         if slot is None:
-            slot = self._device.alloc()
+            slot = self._device.alloc(self.shard_of(seq))
             self._device.zero_slot(slot)
             self._spill_slot[seq] = slot
         return slot
@@ -241,7 +280,7 @@ class PagedKVState:
         recurrent layer), zeroed on first use."""
         slot = self._rec_slot.get(seq)
         if slot is None:
-            slot = self._rec.alloc()
+            slot = self._rec.alloc(self.shard_of(seq))
             self._rec.zero_slot(slot)
             self._rec_slot[seq] = slot
         return slot
@@ -252,7 +291,7 @@ class PagedKVState:
         full set skips the zeroing write."""
         slot = self._rec_slot.get(seq)
         if slot is None:
-            slot = self._rec.alloc()
+            slot = self._rec.alloc(self.shard_of(seq))
             self._rec_slot[seq] = slot
             if set(blocks) != set(self._rec.names):
                 self._rec.zero_slot(slot)
@@ -295,7 +334,9 @@ class PagedKVState:
         `paged_state.ControlCols`; default: verify rows keeping up to
         k - 1 drafts); a ring stack adds each row's ring base. Dead rows
         (seq -1) get the scratch slot, the recurrent trash slot, length 1
-        and keep exactly one phantom token."""
+        and keep exactly one phantom token. Under a plan row i belongs to
+        data shard ``i * dp // b``, which binds its sequence, and every
+        slot is that shard's local id."""
         t0 = time.perf_counter()
         t = self.pool.page_tokens
         if k > t:
@@ -305,45 +346,62 @@ class PagedKVState:
         b = len(seq_ids)
         positions = np.broadcast_to(np.asarray(positions, np.int32), (b,))
         cc = self.layout.cols(self.slots, k)
+        dev = self._device
+        shards = dev.shards
+        if b % shards:
+            raise ValueError(f"decode batch of {b} rows does not split "
+                             f"over {shards} data shards — pad with -1 "
+                             f"rows (ServePlan.pad_rows)")
+        row_shard = [i * shards // b for i in range(b)]
         control = np.zeros((b, cc.width), np.int32)
-        control[:, cc.tail] = self._trash
+        control[:, cc.tail] = [dev.local_slot(self._trash[sh])
+                               for sh in row_shard]
         control[:, cc.len] = 1
         if self._rec is not None:
-            control[:, cc.rec] = self._rec.trash
+            control[:, cc.rec] = [self._rec.local_slot(self._rec.trash_of[sh])
+                                  for sh in row_shard]
             if k > 1:
                 control[:, cc.keep_fixed] = 1
                 control[:, cc.keep_cap] = 0
         if k > 1:
-            control[:, cc.spill] = self._trash
+            control[:, cc.spill] = control[:, cc.tail]
             if tokens is not None:
                 control[:, cc.tok:cc.tok + k] = np.asarray(tokens, np.int32)
-        groups_by_row, touch_pids, sync_groups = [], [], []
-        for seq in seq_ids:
+        groups_by_row, touch_pids = [], []
+        sync_groups, sync_shards = [], []
+        for i, seq in enumerate(seq_ids):
             if seq < 0:
                 groups_by_row.append(None)
                 continue
+            if shards > 1:
+                self.bind_seq(seq, row_shard[i])
             groups = self._page_groups(seq, tail_slots=1 if k == 1 else 2)
             for g in groups:
                 touch_pids.extend(g)
             sync_groups.extend(groups)
+            sync_shards.extend([row_shard[i]] * len(groups))
             groups_by_row.append(groups)
         self.pool.touch_many(touch_pids)
-        self._device.sync(self.pool, sync_groups)
+        dev.sync(self.pool, sync_groups, sync_shards)
         for i, groups in enumerate(groups_by_row):
             if groups is None:
                 continue
             seq = seq_ids[i]
             tail = self.tail_len.get(seq, 0)
             if self.num_layers:
+                sh = row_shard[i]
                 for n, g in enumerate(groups):
-                    control[i, n] = self._device.slot(g[0])
-                control[i, cc.tail] = self._ensure_tail_slot(seq)
+                    control[i, n] = dev.local_slot(dev.slot(g[0], sh))
+                control[i, cc.tail] = \
+                    dev.local_slot(self._ensure_tail_slot(seq))
                 control[i, len(groups)] = control[i, cc.tail]
                 if k > 1:
-                    control[i, cc.spill] = self._ensure_spill_slot(seq)
+                    control[i, cc.spill] = \
+                        dev.local_slot(self._ensure_spill_slot(seq))
                     control[i, len(groups) + 1] = control[i, cc.spill]
             if self._rec is not None:
-                control[i, cc.rec] = self._ensure_rec_slot(seq)
+                control[i, cc.rec] = \
+                    self._rec.local_slot(self._ensure_rec_slot(seq))
                 if k > 1:
                     control[i, cc.keep_fixed] = \
                         -1 if keep_fixed is None else int(keep_fixed[i])
@@ -449,7 +507,8 @@ class PagedKVState:
             group = tuple(self.pool.put(seq, k_all[l], v_all[l], layer=l,
                                         content_hash=h)
                           for l in range(self.num_layers))
-            self._device.adopt(group, slot, self.pool)
+            self._device.adopt(group, slot, self.pool,
+                               shard=self._device.shard_of_slot(slot))
             spill = self._spill_slot.pop(seq, None)
             if spill is not None:
                 # rows past the boundary were scattered here already
@@ -583,6 +642,7 @@ class PagedKVState:
         destroyed = self.pool.free(seq)
         for pid, _layer in destroyed:
             self._device.release_pid(pid)
+        self._shard_of.pop(seq, None)
         self.tail_len.pop(seq, None)
         self._pending_hashes.pop(seq, None)
         self._ring_base.pop(seq, None)
@@ -698,9 +758,39 @@ def _rec_names(mixer):
     return ("ssd_conv", "ssd_state") if mixer == SSD else ("rg_h", "rg_conv")
 
 
+class _Controls:
+    """The step's view of a control block (`StateLayout.cols`): page
+    table, lengths (row 0's), positions (b, k), each K/V row's flat (slot,
+    row) scatter index, the input tokens (k > 1) and the recurrent slots
+    and ring bases where the stack has them. k > 1 rows past the page
+    boundary scatter to the spill slot (row < t and k <= t keep them below
+    2t)."""
+
+    def __init__(self, control, cc, lay, num_slots: int, k: int, t: int):
+        self.table = control[:, :num_slots].contiguous()
+        self.lengths = control[:, cc.len].contiguous()
+        if k == 1:
+            self.positions = control[:, cc.pos][:, None]
+            self.row_base = control[:, cc.tail].long() * t \
+                + control[:, cc.row]
+            self.tokens = None
+        else:
+            offs = torch.arange(k, dtype=torch.int32, device=control.device)
+            self.positions = control[:, cc.pos][:, None] + offs[None, :]
+            r = control[:, cc.row][:, None] + offs[None, :]
+            over = r >= t
+            slot = torch.where(over, control[:, cc.spill][:, None],
+                               control[:, cc.tail][:, None])
+            self.row_base = (slot.long() * t
+                             + torch.where(over, r - t, r)).reshape(-1)
+            self.tokens = control[:, cc.tok:cc.tok + k]
+        self.rec_slots = control[:, cc.rec] if lay.has_rec else None
+        self.ring_base = control[:, cc.base] if lay.has_ring else None
+
+
 def build_fused_step(model, num_slots: int, *, k: int = 1,
                      backend: str = "auto", greedy: bool = True,
-                     temperature: float = 1.0, layout=None):
+                     temperature: float = 1.0, layout=None, plan=None):
     """Build the fused decode step.
 
     ``k == 1``. Returned callable: ``step(arrays, tokens, control,
@@ -715,135 +805,135 @@ def build_fused_step(model, num_slots: int, *, k: int = 1,
     core and scatters the state back. The host sees only the sampled
     tokens.
 
-    ``k > 1`` — the speculative VERIFY step (`_build_spec_step`). Returned
-    callable:
-    ``step(arrays, control, generator) -> verdict (b, k + 1) int32``.
-    ``layout`` is the engine's `StateLayout` (built from the model's
-    config when omitted)."""
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    lay = layout if layout is not None else StateLayout(model.cfg, 1)
-    if k > 1:
-        return _build_spec_step(model, num_slots, k, backend=backend,
-                                greedy=greedy, temperature=temperature,
-                                layout=lay)
-    cfg = model.cfg
-    cc = lay.cols(num_slots, k)
-    rec_of = {n: i for i, n in enumerate(rec_array_names(lay))}
-    kinds = [(m, mlp, layer) for layer, (m, mlp) in enumerate(model.kinds)]
-
-    def step(arrays, tokens, control, generator=None):
-        kv, rec = tuple(arrays[:6]), arrays[6:]
-        t = kv[0].shape[2]
-        table = control[:, :num_slots].contiguous()
-        lengths = control[:, cc.len].contiguous()
-        positions = control[:, cc.pos][:, None]
-        # flat (slot, row) index of each batch row's new K/V row
-        row_base = control[:, cc.tail].long() * t + control[:, cc.row]
-        rec_slots = control[:, cc.rec] if lay.has_rec else None
-        ring_base = control[:, cc.base] if lay.has_ring else None
-        x = model.embed_in(tokens[:, None])
-        for kind, p in zip(kinds, model.layers):
-            h = rms_norm(x, p["norm1"])
-            mixer, layer = kind[0], kind[2]
-            if mixer in (ATTN, LOCAL_ATTN):
-                y = _attend_rows(cfg, lay, kind, p, h, positions, kv, table,
-                                 lengths, ring_base, row_base, backend)
-            else:
-                row = lay.ssd_of[layer] if mixer == SSD else lay.rg_of[layer]
-                stores = [rec[rec_of[n]] for n in _rec_names(mixer)]
-                state0 = tuple(rec_gather(a, row, rec_slots) for a in stores)
-                y, states = rec_scan_tokens(
-                    cfg, mixer, p["ssm" if mixer == SSD else "rglru"], h,
-                    state0)
-                for a, st in zip(stores, states):
-                    rec_scatter(a, row, rec_slots, st[0])
-            x, _ = mlp_tail(cfg, kind, p, x + y)
-        logits = model.head(x)[:, 0]
-        return sample(logits, greedy, temperature, generator)
-
-    return step
-
-
-def _build_spec_step(model, num_slots: int, k: int, *, backend: str = "auto",
-                     greedy: bool = True, temperature: float = 1.0,
-                     layout=None):
-    """The k-row verify step behind `build_fused_step(k > 1)`: the k input
-    tokens (last accepted + k - 1 drafts, or a chunk of prompt tokens)
-    ride in the control block; every KV or ring layer scatters k K/V rows
-    — rows past the page boundary go to the spill slot — and ONE
+    ``k > 1`` — the speculative VERIFY step. Returned callable:
+    ``step(arrays, control, generator) -> verdict (b, k + 1) int32``. The
+    k input tokens (last accepted + k - 1 drafts, or a chunk of prompt
+    tokens) ride in the control block; every KV or ring layer scatters k
+    K/V rows — rows past the page boundary go to the spill slot — and ONE
     paged-attention launch scores all k rows (row j sees ``lengths + j``
     positions); the accept rule runs on the device: position j's sampled
     token is the model's answer after inputs 0..j, draft j survives while
-    it equals the token sampled at position j - 1. Returns the ``[k
-    sampled tokens | accepted draft count]`` verdict, so one download
-    tells the host a whole accepted run. Greedy verification emits
-    exactly the tokens of the k = 1 step.
+    it equals the token sampled at position j - 1. The ``[k sampled
+    tokens | accepted draft count]`` verdict tells the host a whole
+    accepted run in one download. Greedy verification emits exactly the
+    tokens of the k = 1 step. Recurrent layers verify in O(1) per token:
+    the pre-step state slot is read once, `rec_scan_tokens_tp` keeps the
+    k candidate post-token states, and after the accept rule one scatter
+    per store tensor commits checkpoint ``keep - 1``: chunk rows keep
+    their fixed count, verify rows ``min(accepted, keep_cap) + 1``.
 
-    Recurrent layers verify in O(1) per token: the pre-step state slot is
-    read once, `rec_scan_tokens` runs the k tokens through the one-token
-    core and keeps the candidate post-token states, and after the accept
-    rule resolves each row's ``keep`` one scatter per store tensor
-    commits checkpoint ``keep - 1``: chunk rows keep their fixed count,
-    verify rows ``min(accepted, keep_cap) + 1``."""
+    ``layout`` is the engine's `StateLayout` (built from the model's
+    config when omitted).
+
+    ``plan`` (a `serve.sharding.ServePlan`; ``model`` then a
+    `serve.sharding.ShardedModel`, ``arrays`` ``[d][m]``) runs the body
+    per shard, one controller over every shard: data shard d takes rows
+    ``[d b/dp, (d + 1) b/dp)`` of the control block (and of ``tokens``),
+    copied to each of its model shards' devices, and attends its own pool
+    slice through the block's local slot ids. Per layer each model shard
+    runs its heads — the K/V row scatter into its pool slice and the
+    paged-attention kernel at its head count (hq / tp, hkv / tp or the
+    one kv head), or its block of a recurrent layer — and the attention
+    out-projection and the MLP down-projection meet at `ServePlan.psum`
+    (as do the SSD gate norm and the RG-LRU gates). Each data shard's
+    logits come from model shard 0 to the controller's device, where one
+    sample (and, k > 1, one accept rule) covers the batch. ``plan=None``
+    is the one-shard case: the model itself, its device, no reduction."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
     cfg = model.cfg
     lay = layout if layout is not None else StateLayout(cfg, 1)
     cc = lay.cols(num_slots, k)
     rec_of = {n: i for i, n in enumerate(rec_array_names(lay))}
     kinds = [(m, mlp, layer) for layer, (m, mlp) in enumerate(model.kinds)]
+    if plan is None:
+        shards, dp, psum = [[model]], 1, psum_one
+    else:
+        shards, dp, psum = model.shards, plan.dp, plan.psum
 
-    def step(arrays, control, generator=None):
-        kv, rec = tuple(arrays[:6]), arrays[6:]
-        t = kv[0].shape[2]
-        table = control[:, :num_slots].contiguous()
-        lengths = control[:, cc.len].contiguous()          # row 0's
-        tail_row = control[:, cc.row]
-        tokens = control[:, cc.tok:cc.tok + k]             # (b, k)
-        offs = torch.arange(k, dtype=torch.int32, device=control.device)
-        positions = control[:, cc.pos][:, None] + offs[None, :]
-        # per-row scatter target: rows crossing the page boundary go to
-        # the spill slot (tail_row < t and k <= t keep r below 2t)
-        r = tail_row[:, None] + offs[None, :]
-        over = r >= t
-        slot = torch.where(over, control[:, cc.spill][:, None],
-                           control[:, cc.tail][:, None])
-        row_base = (slot.long() * t + torch.where(over, r - t, r)).reshape(-1)
-        rec_slots = control[:, cc.rec] if lay.has_rec else None
-        ring_base = control[:, cc.base] if lay.has_ring else None
-        keep_fixed = control[:, cc.keep_fixed] if lay.has_rec else None
-        b = tokens.shape[0]
-        x = model.embed_in(tokens)                         # (b, k, d)
-        commits = []        # (store tensor, row, stacked checkpoints)
-        for kind, p in zip(kinds, model.layers):
-            h = rms_norm(x, p["norm1"])
+    def shard_rows(d, arrays_d, control, tokens):
+        ws = shards[d]
+        devs = [control.device if plan is None else plan.device(d, m)
+                for m in range(len(ws))]
+        t = arrays_d[0][0].shape[2]
+        ctl = [_Controls(control.to(dev), cc, lay, num_slots, k, t)
+               for dev in devs]
+        if k == 1:
+            xs = [w.embed_in(tokens.to(dev)[:, None])
+                  for w, dev in zip(ws, devs)]
+        else:
+            xs = [w.embed_in(c.tokens) for w, c in zip(ws, ctl)]
+        commits = []        # (store tensor, row, rec slots, checkpoints)
+        for kind in kinds:
             mixer, layer = kind[0], kind[2]
+            ps = [w.layers[layer] for w in ws]
+            hs = [rms_norm(x, p["norm1"]) for p, x in zip(ps, xs)]
             if mixer in (ATTN, LOCAL_ATTN):
-                y = _attend_rows(cfg, lay, kind, p, h, positions, kv, table,
-                                 lengths, ring_base, row_base, backend)
+                ys = psum([_attend_rows(cfg, lay, kind, p, h, c.positions,
+                                        tuple(a[:6]), c.table, c.lengths,
+                                        c.ring_base, c.row_base, backend)
+                           for p, h, c, a in zip(ps, hs, ctl, arrays_d)])
             else:
                 row = lay.ssd_of[layer] if mixer == SSD else lay.rg_of[layer]
-                stores = [rec[rec_of[n]] for n in _rec_names(mixer)]
-                state0 = tuple(rec_gather(a, row, rec_slots) for a in stores)
-                y, states = rec_scan_tokens(
-                    cfg, mixer, p["ssm" if mixer == SSD else "rglru"], h,
-                    state0)
-                commits += [(a, row, st) for a, st in zip(stores, states)]
-            x, _ = mlp_tail(cfg, kind, p, x + y)
-        logits = model.head(x)                             # (b, k, V)
+                stores = [[a[6 + rec_of[n]] for n in _rec_names(mixer)]
+                          for a in arrays_d]
+                state0 = [tuple(rec_gather(a, row, c.rec_slots) for a in st)
+                          for st, c in zip(stores, ctl)]
+                ys, states = rec_scan_tokens_tp(
+                    cfg, mixer, [p["ssm" if mixer == SSD else "rglru"]
+                                 for p in ps], hs, state0, psum)
+                for st, c, new in zip(stores, ctl, states):
+                    for a, leaf in zip(st, new):
+                        if k == 1:
+                            rec_scatter(a, row, c.rec_slots, leaf[0])
+                        else:
+                            commits.append((a, row, c.rec_slots, leaf))
+            xs, _ = mlp_tail_tp(cfg, kind, ps, [x + y for x, y in zip(xs, ys)],
+                                psum)
+        return ws[0].head(xs[0]), commits
+
+    def run(arrays, control, tokens):
+        """Every data shard's rows: (logits on the controller's device,
+        per data shard (its row slice, its pending recurrent commits))."""
+        if plan is None:
+            arrays = [[arrays]]
+        rows = control.shape[0] // dp
+        logits, commits = [], []
+        for d in range(dp):
+            sl = slice(d * rows, (d + 1) * rows)
+            lg, cm = shard_rows(d, arrays[d], control[sl],
+                                tokens[sl] if tokens is not None else None)
+            logits.append(lg.to(control.device))
+            commits.append((sl, cm))
+        return (logits[0] if dp == 1 else torch.cat(logits)), commits
+
+    if k == 1:
+        def step(arrays, tokens, control, generator=None):
+            logits, _ = run(arrays, control, tokens)
+            return sample(logits[:, 0], greedy, temperature, generator)
+        return step
+
+    def spec_step(arrays, control, generator=None):
+        logits, commits = run(arrays, control, None)
+        b = control.shape[0]
+        tokens = control[:, cc.tok:cc.tok + k]
         samp = sample(logits.reshape(b * k, -1), greedy, temperature,
                       generator).reshape(b, k)
         match = (tokens[:, 1:] == samp[:, :-1]).to(torch.int32)
         n_acc = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
-        if commits:
+        if lay.has_rec:
             # chunk rows keep their fixed token count, verify rows the
             # accepted drafts + the bonus token, capped at the row's real
             # proposal count
+            keep_fixed = control[:, cc.keep_fixed]
             keep = torch.where(keep_fixed >= 0, keep_fixed,
                                torch.minimum(n_acc, control[:, cc.keep_cap])
                                + 1)
             keep = torch.clamp(keep, 1, k)
-            for a, row, st in commits:
-                rec_scatter(a, row, rec_slots, select_checkpoint(st, keep))
+            for sl, cm in commits:
+                for a, row, slots, st in cm:
+                    rec_scatter(a, row, slots,
+                                select_checkpoint(st, keep[sl].to(a.device)))
         return torch.cat([samp, n_acc[:, None]], dim=1)
 
-    return step
+    return spec_step

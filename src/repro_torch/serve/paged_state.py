@@ -1,7 +1,7 @@
 """Per-layer paged-state layout: one serving substrate for three state
 kinds.
 
-The port of ``repro/serve/paged_state.py`` on one device. A layer's
+The port of ``repro/serve/paged_state.py``. A layer's
 serving state lives on one of three substrates, keyed off the config's
 layer pattern:
 
@@ -19,13 +19,13 @@ layer pattern:
 
 `StateLayout` is the static map from a config's stack onto these
 substrates (store rows per layer, the control-block columns, the page
-charge per request). `rec_scan_tokens`, `select_checkpoint`,
+charge per request). `rec_scan_tokens_tp`, `select_checkpoint`,
 `ring_attend` and `gather_ring_kv` are the fused step's per-kind pieces,
 plain PyTorch as the reference's are jnp.
 
 Speculative verify over recurrent layers checkpoints: the pre-step state
 is read once, the k candidate post-token states come out of
-`rec_scan_tokens`, and after the accept rule one scatter per store
+`rec_scan_tokens_tp`, and after the accept rule one scatter per store
 writes checkpoint ``keep - 1``. Rollback is selecting an earlier
 checkpoint, O(1) per token, never a replay.
 """
@@ -41,8 +41,9 @@ from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA,
                                       MLP_DENSE, MLP_MOE, MLP_NONE, RGLRU,
                                       SSD)
 from repro_torch.models.rglru import CONV_TAPS as RGLRU_CONV_TAPS
-from repro_torch.models.rglru import rglru_decode_core
-from repro_torch.models.ssm import ssd_decode_core, ssm_dims
+from repro_torch.models.rglru import rglru_decode_core_tp
+from repro_torch.models.ssm import ssd_decode_core_tp, ssm_dims
+from repro_torch.sharding.partition import P, mesh_axis_sizes
 
 KV, REC, RING = "kv", "rec", "ring"
 
@@ -207,134 +208,249 @@ def rec_scatter(arr, idx: int, slots, vals):
                             vals.to(arr.dtype))
 
 
+# logical axes per store tensor (slot axis second), aligned with
+# `rec_array_names`: SSD heads and the LRU width shard over "model" like
+# attention heads; the SSD conv taps replicate (their channels mix
+# head-local x with group-shared B / C)
+_REC_LOGICAL = {
+    "ssd_state": (None, "data", "model", None, None),
+    "ssd_conv": (None, "data", None, None),
+    "rg_h": (None, "data", "model"),
+    "rg_conv": (None, "data", None, "model"),
+}
+
+
+def rec_array_specs(layout: StateLayout, plan=None) -> tuple:
+    """`sharding.partition.P`s aligned with `rec_array_names(layout)`.
+    Axes the plan's mesh does not carry replicate."""
+    if plan is None:
+        return tuple(P() for _ in rec_array_names(layout))
+    sizes = mesh_axis_sizes(plan.mesh)
+    return tuple(P(*(ax if ax is None or ax in sizes else None
+                     for ax in _REC_LOGICAL[n]))
+                 for n in rec_array_names(layout))
+
+
 class RecurrentStore:
     """Slot-addressed device tensors holding every recurrent layer's
     per-sequence state, with the device pool's slot discipline: a trash
-    slot for dead rows, free-list recycling, growth by doubling.
+    slot per data shard for dead rows, free-list recycling, growth by
+    doubling (each shard alone: global slot ``local * dp + shard``).
 
     ``arrays`` (in `names` order, a subset of ssd_state (L, R, H, P, N)
     fp32, ssd_conv (L, R, K-1, conv_dim) in the compute dtype, rg_h (L,
     R, W) fp32 and rg_conv (L, R, 3, W) fp32) are updated in place by the
-    fused step. ``writes`` counts host->device slot writes (one per
-    tensor), ``reads`` device->host slot pulls (one per tensor)."""
+    fused step; under a mesh plan shard (d, m) holds ``shard_arrays[d][m]``
+    at the layout of `rec_array_specs`. ``writes`` counts host->device
+    slot writes (one per tensor), ``reads`` device->host slot pulls (one
+    per tensor)."""
 
     _instances: "weakref.WeakSet[RecurrentStore]" = weakref.WeakSet()
 
     def __init__(self, layout: StateLayout, batch_hint: int = 1,
-                 compute_dtype=torch.float32, device="cuda"):
+                 compute_dtype=torch.float32, device="cuda", plan=None):
         cfg = layout.cfg
         self.layout = layout
-        self.device = torch.device(device)
-        self.slots = _next_pow2(max(8, max(1, batch_hint) + 1))
+        self.plan = plan
+        self.shards = plan.dp if plan is not None else 1
+        tp = plan.tp if plan is not None else 1
+        self._devs = [[torch.device(device)]] if plan is None else \
+            [[plan.device(d, m) for m in range(tp)]
+             for d in range(self.shards)]
+        self.device = self._devs[0][0]
+        rows = -(-max(1, batch_hint) // self.shards)
+        self._cap = [_next_pow2(max(8, rows + 1))] * self.shards
         self.names = list(rec_array_names(layout))
         shapes, dtypes = {}, {}
         if layout.n_ssd:
             din, nh, conv_dim = ssm_dims(cfg)
+            if nh % tp:
+                raise ValueError(f"{cfg.name}: ssm heads {nh} not divisible "
+                                 f"by the model-axis size {tp}")
             k = cfg.ssm_conv_width
-            shapes["ssd_state"] = (layout.n_ssd, self.slots, nh,
-                                   cfg.ssm_head_dim, cfg.ssm_state)
-            shapes["ssd_conv"] = (layout.n_ssd, self.slots, k - 1, conv_dim)
+            shapes["ssd_state"] = (layout.n_ssd, nh, cfg.ssm_head_dim,
+                                   cfg.ssm_state)
+            shapes["ssd_conv"] = (layout.n_ssd, k - 1, conv_dim)
             dtypes["ssd_state"] = torch.float32
             dtypes["ssd_conv"] = compute_dtype
         if layout.n_rg:
             w = cfg.lru_width
-            shapes["rg_h"] = (layout.n_rg, self.slots, w)
-            shapes["rg_conv"] = (layout.n_rg, self.slots,
-                                 RGLRU_CONV_TAPS - 1, w)
+            if w % tp:
+                raise ValueError(f"{cfg.name}: lru_width {w} not divisible "
+                                 f"by the model-axis size {tp}")
+            shapes["rg_h"] = (layout.n_rg, w)
+            shapes["rg_conv"] = (layout.n_rg, RGLRU_CONV_TAPS - 1, w)
             dtypes["rg_h"] = dtypes["rg_conv"] = torch.float32
-        self.arrays = tuple(torch.zeros(shapes[n], dtype=dtypes[n],
-                                        device=self.device)
-                            for n in self.names)
-        self._free = list(range(self.slots - 1, -1, -1))   # pop() -> lowest
+        self._dtypes = [dtypes[n] for n in self.names]
+        # the model-sharded dim of each tensor's block (no slot axis), or
+        # None when it replicates
+        self._mdim = [spec.index("model") - 1 if "model" in spec else None
+                      for spec in rec_array_specs(layout, plan)]
+        # per-shard block shapes (no slot axis)
+        self._block = []
+        for n, md in zip(self.names, self._mdim):
+            shape = list(shapes[n])
+            if md is not None:
+                shape[md] //= tp
+            self._block.append(tuple(shape))
+        self.shard_arrays = [[self._zeros(self._cap[d], dev) for dev in row]
+                             for d, row in enumerate(self._devs)]
+        self._free = [[self._global(s, i)
+                       for i in range(self._cap[s] - 1, -1, -1)]
+                      for s in range(self.shards)]
         self._used: set[int] = set()
-        self.trash = self.alloc()
+        self.trash_of = [self.alloc(s) for s in range(self.shards)]
         self.writes = 0
         self.reads = 0
         RecurrentStore._instances.add(self)
 
-    # -- slots ---------------------------------------------------------------
-    def _grow(self):
-        old = self.slots
-        self.slots *= 2
-        new = []
-        for a in self.arrays:
-            b = a.new_zeros((a.shape[0], self.slots) + a.shape[2:])
-            b[:, :old] = a
-            new.append(b)
-        self.arrays = tuple(new)
-        self._free.extend(range(self.slots - 1, old - 1, -1))
+    def _zeros(self, cap: int, dev) -> tuple:
+        return tuple(torch.zeros((b[0], cap) + b[1:], dtype=dt, device=dev)
+                     for b, dt in zip(self._block, self._dtypes))
 
-    def alloc(self) -> int:
-        if not self._free:
-            self._grow()
-        slot = self._free.pop()
+    @property
+    def arrays(self) -> tuple:
+        """The unsharded store's tensors."""
+        if len(self.shard_arrays) * len(self.shard_arrays[0]) != 1:
+            raise AttributeError("a sharded store's tensors are "
+                                 "shard_arrays[d][m]")
+        return self.shard_arrays[0][0]
+
+    @property
+    def trash(self) -> int:
+        """Data shard 0's trash slot."""
+        return self.trash_of[0]
+
+    @property
+    def slots(self) -> int:
+        return sum(self._cap)
+
+    def _global(self, shard: int, local: int) -> int:
+        return local * self.shards + shard
+
+    def local_slot(self, slot: int) -> int:
+        return slot // self.shards
+
+    def shard_of_slot(self, slot: int) -> int:
+        return slot % self.shards
+
+    # -- slots ---------------------------------------------------------------
+    def _grow(self, shard: int):
+        old = self._cap[shard]
+        self._cap[shard] *= 2
+        for m, dev in enumerate(self._devs[shard]):
+            new = self._zeros(self._cap[shard], dev)
+            for a, b in zip(new, self.shard_arrays[shard][m]):
+                a[:, :old] = b
+            self.shard_arrays[shard][m] = new
+        self._free[shard].extend(self._global(shard, i) for i in
+                                 range(self._cap[shard] - 1, old - 1, -1))
+
+    def alloc(self, shard: int = 0) -> int:
+        if not self._free[shard]:
+            self._grow(shard)
+        slot = self._free[shard].pop()
         self._used.add(slot)
         return slot
 
     def release_slot(self, slot: int):
         self._used.discard(slot)
-        self._free.append(slot)
+        self._free[self.shard_of_slot(slot)].append(slot)
 
     # -- content -------------------------------------------------------------
+    def _part(self, i: int, m: int, val):
+        """Model shard m's block of a full-width (L, ...) value of tensor
+        `i`."""
+        md = self._mdim[i]
+        if md is None:
+            return val
+        w = self._block[i][md]
+        return val.narrow(md, m * w, w)
+
     def write_slot(self, slot: int, blocks: dict):
         """Host -> device: install per-layer state blocks at one slot.
-        ``blocks`` maps a subset of `names` to (L_kind, ...) arrays."""
+        ``blocks`` maps a subset of `names` to full-width (L_kind, ...)
+        arrays; each model shard takes its block."""
+        shard, local = self.shard_of_slot(slot), self.local_slot(slot)
         for name, val in blocks.items():
-            a = self.arrays[self.names.index(name)]
-            val = torch.as_tensor(np.asarray(val)).to(self.device, a.dtype)
-            a[:, slot] = val
+            i = self.names.index(name)
+            val = torch.as_tensor(np.asarray(val))
+            for m, arrays in enumerate(self.shard_arrays[shard]):
+                a = arrays[i]
+                a[:, local] = self._part(i, m, val).to(a.device, a.dtype)
             self.writes += 1
 
     def zero_slot(self, slot: int):
         self.write_slot(slot, {
-            n: np.zeros((a.shape[0],) + tuple(a.shape[2:]), np.float32)
-            for n, a in zip(self.names, self.arrays)})
+            n: np.zeros((b[0],) + self._full(i)[1:], np.float32)
+            for i, (n, b) in enumerate(zip(self.names, self._block))})
+
+    def _full(self, i: int) -> tuple:
+        """Full-width block shape of tensor `i` (no slot axis)."""
+        shape = list(self._block[i])
+        if self._mdim[i] is not None:
+            shape[self._mdim[i]] *= len(self.shard_arrays[0])
+        return tuple(shape)
 
     def read_slot(self, slot: int) -> dict:
         """Device -> host: every tensor's per-layer blocks at one slot, as
-        fp32 copies (``copy=True``: never a view of the store, whose slot
-        is reused once a parked sequence releases it)."""
+        full-width fp32 copies (``copy=True``: never a view of the store,
+        whose slot is reused once a parked sequence releases it)."""
+        shard, local = self.shard_of_slot(slot), self.local_slot(slot)
         out = {}
-        for name, a in zip(self.names, self.arrays):
-            out[name] = a[:, slot].to("cpu", torch.float32,
-                                      copy=True).numpy()
+        for i, name in enumerate(self.names):
+            parts = self.shard_arrays[shard]
+            if self._mdim[i] is None:
+                parts = parts[:1]
+            vals = [arrays[i][:, local].to("cpu", torch.float32,
+                                           copy=True).numpy()
+                    for arrays in parts]
+            out[name] = vals[0] if len(vals) == 1 else \
+                np.concatenate(vals, axis=self._mdim[i])
             self.reads += 1
         return out
 
     def check_invariants(self) -> None:
-        uniq = set(self._free)
-        assert len(uniq) == len(self._free), \
-            "recurrent free list holds duplicates"
-        for slot in uniq:
-            assert 0 <= slot < self.slots, f"free slot {slot} out of range"
-            assert slot not in self._used, \
-                f"recurrent slot {slot} both free and in use"
+        for shard, free in enumerate(self._free):
+            uniq = set(free)
+            assert len(uniq) == len(free), \
+                "recurrent free list holds duplicates"
+            for slot in uniq:
+                assert self.shard_of_slot(slot) == shard and \
+                    0 <= self.local_slot(slot) < self._cap[shard], \
+                    f"free slot {slot} out of range"
+                assert slot not in self._used, \
+                    f"recurrent slot {slot} both free and in use"
 
 
 # ---------------------------------------------------------------------------
 # The fused step's per-kind pieces
 # ---------------------------------------------------------------------------
-def rec_scan_tokens(cfg, mixer, p, x, state0):
-    """Run k one-token recurrent steps over x: (b, k, d) from the state
-    ``state0`` (SSD: (conv, state); RG-LRU: (h, conv)), through the
-    one-token decode core, keeping every post-token state: nothing is
-    overwritten, so a rollback is selecting checkpoint ``keep - 1``.
-    Returns ``(y (b, k, d), states)``, each states leaf (k, b, ...)."""
-    core = ssd_decode_core if mixer == SSD else rglru_decode_core
-    stacks: list = [[], []]
-    carry = state0
-    ys = []
-    for j in range(x.shape[1]):
-        if mixer == SSD:
-            y, conv, st = core(cfg, p, x[:, j:j + 1], carry[0], carry[1])
-            carry = (conv, st)
-        else:
-            y, h, conv = core(cfg, p, x[:, j:j + 1], carry[0], carry[1])
-            carry = (h, conv)
-        ys.append(y)
-        for leaf, c in zip(stacks, carry):
-            leaf.append(c)
-    return torch.cat(ys, dim=1), tuple(torch.stack(l) for l in stacks)
+def rec_scan_tokens_tp(cfg, mixer, ps, xs, state0s, psum):
+    """Run k one-token recurrent steps over a mesh plan's model axis from
+    each shard's state (SSD: (conv, state); RG-LRU: (h, conv)): ``ps``,
+    ``xs`` (b, k, d) and ``state0s`` hold one entry per model shard, each
+    step through the one-token core (`ssd_decode_core_tp` /
+    `rglru_decode_core_tp`, reducing through ``psum``), keeping every
+    post-token state: nothing is overwritten, so a rollback is selecting
+    checkpoint ``keep - 1``. Returns the lists ``(y (b, k, d), states)``,
+    each states leaf (k, b, ...)."""
+    core = ssd_decode_core_tp if mixer == SSD else rglru_decode_core_tp
+    tp = len(ps)
+    carry = [tuple(s) for s in state0s]
+    ys = [[] for _ in range(tp)]
+    stacks = [([], []) for _ in range(tp)]
+    for j in range(xs[0].shape[1]):
+        y, first, second = core(cfg, ps, [x[:, j:j + 1] for x in xs],
+                                [c[0] for c in carry], [c[1] for c in carry],
+                                psum)
+        carry = list(zip(first, second))
+        for m in range(tp):
+            ys[m].append(y[m])
+            for leaf, c in zip(stacks[m], carry[m]):
+                leaf.append(c)
+    return ([torch.cat(y, dim=1) for y in ys],
+            [tuple(torch.stack(l) for l in st) for st in stacks])
 
 
 def select_checkpoint(stacked, keep):

@@ -1,8 +1,11 @@
 """Continuous-batching scheduler: admit and retire requests mid-decode.
 
-The JAX package's ``repro/serve/scheduler.py`` on one data shard (the
-port imports nothing of that package): urgency-ordered admission with
-the radix prefix index's credit, deadline shedding and preemption.
+The JAX package's ``repro/serve/scheduler.py`` (the port imports nothing
+of that package): urgency-ordered admission with the radix prefix
+index's credit, deadline shedding and preemption, over one data shard or
+several (`serve.sharding.ServePlan`: each shard owns a block of decode
+rows and an equal share of the page budget, and a request admits into
+the least-reserved shard that has a free row and headroom).
 
 Admission rules (as the reference's):
 
@@ -138,7 +141,8 @@ class Scheduler:
     `PagedKVPool`."""
 
     def __init__(self, pool, layout, max_active: int = 4,
-                 default_speculate: int = 0, prefix_index=None):
+                 default_speculate: int = 0, prefix_index=None,
+                 data_shards: int = 1, rows_per_shard: Optional[int] = None):
         if max_active < 1:
             raise ValueError(f"max_active must be >= 1, got {max_active}")
         self.pool = pool
@@ -151,6 +155,15 @@ class Scheduler:
         self.default_speculate = default_speculate
         # radix prefix index (`prefix_cache.RadixPrefixCache`)
         self.prefix_index = prefix_index
+        # mesh-sharded serving: each data shard owns an equal block of
+        # decode rows AND an equal share of the page budget (its device
+        # pool slice holds only its own rows' pages)
+        self.data_shards = max(1, data_shards)
+        self.rows_per_shard = rows_per_shard if rows_per_shard is not None \
+            else max_active
+        self._shard_active = [0] * self.data_shards
+        self._shard_reserved = [0] * self.data_shards
+        self._shard_of: dict[int, int] = {}    # id(request) -> data shard
         self._hashes: dict[int, list] = {}     # id(request) -> page hashes
         self._admit_match: dict = {}           # id(request) -> PrefixMatch
         self.late_rejections: list[tuple] = []  # (request, Admission)
@@ -178,6 +191,13 @@ class Scheduler:
             return None
         return self.pool.capacity_pages - self._base_pages
 
+    def _shard_budget(self):
+        """Per-shard page budget: the pool's capacity splits equally over
+        the data shards, so a request must fit its OWNING shard's
+        share."""
+        budget = self._budget()
+        return None if budget is None else budget // self.data_shards
+
     def _prompt_hashes(self, req: Request) -> list:
         """Cumulative page hashes of a request's prompt, cached per
         request object (submit, admission and adoption all need them)."""
@@ -195,45 +215,69 @@ class Scheduler:
         token's logits."""
         return max(0, (len(req.prompt) - 1) // self.pool.page_tokens)
 
-    def _credit(self, req: Request):
-        """(match, credited pages): prompt pages the radix tree already
-        pins. They are resident either way, so admission charges the
-        request only for the pages it may newly create."""
+    def _credit(self, req: Request, shard: int = 0):
+        """(match, credited pages) of `req` on `shard`: prompt pages the
+        shard's radix tree already pins. They are resident either way, so
+        admission charges the request only for the pages it may newly
+        create."""
         if self.prefix_index is None:
             return None, 0
         hashes = self._prompt_hashes(req)
         if not hashes:
             return None, 0
-        m = self.prefix_index.match(hashes, limit=self.adopt_cap(req))
+        m = self.prefix_index.match(hashes, limit=self.adopt_cap(req),
+                                    shard=shard)
         return m, self.layout.n_kv * m.pages
 
-    def _fit(self, req: Request, need: int):
-        """``(eff_need, match)`` when the request fits now, else None. With
-        a radix index the gate is::
+    def _pick_shard(self, req: Request, need: int):
+        """The least-reserved data shard with a free row and page
+        headroom: ``(shard, eff_need, match)``, or None when none fits
+        now. With a radix index the gate per shard is::
 
-            reserved + (need - credit) + (pinned - credit) <= budget
+            reserved[s] + (need - credit) + (pinned[s] - credit) <= budget
 
         — every resident page counts once, and the request's own matched
         path is exempt because it will be adopted, not re-created. When
         the gate fails, LRU eviction of unprotected exclusive pins
-        (`make_room`) may free the shortfall."""
-        match, credit = self._credit(req)
-        eff = need - credit
-        budget = self._budget()
-        if budget is None:
-            return eff, match
-        pinned = self.prefix_index.pinned_pages() \
-            if self.prefix_index is not None else 0
-        shortfall = sum(self._reserved.values()) + eff + (pinned - credit) \
-            - budget
+        (`make_room`) may free the shortfall: a shard qualifies only if
+        enough pins are reclaimable, and the eviction runs once the
+        winning shard is chosen."""
+        budget = self._shard_budget()
+        best = None
+        for s in range(self.data_shards):
+            if self._shard_active[s] >= self.rows_per_shard:
+                continue
+            match, credit = self._credit(req, s)
+            eff = need - credit
+            shortfall = 0
+            if budget is not None:
+                pinned = self.prefix_index.pinned_pages(s) \
+                    if self.prefix_index is not None else 0
+                shortfall = self._shard_reserved[s] + eff \
+                    + (pinned - credit) - budget
+                if shortfall > 0:
+                    protect = frozenset(match.hashes) if match else \
+                        frozenset()
+                    if self.prefix_index is None or \
+                            self.prefix_index.reclaimable_pages(
+                                protect, shard=s) < shortfall:
+                        continue
+            if best is None or \
+                    self._shard_reserved[s] < self._shard_reserved[best[0]]:
+                best = (s, eff, match, max(0, shortfall))
+        if best is None:
+            return None
+        s, eff, match, shortfall = best
         if shortfall > 0:
             protect = frozenset(match.hashes) if match else frozenset()
-            if self.prefix_index is None or \
-                    self.prefix_index.reclaimable_pages(protect) < shortfall:
+            if self.prefix_index.make_room(shortfall, protect,
+                                           shard=s) < shortfall:
                 return None
-            if self.prefix_index.make_room(shortfall, protect) < shortfall:
-                return None
-        return eff, match
+        return s, eff, match
+
+    def assigned_shard(self, req: Request) -> int:
+        """Data shard `admit()` placed this request on (0 unsharded)."""
+        return self._shard_of.get(id(req), 0)
 
     # -- SLO urgency / overload control --------------------------------------
     def _urgency(self, req: Request) -> tuple:
@@ -301,14 +345,20 @@ class Scheduler:
         """Park an admitted request: its row and page reservation free
         NOW (the caller swaps its pages out), it re-enters the waiting
         queue at its urgency position, and `admit`/`try_resume` later
-        re-reserve it."""
+        re-reserve it on the SAME data shard (its swapped state belongs
+        there)."""
         rid = id(req)
-        self._parked[rid] = self._reserved.pop(rid)
+        need = self._reserved.pop(rid)
+        shard = self._shard_of[rid]            # kept: resume rebinds
+        self._shard_active[shard] -= 1
+        self._shard_reserved[shard] -= need
+        self._parked[rid] = need
         self.preemptions += 1
         self._insert_waiting(req)
 
     def try_resume(self, req: Request) -> bool:
-        """Re-admit a parked request if a row is free and the pool has
+        """Re-admit a parked request if its shard has a free row and the
+        pool has
         headroom (evicting reclaimable prefix pins on shortfall). Its
         original worst-case reservation is restored unchanged — the
         decode progress it already made only shrinks what is left to
@@ -318,14 +368,16 @@ class Scheduler:
         if rid not in self._parked or self.n_active >= self.max_active:
             return False
         need = self._parked[rid]
-        budget = self._budget()
+        shard = self._shard_of[rid]
+        if self._shard_active[shard] >= self.rows_per_shard:
+            return False
+        budget = self._shard_budget()
         if budget is not None:
-            pinned = self.prefix_index.pinned_pages() \
+            pinned = self.prefix_index.pinned_pages(shard) \
                 if self.prefix_index is not None else 0
-            shortfall = sum(self._reserved.values()) + need + pinned \
-                - budget
+            shortfall = self._shard_reserved[shard] + need + pinned - budget
             if shortfall > 0:
-                freed = self.prefix_index.make_room(shortfall) \
+                freed = self.prefix_index.make_room(shortfall, shard=shard) \
                     if self.prefix_index is not None else 0
                 if freed < shortfall:
                     return False
@@ -335,6 +387,8 @@ class Scheduler:
                 break
         del self._parked[rid]
         self._reserved[rid] = need
+        self._shard_active[shard] += 1
+        self._shard_reserved[shard] += need
         self.resumed += 1
         self.peak_active = max(self.peak_active, self.n_active)
         return True
@@ -351,12 +405,15 @@ class Scheduler:
         deadline the current service-rate estimate says cannot be met, is
         rejected immediately with a structured verdict — it is NOT
         queued, and nothing else in the workload is affected."""
-        budget = self._budget()
+        budget = self._shard_budget()
         need = self.pages_needed(req)
         credit = 0
         if budget is not None and self.prefix_index is not None:
-            credit = self._credit(req)[1]
+            credit = max(self._credit(req, s)[1]
+                         for s in range(self.data_shards))
         if budget is not None and need - credit > budget:
+            per_shard = f" per data shard (x{self.data_shards})" \
+                if self.data_shards > 1 else ""
             credited = f" after crediting {credit} radix-cached pages" \
                 if credit else ""
             return Admission(
@@ -365,7 +422,7 @@ class Scheduler:
                 detail=f"request needs {need} pages worst-case{credited} "
                        f"but only {budget} of the pool's capacity_pages="
                        f"{self.pool.capacity_pages} budget are available"
-                       f" ({self._base_pages} pages already "
+                       f"{per_shard} ({self._base_pages} pages already "
                        f"live) — it can never be admitted")
         headroom = None
         if req.deadline is not None:
@@ -412,10 +469,11 @@ class Scheduler:
 
     def admit(self) -> list[Request]:
         """Pop every waiting request that fits right now, in urgency
-        order: a free decode row under ``max_active`` AND page headroom
-        for its worst case on top of the active reservations (and the
-        tree's pins). Expired-deadline requests shed here with a
-        structured late rejection; parked (preempted) requests resume.
+        order: a free decode row under ``max_active`` AND a data shard
+        with a free row and page headroom for its worst case on top of
+        the shard's reservations (and its tree's pins). Expired-deadline
+        requests shed here with a structured late rejection; parked
+        (preempted) requests resume onto their own shard.
         A head the round could not place stays in `head_blocked` for
         the session's preemption pass."""
         out: list[Request] = []
@@ -432,7 +490,7 @@ class Scheduler:
                 self.late_rejections.append((req, Admission(
                     False, reason="deadline_infeasible",
                     pages_needed=self.pages_needed(req),
-                    pages_budget=self._budget(),
+                    pages_budget=self._shard_budget(),
                     deadline_headroom_s=req.deadline - waited,
                     detail=f"deadline {req.deadline:.3f}s expired after "
                            f"{waited:.3f}s in the queue — shed")))
@@ -445,22 +503,23 @@ class Scheduler:
                     # cannot re-place even with every row free: unpinnable
                     # pages took the budget for good. Shed structurally
                     # instead of stalling (the session frees the swapped
-                    # state). The reference's wording, shard 0.
+                    # state).
                     need = self._parked[rid]
+                    shard = self._shard_of.get(rid, 0)
                     self.waiting.popleft()
                     self._drop_request_state(req)
                     self.late_rejections.append((req, Admission(
                         False, reason="pool_capacity", pages_needed=need,
-                        pages_budget=self._budget(),
+                        pages_budget=self._shard_budget(),
                         detail=f"preempted request needs its {need}-page "
-                               f"reservation back on data shard 0 "
+                               f"reservation back on data shard {shard} "
                                f"but even an empty batch cannot host it "
                                f"— shed")))
                     continue
                 break
             need = self.pages_needed(req)
-            fit = self._fit(req, need)
-            if fit is None:
+            pick = self._pick_shard(req, need)
+            if pick is None:
                 if self.n_active == 0 and not out:
                     # nothing is active, so no retirement can change the
                     # verdict: the head's credit shrank since submit and
@@ -470,9 +529,7 @@ class Scheduler:
                     self._drop_request_state(req)
                     self.late_rejections.append((req, Admission(
                         False, reason="pool_capacity", pages_needed=need,
-                        pages_budget=self._budget(),
-                        # the reference's wording, so that verdicts compare
-                        # equal to its one-shard ones
+                        pages_budget=self._shard_budget(),
                         detail=f"request needs {need} pages worst-case "
                                f"but no data shard can fit it even "
                                f"after evicting every reclaimable "
@@ -480,9 +537,12 @@ class Scheduler:
                                f"admitted")))
                     continue
                 break
-            eff, match = fit
+            shard, eff, match = pick
             self.waiting.popleft()
             self._reserved[rid] = eff
+            self._shard_of[rid] = shard
+            self._shard_active[shard] += 1
+            self._shard_reserved[shard] += eff
             if match is not None and match.pages:
                 self._admit_match[rid] = match
             out.append(req)
@@ -494,15 +554,22 @@ class Scheduler:
     def _drop_request_state(self, req: Request):
         self._hashes.pop(id(req), None)
         self._admit_match.pop(id(req), None)
-        self._parked.pop(id(req), None)
+        if self._parked.pop(id(req), None) is not None:
+            # a parked request holds no row or page counters, only the
+            # shard pin: clear it so nothing dangles after a shed / cancel
+            self._shard_of.pop(id(req), None)
         self._order.pop(id(req), None)
         self._submit_s.pop(id(req), None)
         if self._blocked_head is req:
             self._blocked_head = None
 
     def retire(self, req: Request):
-        self._reserved.pop(id(req), None)
+        need = self._reserved.pop(id(req), None)
+        shard = self._shard_of.pop(id(req), None)
         self._drop_request_state(req)
+        if need is not None and shard is not None:
+            self._shard_active[shard] -= 1
+            self._shard_reserved[shard] -= need
 
     @property
     def done(self) -> bool:

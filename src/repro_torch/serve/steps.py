@@ -7,11 +7,15 @@ import torch
 from repro_torch.models import Model
 
 
-def prefill_all_positions(model: Model, tokens, backend: str = "auto"):
+def prefill_all_positions(model: Model, tokens, backend: str = "auto",
+                          shard: int = 0):
     """`Model.forward_prefill` returning logits at *every* position:
     tokens (b, s) -> (logits (b, s, V), per-layer caches). The serving
     session reads ``logits[:, prompt_len - 1]``; `backend` picks the
-    flash-attention implementation."""
+    flash-attention implementation. A `serve.sharding.ShardedModel`
+    prefills on data shard `shard`."""
+    if hasattr(model, "plan"):
+        return model.prefill(tokens, shard, backend=backend, all_logits=True)
     x, positions, _ = model.inputs(tokens)
     x, caches = model.run_stack(x, mode="prefill", positions=positions,
                                 backend=backend)

@@ -90,7 +90,7 @@ def test_full_width_cell_counts_in_seconds(tmp_path):
 @pytest.mark.parametrize("argv", [
     ["--all", "--multi-pod"], ["--all", "--both-meshes"],
     ["--all", "--mesh", "16x16"], ["--all", "--variant", "ssm_bf16"],
-    ["--serve-plan"]])
+    ["--arch", "starcoder2-7b", "--shape", "train_4k", "--mesh", "2x2"]])
 def test_flags_that_need_a_mesh_raise(argv):
     with pytest.raises(SystemExit, match="Queue 1 item 6"):
         dryrun.main(argv)

@@ -6,9 +6,10 @@ the oracle; the dispatch contract, the routes and the CUDA wrapper's
 argument checks; the Hopper (wgmma) kernel's arithmetic, emulated here,
 against the plain version at the limit `chip_smoke.py` holds the card to,
 with P in three bf16 pieces passing it and P in one or two pieces
-failing it, and `chip_smoke.py`'s broken variants failing it too; and the
-port's prefill, which now attends through the flash wrapper, against the
-JAX prefill."""
+failing it, and `chip_smoke.py`'s broken variants failing it too;
+`chip_smoke.flash_online_loop` (the simt route's tile order) against the
+plain version; and the port's prefill, which now attends through the
+flash wrapper, against the JAX prefill."""
 import importlib.util
 import math
 from pathlib import Path
@@ -288,6 +289,26 @@ def test_chip_smoke_counts_noncausal_pairs(chip_smoke):
     _, full = chip_smoke.flash_bytes_and_flops(q, k, k, causal=False)
     assert full == 4 * 2 * 3 * 8 * 10 * 12
     assert causal == 4 * 2 * 3 * 8 * sum(range(1, 11))
+
+
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("window", [0, 24])
+def test_online_loop_is_the_plain_softmax(chip_smoke, two_pass, window):
+    """`chip_smoke.flash_online_loop` (the simt route's tile order in
+    plain PyTorch, which phase `mesh` reports beside a launch past its
+    limit) computes the plain version's function: fp32, 70 keys over
+    three tiles, GQA 4 / 2, within 1e-6 of `ref.attention`, equal to it
+    on one tile."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen) for shape in
+               ((2, 70, 4, 32), (2, 70, 2, 32), (2, 70, 2, 32)))
+    want = ref.attention(q, k, v, causal=True, window=window)
+    got = chip_smoke.flash_online_loop(q, k, v, causal=True, window=window,
+                                       two_pass=two_pass)
+    assert (got - want).abs().max().item() < 1e-6
+    one = chip_smoke.flash_online_loop(q[:, :32], k[:, :32], v[:, :32],
+                                       two_pass=two_pass)
+    assert torch.equal(one, ref.attention(q[:, :32], k[:, :32], v[:, :32]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,

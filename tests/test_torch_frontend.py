@@ -368,7 +368,7 @@ def test_launcher_replays_overload_mix(capsys):
     assert "slo attainment" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x2"],
+@pytest.mark.parametrize("flag", [["--decode-mode", "numpy"],
                                   ["--knee-cache", "knees.json"],
                                   ["--decode-mode", "eager"]])
 def test_launcher_unported_options_raise(flag):

@@ -257,12 +257,14 @@ def test_launcher_sibyl_flags(mode, capsys):
     assert "live_pages=0" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--mesh", "2x2"], "mesh"),
-    (["--knee-cache", "knees.json"], "fixed shapes")], ids=["mesh", "knees"])
-def test_launcher_mesh_and_knee_cache_still_raise(flag, match):
-    """Still refused beside the Sibyl flags: mesh serving is not ported,
-    and serving resolves no knee to persist."""
+@pytest.mark.parametrize("flag,exc,match", [
+    (["--mesh", "2x2", "--mesh-devices", "cpu,cpu,cpu"], ValueError,
+     "needs 4 devices"),
+    (["--knee-cache", "knees.json"], NotImplementedError, "fixed shapes")],
+    ids=["mesh", "knees"])
+def test_launcher_mesh_and_knee_cache_still_raise(flag, exc, match):
+    """Beside the Sibyl flags: a mesh with fewer devices than positions
+    raises, and serving resolves no knee to persist."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         main(LAUNCH + ["--continuous", "--sibyl"] + flag)

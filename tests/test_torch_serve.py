@@ -204,17 +204,21 @@ def test_sampling_is_seeded(params):
 
 
 def test_unported_options_raise(params):
-    """What is still unported raises: mesh sharding and the eager/numpy
-    decode modes. Without a page pool `generate` takes the dense-cache
-    path (the reference's tokens), while `serve()` needs the pool and
-    raises `ValueError`, as the reference does."""
+    """What is still unported raises: the eager/numpy decode modes. Mesh
+    serving decodes from a page pool (`ValueError` without one). Without
+    a page pool `generate` takes the dense-cache path (the reference's
+    tokens), while `serve()` needs the pool and raises `ValueError`, as
+    the reference does."""
+    from repro_torch.launch.mesh import make_serve_mesh
     jparams, state = params
     cfg = smoke_config(ARCH)
     pool = PagedKVPool(page_tokens=4)
-    for kw in ({"mesh": object()}, {"decode_mode": "eager"},
-               {"decode_mode": "numpy"}):
+    for kw in ({"decode_mode": "eager"}, {"decode_mode": "numpy"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
+    with pytest.raises(ValueError, match="kv_pool"):
+        ServeEngine(cfg, params=state, device="cpu",
+                    mesh=make_serve_mesh(1, 2, devices=["cpu"] * 2))
     _assert_same(JaxEngine(jax_smoke(ARCH), params=jparams)
                  .generate(_reqs(JaxRequest)),
                  ServeEngine(cfg, params=state, device="cpu")
