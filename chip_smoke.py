@@ -211,8 +211,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    equal to 4 steps of `expected_train_launches`, finite losses and grad
    norms, every parameter moved; for mamba2 and starcoder2 kernel and
    plain steps in turns and one traced step (device busy share, top
-   device ops, the backward's recompute share). The ``full`` trainers'
-   launches join the ``kernels`` line's counts.
+   device ops, the backward's recompute share). ``mesh`` (training on a
+   dp x tp plan, `train.sharding`; position i on cuda:i when there is a
+   card for each, else all on cuda:0): ``collectives``, the plan's
+   reductions over the mesh's devices against the same on cuda:0
+   (`compressed_psum`, the replicas' max, the seam forward and
+   backward); ``exact``, fp32, starcoder2-7b
+   (2 layers), mamba2-780m (2) and recurrentgemma-2b (3) at plans 1x2,
+   2x1 and 2x2, 2 steps each against the 1x1 trainer on the same
+   weights and batches (`TRAIN_MESH_RULE`: step 0's gradient per leaf
+   within `TRAIN_GRAD_LIMIT`, losses and grad norms within 1e-5, each
+   leaf's update within 1e-2 of 1x1's in norm), launches as
+   every shard's `expected_train_launches`, and every per-shard launch
+   shape of flash, SSD and RG-LRU held to its plain version forward (the
+   kernel phase's rules; recurrentgemma's flash and RG-LRU by
+   `magnitude_limit`) and backward (`TRAIN_GRAD_LIMIT`); ``full``,
+   `Trainer(mesh=)` at 2x2 on `TRAIN_MESH_FULL` (starcoder2-7b at 8 of
+   32 layers, 2 x 2048; mamba2-780m at 48, 4 x 2048), bf16, 4 steps after
+   the 1x1 trainer of the same shapes: step ms and tokens/s, the state
+   bytes each shard holds equal to `plan_rescale`'s, peak memory,
+   launches by route, every step's loss and step 0's grad norm against
+   the 1x1 trainer's (`TRAIN_MESH_FULL_RTOL`), one traced step (device
+   busy share, kernels), every per-shard launch shape held forward and
+   backward as in ``exact``, then 2x2 and 1x1 steps in turns on one
+   batch (2x2, 1x1, 1x1, 2x2; the idle trainer's state on the host).
+   The ``full`` trainers' and the plans' launches join the ``kernels``
+   line's counts.
 13. napel — the thesis's data-driven models (Ch. 5-6) on the cost
    counter (`repro_torch.core.hlo_cost`), one JSON line per part; the
    meta counts first, in `NAPEL_WORKERS` processes. ``dryrun``: every
@@ -259,13 +283,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    as at every plan because of the order of their sums, to
    `magnitude_limit` instead, beside the plain loops in the kernels'
    orders and broken variants read over that limit. ``serve``: starcoder2-7b
-   at full width and depth (32 layers, bf16) on a 2x2 plan beside the
-   1x1 engine over the same weights: the weight bytes each holds,
-   counted from the spec before the run and equal to what the shards
-   hold; the serve workload (monolithic prefill) in turns 1x1, 2x2,
-   2x2, 1x1: decode ms/step, paged launches per step (= 4 shards x 32
-   layers, split route), flash launches (= 2 model shards x 32 layers a
-   prompt, wgmma), 2 transfers per steady token, peak memory, bf16 token
+   at full width and `MESH_SERVE_LAYERS` (16) of its 32 layers (cut
+   from 32 to keep the whole run within its time limit), bf16, on a
+   2x2 plan beside a 1x1 engine over the same weights: the weight bytes
+   each holds, counted from the spec before the run and equal to what
+   the shards hold; the serve workload (monolithic prefill) in turns
+   1x1, 2x2, 2x2, 1x1: decode ms/step, paged launches per step (= 4
+   shards x the layers, split route), flash launches (= 2 model shards x
+   the layers a prompt, wgmma), 2 transfers per steady token, peak memory, bf16 token
    agreement with 1x1 (reported, not required: the seam sums two
    partial products); the per-shard paged (b = 1, hq = 18, hkv = 2) and
    flash (s = 600, hq = 18) launches held to 2 ulps and timed by
@@ -4072,21 +4097,22 @@ FLASH_FAMILIES = (("musicgen-medium", 2), ("codeqwen1.5-7b", 1),
 
 @contextlib.contextmanager
 def moe_span():
-    """Wrap every `moe_apply` call in a `torch.profiler.record_function`
+    """Wrap every MoE layer's body (`moe.moe_stats`, which `moe_apply`
+    and the layer's MLP tail call) in a `torch.profiler.record_function`
     range named `MOE_SPAN`, so a trace can attribute the MoE layers'
     kernels (`phase_profile(span=...)`)."""
     from repro_torch.models import moe
-    plain = moe.moe_apply
+    plain = moe.moe_stats
 
     def traced(*args, **kwargs):
         with torch.profiler.record_function(MOE_SPAN):
             return plain(*args, **kwargs)
 
-    moe.moe_apply = traced
+    moe.moe_stats = traced
     try:
         yield
     finally:
-        moe.moe_apply = plain
+        moe.moe_stats = plain
 
 
 def family_kernel_rows(gen) -> dict:
@@ -4907,8 +4933,9 @@ def traced_train_step(model, state, batch, oc) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.train.optimizer import adamw_update
     from repro_torch.train.train_step import make_loss_fn
+    from repro_torch.models import transformer
     params = state["params"]
-    layer = model._layer
+    layer = transformer.layer_tp
 
     def traced_layer(*args, **kw):
         if torch._C._current_graph_task_id() == -1:
@@ -4922,29 +4949,25 @@ def traced_train_step(model, state, batch, oc) -> dict:
                 return fn(*args, **kw)
         return inner
 
-    model._layer = traced_layer
-    try:
-        with patched(fa, "attention_vjp", ranged("vjp", fa.attention_vjp)), \
-                patched(ssd, "ssd_vjp", ranged("vjp", ssd.ssd_vjp)), \
-                patched(fref, "attention",
-                        ranged("plain_recompute", fref.attention)), \
-                patched(sref, "ssd_chunked",
-                        ranged("plain_recompute", sref.ssd_chunked)), \
-                profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with record_function("forward"):
-                total, _ = make_loss_fn(model)(batch)
-            with record_function("backward"):
-                grads = torch.autograd.grad(total, list(params.values()))
-            with record_function("optimizer"):
-                adamw_update(params, dict(zip(params, grads)), state["opt"],
-                             oc)
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-    finally:
-        del model._layer
+    with patched(transformer, "layer_tp", traced_layer), \
+            patched(fa, "attention_vjp", ranged("vjp", fa.attention_vjp)), \
+            patched(ssd, "ssd_vjp", ranged("vjp", ssd.ssd_vjp)), \
+            patched(fref, "attention",
+                    ranged("plain_recompute", fref.attention)), \
+            patched(sref, "ssd_chunked",
+                    ranged("plain_recompute", sref.ssd_chunked)), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("forward"):
+            total, _ = make_loss_fn(model)(batch)
+        with record_function("backward"):
+            grads = torch.autograd.grad(total, list(params.values()))
+        with record_function("optimizer"):
+            adamw_update(params, dict(zip(params, grads)), state["opt"], oc)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and e.name not in TRAIN_RANGES]
@@ -5134,8 +5157,9 @@ def train_full(arch, layers, batch, seq, resume, smi) -> tuple:
 
 
 def phase_train(smi: str) -> dict:
-    """Part ``exact``, then ``functions``, then ``full`` (one JSON line
-    each). Returns the ``full`` part's launches: the main path's."""
+    """Part ``exact``, then ``functions``, then ``full``, then ``mesh``
+    (its ``exact`` and ``full``; one JSON line each). Returns the
+    ``full`` trainers' and the plans' launches."""
     t0 = time.perf_counter()
     emit({"phase": "train", "part": "exact", "rule": TRAIN_GRAD_RULE,
           "models": [train_exact_model(*c) for c in TRAIN_EXACT],
@@ -5145,15 +5169,565 @@ def phase_train(smi: str) -> dict:
     emit({"phase": "train", "part": "functions", "rule": TRAIN_GRAD_RULE,
           "rows": function_rows(gen), "wall_s": time.perf_counter() - t1})
     total: dict = {}
+    one: dict = {}
     for arch, layers, batch, seq, resume in TRAIN_FULL:
         t2 = time.perf_counter()
         row, launches = train_full(arch, layers, batch, seq, resume, smi)
         row["wall_s"] = time.perf_counter() - t2
         emit({"phase": "train", "part": "full", **row})
         _add(total, launches)
+        one[arch] = row
+    t3 = time.perf_counter()
+    train_mesh_collectives(smi)
+    _add(total, train_mesh_exact(smi))
+    for arch, layers, batch, seq in TRAIN_MESH_FULL:
+        _, launches = train_mesh_full(arch, layers, batch, seq, one[arch],
+                                      smi)
+        _add(total, launches)
     emit({"phase": "train", "part": "done", "launches": total,
+          "mesh_wall_s": time.perf_counter() - t3,
           "wall_s": time.perf_counter() - t0})
     return total
+
+
+# -- part ``mesh``: training on a dp x tp plan (`train.sharding`) ----------
+TRAIN_MESH_PLANS = ((1, 2), (2, 1), (2, 2))
+# (arch, layers, batch, seq): fp32, TF32 off, the kernels on both sides,
+# TRAIN_EXACT's models at batch 2 so that each data shard of a 2 x m plan
+# takes a row
+TRAIN_MESH_EXACT = (("starcoder2-7b", 2, 2, 1024), ("mamba2-780m", 2, 2, 1024),
+                    ("recurrentgemma-2b", 3, 2, 2560))
+TRAIN_MESH_EXACT_STEPS = 2
+# Adam divides a step by sqrt(v) + eps (1e-8): an element whose gradient
+# sits near eps moves by up to lr on rounding noise alone (on the card,
+# recurrentgemma-2b's embedding at 2x1: one element 5.2e-5 = 0.52 lr from
+# 1x1, its leaf's gradient within 1.9e-5 of max |g|), so the params are
+# held by each leaf's update in norm, not element by element
+TRAIN_MESH_UPDATE_LIMIT = 1e-2
+TRAIN_MESH_RULE = ("against the 1x1 trainer on the same weights and "
+                   "batches: step 0's gradient per leaf within "
+                   "TRAIN_GRAD_LIMIT of max |g_1x1|; each step's loss and "
+                   "grad norm within 1e-5 relative; per leaf, the 2-step "
+                   "update's distance from the 1x1 run's, ||p - p_1x1|| / "
+                   "||p_1x1 - p_init||, within 1e-2")
+# (arch, layers, batch, seq): bf16 at 2x2 through `Trainer(mesh=)`, the
+# shapes of `TRAIN_FULL`'s 1x1 trainers, which ran (and were freed) first
+TRAIN_MESH_FULL = (("starcoder2-7b", 8, 2, 2048),
+                   ("mamba2-780m", 48, 4, 2048))
+TRAIN_MESH_FULL_STEPS = 4
+# Relative limits against the 1x1 trainer, bf16. The plan's seams add the
+# halves of each product in another order than the 1x1 step's one matmul;
+# from step 1 on Adam carries that rounding into every weight. Readings
+# on the card: step 0's loss 1.7e-6 / 2.7e-6 (starcoder2-7b / mamba2-780m),
+# its grad norm 2.1e-4 / 5.2e-6, later losses up to 3.2e-5 / 1.2e-4. A
+# lost data shard's rows or model shard's partial sum moves step 0 further
+TRAIN_MESH_FULL_RTOL = {"loss_step0": 1e-4, "grad_norm_step0": 2e-3,
+                        "loss_later": 1e-3}
+TRAIN_KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")
+TRAIN_FN_INPUTS = {"flash_attention": 3, "ssd_scan": 5, "rglru_scan": 2}
+
+
+def _mesh_trainer(cfg, oc, batch, seq, steps, plan_shape):
+    """A `Trainer` on a d x m plan (`serve_mesh`), without checkpoints;
+    1x1 is the unsharded trainer."""
+    from repro_torch.train.trainer import Trainer, TrainJobConfig
+    d, m = plan_shape
+    return Trainer(cfg, oc, TrainJobConfig(
+        steps=steps, seq_len=seq, global_batch=batch, checkpoint_every=1000,
+        log_every=1), mesh=serve_mesh(d, m) if d * m > 1 else None,
+        device="cuda")
+
+
+def _trainer_params(tr, out) -> dict:
+    """A trainer's weights as logical tensors on the card."""
+    if tr.plan is not None:
+        return tr.model.logical_params("cuda")
+    return {n: p.detach() for n, p in out["state"]["params"].items()}
+
+
+def update_ratios(got, want, init) -> dict:
+    """name -> ||got - want|| / ||want - init||: how far a run's update of
+    each leaf lies from another run's, relative to that update."""
+    return {n: float(torch.linalg.vector_norm((got[n] - want[n]).float())
+                     / torch.linalg.vector_norm(
+                         (want[n] - init[n]).float()).clamp_min(1e-30))
+            for n in want}
+
+
+def check_recorded_grads(seen, label) -> list:
+    """Each recorded launch shape's backward: the gradients of sum(out *
+    w), w seeded, through the kernel's Function (``backend="cuda"``)
+    against autograd of the plain version on the same inputs, per input
+    within `TRAIN_GRAD_LIMIT` of its max. Not the main path's launches:
+    counted nowhere."""
+    from repro_torch.kernels import api
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows, bad = [], []
+    for kernel, calls in seen.items():
+        n = TRAIN_FN_INPUTS[kernel]
+        for args, kwargs in calls.values():
+            kw = {k: v for k, v in kwargs.items() if k != "backend"}
+            out = api.run(kernel, *args, **kw, backend="ref")
+            y = out[0] if isinstance(out, tuple) else out
+            w = torch.randn(y.shape, generator=gen, device="cuda",
+                            dtype=torch.float32).to(y.device, y.dtype)
+
+            def through(backend):
+                return _grads_of(lambda *x: api.run(
+                    kernel, *x, *args[n:], **kw, backend=backend),
+                    args[:n], (w,))[0]
+
+            ratios = grad_ratios(dict(enumerate(through("cuda"))),
+                                 dict(enumerate(through("ref"))))
+            row = {"kernel": kernel, "shapes": [list(a.shape)
+                                                for a in args[:3]],
+                   "worst_input": _worst({f"d{i}": r for i, r in
+                                          ratios.items()}),
+                   "limit": TRAIN_GRAD_LIMIT}
+            rows.append(row)
+            if not row["worst_input"][1] <= TRAIN_GRAD_LIMIT:
+                bad.append(row)
+    emit({"phase": "train", "part": "grad_checks", "label": label,
+          "rule": TRAIN_GRAD_RULE, "checks": rows})
+    if bad:
+        raise AssertionError(f"{label}: gradients past the limit: {bad}")
+    return rows
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def plan_step0_grads(cfg, plan_shape, batch) -> dict:
+    """A d x m plan's gradient of every logical leaf at the seeded
+    weights (`train_step.plan_grads`, the replicas' copies summed), one
+    copy of each distinct slice assembled on the card."""
+    from repro_torch.train.sharding import ShardedTrainModel, TrainPlan
+    from repro_torch.train.train_step import plan_grads
+    plan = TrainPlan(serve_mesh(*plan_shape), cfg)
+    model = ShardedTrainModel(cfg, plan, seed=0)
+    model.train_params()
+    _, _, grads = plan_grads(model, batch)
+    plan.reduce_replicas(grads)
+    return plan.logical_tree(grads, plan.device(0, 0))
+
+
+def train_mesh_exact(smi: str) -> dict:
+    """Sub-part ``exact``: `TRAIN_MESH_EXACT`'s models at each plan of
+    `TRAIN_MESH_PLANS` against the 1x1 trainer on the same weights and
+    batches (`TRAIN_MESH_RULE`), launches as `expected_train_launches` a
+    step on every shard, every launch shape's forward held by the kernel
+    phase's rules (`check_recorded`, recurrentgemma-2b's flash and RG-LRU
+    by `magnitude_limit` as in phase ``mesh``) and its backward by
+    `check_recorded_grads`. Returns the plans' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import flatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.optimizer import OptimizerConfig
+    oc = OptimizerConfig(**TRAIN_OC)
+    steps = TRAIN_MESH_EXACT_STEPS
+    launches: dict = {}
+    for arch, layers, batch, seq in TRAIN_MESH_EXACT:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                         compute_dtype="float32")
+        p_init = flatten(Model(cfg, device="cuda", seed=0).params)
+        tr = _mesh_trainer(cfg, oc, batch, seq, steps, (1, 1))
+        out = tr.run()
+        hist_1, p_1 = out["history"], _trainer_params(tr, out)
+        del tr, out
+        _release()
+        data = _train_batch(cfg, seq, batch)
+        _, g_1 = model_grads(Model(cfg, device="cuda", seed=0), data, "auto")
+        per_step = expected_train_launches(cfg)
+        plans, bad = {}, []
+        with first_calls(TRAIN_KERNELS) as seen:
+            for d, m in TRAIN_MESH_PLANS:
+                reset_launches()
+                tr = _mesh_trainer(cfg, oc, batch, seq, steps, (d, m))
+                out = tr.run()
+                got = {k: v for k, v in read_launches().items()
+                       if k in per_step}
+                hist, p = out["history"], _trainer_params(tr, out)
+                del tr, out
+                _release()
+                want = {k: steps * d * m * v for k, v in per_step.items()}
+                ratios = update_ratios(p, p_1, p_init)
+                g_ratios = grad_ratios(plan_step0_grads(cfg, (d, m), data),
+                                       g_1)
+                row = {"worst_grad_leaf_step0": _worst(g_ratios),
+                       "loss_rel_err": [_rel(h["loss"], h1["loss"])
+                                        for h, h1 in zip(hist, hist_1)],
+                       "grad_norm_rel_err": [
+                           _rel(h["grad_norm"], h1["grad_norm"])
+                           for h, h1 in zip(hist, hist_1)],
+                       "worst_update_leaf": _worst(ratios),
+                       "worst_param_abs_diff": _worst({
+                           n: float((p[n] - p_1[n]).abs().max())
+                           for n in p_1}),
+                       "lr": TRAIN_OC["lr"], "launches": got,
+                       "launches_expected": want}
+                plans[f"{d}x{m}"] = row
+                _add(launches, got)
+                if max(row["loss_rel_err"] + row["grad_norm_rel_err"]) \
+                        > 1e-5 or row["worst_grad_leaf_step0"][1] \
+                        > TRAIN_GRAD_LIMIT or row["worst_update_leaf"][1] \
+                        > TRAIN_MESH_UPDATE_LIMIT or got != want:
+                    bad.append(f"{d}x{m}")
+                del p
+        magnitude = MESH_MAGNITUDE_HELD.get(arch, ())
+        checked = check_recorded(seen, f"train mesh exact {arch}",
+                                 magnitude, phase="train")
+        grads = check_recorded_grads(seen, f"train mesh exact {arch}")
+        if seen["rglru_scan"]:
+            shard_kernel_rows({"rglru_scan": seen["rglru_scan"]},
+                              f"train mesh exact {arch}")
+        del seen, p_1, p_init, g_1, data
+        _release()
+        row = {"phase": "train", "part": "mesh", "sub": "exact",
+               "nvidia_smi": smi, "rule": TRAIN_MESH_RULE,
+               "config": f"{arch} full width, {layers} layers, fp32",
+               "batch": batch, "seq": seq, "steps": steps,
+               "losses_1x1": [h["loss"] for h in hist_1],
+               "plans": plans, "devices": {
+                   f"{d}x{m}": mesh_layout(serve_mesh(d, m))
+                   for d, m in TRAIN_MESH_PLANS},
+               "launch_shapes_checked": len(checked),
+               "worst_forward_over_limit": max(
+                   c["max_err_over_limit"] for c in checked),
+               "magnitude_held": list(magnitude),
+               "worst_backward": max((c["worst_input"] for c in grads),
+                                     key=lambda x: x[1]),
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        if bad:
+            raise AssertionError(f"train mesh exact {arch}: plans {bad} "
+                                 f"outside {TRAIN_MESH_RULE}: {plans}")
+    return launches
+
+
+def train_mesh_collectives(smi: str) -> dict:
+    """Sub-part ``collectives``: the plan's reductions over a 2x2 mesh's
+    positions (`serve_mesh`: cuda:0-3 on a machine with four cards, the
+    NCCL paths; else all on cuda:0, the in-order paths) against the same
+    reductions with every part on cuda:0: `compressed_psum` (int8
+    all-gather, then each shard's in-order dequantized sum) and the
+    replicas' max to the bit; the seam `TrainPlan.psum` over a 1x2 row,
+    forward and backward (`AllReduceSum` on two cards), within 1e-6 of
+    the largest value."""
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.serve.sharding import reduce_tensors
+    from repro_torch.train.sharding import TrainPlan
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    devs = list(serve_mesh(2, 2).devices.ravel())
+    parts = [torch.randn(4096, 1024, generator=gen, device="cuda") * (i + 1)
+             for i in range(4)]
+    placed = [p.to(d) for p, d in zip(parts, devs)]
+    want = gc.compressed_psum(parts)[0]
+    psum_err = max(float((g.to("cuda:0") - want).abs().max())
+                   for g in gc.compressed_psum(placed))
+    amax = [torch.max(torch.abs(p)) for p in parts]
+    max_err = max(float((g.to("cuda:0") - reduce_tensors(amax, "max")[0])
+                        .abs()) for g in reduce_tensors(
+        [a.to(d) for a, d in zip(amax, devs)], "max"))
+
+    def seam(devices):
+        leaves = [p.to(d).requires_grad_() for p, d in zip(parts, devices)]
+        outs = TrainPlan.psum([x * x for x in leaves])
+        loss = sum((o * (i + 1)).sum().to("cuda:0")
+                   for i, o in enumerate(outs))
+        grads = torch.autograd.grad(loss, leaves)
+        return [t.detach().to("cuda:0") for t in list(outs) + list(grads)]
+
+    row_devs = list(serve_mesh(1, 2).devices.ravel())
+    got, ref = seam(row_devs), seam(["cuda:0"] * 2)
+    seam_err = max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, ref))
+    row = {"phase": "train", "part": "mesh", "sub": "collectives",
+           "nvidia_smi": smi, "devices": [str(d) for d in devs],
+           "row_devices": [str(d) for d in row_devs],
+           "compressed_psum_max_abs_err": psum_err,
+           "replica_max_abs_err": max_err,
+           "seam_fwd_bwd_rel_err": seam_err}
+    emit(row)
+    if psum_err != 0.0 or max_err != 0.0 or not seam_err <= 1e-6:
+        raise AssertionError(f"train mesh collectives: {row}")
+    return row
+
+
+def shard_kernel_rows(seen, label) -> list:
+    """Each recorded per-shard training launch shape through the kernel
+    (``backend="cuda"``) and, for flash, SDPA on the same q, k and v (kv
+    heads repeated outside the timing), timed by `device_ms`; the plain
+    version by CUDA events, one call (its host may wait on the card, which
+    `device_ms`'s queue behind a sleep cannot hold; RG-LRU's is a Python
+    loop over positions: not timed); the bound from the spec's `work`.
+    These launches are not the main path's and count nowhere."""
+    from repro_torch.kernels import api
+    rows = []
+    for kernel, calls in seen.items():
+        for args, kwargs in calls.values():
+            kw = {k: v for k, v in kwargs.items() if k != "backend"}
+
+            def run(backend, args=args, kw=kw, kernel=kernel):
+                return api.run(kernel, *args, **kw, backend=backend)
+
+            work = work_of(kernel, *args, **kw)
+            t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = sum(f / PEAKS[c] for c, f in work["flops"].items()) * 1e3
+            library = None
+            if kernel == "flash_attention":
+                q, k, v = args[:3]
+                g = q.shape[2] // k.shape[2]
+                qt, kt, vt = (x.transpose(1, 2) for x in (
+                    q, k.repeat_interleave(g, dim=2),
+                    v.repeat_interleave(g, dim=2)))
+                if kw.get("window"):
+                    raise AssertionError("SDPA yardstick: no window")
+
+                def library(qt=qt, kt=kt, vt=vt):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+            row = {"kernel": kernel, "label": label,
+                   "shapes": [list(a.shape) for a in args[:3]],
+                   "dtype": str(args[0].dtype).replace("torch.", ""),
+                   "route": route_taken(kernel, lambda: run("cuda")),
+                   "device_ms": device_ms(lambda: run("cuda")),
+                   "plain_ms": None if kernel == "rglru_scan"
+                   else cuda_ms({"plain": lambda: run("ref")}, warmup=2,
+                                rounds=5)["plain"][0],
+                   "library_ms": device_ms(library) if library else None,
+                   "bytes": work["bytes"], "flops": work["flops"],
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations"}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            rows.append(row)
+    emit({"phase": "train", "part": "mesh", "sub": "shard_kernels",
+          "label": label, "timing": "kernel and library: device_ms, 20 "
+          "calls queued behind a sleep, median of 5; plain: CUDA events, "
+          "median of 5 calls", "rows": rows})
+    return rows
+
+
+def traced_plan_step(step_fn, state, batch) -> dict:
+    """One step of a plan's trainer under `torch.profiler`: wall ms,
+    device busy share, kernels launched (every CUDA kernel, not only the
+    counted ones) and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = step_fn(state, batch)
+        float(mets["loss"])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    # the trace's device events as recorded: parsing it into a tree of
+    # function events (`prof.events()`) took a minute at mamba2-780m's
+    # ~90,000 kernels a 2x2 step
+    events = [(e.name(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the traced plan step recorded no device "
+                             "activity")
+    t0_ns = min(start for _, start, _ in events)     # µs from here, exact
+    kernels = [(name, (start - t0_ns) / 1e3, (end - t0_ns) / 1e3)
+               for name, start, end in events]
+    busy_us = _union_us((start, end) for _, start, end in kernels)
+    by_name: dict = {}
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"traced_step_ms": traced_s * 1e3,
+            "device_busy_share": busy_us / (traced_s * 1e6),
+            "kernels": len(kernels),
+            "device_ms": sum(by_name.values()) / 1e3,
+            "top_device_ops_ms": [[n[:80], v / 1e3] for n, v in top]}
+
+
+def _tensors(tree):
+    """Every tensor of a nested dict / list state."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _to_host(state) -> tuple:
+    """Move every tensor of `state` to the host in place of its storage,
+    so each holder of a tensor (the model, the step) sees the move.
+    Returns (seconds, a function that moves each back to its device and
+    returns its seconds)."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        _release()
+        return time.perf_counter() - t0
+
+    homes = {id(t): (t, t.device) for t in _tensors(state)}
+
+    def move(to_host):
+        for t, dev in homes.values():
+            t.data = t.data.to("cpu" if to_host else dev)
+
+    return timed(lambda: move(True)), lambda: timed(lambda: move(False))
+
+
+def _timed_step(step_fn, state, data) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, mets = step_fn(state, data)
+    loss = float(mets["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(loss):
+        raise AssertionError(f"step loss {loss}")
+    return state, ms
+
+
+def plan_turns(cfg, oc, batch, seq, tr, state, data) -> dict:
+    """The 2x2 trainer `tr` (its `state`) and a 1x1 trainer of the same
+    shapes, one step each in turns 2x2, 1x1, 1x1, 2x2 on the batch
+    `data`, never resident together: the idle one's state waits on the
+    host. Each timed step follows an untimed step of its own trainer
+    since its state last came to the card (the 1x1's first step is
+    its allocator's warm-up, as is the 2x2's after its return)."""
+    from repro_torch.train.train_step import init_state
+    ms = {"2x2": [], "1x1": []}
+    state, t = _timed_step(tr._step_fn, state, data)
+    ms["2x2"].append(t)
+    out_s, back = _to_host(state)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    one = _mesh_trainer(cfg, oc, batch, seq, 1, (1, 1))
+    state_1 = init_state(one.model, oc)
+    state_1, _ = _timed_step(one._step_fn, state_1, data)
+    for _ in range(2):
+        state_1, t = _timed_step(one._step_fn, state_1, data)
+        ms["1x1"].append(t)
+    del one, state_1
+    _release()
+    moves = [out_s, back()]
+    state, _ = _timed_step(tr._step_fn, state, data)
+    state, t = _timed_step(tr._step_fn, state, data)
+    ms["2x2"].append(t)
+    return {"order": ["2x2", "1x1", "1x1", "2x2"], "step_ms": ms,
+            "ratio_2x2_over_1x1": (sum(ms["2x2"]) / sum(ms["1x1"])),
+            "gb_on_card_with_2x2_on_host": resident_gb,
+            "state_move_s": moves}
+
+
+def train_mesh_full(arch, layers, batch, seq, one, smi) -> tuple:
+    """Sub-part ``full``: `Trainer(mesh=)` at 2x2, bf16 params with fp32
+    master, m, v, remat, `TRAIN_MESH_FULL_STEPS` steps, after `one`, the
+    1x1 trainer's `train_full` row of the same shapes: step ms, tokens/s,
+    the state bytes each shard holds against `plan_rescale`'s, peak
+    memory, launches by kernel and route (every shard's
+    `expected_train_launches` a step, flash and SSD on ``wgmma``, RG-LRU
+    ``chunked``), finite losses and grad norms, every step's loss and
+    step 0's grad norm against the 1x1 trainer's on the same weights and
+    batches (`TRAIN_MESH_FULL_RTOL`); then one more step traced, every
+    per-shard launch shape held to its plain version forward
+    (`check_recorded`) and backward (`check_recorded_grads`), and 2x2
+    and 1x1 steps in turns (`plan_turns`). Returns (row, the trainer's
+    launches, the traced and paired steps' excluded)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.ft.elastic import plan_rescale
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import batch_to
+    cfg = get_config(arch, num_layers=layers)
+    oc = OptimizerConfig(**TRAIN_OC)
+    steps = TRAIN_MESH_FULL_STEPS
+    label = f"train mesh full {arch}"
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tr = _mesh_trainer(cfg, oc, batch, seq, steps, (2, 2))
+    init_s = time.perf_counter() - t0
+    with first_calls(TRAIN_KERNELS) as seen:
+        out = tr.run()
+    launches = read_launches()
+    routes = {k: dict(_counters()[k].launches_by_route)
+              for k in TRAIN_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held = tr.model.held_bytes(out["state"]["opt"])
+    counted = plan_rescale(cfg, oc, tr.mesh).bytes_per_device
+    hist = out["history"]
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    want = {k: steps * 4 * v for k, v in expected_train_launches(cfg).items()}
+    want_route = {"flash_attention": "wgmma", "ssd_scan": "wgmma",
+                  "rglru_scan": "chunked"}
+    pipe = TokenPipeline(cfg, seq, batch, seed=0)
+    t1 = time.perf_counter()
+    traced = traced_plan_step(tr._step_fn, out["state"],
+                              batch_to(pipe.batch_at(steps), "cuda"))
+    traced["wall_s"] = time.perf_counter() - t1
+    seen = {k: v for k, v in seen.items() if v}
+    shard_rows = shard_kernel_rows(seen, label)
+    rel = {"loss_step0": [_rel(hist[0]["loss"], one["losses"][0])],
+           "grad_norm_step0": [_rel(hist[0]["grad_norm"],
+                                    one["grad_norms"][0])],
+           "loss_later": [_rel(h["loss"], w) for h, w in
+                          zip(hist[1:], one["losses"][1:])]}
+    row = {"phase": "train", "part": "mesh", "sub": "full",
+           "nvidia_smi": smi, "arch": arch, "layers": layers,
+           "of_layers": get_config(arch).num_layers, "batch": batch,
+           "seq": seq, "plan": "2x2", "devices": mesh_layout(tr.mesh),
+           "init_s": init_s, "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "losses_1x1": one["losses"], "grad_norms_1x1": one["grad_norms"],
+           "rel_err_to_1x1": rel, "rtol": TRAIN_MESH_FULL_RTOL,
+           "step_ms": step_ms, "step_ms_1x1": one["step_ms"],
+           "tokens_per_s_steps_1_3": [batch * seq / (t / 1e3)
+                                       for t in (step_ms[1], step_ms[3])],
+           "tokens_per_s_1x1": one["tokens_per_s_steps_1_3"],
+           "held_bytes_per_shard": held,
+           "plan_rescale_bytes_per_device": counted,
+           "peak_gb": peak_gb, "peak_gb_1x1": one["peak_gb"],
+           "launches": {k: launches[k] for k in want},
+           "launches_expected": want, "routes": routes,
+           "launches_per_step": {k: launches[k] / steps for k in want},
+           "traced": traced, "shard_kernels": [
+               {k: r[k] for k in ("kernel", "shapes", "route", "device_ms",
+                                  "bound_ms", "library_ms")}
+               for r in shard_rows]}
+    bad = [k for k in want if launches[k] != want[k]
+           or routes[k].get(want_route[k], 0) != want[k]]
+    bad += [k for k, errs in rel.items()
+            if not max(errs) <= TRAIN_MESH_FULL_RTOL[k]]
+    ok = (not bad and all(h == counted for r in held for h in r)
+          and all(math.isfinite(x) for x in row["losses"]
+                  + row["grad_norms"]))
+    if not ok:
+        emit(row)
+        raise AssertionError(f"{label}: launches / routes / errors against "
+                             f"1x1 {bad}, or held bytes or losses off: "
+                             f"{row}")
+    checked = check_recorded(seen, label, phase="train")
+    grads = check_recorded_grads(seen, label)
+    row["launch_shapes_checked"] = len(checked)
+    row["worst_forward_over_limit"] = max(c["max_err_over_limit"]
+                                          for c in checked)
+    row["worst_backward"] = max((c["worst_input"] for c in grads),
+                                key=lambda x: x[1])
+    del seen
+    t2 = time.perf_counter()
+    row["turns"] = plan_turns(cfg, oc, batch, seq, tr, out["state"],
+                              batch_to(pipe.batch_at(steps + 1), "cuda"))
+    row["turns"]["wall_s"] = time.perf_counter() - t2
+    row["wall_s"] = time.perf_counter() - t0
+    emit(row)
+    del tr, out
+    _release()
+    return row, {k: launches[k] for k in want}
 
 
 # ---------------------------------------------------------------------------
@@ -5901,7 +6475,10 @@ MESH_HYBRIDS = (("mamba2-780m", 2, ((2, 2),)),
 MESH_MAGNITUDE_HELD = {"recurrentgemma-2b": ("flash_attention",
                                              "rglru_scan")}
 MESH_PLAN_MESHES = "1x1,1x2,2x2,1x4,2x4"
-MESH_PROFILE_STEPS = 4   # traced 2x2 steps: ~10,000 kernels each
+MESH_PROFILE_STEPS = 4   # traced 2x2 steps: ~5,000 kernels each
+# part ``serve``'s depth: at 32 layers (97.2 s of it) an every-phase run
+# took 1,138.7 s of its 1,200 s limit on a slow host
+MESH_SERVE_LAYERS = 16
 MESH_KERNELS = ("paged_attention", "flash_attention", "ssd_scan",
                 "rglru_scan")
 
@@ -5943,8 +6520,9 @@ def first_calls(kernels):
         if name in seen:
             key = _call_key(args, kwargs)
             if key not in seen[name]:
-                seen[name][key] = ([a.clone() if isinstance(a, torch.Tensor)
-                                    else a for a in args], dict(kwargs))
+                seen[name][key] = ([a.detach().clone()
+                                    if isinstance(a, torch.Tensor) else a
+                                    for a in args], dict(kwargs))
         return plain_run(name, *args, **kwargs)
 
     api.run = run
@@ -6041,7 +6619,7 @@ def magnitude_faults(kernel, args, kw, want, limit) -> dict:
     return {f: limit_check(v, want, limit)[2] for f, v in variants.items()}
 
 
-def check_recorded(seen, label, magnitude=()) -> list:
+def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
     """Each recorded launch shape through the kernel (``backend="cuda"``)
     and the plain version on the same inputs: paged, flash and RG-LRU to
     2 ulps, SSD to `ssd_limit`, the kernels in `magnitude` to
@@ -6101,7 +6679,7 @@ def check_recorded(seen, label, magnitude=()) -> list:
                 bad.append(row)
             out.append(row)
             del got, want
-    emit({"phase": "mesh", "part": "launch_checks", "label": label,
+    emit({"phase": phase, "part": "launch_checks", "label": label,
           "checks": out})
     if bad:
         raise AssertionError(f"{label}: {len(bad)} launch shapes past their "
@@ -6271,17 +6849,25 @@ def _agreement(a, b) -> dict:
             "equal_prefix": prefix}
 
 
-def mesh_serve(base, smi: str) -> tuple:
-    """Part ``serve``: starcoder2-7b at full width and depth, bf16, on a
-    2x2 plan on the one card beside the 1x1 engine `base` (the serve
-    phase's) over the same weights. Returns the row and the 2x2 engine's
-    launches from its first turn."""
+def mesh_serve(serve_eng, smi: str) -> tuple:
+    """Part ``serve``: starcoder2-7b at full width and `MESH_SERVE_LAYERS`
+    of its 32 layers (the serve phase's weights, its first layers), bf16,
+    on a 2x2 plan on the one card beside a 1x1 engine over the same
+    weights. Returns the row and the 2x2 engine's launches from its first
+    turn."""
+    import dataclasses
     from repro_torch.kernels import api
     from repro_torch.models.common import flatten
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
     from repro_torch.serve.sharding import ServePlan, plan_param_bytes
-    cfg = base.cfg
+    cfg = dataclasses.replace(serve_eng.cfg, num_layers=MESH_SERVE_LAYERS)
+    # the serve model's first layers: views of its stacked leaves (one
+    # layer a group), no copy
+    params = {n: t[:MESH_SERVE_LAYERS] if n.startswith("groups.") else t
+              for n, t in flatten(serve_eng.model.params).items()}
+    base = ServeEngine(cfg, params=params, kv_pool=PagedKVPool(
+        page_tokens=128, placement_policy=EveryOtherSlow()))
     d, m = 2, 2
     plan = ServePlan(serve_mesh(d, m))
     counted = plan_param_bytes(cfg, plan)
@@ -6292,8 +6878,7 @@ def mesh_serve(base, smi: str) -> tuple:
         raise AssertionError(f"1x1 holds {held_1x1} bytes, counted "
                              f"{counted_1x1}")
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, params=flatten(base.model.params),
-                      mesh=serve_mesh(d, m),
+    eng = ServeEngine(cfg, params=params, mesh=serve_mesh(d, m),
                       kv_pool=PagedKVPool(page_tokens=128,
                                           placement_policy=EveryOtherSlow()))
     torch.cuda.synchronize()
@@ -6379,7 +6964,8 @@ def mesh_serve(base, smi: str) -> tuple:
     by_name = {"1x1": [t for n, t in turns if n == "1x1"],
                "2x2": [t for n, t in turns if n == "2x2"]}
     row = {"phase": "mesh", "part": "serve", "nvidia_smi": smi,
-           "config": "starcoder2-7b, 32 layers, bf16", "plan": "2x2",
+           "config": f"starcoder2-7b, {MESH_SERVE_LAYERS} of 32 layers, "
+                     f"bf16", "plan": "2x2",
            "peak_mem_device": "cuda:0",
            "devices": mesh_layout(plan.mesh),
            "path": "monolithic prefill (chunked_prefill=False, radix=False)",
@@ -6425,7 +7011,7 @@ def mesh_serve(base, smi: str) -> tuple:
                "paged_attention_us_per_launch",
                "paged_attention_share_of_busy")}}
     emit(row)
-    del eng
+    del eng, base, params
     gc.collect()
     torch.cuda.empty_cache()
     return row, launches, timed

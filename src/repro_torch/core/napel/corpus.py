@@ -11,8 +11,8 @@ reads its HLO; the port counts it on ``meta`` tensors at mesh (1, 1)
 allocated), and the count's wall time takes the compile time's place in
 ``compile_s``. One device runs no collective, so the collective target
 is 1 byte at every point (``max(collective bytes, 1)``, as the
-reference floors it); it gets content with the port's sharding layer
-(ROADMAP Queue 1 item 6b). Records cache as JSON under
+reference floors it); it gets content with the dry run on a mesh
+(ROADMAP Queue 1 item 6c). Records cache as JSON under
 experiments/napel_corpus_torch/ (never the reference's
 experiments/napel_corpus/); `load_corpus` reads them back.
 """
@@ -71,7 +71,7 @@ def compile_and_measure(cfg: ModelConfig, shape: InputShape,
     PyTorch moves and the live bytes (arguments + peak)."""
     if tuple(mesh) != MESH:
         raise SystemExit(f"mesh {tuple(mesh)}: the port counts one device "
-                         f"(ROADMAP Queue 1 item 6b)")
+                         f"(ROADMAP Queue 1 item 6c)")
     from repro_torch.core.hlo_cost import CostCounter
     from repro_torch.launch.dryrun import storage_bytes, abstract_batch
     from repro_torch.models import Model
@@ -110,7 +110,7 @@ def main(argv=None):
     md, mm = (int(x) for x in args.mesh.split("x"))
     if (md, mm) != MESH:
         raise SystemExit(f"--mesh {args.mesh}: the port counts one device, "
-                         f"mesh 1x1 (ROADMAP Queue 1 item 6b)")
+                         f"mesh 1x1 (ROADMAP Queue 1 item 6c)")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     for tag, p in corpus_points():

@@ -3,7 +3,7 @@ records (`launch.dryrun`, experiments/dryrun_torch/) — the port of the
 JAX package's ``repro/core/report.py`` at mesh 1x1.
 
 `variant_delta` waits for the port of ``launch/variants.py`` (ROADMAP
-Queue 1 item 6b): it raises.
+Queue 1 item 6c, the dry run on a mesh): it raises.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def variant_delta(arch, shape, variant, mesh="1x1") -> dict:
     raise NotImplementedError(
         "variant_delta compares a variant's dry run with the baseline's; "
         "the port has no variants until launch/variants.py is ported "
-        "(ROADMAP Queue 1 item 6b)")
+        "(ROADMAP Queue 1 item 6c)")
 
 
 if __name__ == "__main__":

@@ -34,8 +34,8 @@ mesh), the weight and page-pool bytes one device holds against
 
 The step counts are of one device: ``--multi-pod``, ``--both-meshes``, a
 ``--mesh`` other than 1x1 and a ``--variant`` other than baseline belong
-to the mesh-training slice and raise `SystemExit` (ROADMAP Queue 1 item
-6b).
+to the dry run on a mesh and raise `SystemExit` (ROADMAP Queue 1 item
+6c).
 """
 from __future__ import annotations
 
@@ -58,39 +58,21 @@ from repro_torch.models.common import flatten, torch_dtype
 from repro_torch.models.transformer import model_spec, pad_caches
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train import train_step
 from repro_torch.train.train_step import init_state, make_train_step
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1x1"
 PREFILL_ROWS = 4        # positions of the prefill that shapes decode caches
-UNPORTED = ("belongs to the mesh-training slice (ROADMAP Queue 1 item "
-            "6b): the port's dry run counts one device, mesh 1x1")
-
-
-def _meta(shape, dtype):
-    return torch.empty(shape, dtype=dtype, device="meta")
+UNPORTED = ("belongs to the dry run on a mesh (ROADMAP Queue 1 item "
+            "6c): the port's dry run counts one device, mesh 1x1")
 
 
 def abstract_batch(model: Model, seq: int, global_batch: int,
                    kind: str = "train") -> dict:
-    """Meta tensors for a step's batch, as the reference's
-    `abstract_batch`: tokens (int32) or an external-embedding config's
-    embeds, labels for training, image embeddings for a cross-attention
-    config outside decode."""
-    cfg = model.cfg
-    out = {}
-    if kind == "train":
-        out["labels"] = _meta((global_batch, seq), torch.int32)
-    s_in = 1 if kind == "decode" else seq
-    act = torch_dtype(cfg.compute_dtype)
-    if cfg.external_embed:
-        out["embeds"] = _meta((global_batch, s_in, cfg.d_model), act)
-    else:
-        out["tokens"] = _meta((global_batch, s_in), torch.int32)
-    if cfg.n_img_tokens and kind != "decode":
-        out["image_embeds"] = _meta((global_batch, cfg.n_img_tokens,
-                                     cfg.d_model), act)
-    return out
+    """Meta tensors for a step's batch on one device
+    (`train.train_step.abstract_batch` without a mesh)."""
+    return train_step.abstract_batch(model, seq, global_batch, None, kind)
 
 
 def abstract_caches(model: Model, batch: int, capacity: int) -> list:

@@ -77,22 +77,38 @@ def dispatch(cfg: ModelConfig, topi, cap: int):
     return order, e_sorted, pos, pos_tok.reshape(b, s, k)
 
 
+def balance_loss(cfg: ModelConfig, me, ce):
+    """The Switch load-balancing loss ``e * sum_e me_e * ce_e / k`` of a
+    layer's batch means: ``me`` the router probability of each expert,
+    ``ce`` the tokens routed to it (fp32 scalar). A product of two means:
+    over a plan's data shards the means meet first
+    (`train.sharding`), then this."""
+    return cfg.num_experts * torch.sum(me * ce / cfg.top_k)
+
+
 def moe_apply(cfg: ModelConfig, p, x):
     """x: (b, s, d) -> (y, aux) with aux the Switch load-balancing loss
-    (fp32 scalar)."""
+    (fp32 scalar): `moe_stats` and `balance_loss`."""
+    y, me, ce = moe_stats(cfg, p, x)
+    return y, balance_loss(cfg, me, ce)
+
+
+def moe_stats(cfg: ModelConfig, p, x):
+    """x: (b, s, d) -> (y, me, ce): the layer's output and the batch means
+    of its load-balancing loss (`balance_loss`), each (e,) fp32."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = expert_capacity(cfg, s)
     probs, topw, topi = route(cfg, p["router"], x)
 
-    # load-balance aux loss (Switch): e * sum_e frac_tokens_e * frac_prob_e
+    # load-balance statistics (Switch): the mean router probability and
+    # the mean routed-token count of each expert
     me = probs.mean(dim=(0, 1))
     # one-hot by comparison: `F.one_hot` checks its range on the host
     # (a sync) on the CPU and the card, and dispatches other ops there
     # than on ``meta``
     onehot = topi[..., None] == torch.arange(e, device=topi.device)
     ce = onehot.float().sum(2).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce / k)
 
     order, e_sorted, pos, pos_tok = dispatch(cfg, topi, cap)
     keep = pos < cap
@@ -115,4 +131,4 @@ def moe_apply(cfg: ModelConfig, p, x):
     keep_tok = pos_tok < cap
     vals = out_b[topi, rows[:, :, None], torch.where(keep_tok, pos_tok, 0)]
     wk = (keep_tok.to(x.dtype) * topw.to(x.dtype))[..., None]
-    return (vals * wk).sum(dim=2).to(x.dtype), aux
+    return (vals * wk).sum(dim=2).to(x.dtype), me, ce

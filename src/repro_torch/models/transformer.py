@@ -17,7 +17,9 @@ taken inside each call, so that under autograd every view records its
 slice of the stacked parameter (views made before ``requires_grad`` was
 set carry no ``grad_fn``, and their gradient would be lost), and each
 layer group runs under ``torch.utils.checkpoint`` when the config asks
-for remat, as the reference's ``jax.checkpoint`` of its scan body.
+for remat, as the reference's ``jax.checkpoint`` of its scan body. Its
+body, `train_stack_tp`, takes per-shard lists like the serving bodies:
+the training plan (`train.sharding`) runs it over a mesh's model axis.
 """
 from __future__ import annotations
 
@@ -70,17 +72,18 @@ def mlp_tail_tp(cfg: ModelConfig, kind, ps, xs, psum):
     shard. A dense MLP's up / down projections are ffn-sharded, so the
     down projection emits a partial sum that one reduction completes; MoE
     subtrees replicate, so every shard runs the whole expert stack.
-    Returns (xs, aux): aux the MoE load-balancing loss, None for other
-    MLPs; training adds it to the loss, serving drops it, as the
-    reference's serving does."""
+    Returns (xs, aux): aux the MoE layer's load-balancing statistics
+    ``(me, ce)`` (`moe.moe_stats`, model shard 0's), None for other
+    MLPs; training turns them into its loss (`moe.balance_loss`), serving
+    drops them, as the reference's serving does."""
     mixer, mlp = kind[0], kind[1]
     if mlp == MLP_NONE:
         return xs, None
     hs = [rms_norm(x, p["norm2"]) for p, x in zip(ps, xs)]
     aux = None
     if mlp == MLP_MOE:
-        outs = [moe_mod.moe_apply(cfg, p["moe"], h) for p, h in zip(ps, hs)]
-        ys, aux = [y for y, _ in outs], outs[0][1]
+        outs = [moe_mod.moe_stats(cfg, p["moe"], h) for p, h in zip(ps, hs)]
+        ys, aux = [y for y, _, _ in outs], outs[0][1:]
     else:
         ys = psum([mlp_apply(cfg, p["mlp"], h) for p, h in zip(ps, hs)])
     if mixer == CROSS_ATTN:
@@ -162,6 +165,51 @@ def run_stack_tp(cfg: ModelConfig, layers, xs, psum, *, mode, positions,
             backend=backend, cross_embeds=cross_embeds)
         out.append(cs)
     return xs, out
+
+
+def train_stack_tp(cfg: ModelConfig, layer_params, xs, psum, *, positions,
+                   backend: str = "auto", cross_embeds=None):
+    """The training forward of every layer over a plan's model axis:
+    ``xs``, ``positions`` and ``cross_embeds`` hold one entry per model
+    shard, and ``layer_params(g, i)`` returns the shards' params of layer
+    i of group g (``g`` None: tail layer i). It is called inside each
+    layer group's remat segment, so whatever it gathers is gathered again
+    in the backward rather than kept. Each group is one
+    ``torch.utils.checkpoint`` segment when ``cfg.remat != "none"``, as
+    the reference's ``jax.checkpoint`` of its scan body; tail layers are
+    not. Returns (xs, stats): stats one ``(me, ce)`` pair per MoE layer,
+    in layer order (`moe.balance_loss`)."""
+    tp = len(xs)
+    cross_embeds = cross_embeds if cross_embeds is not None else [None] * tp
+    kinds = cfg.layer_kinds()
+    gs = cfg.group_size()
+    n_groups = cfg.num_layers // gs
+
+    def run(kind, ps, xs, stats):
+        xs, _, st = layer_tp(cfg, kind, ps, xs, psum, mode="train",
+                             positions=positions, caches=[None] * tp,
+                             backend=backend, cross_embeds=cross_embeds)
+        return xs, stats if st is None else stats + (st,)
+
+    def group_body(g, *xs):
+        xs, stats = list(xs), ()
+        for i, kind in enumerate(kinds[:gs]):
+            xs, stats = run(kind, layer_params(g, i), xs, stats)
+        return tuple(xs), stats
+
+    stats = ()
+    for g in range(n_groups):
+        if cfg.remat != "none":
+            # the forward draws no random numbers: no RNG state to stash
+            # and restore around the recompute
+            xs, st = checkpoint(group_body, g, *xs, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            xs, st = group_body(g, *xs)
+        stats += st
+    for i, kind in enumerate(kinds[n_groups * gs:]):
+        xs, stats = run(kind, layer_params(None, i), list(xs), stats)
+    return list(xs), list(stats)
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -300,17 +348,6 @@ class Model(nn.Module):
             image_embeds = image_embeds.to(x.dtype)
         return x, positions, image_embeds
 
-    def _layer(self, kind, p, x, *, mode, positions, cache=None,
-               backend: str = "auto", cross_embeds=None):
-        """One layer (`layer_tp` on one shard): norm1, the mixer, its
-        residual and the MLP tail. Returns (x, cache, aux), aux as
-        `mlp_tail`'s."""
-        xs, cs, aux = layer_tp(self.cfg, kind, [p], [x], psum_one,
-                               mode=mode, positions=[positions],
-                               caches=[cache], backend=backend,
-                               cross_embeds=[cross_embeds])
-        return xs[0], cs[0], aux
-
     def run_stack(self, x, *, mode, positions, caches=None,
                   backend: str = "auto", cross_embeds=None):
         """Every layer in order, over the views built at init
@@ -349,39 +386,25 @@ class Model(nn.Module):
         ``forward_train``: tokens (b, s), or ``embeds`` (b, s, d) for an
         external-embedding config; ``image_embeds`` feed the cross
         layers. Attention, SSD and RG-LRU run through their kernels'
-        autograd Functions (`backend` as in `kernels.api.run`). Each
-        layer group is one ``torch.utils.checkpoint`` segment when
-        ``cfg.remat != "none"`` (its forward recomputed in the backward);
-        tail layers are not. Returns (logits (b, s, V), aux), aux the
-        fp32 sum of the MoE layers' load-balancing losses."""
+        autograd Functions (`backend` as in `kernels.api.run`); each
+        layer group is one remat segment when ``cfg.remat != "none"``
+        (`train_stack_tp` on one shard). Returns (logits (b, s, V), aux),
+        aux the fp32 sum of the MoE layers' load-balancing losses."""
         x, positions, image_embeds = self.inputs(tokens, embeds,
                                                  image_embeds)
+        tail = self.params.get("tail", {})
 
-        def run(kind, p, x, aux):
-            x, _, a = self._layer(kind, p, x, mode="train",
-                                  positions=positions, backend=backend,
-                                  cross_embeds=image_embeds)
-            return x, aux if a is None else aux + a
+        def layer_params(g, i):
+            return [self.group_layer(g, i) if g is not None
+                    else tail[f"t{i}"]]
 
-        def group_body(g, x, aux):
-            for i, kind in enumerate(self.kinds[:self.group_size]):
-                x, aux = run(kind, self.group_layer(g, i), x, aux)
-            return x, aux
-
+        xs, stats = train_stack_tp(self.cfg, layer_params, [x], psum_one,
+                                   positions=[positions], backend=backend,
+                                   cross_embeds=[image_embeds])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(self.n_groups):
-            if self.cfg.remat != "none":
-                # the forward draws no random numbers: no RNG state to
-                # stash and restore around the recompute
-                x, aux = checkpoint(group_body, g, x, aux,
-                                    use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                x, aux = group_body(g, x, aux)
-        tail_kinds = self.kinds[self.n_groups * self.group_size:]
-        for i, kind in enumerate(tail_kinds):
-            x, aux = run(kind, self.params["tail"][f"t{i}"], x, aux)
-        return self.head(x), aux
+        for me, ce in stats:
+            aux = aux + moe_mod.balance_loss(self.cfg, me, ce)
+        return self.head(xs[0]), aux
 
     def forward_decode(self, tokens, caches, pos: int, *, embeds=None):
         """One token step over capacity-sized caches (see `pad_caches`),

@@ -23,8 +23,9 @@ without one: the controller holds every shard's weights and state and
 launches each shard's work in turn. A shard is a mesh position, and its
 tensors live on that position's device; several positions may share a
 device (one card carrying a 2 x 2 plan, or the CPU in the tests). The
-reduction seam is `ServePlan.psum`: over shards on one device an in-order
-sum (shard 0, then 1, ...), over distinct cards an NCCL all-reduce. A
+reduction seam is `ServePlan.psum` (`reduce_tensors`): over shards on one
+device an in-order sum (shard 0, then 1, ...), over distinct cards an
+NCCL all-reduce. A
 plan of one shard is None: the exact unsharded path.
 """
 from __future__ import annotations
@@ -46,6 +47,40 @@ from repro_torch.sharding.partition import (SERVE_RULES, P, mesh_axis_sizes,
 
 POOL_ARGS = ("k_pages", "v_pages", "k_quant", "v_quant",
              "k_scale", "v_scale")
+
+# NCCL's ncclRedOp_t values (`torch.cuda.nccl` names only SUM)
+NCCL_OPS = {"sum": 0, "max": 2}
+
+
+def all_reduce_(tensors: list, op: str = "sum") -> None:
+    """NCCL all-reduce in place over tensors on distinct CUDA devices."""
+    from torch.cuda import nccl
+    nccl.all_reduce(tensors, op=NCCL_OPS[op])
+
+
+def all_reduced(ts: list, op: str = "sum") -> list:
+    """Copies of tensors on distinct CUDA devices, each the sum (or max)
+    of them all: one NCCL all-reduce."""
+    outs = [t.contiguous().clone() for t in ts]
+    all_reduce_(outs, op)
+    return outs
+
+
+def reduce_tensors(ts: list, op: str = "sum") -> list:
+    """The sum (or max) of tensors of one shape, one result per input on
+    its device. On one device an in-order sum (inputs 0, 1, ...); over
+    distinct CUDA devices one NCCL all-reduce; otherwise in order on the
+    first input's device, copied back."""
+    devs = [t.device for t in ts]
+    if len(set(devs)) == len(ts) > 1 and all(d.type == "cuda" for d in devs):
+        return all_reduced(ts, op)
+    combine = torch.add if op == "sum" else torch.maximum
+    out = ts[0]
+    for t in ts[1:]:
+        out = combine(out, t.to(devs[0]))
+    if len(set(devs)) == 1:
+        return [out] * len(ts)
+    return [out.to(d) for d in devs]
 
 
 class ServePlan:
@@ -95,24 +130,16 @@ class ServePlan:
     def psum(parts: list) -> list:
         """The tensor-parallel reduction seam over one data shard's model
         shards: a list of per-shard parts -> a list of sums, one per
-        shard. Parts on one device sum in shard order (deterministic);
-        parts on distinct CUDA devices go through one NCCL all-reduce in
-        place."""
+        shard (`reduce_tensors`: parts on one device sum in shard order,
+        deterministic; parts on distinct CUDA devices go through one NCCL
+        all-reduce)."""
         if len(parts) == 1:
             return list(parts)
         devs = {p.device for p in parts}
-        if len(devs) == 1:
-            out = parts[0]
-            for p in parts[1:]:
-                out = out + p
-            return [out] * len(parts)
-        if len(devs) != len(parts):
+        if len(devs) not in (1, len(parts)):
             raise ValueError(f"reduction over devices {devs}: parts must "
                              f"share one device or each have their own")
-        from torch.cuda import nccl
-        outs = [p.contiguous() for p in parts]
-        nccl.all_reduce(outs)
-        return outs
+        return reduce_tensors(parts)
 
     # -- validation ----------------------------------------------------------
     def check_config(self, cfg):

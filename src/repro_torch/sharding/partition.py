@@ -11,15 +11,20 @@ The engine is plain Python over axis names and sizes, so it runs on a
 deviceless mesh (`launch.mesh.make_abstract_mesh`) as well as on one of
 torch devices. A spec is a `P`: one entry per leading dimension (a mesh
 axis name, a tuple of them, or None), trailing Nones dropped, equal to
-``tuple()`` of the reference's ``PartitionSpec``. The training-time
-helpers of the reference (``with_shardings``, ``constrain``,
-``activation_sharding``) belong to the mesh-training slice and are not
-here.
+``tuple()`` of the reference's ``PartitionSpec``. `tree_shardings` and
+`with_shardings` map a whole state: each leaf's `P` beside a ``meta``
+tensor of its logical shape (`train.train_step.abstract_state`,
+`ft.elastic.plan_rescale`). The reference's ``constrain`` and
+``activation_sharding`` have no counterpart: they ask XLA to place an
+activation, and here the training plan (`train.sharding.TrainPlan`)
+fixes every activation's shard by construction.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
+
+import torch
 
 # candidates per logical axis, in priority order; entries are mesh-axis
 # tuples (a tuple means "shard over the product of those axes").
@@ -122,6 +127,44 @@ def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
     while entries and entries[-1] is None:
         entries.pop()
     return P(*entries)
+
+
+def _is_logical(x) -> bool:
+    """A tuple of logical axis names (or Nones): a leaf of a logical tree,
+    not a node."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def tree_shardings(abstract_tree, logical_tree, mesh,
+                   rules: Optional[dict] = None):
+    """The `P` of every leaf of `abstract_tree` (nested dicts of tensors
+    or anything with a ``shape``), from the logical axes at the same path
+    of `logical_tree`: the reference's ``tree_shardings``, its
+    ``NamedSharding``s as their specs."""
+    if _is_logical(logical_tree):
+        return spec_for(abstract_tree.shape, logical_tree, mesh, rules)
+    return {k: tree_shardings(abstract_tree[k], logical_tree[k], mesh, rules)
+            for k in abstract_tree}
+
+
+class Sharded(NamedTuple):
+    """A leaf of `with_shardings`: a ``meta`` tensor of the logical shape
+    and dtype, and its `P` on the mesh."""
+    meta: torch.Tensor
+    spec: P
+
+
+def with_shardings(abstract_tree, logical_tree, mesh, rules=None):
+    """`Sharded` leaves (the reference's ``ShapeDtypeStruct`` with a
+    sharding): each leaf of `abstract_tree` as a ``meta`` tensor beside
+    its `tree_shardings` spec."""
+    if _is_logical(logical_tree):
+        a = abstract_tree
+        return Sharded(torch.empty(a.shape, dtype=a.dtype, device="meta"),
+                       spec_for(a.shape, logical_tree, mesh, rules))
+    return {k: with_shardings(abstract_tree[k], logical_tree[k], mesh, rules)
+            for k in abstract_tree}
 
 
 def dp_axes(mesh) -> tuple:

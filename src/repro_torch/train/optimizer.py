@@ -1,5 +1,5 @@
 """AdamW with fp32 master weights and moments — the port of the JAX
-package's ``repro/train/optimizer.py`` at one device.
+package's ``repro/train/optimizer.py``.
 
 Parameters, gradients and every optimizer leaf are flat ``{name:
 tensor}`` dicts over the model's parameter names. The arithmetic is the
@@ -12,6 +12,12 @@ decay in another order). The schedule (linear warmup, then cosine to a
 tenth) is computed on the step counter's device, in fp32, so a step
 reads nothing back to the host. Updates are in place: the master, the
 moments and the parameters keep their storage.
+
+Under a training plan (`train.sharding`) every optimizer leaf takes its
+parameter's logical axes (`opt_state_logical`), so it is sharded as the
+parameter is (ZeRO-style); each shard updates its slices with the clip
+scale of the global norm, which the plan computes over each logical leaf
+once and passes in.
 """
 from __future__ import annotations
 
@@ -61,6 +67,31 @@ def init_opt_state(params: dict, oc: OptimizerConfig) -> dict:
     return state
 
 
+def abstract_opt_state(abstract_params: dict, oc: OptimizerConfig) -> dict:
+    """`init_opt_state`'s structure, shapes and dtypes over flat ``{name:
+    tensor}`` params (any device, ``meta`` included) as ``meta``
+    tensors."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    state = {"step": torch.empty((), dtype=torch.int32, device="meta"),
+             "m": {n: f32(p) for n, p in abstract_params.items()},
+             "v": {n: f32(p) for n, p in abstract_params.items()}}
+    if oc.use_master:
+        state["master"] = {n: f32(p) for n, p in abstract_params.items()}
+    return state
+
+
+def opt_state_logical(params_logical: dict, oc: OptimizerConfig) -> dict:
+    """The logical axes of the optimizer state: each moment and master
+    leaf its parameter's, the step none."""
+    state = {"step": (), "m": dict(params_logical),
+             "v": dict(params_logical)}
+    if oc.use_master:
+        state["master"] = dict(params_logical)
+    return state
+
+
 def global_norm(tree: dict):
     """sqrt of the sum over leaves (in name order) of each leaf's fp32
     sum of squares."""
@@ -72,14 +103,17 @@ def global_norm(tree: dict):
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 oc: OptimizerConfig):
+                 oc: OptimizerConfig, gnorm=None):
     """One AdamW step, in place: `params`, and the ``m``, ``v`` and
     ``master`` leaves of `opt_state`, are updated where they lie and
-    ``opt_state["step"]`` is replaced by ``step + 1``. Returns (params,
+    ``opt_state["step"]`` is replaced by ``step + 1``. `gnorm` is the
+    global gradient norm when `grads` are one shard's slices of a larger
+    state (default: `global_norm` of `grads`). Returns (params,
     opt_state, metrics) with metrics ``{"grad_norm", "lr"}`` as fp32
     tensors on the state's device."""
     step = opt_state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(oc.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(oc, step)
