@@ -217,9 +217,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    reductions over the mesh's devices against the same on cuda:0
    (`compressed_psum`, the replicas' max, the seam forward and
    backward); ``exact``, fp32, starcoder2-7b
-   (2 layers), mamba2-780m (2) and recurrentgemma-2b (3) at plans 1x2,
-   2x1 and 2x2, 2 steps each against the 1x1 trainer on the same
-   weights and batches (`TRAIN_MESH_RULE`: step 0's gradient per leaf
+   (2 layers), mamba2-780m (2), recurrentgemma-2b (3) and minicpm3-4b
+   (2: MLA, latents whole, heads split) at plans 1x2, 2x1 and 2x2,
+   starcoder2-7b also at 1x8 (36 q heads: attention whole on every
+   shard) and qwen3-moe-30b-a3b (2 layers, 16 of its 128 experts) at 1x8
+   (32 q / 4 kv heads: each q block reads one kv head), 2 steps each
+   against the 1x1 trainer on the same weights and batches (`TRAIN_MESH_RULE`: step 0's gradient per leaf
    within `TRAIN_GRAD_LIMIT`, losses and grad norms within 1e-5, each
    leaf's update within 1e-2 of 1x1's in norm), launches as
    every shard's `expected_train_launches`, and every per-shard launch
@@ -241,9 +244,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    counter (`repro_torch.core.hlo_cost`), one JSON line per part; the
    meta counts first, in `NAPEL_WORKERS` processes. ``dryrun``: every
    arch x shape cell of `launch.dryrun` at mesh 1x1 on ``meta`` (status,
-   counted flops and bytes, live bytes, fits, bottleneck, wall s); an
-   error whose reason `DRYRUN_KNOWN_ERRORS` (and PERF.md) do not list
-   fails. ``count``: the train steps of `NAPEL_TRAIN` (mamba2-780m 48
+   counted flops and bytes, live bytes, fits, bottleneck, wall s), then
+   the same 32 cells per device of the 16 x 16 pod (one line each
+   mesh); an error whose reason `DRYRUN_KNOWN_ERRORS` (and PERF.md) do
+   not list fails. ``mesh_count``: `NAPEL_MESH_COUNT`'s train step
+   (starcoder2-7b, 2 layers, bf16) at 2x2 and 1x8 with every position on
+   cuda:0, counted on the card; its counts of positions (0, 0) and (0,
+   1) equal the one-position counts on ``meta`` in flops by class, fused
+   bytes, kernel entries by route and collectives. ``count``: the train steps of `NAPEL_TRAIN` (mamba2-780m 48
    layers 4 x 2048, recurrentgemma-2b 26 layers 1 x 4096, starcoder2-7b 8
    of 32 layers 2 x 2048) and the prefill of `NAPEL_PREFILL`
    (starcoder2-7b, 32 layers, 1 x 600), each counted on ``meta`` and on
@@ -274,8 +282,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    are the 1x1 engine's and every steady step costs one upload and one
    download; mamba2-780m (2 layers) at 2x2 and recurrentgemma-2b (3: its
    local-attention layer's one kv head replicates) at 2x1 and 1x2
-   through ``generate`` and ``serve``; recurrentgemma's 10 heads refuse
-   1x4 with `ValueError`. Every launch shape the plans gave a kernel
+   through ``generate`` and ``serve``; minicpm3-4b (2 layers, MLA) through
+   the dense-cache ``generate`` at 1x2 and 2x2 (`MESH_MLA`), tokens equal
+   to 1x1's; recurrentgemma's 10 heads refuse the paged path at 1x4 with
+   `ValueError`. Every launch shape the plans gave a kernel
    (paged and flash attention at hq / tp heads, the scans at a shard's
    width) is held to its plain version on the recorded inputs, paged /
    flash / RG-LRU to 2 ulps, SSD to `ssd_limit`; recurrentgemma-2b's fp32
@@ -1050,6 +1060,52 @@ def ssd_check(got, want):
         over_ssd_limit(got, want)
 
 
+def ssd_bf16_intra_checks(mamba: dict) -> list:
+    """``ssm_bf16_intra``'s launch (`ssd_scan.launch(bf16_intra=True)`:
+    the intra-chunk scores in one bf16 piece on the wgmma route, scores
+    and x rounded on the simt route) at mamba2-780m's shapes, bf16 and
+    fp32, against the plain version's bf16-intra form at the route's
+    chunk (`ref.ssd_chunked(bf16_intra=True)`) within `ssd_limit`; the
+    flag must move the output (the launch without it differs). Not the
+    main path's launches: counted nowhere."""
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sd
+    rows, bad = [], []
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        shape = dict(B=1, S=2048, **mamba)
+        args = ssd_inputs(shape, dtype, seed=7)
+        B, S, H, P = args[0].shape
+        N = args[1].shape[3]
+        kind = sd.route(dtype, S, P, N, args[1].shape[2])
+        chunk = sd.WGMMA_CHUNK if kind == "wgmma" else sd.CHUNK
+        outs = {}
+        for flag in (True, False):
+            y = torch.empty(B, S, H, P, device="cuda")
+            st = torch.empty(B, H, P, N, device="cuda")
+            sd.launch(*args, y, st, kind, bf16_intra=flag)
+            outs[flag] = (y, st)
+        torch.cuda.synchronize()
+        want = sref.ssd_chunked(*args, chunk=chunk, bf16_intra=True)
+        err, tol, over = ssd_check(outs[True], want)
+        moved = (outs[True][0] - outs[False][0]).abs().max().item()
+        row = {"phase": "kernel", "kernel": "ssd_scan",
+               "case": f"bf16_intra mamba2-780m B=1 S=2048 {name}",
+               "route": kind, "plain_chunk": chunk, "rule": SSD_LIMIT_RULE,
+               "max_abs_err": err, "tol": tol, "max_err_over_limit": over,
+               "flag_moves_y_by": moved}
+        emit(row)
+        rows.append(row)
+        if not over <= 1.0 or not moved > 0.0:
+            bad.append(row)
+        del args, outs, want
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"ssd_scan bf16_intra: past the limit or the "
+                             f"flag without effect: {bad}")
+    return rows
+
+
 def compare_and_time(label, kernel, plain, library, nbytes, flops, peak,
                      extra, check=ulp_check, rule=ULP_RULE,
                      device: bool = False) -> dict:
@@ -1747,6 +1803,7 @@ def scan_kernels() -> dict:
             full[("ssd_scan", b, s_len, name)] = row
             del args
             torch.cuda.empty_cache()
+    ssd_bf16_intra_checks(mamba)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rglru_edge_cases(gen)
     for b, s_len in ((1, 2048), (1, 1000), (2, 2300)):
@@ -5195,8 +5252,19 @@ TRAIN_MESH_PLANS = ((1, 2), (2, 1), (2, 2))
 # (arch, layers, batch, seq): fp32, TF32 off, the kernels on both sides,
 # TRAIN_EXACT's models at batch 2 so that each data shard of a 2 x m plan
 # takes a row
-TRAIN_MESH_EXACT = (("starcoder2-7b", 2, 2, 1024), ("mamba2-780m", 2, 2, 1024),
-                    ("recurrentgemma-2b", 3, 2, 2560))
+# (arch, layers, batch, seq, plans, config cuts): since the plan lays
+# out what the model axis does not divide, starcoder2-7b also at 1x8 (36
+# q heads: attention whole on every shard, the flash kernel at its
+# whole-head shape), minicpm3-4b's MLA (latents whole, heads split) and
+# qwen3-moe-30b-a3b at 1x8 (32 q / 4 kv heads: each shard's q block reads
+# one kv head; its 128 experts cut to 16, every expert replicated on all
+# 8 shards)
+TRAIN_MESH_EXACT = (
+    ("starcoder2-7b", 2, 2, 1024, TRAIN_MESH_PLANS + ((1, 8),), {}),
+    ("mamba2-780m", 2, 2, 1024, TRAIN_MESH_PLANS, {}),
+    ("recurrentgemma-2b", 3, 2, 2560, TRAIN_MESH_PLANS, {}),
+    ("minicpm3-4b", 2, 2, 1024, TRAIN_MESH_PLANS, {}),
+    ("qwen3-moe-30b-a3b", 2, 2, 512, ((1, 8),), {"num_experts": 16}))
 TRAIN_MESH_EXACT_STEPS = 2
 # Adam divides a step by sqrt(v) + eps (1e-8): an element whose gradient
 # sits near eps moves by up to lr on rounding noise alone (on the card,
@@ -5323,14 +5391,15 @@ def train_mesh_exact(smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.common import flatten
     from repro_torch.models.transformer import Model
+    from repro_torch.serve.sharding import ServePlan
     from repro_torch.train.optimizer import OptimizerConfig
     oc = OptimizerConfig(**TRAIN_OC)
     steps = TRAIN_MESH_EXACT_STEPS
     launches: dict = {}
-    for arch, layers, batch, seq in TRAIN_MESH_EXACT:
+    for arch, layers, batch, seq, plan_shapes, cuts in TRAIN_MESH_EXACT:
         t0 = time.perf_counter()
         cfg = get_config(arch, num_layers=layers, param_dtype="float32",
-                         compute_dtype="float32")
+                         compute_dtype="float32", **cuts)
         p_init = flatten(Model(cfg, device="cuda", seed=0).params)
         tr = _mesh_trainer(cfg, oc, batch, seq, steps, (1, 1))
         out = tr.run()
@@ -5342,7 +5411,7 @@ def train_mesh_exact(smi: str) -> dict:
         per_step = expected_train_launches(cfg)
         plans, bad = {}, []
         with first_calls(TRAIN_KERNELS) as seen:
-            for d, m in TRAIN_MESH_PLANS:
+            for d, m in plan_shapes:
                 reset_launches()
                 tr = _mesh_trainer(cfg, oc, batch, seq, steps, (d, m))
                 out = tr.run()
@@ -5386,18 +5455,23 @@ def train_mesh_exact(smi: str) -> dict:
         _release()
         row = {"phase": "train", "part": "mesh", "sub": "exact",
                "nvidia_smi": smi, "rule": TRAIN_MESH_RULE,
-               "config": f"{arch} full width, {layers} layers, fp32",
+               "config": f"{arch} full width, {layers} layers, fp32"
+               + "".join(f", {k} cut to {v}" for k, v in cuts.items()),
                "batch": batch, "seq": seq, "steps": steps,
                "losses_1x1": [h["loss"] for h in hist_1],
                "plans": plans, "devices": {
                    f"{d}x{m}": mesh_layout(serve_mesh(d, m))
-                   for d, m in TRAIN_MESH_PLANS},
+                   for d, m in plan_shapes},
+               "whole_sublayers": {
+                   f"{d}x{m}": sorted(ServePlan(serve_mesh(d, m))
+                                      .whole_sublayers(cfg))
+                   for d, m in plan_shapes},
                "launch_shapes_checked": len(checked),
                "worst_forward_over_limit": max(
-                   c["max_err_over_limit"] for c in checked),
+                   (c["max_err_over_limit"] for c in checked), default=0.0),
                "magnitude_held": list(magnitude),
                "worst_backward": max((c["worst_input"] for c in grads),
-                                     key=lambda x: x[1]),
+                                     key=lambda x: x[1], default=None),
                "wall_s": time.perf_counter() - t0}
         emit(row)
         if bad:
@@ -5738,7 +5812,8 @@ NAPEL_TRAIN = (("mamba2-780m", 48, 4, 2048),        # the train phase's shapes
                ("starcoder2-7b", 8, 2, 2048))
 NAPEL_PREFILL = ("starcoder2-7b", 32, 1, 600)   # the serve phase's model and
 #                                                 its longest prompt
-NAPEL_WORKERS = 6            # processes of the meta counts (8 cores)
+NAPEL_WORKERS = 8            # processes of the meta counts (the 8 cores;
+#                              the main process waits on the pool)
 NAPEL_CARD_POINTS = 10       # corpus points trained on the card ...
 NAPEL_CARD_BYTES = 60e9      # ... whose counted live bytes fit in this
 NAPEL_SHOTS = (1, 3, 5)
@@ -5829,6 +5904,14 @@ def meta_task(task):
     if kind == "dryrun":
         from repro_torch.launch.dryrun import run_cell
         return run_cell(task[1], task[2], out_dir=DRYRUN_OUT, force=True)
+    if kind == "dryrun_pod":
+        from repro_torch.launch.dryrun import run_cell
+        return run_cell(task[1], task[2], out_dir=DRYRUN_OUT, force=True,
+                        mesh=NAPEL_POD)
+    if kind == "mesh_count":
+        cfg = _napel_cfg(*NAPEL_MESH_COUNT[:2])
+        _, step, state, b = mesh_count_inputs(cfg, task[1], "meta")
+        return mesh_count_positions(step, state, b)
     if kind == "corpus":
         from repro_torch.core.napel.corpus import (compile_and_measure,
                                                    make_cfg, train_shape)
@@ -5856,18 +5939,24 @@ def meta_task(task):
 
 def napel_meta_counts() -> dict:
     """Every meta count of the phase, in `NAPEL_WORKERS` processes: the
-    dry run's cells, the corpus points and the count part's steps."""
+    dry run's cells at 1x1 and on the 16 x 16 pod, the corpus points, the
+    count part's steps and the one-position counts of part
+    ``mesh_count``."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.core.napel.corpus import corpus_points
     from repro_torch.launch.dryrun import all_cells
     tasks = [("train", *t) for t in NAPEL_TRAIN] \
         + [("prefill", *NAPEL_PREFILL)] \
+        + [("mesh_count", shape) for shape in NAPEL_MESH_COUNT[4]] \
         + [("dryrun", a, s) for a, s in all_cells()] \
+        + [("dryrun_pod", a, s) for a, s in all_cells()] \
         + [("corpus", tag, tuple(sorted(p.items())))
            for tag, p in corpus_points()]
     # the slowest first, so the pool ends together
-    tasks.sort(key=lambda t: t[0] not in ("train",))
+    tasks.sort(key=lambda t: (t[0] != "train",
+                              not (t[0] == "dryrun_pod"
+                                   and t[2] == "train_4k")))
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(NAPEL_WORKERS,
@@ -6006,39 +6095,136 @@ def napel_count(meta_results) -> tuple:
 
 
 def napel_dryrun(meta_results, wall_s) -> list:
-    """Part ``dryrun``: every arch x `shapes_for` cell at 1x1, counted in
-    the pool; fails on an error whose reason PERF.md does not list."""
-    cells = []
-    for task, rec in meta_results.items():
-        if task[0] != "dryrun":
-            continue
-        cell = {"arch": rec["arch"], "shape": rec["shape"],
-                "status": rec["status"], "wall_s": rec["wall_s"]}
-        if rec["status"] == "ok":
-            cell.update(
-                flops=rec["cost"]["flops_per_device"],
-                bytes_fused=rec["cost"]["bytes_per_device"],
-                bytes_unfused=rec["cost"]["bytes_per_device_unfused"],
-                live_gb=rec["memory"]["live_bytes_per_device"] / 1e9,
-                fits_hbm=rec["memory"]["fits_hbm"],
-                bottleneck=rec["roofline"]["bottleneck"],
-                bound_s=rec["roofline"]["step_time_bound_s"],
-                kernels={k: v["entries"] for k, v in rec["kernels"].items()},
-                count_s=rec["count_s"])
-        else:
-            cell["error"] = rec["error"]
-            known = DRYRUN_KNOWN_ERRORS.get((rec["arch"], rec["shape"]))
-            if known is None or known not in rec["error"]:
-                raise AssertionError(f"dry run {rec['arch']} "
-                                     f"{rec['shape']}: {rec['error']}\n"
-                                     f"{rec.get('traceback', '')}")
-        cells.append(cell)
-    emit({"phase": "napel", "part": "dryrun", "mesh": "1x1",
-          "hardware": "h100_sxm", "cells": cells,
-          "ok": sum(c["status"] == "ok" for c in cells),
-          "pool_wall_s": wall_s,
-          "out_dir": str(DRYRUN_OUT.relative_to(ROOT))})
-    return cells
+    """Part ``dryrun``: every arch x `shapes_for` cell at 1x1 and per
+    device of the 16 x 16 pod (`NAPEL_POD`: one device of the plan,
+    positions (0, 0) and (0, 1)), counted in the pool; one row per mesh;
+    fails on an error whose reason PERF.md does not list."""
+    out = []
+    for kind, mesh in (("dryrun", "1x1"), ("dryrun_pod", "pod16x16")):
+        cells = []
+        for task, rec in meta_results.items():
+            if task[0] != kind:
+                continue
+            cell = {"arch": rec["arch"], "shape": rec["shape"],
+                    "status": rec["status"], "wall_s": rec["wall_s"]}
+            if rec["status"] == "ok":
+                cell.update(
+                    flops=rec["cost"]["flops_per_device"],
+                    bytes_fused=rec["cost"]["bytes_per_device"],
+                    bytes_unfused=rec["cost"]["bytes_per_device_unfused"],
+                    live_gb=rec["memory"]["live_bytes_per_device"] / 1e9,
+                    fits_hbm=rec["memory"]["fits_hbm"],
+                    bottleneck=rec["roofline"]["bottleneck"],
+                    bound_s=rec["roofline"]["step_time_bound_s"],
+                    kernels={k: v["entries"]
+                             for k, v in rec["kernels"].items()},
+                    count_s=rec["count_s"])
+                if kind == "dryrun_pod":
+                    cell.update(position=rec["position"],
+                                collective_gb=rec["collectives"]
+                                ["total_bytes"] / 1e9)
+            else:
+                cell["error"] = rec["error"]
+                known = DRYRUN_KNOWN_ERRORS.get((rec["arch"], rec["shape"]))
+                if known is None or known not in rec["error"]:
+                    raise AssertionError(f"dry run {mesh} {rec['arch']} "
+                                         f"{rec['shape']}: {rec['error']}\n"
+                                         f"{rec.get('traceback', '')}")
+            cells.append(cell)
+        emit({"phase": "napel", "part": "dryrun", "mesh": mesh,
+              "hardware": "h100_sxm", "cells": cells,
+              "ok": sum(c["status"] == "ok" for c in cells),
+              "pool_wall_s": wall_s,
+              "out_dir": str(DRYRUN_OUT.relative_to(ROOT))})
+        out += cells
+    return out
+
+
+# -- part ``mesh_count``: the card's per-position counts of a plan's step
+# against the one-position counts on meta
+NAPEL_POD = "16x16"
+# (arch, layers, batch, seq, plans): bf16, every position on cuda:0
+NAPEL_MESH_COUNT = ("starcoder2-7b", 2, 2, 1024, ((2, 2), (1, 8)))
+MESH_COUNT_POSITIONS = ((0, 0), (0, 1))
+MESH_COUNT_KEYS = ("flops_by_class", "bytes_accessed_fused",
+                   "kernel_routes", "collectives")
+
+
+def mesh_count_inputs(cfg, plan_shape, device: str):
+    """(model, train step, state, batch) of `cfg` over a d x m plan: on
+    the card every position on cuda:0, seeded weights; on ``meta`` a plan
+    that runs only `MESH_COUNT_POSITIONS`."""
+    from repro_torch.launch.mesh import make_abstract_mesh, make_serve_mesh
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.sharding import ShardedTrainModel, TrainPlan
+    from repro_torch.train.train_step import init_state, make_train_step
+    d, m = plan_shape
+    if device == "meta":
+        plan = TrainPlan(make_abstract_mesh((d, m), ("data", "model")), cfg,
+                         count_positions=MESH_COUNT_POSITIONS)
+    else:
+        plan = TrainPlan(make_serve_mesh(d, m, devices=[device] * (d * m)),
+                         cfg)
+    model = ShardedTrainModel(cfg, plan, seed=0)
+    oc = OptimizerConfig()
+    step = make_train_step(model, oc)
+    batch, seq = NAPEL_MESH_COUNT[2:4]
+    tok = napel_tokens(cfg, batch, seq, device)
+    return model, step, init_state(model, oc), {"tokens": tok,
+                                                "labels": tok}
+
+
+def mesh_count_positions(step, state, batch) -> dict:
+    """One counted step: ``{"i,j": {key: ...}}`` of `MESH_COUNT_KEYS` for
+    each of `MESH_COUNT_POSITIONS`, and the count's seconds."""
+    from repro_torch.core.hlo_cost import CostCounter
+    t0 = time.perf_counter()
+    with CostCounter() as c:
+        step(state, batch)
+    out = {"count_s": time.perf_counter() - t0, "positions": {}}
+    for pos in MESH_COUNT_POSITIONS:
+        summ = c.position_summary(pos)
+        out["positions"][f"{pos[0]},{pos[1]}"] = {
+            k: summ[k] for k in MESH_COUNT_KEYS}
+    return out
+
+
+def napel_mesh_count(meta_results, smi) -> dict:
+    """Part ``mesh_count``: `NAPEL_MESH_COUNT`'s train step on the card,
+    every position of each plan on cuda:0 (a warm step, then a counted
+    one), its counts of positions (0, 0) and (0, 1) against the meta
+    one-position counts (`TrainPlan(count_positions=...)`, in the pool):
+    flops by class, fused bytes, kernel entries by route and collectives
+    by kind, count and bytes. Fails on any difference."""
+    arch, layers = NAPEL_MESH_COUNT[:2]
+    cfg = _napel_cfg(arch, layers)
+    plans, bad = {}, []
+    for shape in NAPEL_MESH_COUNT[4]:
+        meta = meta_results[("mesh_count", shape)]
+        model, step, state, batch = mesh_count_inputs(cfg, shape, "cuda:0")
+        step(state, batch)
+        torch.cuda.synchronize()
+        card = mesh_count_positions(step, state, batch)
+        del model, step, state, batch
+        _release()
+        label = f"{shape[0]}x{shape[1]}"
+        diff = {pos: [k for k in MESH_COUNT_KEYS
+                      if card["positions"][pos][k] != want[k]]
+                for pos, want in meta["positions"].items()}
+        plans[label] = {"meta": meta["positions"],
+                        "card": card["positions"], "differ": diff,
+                        "meta_count_s": meta["count_s"],
+                        "card_count_s": card["count_s"]}
+        if any(diff.values()):
+            bad.append(label)
+    emit({"phase": "napel", "part": "mesh_count", "nvidia_smi": smi,
+          "config": f"{arch} full width, {layers} layers, "
+                    f"{cfg.param_dtype}, batch {NAPEL_MESH_COUNT[2]}, seq "
+                    f"{NAPEL_MESH_COUNT[3]}", "plans": plans})
+    if bad:
+        raise AssertionError(f"mesh_count: plans {bad}: the card's "
+                             f"per-position counts differ from meta's")
+    return plans
 
 
 class Nvml:
@@ -6449,6 +6635,9 @@ def phase_napel(smi: str) -> dict:
     results = meta["results"]
     napel_dryrun(results, meta["wall_s"])
     _, launches = napel_count(results)
+    reset_launches()
+    napel_mesh_count(results, smi)
+    _add(launches, read_launches())
     energy = napel_energy(smi)
     corpus_row, corpus_launches = napel_corpus(results, energy, smi)
     _add(launches, corpus_launches)
@@ -6788,7 +6977,9 @@ def mesh_exact(smi: str) -> dict:
         rows.append(row)
         del params
         torch.cuda.empty_cache()
-    # recurrentgemma-2b's 10 heads do not split 4 ways: the plan refuses
+    rows.append(mesh_exact_mla(smi))
+    # recurrentgemma-2b's 10 heads do not split 4 ways: the paged serving
+    # plan refuses, as the reference's `check_config`
     from repro_torch.serve.sharding import ServePlan
     try:
         ServePlan(serve_mesh(1, 4)).check_config(
@@ -6804,6 +6995,53 @@ def mesh_exact(smi: str) -> dict:
            "seconds": time.perf_counter() - t0}
     emit(row)
     return {"rows": rows, "shapes": shapes, "launches": launches}
+
+
+# minicpm3-4b (MLA) generates from dense caches over a plan: its latents
+# whole on every shard, its heads split (no page pool: the reference's
+# engine serves it the same way)
+MESH_MLA = ("minicpm3-4b", 2, ((1, 2), (2, 2)))
+
+
+def mesh_exact_mla(smi: str) -> dict:
+    """Part ``exact``, MLA: `MESH_MLA`'s dense `generate` on each plan
+    against the 1x1 engine's on the same weights, fp32 greedy tokens
+    equal. MLA attends in plain PyTorch, as the reference's jnp: no kernel
+    launches to hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import flatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ServeEngine
+    arch, layers, plans = MESH_MLA
+    t0 = time.perf_counter()
+    cfg = get_config(arch, num_layers=layers, param_dtype="float32",
+                     compute_dtype="float32")
+    params = flatten(Model(cfg, device="cuda", seed=0).params)
+    lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    v = cfg.vocab_size
+    want = _tokens(ServeEngine(cfg, params=params, device="cuda").generate(
+        _requests(v, lengths, new, 0)))
+    got = {}
+    for d, m in plans:
+        eng = ServeEngine(cfg, params=params, mesh=serve_mesh(d, m))
+        got[f"{d}x{m}"] = _tokens(eng.generate(_requests(v, lengths, new,
+                                                         0)))
+        del eng
+    same = {plan: g == want for plan, g in got.items()}
+    row = {"phase": "mesh", "part": "exact", "nvidia_smi": smi,
+           "config": f"{arch} full width, {layers} layers, fp32",
+           "path": "dense generate (no pool)", "plans": list(got),
+           "identical": same, "generate_1x1": want,
+           "devices": {f"{d}x{m}": mesh_layout(serve_mesh(d, m))
+                       for d, m in plans},
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        raise AssertionError(f"mesh exact {arch}: plans differ from 1x1: "
+                             f"{same}")
+    return row
 
 
 def _serve_turn(eng, cfg, seed: int) -> dict:

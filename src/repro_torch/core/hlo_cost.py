@@ -38,6 +38,19 @@ counterpart):
     when created and taken off when freed; the peak is the step's temp
     high-water mark beside the arguments it was given.
 
+Positions: a plan over a mesh (`train.sharding.TrainPlan`) marks the
+tensors each mesh position holds (`kernels.count.tag`); an op counts at
+the position of the marked tensors it reads, and so do its outputs. An
+op that reads none counts at the next op that does (the allocations and
+index ops inside one shard's work), or at the position a `count.at`
+context names; an op that reads two positions' tensors (the engine's
+gradient sums across a seam) counts in the totals and under "mixed".
+A seam hides its own arithmetic (`count.hidden`) and records the
+collective it stands for (`count.collective`): kind and operand bytes
+per device, as the reference's `analyze` counts them. `position_summary`
+gives one position's flops, bytes, kernel entries, collectives and
+peak live bytes (storages its ops created).
+
 `summary()` has the reference's keys (``flops``, ``bytes_accessed``,
 ``bytes_accessed_fused``, ``transcendentals``, ``collectives``,
 ``warnings``, always empty) plus ``flops_by_class``, ``kernels`` (per
@@ -57,6 +70,7 @@ from collections import defaultdict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.roofline import COLLECTIVES, total_flops
 from repro_torch.kernels import count as kernel_count
@@ -109,6 +123,39 @@ COLLECTIVE_OPS = {"all_reduce": "all-reduce",
                   "all_to_all_single": "all-to-all",
                   "broadcast": "collective-broadcast"}
 _SKIP_FRAMES = ("core/hlo_cost.py", "kernels/count.py")
+MIXED = "mixed"
+
+
+class _Bucket:
+    """One position's share of a count."""
+
+    def __init__(self):
+        self.flops_by_class: dict = defaultdict(int)
+        self.bytes = 0
+        self.bytes_fused = 0
+        self.transcendentals = 0
+        self.entries: list = []
+        self.collectives = {c: {"count": 0, "bytes": 0} for c in COLLECTIVES}
+        self.ops = 0
+        self.live = 0
+        self.peak = 0
+
+    def add(self, flops: dict, nbytes: int, fused: int, trans: int,
+            ops: int = 1):
+        for c, f in flops.items():
+            self.flops_by_class[c] += f
+        self.bytes += nbytes
+        self.bytes_fused += fused
+        self.transcendentals += trans
+        self.ops += ops
+
+    def merge(self, other: "_Bucket"):
+        self.add(other.flops_by_class, other.bytes, other.bytes_fused,
+                 other.transcendentals, other.ops)
+        self.entries += other.entries
+        for k, v in other.collectives.items():
+            self.collectives[k]["count"] += v["count"]
+            self.collectives[k]["bytes"] += v["bytes"]
 
 
 def _base(op) -> str:
@@ -151,6 +198,13 @@ class CostCounter(TorchDispatchMode):
         self._storages: dict = {}
         self._ranges: list = []
         self._hidden = 0
+        # positions (see the module docstring)
+        self._tags = WeakIdKeyDictionary()
+        self.by_position: dict = defaultdict(_Bucket)
+        self._pending = _Bucket()
+        self._pending_live: list = []
+        self._at: list = []
+        self._last = None
 
     # -- mode plumbing -------------------------------------------------------
     def __enter__(self):
@@ -179,8 +233,87 @@ class CostCounter(TorchDispatchMode):
             self._ranges.pop()
         return out
 
+    # -- positions ------------------------------------------------------------
+    def tag(self, t, pos):
+        """Mark `t` (a tensor, or a tree of them) as position `pos`'s."""
+        for x in _tensors(t):
+            self._tags[x] = pos
+
+    def hide(self):
+        counter = self
+
+        class _Hide:
+            def __enter__(self):
+                counter._hidden += 1
+
+            def __exit__(self, *exc):
+                counter._hidden -= 1
+                return False
+
+        return _Hide()
+
+    def at(self, pos):
+        counter = self
+
+        class _At:
+            def __enter__(self):
+                counter._at.append(pos)
+
+            def __exit__(self, *exc):
+                counter._at.pop()
+                return False
+
+        return _At()
+
+    def collective(self, kind: str, nbytes: int, pos=None):
+        """One collective of `kind` with `nbytes` operand bytes, at `pos`
+        (None: the totals only)."""
+        for b in ([self.collectives] + ([self.by_position[pos].collectives]
+                                        if pos is not None else [])):
+            b[kind]["count"] += 1
+            b[kind]["bytes"] += int(nbytes)
+
+    def _position(self, ins):
+        """The position of an op reading `ins`: their one marked position,
+        `MIXED`, or None (none marked: the innermost `at` position, if
+        any, which its outputs do not take)."""
+        if not self._tags:
+            return None
+        found = None
+        for t in ins:
+            p = self._tags.get(t)
+            if p is None or p == found:
+                continue
+            if found is not None:
+                return MIXED
+            found = p
+        return found
+
+    def _attribute(self, pos, flops, nbytes, fused, trans, new_live=()):
+        """Add one op's share to `pos`'s bucket (to the pending bucket when
+        None: the next marked op takes it)."""
+        if pos is None:
+            self._pending.add(flops, nbytes, fused, trans)
+            self._pending_live += list(new_live)
+            return
+        b = self.by_position[pos]
+        if self._pending.ops:
+            b.merge(self._pending)
+            self._pending = _Bucket()
+        b.add(flops, nbytes, fused, trans)
+        if pos != MIXED:
+            self._last = pos
+        for holder in self._pending_live + list(new_live):
+            if len(holder) > 1:
+                holder[0] = pos
+                b.live += holder[1]
+                b.peak = max(b.peak, b.live)
+        self._pending_live = []
+
     # -- live bytes -----------------------------------------------------------
-    def _track(self, t, nbytes=None):
+    def _track(self, t, nbytes=None, holder=None):
+        """Count a new storage as live until it is freed; `holder` (a
+        one-entry list) names the position it counts at, once known."""
         st = t.untyped_storage()
         key = id(st)
         if key in self._storages:
@@ -189,17 +322,22 @@ class CostCounter(TorchDispatchMode):
         self.live += n
         self.peak = max(self.peak, self.live)
 
-        def freed(key=key, n=n):
+        def freed(key=key, n=n, holder=holder):
             self.live -= n
             self._storages.pop(key, None)
+            if holder is not None and holder[0] is not None:
+                self.by_position[holder[0]].live -= n
 
         self._storages[key] = weakref.finalize(st, freed)
+        if holder is not None:
+            holder.append(n)
 
     # -- kernels --------------------------------------------------------------
-    def kernel(self, name, route, work, run):
+    def kernel(self, name, route, work, run, inputs=()):
         """One kernel call (`repro_torch.kernels.count.call`): `work()`
         and `run()` with the counter's view of their ops hidden, one
-        entry, the outputs tracked as new storages."""
+        entry (at the position of `inputs`), the outputs tracked as new
+        storages."""
         self._hidden += 1
         try:
             w = work()
@@ -219,8 +357,19 @@ class CostCounter(TorchDispatchMode):
             self.flops_by_class[c] += f
         self.bytes += entry["bytes"]
         self.bytes_fused += entry["bytes"]
+        pos = self._position(_tensors(inputs)) if self._tags else None
+        if pos is None and self._tags:
+            pos = self._at[-1] if self._at else self._last
+        holders = []
         for t in _tensors(out):
-            self._track(t, _nbytes(t))
+            holders.append([None])
+            self._track(t, _nbytes(t), holders[-1])
+        if pos is not None:
+            self._attribute(pos, entry["flops"], entry["bytes"],
+                            entry["bytes"], 0, holders)
+            self.by_position[pos].ops -= 1
+            self.by_position[pos].entries.append(entry)
+            self.tag(out, pos)
         if self.inspect:
             self._row(f"kernel:{name}", _tensors(out), entry["bytes"])
         return out
@@ -231,17 +380,28 @@ class CostCounter(TorchDispatchMode):
         base = _base(func)
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        pos = self._position(ins)
+        if pos is not None and pos != MIXED:
+            self.tag(outs, pos)
+        elif pos is None and self._at and self._tags:
+            pos = self._at[-1]
         if func.is_view or base in NO_BYTES:
+            if pos is not None:
+                self._attribute(pos, {}, 0, 0, 0)
             return
         if base in BACKEND_SCRATCH:
             n_in, n_out = BACKEND_SCRATCH[base]
             ins, outs = ins[:n_in], outs[:n_out]
+        before = (dict(self.flops_by_class), self.bytes, self.bytes_fused,
+                  self.transcendentals) if self._tags else None
+        holders = []
         returns = func._schema.returns
         for i, t in enumerate(outs):
             # an output that aliases an input (in-place ops, returned
             # views) is no new storage
             if i >= len(returns) or returns[i].alias_info is None:
-                self._track(t)
+                holders.append([None])
+                self._track(t, holder=holders[-1])
         if not outs and base.startswith("_foreach_") and args:
             outs = _tensors(args[0])            # in-place foreach
         in_b = sum(_nbytes(t) for t in ins)
@@ -251,14 +411,19 @@ class CostCounter(TorchDispatchMode):
         self._fused(func, base, ins, outs, in_b, out_b)
         if func.namespace == "_c10d_functional" and base in COLLECTIVE_OPS:
             name = COLLECTIVE_OPS[base]
-            coll = self.collectives[name]
-            coll["count"] += 1
-            coll["bytes"] += in_b
+            self.collective(name, in_b, pos if self._tags else None)
             self.bytes_fused += in_b + out_b
             row = self.coll_rows[(name, str(tuple(ins[0].shape))[:60]
                                   if ins else "()", self._source())]
             row["count"] += 1
             row["bytes"] += in_b
+        if before is not None:
+            flops = {c: f - before[0].get(c, 0)
+                     for c, f in self.flops_by_class.items()
+                     if f != before[0].get(c, 0)}
+            self._attribute(pos, flops, self.bytes - before[1],
+                            self.bytes_fused - before[2],
+                            self.transcendentals - before[3], holders)
         if self.inspect:
             self._row(base, outs or ins, in_b + out_b)
 
@@ -343,17 +508,39 @@ class CostCounter(TorchDispatchMode):
     def kernel_summary(self) -> tuple:
         """({kernel: {"entries", "bytes", "flops": {class: flops}}},
         {kernel: {route: entries}})."""
-        kernels, routes = {}, {}
-        for e in self.entries:
-            k = kernels.setdefault(e["kernel"], {"entries": 0, "bytes": 0,
-                                                 "flops": {}})
-            k["entries"] += 1
-            k["bytes"] += e["bytes"]
-            for c, f in e["flops"].items():
-                k["flops"][c] = k["flops"].get(c, 0) + f
-            r = routes.setdefault(e["kernel"], {})
-            r[e["route"]] = r.get(e["route"], 0) + 1
-        return kernels, routes
+        return _kernel_summary(self.entries)
+
+    def positions(self) -> list:
+        """The positions counted, in order ("mixed" left out)."""
+        return sorted(p for p in self.by_position if p != MIXED)
+
+    def position_summary(self, pos) -> dict:
+        """Position `pos`'s share: ``flops``, ``flops_by_class``,
+        ``bytes_accessed``, ``bytes_accessed_fused``, ``transcendentals``,
+        ``kernels``, ``kernel_routes``, ``collectives`` (with totals) and
+        ``peak_live_bytes``. Ops still waiting for a marked op count at
+        the last position seen."""
+        if self._pending.ops and self._last is not None:
+            self._attribute(self._last, {}, 0, 0, 0)
+            self.by_position[self._last].ops -= 1
+        b = self.by_position[pos]
+        kernels, routes = _kernel_summary(b.entries)
+        by_class = {c: f for c, f in sorted(b.flops_by_class.items()) if f}
+        colls = {k: dict(v) for k, v in b.collectives.items()}
+        return {
+            "flops": total_flops(by_class),
+            "flops_by_class": by_class,
+            "bytes_accessed": b.bytes,
+            "bytes_accessed_fused": b.bytes_fused,
+            "transcendentals": b.transcendentals,
+            "collectives": {
+                **colls,
+                "total_bytes": sum(v["bytes"] for v in colls.values()),
+                "total_count": sum(v["count"] for v in colls.values())},
+            "kernels": kernels,
+            "kernel_routes": routes,
+            "peak_live_bytes": b.peak,
+        }
 
     def summary(self) -> dict:
         colls = {k: dict(v) for k, v in self.collectives.items()}
@@ -376,6 +563,20 @@ class CostCounter(TorchDispatchMode):
             "ops": self.ops,
             "peak_live_bytes": self.peak,
         }
+
+
+def _kernel_summary(entries) -> tuple:
+    kernels, routes = {}, {}
+    for e in entries:
+        k = kernels.setdefault(e["kernel"], {"entries": 0, "bytes": 0,
+                                             "flops": {}})
+        k["entries"] += 1
+        k["bytes"] += e["bytes"]
+        for c, f in e["flops"].items():
+            k["flops"][c] = k["flops"].get(c, 0) + f
+        r = routes.setdefault(e["kernel"], {})
+        r[e["route"]] = r.get(e["route"], 0) + 1
+    return kernels, routes
 
 
 def count(fn, *args, inspect: bool = False, **kwargs):

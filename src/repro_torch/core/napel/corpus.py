@@ -3,16 +3,20 @@ over a parametric dense-LM config space, each point's train step counted
 (the 'few simulator runs' of thesis §5.2.4) — the port of the JAX
 package's ``repro/core/napel/corpus.py``.
 
-    python -m repro_torch.core.napel.corpus [--out DIR]
+    python -m repro_torch.core.napel.corpus [--out DIR] [--mesh 8x8]
 
-The reference lowers and compiles each point's train step on a mesh and
-reads its HLO; the port counts it on ``meta`` tensors at mesh (1, 1)
-(`compile_and_measure`: the cost counter over one train step, nothing
-allocated), and the count's wall time takes the compile time's place in
-``compile_s``. One device runs no collective, so the collective target
-is 1 byte at every point (``max(collective bytes, 1)``, as the
-reference floors it); it gets content with the dry run on a mesh
-(ROADMAP Queue 1 item 6c). Records cache as JSON under
+The reference lowers and compiles each point's train step on a mesh
+(default 8 x 8) and reads its HLO; the port counts it on ``meta``
+tensors (`compile_and_measure`: the cost counter over one train step,
+nothing allocated) — on a mesh, one device of the training plan
+(`launch.dryrun.count_cell_mesh`: positions (0, 0) and (0, 1), the
+longer step's), whose seams record the collectives: the collective
+target is their operand bytes (``max(collective bytes, 1)``, as the
+reference floors it; 1 at mesh 1x1, where no seam runs). The corpus's
+heads are ``max(4, d // 128)``, which the model axis does not always
+divide: those points run their attention whole on every model shard. The
+count's wall time takes the compile time's place in ``compile_s``.
+Records name their mesh and cache as JSON under
 experiments/napel_corpus_torch/ (never the reference's
 experiments/napel_corpus/); `load_corpus` reads them back.
 """
@@ -65,13 +69,24 @@ def train_shape(p: dict) -> InputShape:
 
 def compile_and_measure(cfg: ModelConfig, shape: InputShape,
                         mesh=MESH) -> dict:
-    """The train step of `cfg` at `shape` counted on ``meta`` at mesh (1,
-    1): ``{"flops", "bytes" (fusion-aware), "coll", "compile_s" (the
-    count's wall time)}`` plus the count's rate classes, the bytes eager
-    PyTorch moves and the live bytes (arguments + peak)."""
+    """The train step of `cfg` at `shape` counted on ``meta``, at mesh (1,
+    1) or per device of a (data, model) mesh: ``{"flops", "bytes"
+    (fusion-aware), "coll", "compile_s" (the count's wall time)}`` plus
+    the count's rate classes, the bytes eager PyTorch moves and the live
+    bytes (arguments + peak)."""
     if tuple(mesh) != MESH:
-        raise SystemExit(f"mesh {tuple(mesh)}: the port counts one device "
-                         f"(ROADMAP Queue 1 item 6c)")
+        from repro_torch.launch.dryrun import count_cell_mesh
+        t0 = time.perf_counter()
+        rec = count_cell_mesh(cfg.name, shape.name, tuple(mesh), cfg=cfg,
+                              shape=shape)
+        return {"flops": rec["cost"]["flops_per_device"],
+                "bytes": rec["cost"]["bytes_per_device"],
+                "coll": max(rec["collectives"]["total_bytes"], 1.0),
+                "compile_s": time.perf_counter() - t0,
+                "flops_by_class": rec["cost"]["flops_by_class"],
+                "bytes_unfused": rec["cost"]["bytes_per_device_unfused"],
+                "live_bytes": rec["memory"]["live_bytes_per_device"],
+                "position": rec["position"]}
     from repro_torch.core.hlo_cost import CostCounter
     from repro_torch.launch.dryrun import storage_bytes, abstract_batch
     from repro_torch.models import Model
@@ -105,12 +120,12 @@ def corpus_points() -> list:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(CORPUS_DIR))
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="8x8")
     args = ap.parse_args(argv)
-    md, mm = (int(x) for x in args.mesh.split("x"))
-    if (md, mm) != MESH:
-        raise SystemExit(f"--mesh {args.mesh}: the port counts one device, "
-                         f"mesh 1x1 (ROADMAP Queue 1 item 6c)")
+    try:
+        md, mm = (int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DxM, got {args.mesh!r}")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     for tag, p in corpus_points():
@@ -120,7 +135,7 @@ def main(argv=None):
             continue
         t0 = time.time()
         try:
-            rec = compile_and_measure(cfg, train_shape(p))
+            rec = compile_and_measure(cfg, train_shape(p), (md, mm))
             rec.update(status="ok")
         except Exception as e:
             rec = {"status": "error", "error": str(e)[:500]}

@@ -5,8 +5,9 @@ Checkpoints store logical (unsharded) leaves, so restoring onto a new
 mesh is slicing each leaf into the new plan's shards (`train.trainer`).
 This module adds the planning layer: the state's `P` on a target mesh
 (`DEFAULT_RULES`, as `train.sharding.TrainPlan` stores it), the bytes
-each device then holds, and whether they fit its memory and the port can
-train the model there.
+each device then holds, and whether they fit its memory. As the
+reference's, the verdict is memory's alone: the plan lays out every
+config on every ("data", "model") mesh.
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from repro_torch.core.roofline import H100_SXM
 from repro_torch.models.transformer import model_logical
 from repro_torch.sharding.partition import mesh_axis_sizes, tree_shardings
 from repro_torch.train.optimizer import OptimizerConfig, opt_state_logical
-from repro_torch.train.sharding import TrainPlan
 from repro_torch.train.train_step import abstract_state
 
 # the budget of one device: an H100's memory as the card reports it
@@ -50,8 +50,7 @@ def plan_rescale(model, oc: OptimizerConfig, mesh,
     an `AbstractMesh`): ``shardings`` the `P` of every leaf of
     `abstract_state`, ``bytes_per_device`` the params, m, v, master and
     step one device holds (each leaf's bytes over its shard factor), not
-    ok when that passes `hbm_bytes` or the port has no plan for the
-    model on the mesh (`TrainPlan.check`)."""
+    ok when that passes `hbm_bytes`."""
     cfg = getattr(model, "cfg", model)
     reasons = []
     abstract = abstract_state(cfg, oc)
@@ -71,9 +70,4 @@ def plan_rescale(model, oc: OptimizerConfig, mesh,
     if total > hbm_bytes:
         reasons.append(f"state {total / 2 ** 30:.1f} GiB/device exceeds HBM "
                        f"budget {hbm_bytes / 2 ** 30:.0f} GiB")
-    if math.prod(mesh.axis_sizes) > 1:
-        try:
-            TrainPlan.check(cfg, mesh)
-        except (ValueError, NotImplementedError) as e:
-            reasons.append(str(e))
     return ElasticPlan(not reasons, reasons, shardings, total)

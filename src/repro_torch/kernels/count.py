@@ -25,14 +25,59 @@ def active():
 
 
 def call(name: str, device, route: Callable[[], str],
-         work: Callable[[], dict], run: Callable, empty: Callable):
+         work: Callable[[], dict], run: Callable, empty: Callable,
+         inputs: tuple = ()):
     """`run()` as the wrapper's body; under an active counter, one entry
     for kernel `name` (see the module docstring). `device` is the first
     input's device; `route`, `work` and `empty` are called only under a
-    counter."""
+    counter; the entry counts at the position of `inputs` (a plan's
+    count)."""
     counter = active()
     if counter is None:
         return run()
     kind = "plain" if device.type == "cpu" else route()
     return counter.kernel(name, kind, work,
-                          empty if device.type == "meta" else run)
+                          empty if device.type == "meta" else run, inputs)
+
+
+# -- positions and seams ----------------------------------------------------
+# A plan (`train.sharding.TrainPlan`) marks which mesh position each tensor
+# belongs to and records its seams' collectives; the counter then keeps a
+# count per position beside its totals (`CostCounter.position_summary`).
+# With no counter active every helper below does nothing.
+def tag(t, pos) -> None:
+    """Mark tensor `t` as position `pos`'s: the ops that read it count
+    there."""
+    counter = active()
+    if counter is not None and t is not None:
+        counter.tag(t, pos)
+
+
+def collective(kind: str, nbytes: int, pos) -> None:
+    """One collective of `kind` (the reference's names: "all-reduce",
+    "all-gather", "reduce-scatter", ...) with `nbytes` operand bytes on
+    position `pos`'s device."""
+    counter = active()
+    if counter is not None:
+        counter.collective(kind, nbytes, pos)
+
+
+class _Nothing:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def hidden():
+    """A context in which the counter counts no op: a seam's own
+    arithmetic, which stands for the collective it records."""
+    counter = active()
+    return counter.hide() if counter is not None else _Nothing()
+
+
+def at(pos):
+    """A context in which ops that read no marked tensor count at `pos`."""
+    counter = active()
+    return counter.at(pos) if counter is not None else _Nothing()

@@ -143,7 +143,7 @@ def _forward(q, k, v, *, causal, window, softmax_scale):
         "flash_attention", q.device, lambda: route(q.dtype, q.shape[-1]),
         work, lambda: _run(q, k, v, causal=causal, window=window,
                            softmax_scale=softmax_scale),
-        lambda: torch.empty_like(q))
+        lambda: torch.empty_like(q), inputs=(q, k, v))
 
 
 def _run(q, k, v, *, causal, window, softmax_scale):

@@ -158,7 +158,7 @@ def hdiff(src, coeff: float = ref.COEFF, *, tile_x: int = 64,
     return count.call(
         "hdiff", src.device, lambda: route(src.dtype, src.shape[-1]), work,
         lambda: _run(src, coeff, tile_x, tile_y, block_z),
-        lambda: torch.empty_like(src))
+        lambda: torch.empty_like(src), inputs=(src,))
 
 
 def _run(src, coeff, tile_x, tile_y, block_z):

@@ -216,7 +216,7 @@ def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
     return count.call(
         "paged_attention", q.device, card_route, work,
         lambda: _run(*args, softmax_scale=softmax_scale),
-        lambda: torch.empty_like(q))
+        lambda: torch.empty_like(q), inputs=(q,))
 
 
 def _run(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,

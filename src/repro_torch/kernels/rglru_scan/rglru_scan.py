@@ -122,7 +122,8 @@ def _forward(a, b):
         return work(a, b)
 
     return count.call("rglru_scan", a.device, lambda: route(a.shape[1]),
-                      work, lambda: _run(a, b), lambda: torch.empty_like(a))
+                      work, lambda: _run(a, b), lambda: torch.empty_like(a),
+                      inputs=(a, b))
 
 
 def _run(a, b):

@@ -329,8 +329,10 @@ __global__ void __launch_bounds__(kPassThreads)
 }
 
 // 3. y for one (head, chunk, sequence): exp(cum_i) C_i . h_prev + the
-// causal scores times x.
-template <int Q, int N, int Pieces>
+// causal scores times x. The scores go through the tensor cores as
+// SPieces bf16 pieces: Pieces, or 1 under ssm_bf16_intra (the scores
+// rounded to bf16 once, as the model's plain version rounds them).
+template <int Q, int N, int Pieces, int SPieces>
 __global__ void __launch_bounds__(Cfg<Q, N, Pieces>::kScanThreads,
                                   Cfg<Q, N, Pieces>::kScanBlocks)
     ssd_chunk_scan_kernel(const Args a) {
@@ -455,7 +457,7 @@ __global__ void __launch_bounds__(Cfg<Q, N, Pieces>::kScanThreads,
 
   // the scores as A fragments: k-step kk holds positions 16 kk .. 16 kk +
   // 15, register r the pair cb[8 kk + 2 r], cb[8 kk + 2 r + 1]
-  uint32_t fr[Q / 16][Pieces][4];
+  uint32_t fr[Q / 16][SPieces][4];
 #pragma unroll
   for (int kk = 0; kk < Q / 16; ++kk)
 #pragma unroll
@@ -468,10 +470,10 @@ __global__ void __launch_bounds__(Cfg<Q, N, Pieces>::kScanThreads,
       const float s1v = j + 1 <= i ? cb[8 * kk + 2 * r + 1] *
                                          expf(ci - cum_s[j + 1]) * dt_s[j + 1]
                                    : 0.f;
-      uint32_t pc[Pieces];
-      split_pieces<Pieces>(s0v, s1v, pc);
+      uint32_t pc[SPieces];
+      split_pieces<SPieces>(s0v, s1v, pc);
 #pragma unroll
-      for (int k = 0; k < Pieces; ++k) fr[kk][k][r] = pc[k];
+      for (int k = 0; k < SPieces; ++k) fr[kk][k][r] = pc[k];
     }
 
   // y += s . x: x's rows are positions (the K dimension) with P contiguous,
@@ -483,7 +485,7 @@ __global__ void __launch_bounds__(Cfg<Q, N, Pieces>::kScanThreads,
     if (16 * kk > 64 * wg + 63) break;
     const uint64_t db = desc(s_x + kk * 16 * kRow, Q * kRow, 1024);
 #pragma unroll
-    for (int k = 0; k < Pieces; ++k) wgmma_rs_n64(acc, fr[kk][k], db);
+    for (int k = 0; k < SPieces; ++k) wgmma_rs_n64(acc, fr[kk][k], db);
   }
   wgmma_commit();
   wgmma_wait0();
@@ -501,11 +503,11 @@ __global__ void __launch_bounds__(Cfg<Q, N, Pieces>::kScanThreads,
   }
 }
 
-template <int Q, int N, int Pieces>
+template <int Q, int N, int Pieces, int SPieces>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using C = Cfg<Q, N, Pieces>;
   auto k1 = ssd_state_kernel<Q, N, Pieces>;
-  auto k3 = ssd_chunk_scan_kernel<Q, N, Pieces>;
+  auto k3 = ssd_chunk_scan_kernel<Q, N, Pieces, SPieces>;
   cudaError_t err = cudaFuncSetAttribute(
       k1, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemState);
   if (err == cudaSuccess)
@@ -526,6 +528,43 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace tc
 
+namespace {
+
+template <bool Intra>
+int launch_any(const void* x, const void* b, const void* c, const void* dt,
+               const void* a, void* y, void* state, void* chunk_states,
+               void* chunk_decay, int B, int S, int H, int P, int G, int N,
+               int bf16, int route, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    simt::Args args{x, b, c, static_cast<const float*>(dt),
+                    static_cast<const float*>(a), static_cast<float*>(y),
+                    static_cast<float*>(state), S, H, P, G, N};
+    cudaError_t err = bf16 ? simt::launch<__nv_bfloat16, Intra>(args, B, s)
+                           : simt::launch<float, Intra>(args, B, s);
+    return (int)err;
+  }
+  if (route != 1 || !bf16 || P != tc::kP) return tc::kBadShape;
+  tc::Args args{static_cast<const __nv_bfloat16*>(x),
+                static_cast<const __nv_bfloat16*>(b),
+                static_cast<const __nv_bfloat16*>(c),
+                static_cast<const float*>(dt),
+                static_cast<const float*>(a),
+                static_cast<float*>(y),
+                static_cast<float*>(state),
+                static_cast<float*>(chunk_states),
+                static_cast<float*>(chunk_decay),
+                S, H, G, (S + tc::kChunk - 1) / tc::kChunk};
+  constexpr int kS = Intra ? 1 : tc::kPieces;
+  if (N == 128)
+    return tc::launch<tc::kChunk, 128, tc::kPieces, kS>(args, B, s);
+  if (N == 64)
+    return tc::launch<tc::kChunk, 64, tc::kPieces, kS>(args, B, s);
+  return tc::kBadShape;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Launches on `stream` and returns 0, the launch's cudaError_t or a negative
@@ -540,29 +579,21 @@ int ssd_scan_launch(const void* x, const void* b, const void* c,
                     const void* dt, const void* a, void* y, void* state,
                     void* chunk_states, void* chunk_decay, int B, int S, int H,
                     int P, int G, int N, int bf16, int route, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
-    simt::Args args{x, b, c, static_cast<const float*>(dt),
-                    static_cast<const float*>(a), static_cast<float*>(y),
-                    static_cast<float*>(state), S, H, P, G, N};
-    cudaError_t err = bf16 ? simt::launch<__nv_bfloat16>(args, B, s)
-                           : simt::launch<float>(args, B, s);
-    return (int)err;
-  }
-  if (route != 1 || !bf16 || P != tc::kP) return tc::kBadShape;
-  tc::Args args{static_cast<const __nv_bfloat16*>(x),
-                static_cast<const __nv_bfloat16*>(b),
-                static_cast<const __nv_bfloat16*>(c),
-                static_cast<const float*>(dt),
-                static_cast<const float*>(a),
-                static_cast<float*>(y),
-                static_cast<float*>(state),
-                static_cast<float*>(chunk_states),
-                static_cast<float*>(chunk_decay),
-                S, H, G, (S + tc::kChunk - 1) / tc::kChunk};
-  if (N == 128) return tc::launch<tc::kChunk, 128, tc::kPieces>(args, B, s);
-  if (N == 64) return tc::launch<tc::kChunk, 64, tc::kPieces>(args, B, s);
-  return tc::kBadShape;
+  return launch_any<false>(x, b, c, dt, a, y, state, chunk_states,
+                           chunk_decay, B, S, H, P, G, N, bf16, route, stream);
+}
+
+// `ssd_scan_launch` under ssm_bf16_intra: the intra-chunk scores rounded
+// to bf16 (one piece on the wgmma route) and, on the simt route, x too
+// in their product; the states as `ssd_scan_launch` computes them.
+int ssd_scan_launch_bf16_intra(const void* x, const void* b, const void* c,
+                               const void* dt, const void* a, void* y,
+                               void* state, void* chunk_states,
+                               void* chunk_decay, int B, int S, int H, int P,
+                               int G, int N, int bf16, int route,
+                               void* stream) {
+  return launch_any<true>(x, b, c, dt, a, y, state, chunk_states,
+                          chunk_decay, B, S, H, P, G, N, bf16, route, stream);
 }
 
 // The wgmma route's chunk length and pieces, as built.

@@ -45,6 +45,10 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// x rounded to bf16 (nearest even) and back: ssm_bf16_intra's rounding
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct Args {
   const void* x;
@@ -65,7 +69,9 @@ size_t smem_floats(int n) {
        + 4 * (size_t)kChunk;            // dt, cum, exp(cum), weights
 }
 
-template <typename T>
+// Intra (ssm_bf16_intra): the intra-chunk scores and x rounded to bf16 in
+// their product, the sum fp32; the state update as without.
+template <typename T, bool Intra>
 __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
   const int p0 = blockIdx.x * kPTile;
   const int h = blockIdx.y;
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
         for (int n = 0; n < N; ++n) dot = fmaf(cr[n], br[n], dot);
         s = dot * expf(cum_s[r] - cum_s[j]) * dt_s[j];
       }
-      s_s[r * kChunk + j] = s;
+      s_s[r * kChunk + j] = Intra ? bf16_round(s) : s;
     }
     __syncthreads();
     // y = intra + exp(cum_i) C_i . state (state from before this chunk)
@@ -141,7 +147,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
       const int r = i / np, p = i % np;
       const float* sr = s_s + r * kChunk;
       float intra = 0.f;
-      for (int j = 0; j <= r; ++j) intra = fmaf(sr[j], x_s[j * kPTile + p], intra);
+      for (int j = 0; j <= r; ++j)
+        intra = fmaf(sr[j],
+                     Intra ? bf16_round(x_s[j * kPTile + p])
+                           : x_s[j * kPTile + p],
+                     intra);
       const float* cr = c_s + r * N1;
       const float* sp = st_s + p * N1;
       float inter = 0.f;
@@ -168,10 +178,10 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
   }
 }
 
-template <typename T>
+template <typename T, bool Intra>
 cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
   const size_t smem = smem_floats(a.N) * sizeof(float);
-  auto kernel = ssd_scan_kernel<T>;
+  auto kernel = ssd_scan_kernel<T, Intra>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -15,7 +15,10 @@ kernel against it.
 
 x: (B, S, H, P); b_mat, c_mat: (B, S, G, N); dt: (B, S, H) post-softplus;
 a: (H,) negative. Both return fp32 ``(y (B, S, H, P), final state
-(B, H, P, N))``.
+(B, H, P, N))``. `ssd_chunked`'s ``bf16_intra`` is the reference's
+rounding (the ``ssm_bf16_intra`` config): the intra-chunk scores and x
+go to bf16 and their product accumulates in fp32; the cumsums, the
+exponents and the states stay fp32.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ def ssd(x, b_mat, c_mat, dt, a):
     return torch.stack(ys, dim=1), h
 
 
-def ssd_chunked(x, b_mat, c_mat, dt, a, chunk: int = PLAIN_CHUNK):
+def ssd_chunked(x, b_mat, c_mat, dt, a, chunk: int = PLAIN_CHUNK,
+                bf16_intra: bool = False):
     B, S, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     rep = H // G
@@ -68,7 +72,13 @@ def ssd_chunked(x, b_mat, c_mat, dt, a, chunk: int = PLAIN_CHUNK):
     decay = torch.exp(diff)
     dt_k = dtc.permute(0, 1, 3, 2)[:, :, :, None, :]       # (B, nc, H, 1, Q)
     s_mat = cb * decay.permute(0, 1, 4, 2, 3) * dt_k       # (B, nc, H, Q, Q)
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", s_mat, xc)
+    if bf16_intra:
+        # bf16 x bf16 products are exact in fp32: the sum is fp32's
+        y_intra = torch.einsum(
+            "bchqk,bckhp->bcqhp", s_mat.to(torch.bfloat16).float(),
+            xc.to(torch.bfloat16).float())
+    else:
+        y_intra = torch.einsum("bchqk,bckhp->bcqhp", s_mat, xc)
 
     # chunk-final states: sum_j exp(cum_last - cum_j) dt_j B_j x_j
     bc_h = bc.repeat_interleave(rep, dim=3)               # (B, nc, Q, H, N)

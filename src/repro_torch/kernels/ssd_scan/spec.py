@@ -27,7 +27,7 @@ from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_scan
 DEFAULT_SHAPE = {"B": 2, "S": 64, "H": 4, "P": 16, "G": 1, "N": 8}
 
 
-def work(x, b_mat, c_mat, dt, a) -> dict:
+def work(x, b_mat, c_mat, dt, a, bf16_intra: bool = False) -> dict:
     """{"bytes", "flops": {rate class: flops}} of one call. Bytes: the
     five inputs, y and the final state (fp32), each once. Flops: the
     multiply-adds of the chunked form at chunk Q = `CHUNK` over the
@@ -36,7 +36,8 @@ def work(x, b_mat, c_mat, dt, a) -> dict:
     scores times x per head, C exp(cum) @ state per head in every chunk
     but the first (whose incoming state is zero) and the state update
     per head with its per-chunk decay; the O(pairs x H) decay weights
-    are left out."""
+    are left out. With ``bf16_intra`` the scores times x run on the
+    tensor cores in one bf16 piece each: "bf16"."""
     B, S, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     nbytes = sum(t.numel() * t.element_size()
@@ -46,11 +47,15 @@ def work(x, b_mat, c_mat, dt, a) -> dict:
     lens = [min(q, S - i) for i in range(0, S, q)]
     pairs = sum(n * (n + 1) // 2 for n in lens)
     cb = 2 * B * G * pairs * N
-    fp32 = B * H * (2 * pairs * P + 2 * (S - lens[0]) * N * P
-                    + 2 * S * N * P + len(lens) * N * P)
-    if b_mat.dtype in (torch.bfloat16, torch.float16):
-        return {"bytes": nbytes, "flops": {"bf16": cb, "fp32": fp32}}
-    return {"bytes": nbytes, "flops": {"fp32": cb + fp32}}
+    intra = B * H * 2 * pairs * P
+    fp32 = B * H * (2 * (S - lens[0]) * N * P + 2 * S * N * P
+                    + len(lens) * N * P)
+    flops = {"bf16": 0, "fp32": fp32}
+    flops["bf16" if bf16_intra else "fp32"] += intra
+    flops["bf16" if b_mat.dtype in (torch.bfloat16, torch.float16)
+          else "fp32"] += cb
+    return {"bytes": nbytes, "flops": {k: v for k, v in flops.items()
+                                       if v}}
 
 
 def example_inputs(shape=None, dtype=np.float32, seed: int = 0) -> dict:

@@ -23,6 +23,12 @@ goes through `SsdScanFn`: the forward as above, the backward by
 recomputing the plain chunked version under autograd from the saved
 inputs, which gives the gradients of x, B, C, dt and a (a final state
 that nothing uses sends no gradient).
+
+``bf16_intra=True`` (the ``ssm_bf16_intra`` config) rounds the
+intra-chunk scores to bf16, and x with them in their product, as the
+reference's plain version does: ``ssd_scan_launch_bf16_intra``, the
+same routes with one bf16 piece of each score on the wgmma route; on the
+CPU `ref.ssd_chunked(bf16_intra=True)`.
 """
 from __future__ import annotations
 
@@ -60,8 +66,9 @@ def _lib():
     from repro_torch.kernels.build import load
     lib = load("ssd_scan")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [vp] * 9 + [i32] * 8 + [vp]
-    lib.ssd_scan_launch.restype = i32
+    for fn in (lib.ssd_scan_launch, lib.ssd_scan_launch_bf16_intra):
+        fn.argtypes = [vp] * 9 + [i32] * 8 + [vp]
+        fn.restype = i32
     lib.ssd_scan_wgmma_smem.argtypes = [i32]
     lib.ssd_scan_wgmma_smem.restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
@@ -121,7 +128,7 @@ def wgmma_scratch(B: int, S: int, H: int, N: int, device):
 
 
 def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
-           scratch=None) -> None:
+           scratch=None, bf16_intra: bool = False) -> None:
     """One launch of route `kind` into y and state, with no checks and no
     counts (`ssd_scan` checks and counts; tools and `chip_smoke.py`'s
     before/after pairs call this directly). Raises on a launch error."""
@@ -132,8 +139,10 @@ def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
         states, decay = scratch if scratch is not None else \
             wgmma_scratch(B, S, H, N, x.device)
     lib = _lib()
+    fn = lib.ssd_scan_launch_bf16_intra if bf16_intra else \
+        lib.ssd_scan_launch
     with torch.cuda.device(x.device):
-        err = lib.ssd_scan_launch(
+        err = fn(
             x.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), dt.data_ptr(),
             a.data_ptr(), y.data_ptr(), state.data_ptr(),
             None if states is None else states.data_ptr(),
@@ -145,13 +154,13 @@ def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
                            f"{lib.ssd_scan_error_string(err).decode()}")
 
 
-def ssd_vjp(inputs, grad_y, grad_state):
+def ssd_vjp(inputs, grad_y, grad_state, bf16_intra: bool = False):
     """Gradients of (x, b_mat, c_mat, dt, a): autograd of
     `ref.ssd_chunked` at `inputs` against the output gradients (either
     may be None), the forward recomputed."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in inputs]
-        y, state = ref.ssd_chunked(*leaves)
+        y, state = ref.ssd_chunked(*leaves, bf16_intra=bf16_intra)
         outs, grads = zip(*[(o, g) for o, g in ((y, grad_y),
                                                 (state, grad_state))
                             if g is not None])
@@ -162,32 +171,34 @@ class SsdScanFn(torch.autograd.Function):
     """`ssd_scan`'s forward, `ssd_vjp`'s backward."""
 
     @staticmethod
-    def forward(ctx, x, b_mat, c_mat, dt, a):
+    def forward(ctx, x, b_mat, c_mat, dt, a, bf16_intra):
         ctx.save_for_backward(x, b_mat, c_mat, dt, a)
         ctx.set_materialize_grads(False)
-        return _forward(x, b_mat, c_mat, dt, a)
+        ctx.bf16_intra = bf16_intra
+        return _forward(x, b_mat, c_mat, dt, a, bf16_intra)
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):
-        return ssd_vjp(ctx.saved_tensors, grad_y, grad_state)
+        return ssd_vjp(ctx.saved_tensors, grad_y, grad_state,
+                       ctx.bf16_intra) + (None,)
 
 
-def ssd_scan(x, b_mat, c_mat, dt, a):
+def ssd_scan(x, b_mat, c_mat, dt, a, *, bf16_intra: bool = False):
     """x: (B, S, H, P); b_mat, c_mat: (B, S, G, N), x's dtype (float32 or
     bfloat16); dt: (B, S, H) and a: (H,) float32. Returns fp32 ``(y (B, S,
-    H, P), final state (B, H, P, N))``, as `ref.ssd_chunked`.
-    Differentiable (`SsdScanFn`) when grad mode is on and an input
-    requires grad."""
+    H, P), final state (B, H, P, N))``, as `ref.ssd_chunked` (with its
+    ``bf16_intra`` rounding when asked). Differentiable (`SsdScanFn`)
+    when grad mode is on and an input requires grad."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, b_mat, c_mat, dt, a)):
-        return SsdScanFn.apply(x, b_mat, c_mat, dt, a)
-    return _forward(x, b_mat, c_mat, dt, a)
+        return SsdScanFn.apply(x, b_mat, c_mat, dt, a, bf16_intra)
+    return _forward(x, b_mat, c_mat, dt, a, bf16_intra)
 
 
-def _forward(x, b_mat, c_mat, dt, a):
+def _forward(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
     def work():
         from repro_torch.kernels.ssd_scan.spec import work
-        return work(x, b_mat, c_mat, dt, a)
+        return work(x, b_mat, c_mat, dt, a, bf16_intra=bf16_intra)
 
     def empty():
         B, S, H, P = x.shape
@@ -199,20 +210,22 @@ def _forward(x, b_mat, c_mat, dt, a):
         "ssd_scan", x.device,
         lambda: route(x.dtype, x.shape[1], x.shape[3], b_mat.shape[3],
                       b_mat.shape[2]),
-        work, lambda: _run(x, b_mat, c_mat, dt, a), empty)
+        work, lambda: _run(x, b_mat, c_mat, dt, a, bf16_intra), empty,
+        inputs=(x, b_mat, c_mat, dt, a))
 
 
-def _run(x, b_mat, c_mat, dt, a):
+def _run(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
     if not x.is_cuda:
         ssd_scan.plain_calls += 1
-        return ref.ssd_chunked(x, b_mat, c_mat, dt, a)
+        return ref.ssd_chunked(x, b_mat, c_mat, dt, a,
+                               bf16_intra=bf16_intra)
     _check(x, b_mat, c_mat, dt, a)
     B, S, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     kind = route(x.dtype, S, P, N, G)
     y = torch.empty(B, S, H, P, dtype=torch.float32, device=x.device)
     state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
-    launch(x, b_mat, c_mat, dt, a, y, state, kind)
+    launch(x, b_mat, c_mat, dt, a, y, state, kind, bf16_intra=bf16_intra)
     ssd_scan.launches += 1
     ssd_scan.launches_by_route[kind] += 1
     return y, state

@@ -102,7 +102,7 @@ def vadvc(ustage, upos, utens, utens_stage, wcon, *, tile_x: int = 32,
     return count.call(
         "vadvc", ustage.device, lambda: route(*ustage.shape), work,
         lambda: _run(ustage, upos, utens, utens_stage, wcon, tile_x, tile_y),
-        lambda: torch.empty_like(ustage))
+        lambda: torch.empty_like(ustage), inputs=(ustage,))
 
 
 def _run(ustage, upos, utens, utens_stage, wcon, tile_x, tile_y):

@@ -1,10 +1,15 @@
-"""Dry run: count every (arch x shape) cell's step on one device and record
-its roofline inputs — the port of the JAX package's
-``repro/launch/dryrun.py`` (`input_specs`, `run_cell`) at mesh 1x1.
+"""Dry run: count every (arch x shape) cell's step and record its roofline
+inputs — the port of the JAX package's ``repro/launch/dryrun.py``
+(`input_specs`, `run_cell`), on one device (mesh 1x1) or per device of a
+mesh: the reference's 16 x 16 pod and 2 x 16 x 16 multi-pod.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch mamba2-780m --shape train_4k
-  python -m repro_torch.launch.dryrun --all
+  python -m repro_torch.launch.dryrun --all                # one device
+  python -m repro_torch.launch.dryrun --all --mesh 16x16   # the pod
+  python -m repro_torch.launch.dryrun --all --multi-pod    # 2x16x16
+  python -m repro_torch.launch.dryrun --all --both-meshes  # both pods
+  python -m repro_torch.launch.dryrun --all --mesh 16x16 --variant no_remat
   python -m repro_torch.launch.dryrun --serve-plan   # serving-memory report
 Results are cached as JSON under experiments/dryrun_torch/ (never the
 reference's experiments/dryrun/, whose readers must not load them).
@@ -32,15 +37,27 @@ arch and dp x tp serve mesh (`serve.sharding.ServePlan` on a deviceless
 mesh), the weight and page-pool bytes one device holds against
 `roofline.H100_SXM`'s memory, at 16 decode rows of 8192 tokens.
 
-The step counts are of one device: ``--multi-pod``, ``--both-meshes``, a
-``--mesh`` other than 1x1 and a ``--variant`` other than baseline belong
-to the dry run on a mesh and raise `SystemExit` (ROADMAP Queue 1 item
-6c).
+On a mesh (``--mesh DxM``; ``--multi-pod``, ``--both-meshes``) a cell
+counts one device's step of the port's plan (`train.sharding.TrainPlan`):
+the state or weights stored by `DEFAULT_RULES` (a ``--variant``'s rules,
+`launch.variants`: FSDP over ``data``, as the reference's
+``abstract_params_sharded``), the decode caches by `spec_for` over
+`models.transformer.cache_spec` (``kv_seq`` over ``model`` where the kv
+heads do not divide: the plan then decodes over the split positions),
+both gathered to the per-shard compute slices. The plan is built with
+``count_positions`` on ``meta``: only positions (0, 0) and (0, 1) run
+(model shard 0 of a row also runs the embedding, final norm, LM head and
+loss), each seam stands in for the others and records its collective.
+The record reports the position with the longer roofline step as the
+device's, both beside it under ``positions``, and says so in
+``position_note``. ``count_s`` is the count's wall time, which takes the
+place of the reference's ``lower_s`` / ``compile_s``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -49,23 +66,30 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import SHAPES, get_config, list_archs, shapes_for
+from repro_torch.kernels import count
 from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.core.hlo_cost import CostCounter
 from repro_torch.core.roofline import (H100_SXM, model_flops, roofline_terms,
                                        total_flops)
 from repro_torch.models import Model
 from repro_torch.models.common import flatten, torch_dtype
-from repro_torch.models.transformer import model_spec, pad_caches
+from repro_torch.models.transformer import (cache_spec, model_spec,
+                                            pad_caches)
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train import train_step
 from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.sharding.partition import DEFAULT_RULES, spec_for
+from repro_torch.train.sharding import ShardedTrainModel, TrainPlan
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1x1"
+POD = "16x16"
 PREFILL_ROWS = 4        # positions of the prefill that shapes decode caches
-UNPORTED = ("belongs to the dry run on a mesh (ROADMAP Queue 1 item "
-            "6c): the port's dry run counts one device, mesh 1x1")
+POSITION_NOTE = ("model shard 0 of a row also runs the embedding, final "
+                 "norm, LM head and loss: the device's count is the larger "
+                 "of positions (0, 0) and (0, 1) by roofline step time; both "
+                 "are under positions")
 
 
 def abstract_batch(model: Model, seq: int, global_batch: int,
@@ -183,16 +207,34 @@ def count_cell(arch: str, shape_name: str, *, hw=H100_SXM, cfg=None,
 
 
 def run_cell(arch: str, shape_name: str, *, out_dir: Path = OUT_DIR,
-             force: bool = False, hw=H100_SXM, cfg=None, shape=None) -> dict:
-    out_path = Path(out_dir) / f"{arch}__{shape_name}__{MESH}.json"
+             force: bool = False, hw=H100_SXM, cfg=None, shape=None,
+             mesh: str = MESH, multi_pod: bool = False,
+             variant: str = "baseline") -> dict:
+    """Count one cell and write its record (cached: a second call reads
+    it). `mesh` "1x1" counts one device (`count_cell`); any other
+    ("16x16", "DxM", "PxDxM"; ``multi_pod``: 2x16x16) one device of the
+    port's plan on that mesh (`count_cell_mesh`)."""
+    shape_t = (2, 16, 16) if multi_pod else parse_mesh(mesh)
+    one = math.prod(shape_t) == 1
+    if one and variant != "baseline":
+        raise SystemExit("--variant counts a plan: give --mesh DxM, "
+                         "--multi-pod or --both-meshes")
+    tag = "" if variant == "baseline" else f"__variant_{variant}"
+    name = MESH if one else mesh_label(shape_t) + tag
+    out_path = Path(out_dir) / f"{arch}__{shape_name}__{name}.json"
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
-    rec = {"arch": arch, "shape": shape_name, "mesh": MESH, "chips": 1,
-           "status": "ok", "variant": "baseline"}
+    rec = {"arch": arch, "shape": shape_name, "mesh": name,
+           "chips": math.prod(shape_t), "status": "ok", "variant": variant}
     t0 = time.perf_counter()
     try:
-        rec.update(count_cell(arch, shape_name, hw=hw, cfg=cfg,
-                              shape=shape))
+        if one:
+            rec.update(count_cell(arch, shape_name, hw=hw, cfg=cfg,
+                                  shape=shape))
+        else:
+            rec.update(count_cell_mesh(arch, shape_name, shape_t, hw=hw,
+                                       variant=variant, cfg=cfg,
+                                       shape=shape))
     except Exception as e:  # record failures for triage, don't hide them
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -201,6 +243,200 @@ def run_cell(arch: str, shape_name: str, *, out_dir: Path = OUT_DIR,
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(rec, indent=2))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# per device of a mesh: one or two positions of the port's plan
+# ---------------------------------------------------------------------------
+def parse_mesh(spec: str) -> tuple:
+    """"DxM" -> (d, m); "PxDxM" -> (p, d, m)."""
+    try:
+        out = tuple(int(x) for x in spec.strip().lower().split("x"))
+    except ValueError:
+        out = ()
+    if len(out) not in (2, 3) or min(out, default=0) < 1:
+        raise SystemExit(f"--mesh wants DxM (or PxDxM), got {spec!r}")
+    return out
+
+
+def mesh_label(shape: tuple) -> str:
+    """The record's mesh name: the reference's ``pod16x16`` /
+    ``pod2x16x16`` for its two pods, else ``DxM``."""
+    if shape in ((16, 16), (2, 16, 16)):
+        return "pod" + "x".join(map(str, shape))
+    return "x".join(map(str, shape))
+
+
+def abstract_mesh(shape: tuple):
+    axes = ("pod", "data", "model") if len(shape) == 3 else \
+        ("data", "model")
+    return make_abstract_mesh(shape, axes)
+
+
+def count_positions(plan_like) -> list:
+    """The positions a cell counts: (0, 0) and the next on its row (the
+    next row on a mesh of one model shard)."""
+    dp, tp = plan_like
+    if tp > 1:
+        return [(0, 0), (0, 1)]
+    return [(0, 0), (1, 0)] if dp > 1 else [(0, 0)]
+
+
+def _rows_of(plan, n: int) -> dict:
+    """Rows of an n-row batch per data shard the plan runs: equal blocks,
+    or every row on each (replicated) when dp does not divide n."""
+    if n % plan.dp == 0:
+        per = n // plan.dp
+        return {d: slice(d * per, (d + 1) * per) for d in plan.rows()}
+    return {d: slice(0, n) for d in plan.rows()}
+
+
+def _decode_caches(plan, model, rules, batch, capacity: int, rows: dict):
+    """Each position's decode caches: ``{d: per-layer lists over the
+    row's model shards}``, and per position (storage bytes, the bytes of
+    all-gathers its compute slices need). A short meta prefill through
+    the position's body gives the compute layout (kv heads a shard reads,
+    the SSD conv whole, ...), padded to `capacity`; an attention or MLA
+    cache whose positions the storage splits over ``model`` keeps the
+    storage's slice and decodes over it (``"seq_split"``)."""
+    cfg = model.cfg
+    abstract, logical = cache_spec(cfg, batch, capacity)
+    out, held, gathers = {}, {}, {}
+    for d, rs in rows.items():
+        b = rs.stop - rs.start
+        pre = train_step.abstract_batch(cfg, min(PREFILL_ROWS, capacity), b,
+                                        None, "prefill")
+        _, caches = model.run(d, pre, mode="prefill")
+        ms = plan.row(d)
+        shards = [pad_caches([c[j] for c in caches], capacity, cfg)
+                  for j in range(len(ms))]
+        for j, m in enumerate(ms):
+            pos = (d, m)
+            held[pos] = gathers[pos] = 0
+            for layer, (a_l, l_l) in enumerate(zip(abstract, logical)):
+                c = shards[j][layer]
+                for name, a in a_l.items():
+                    spec = spec_for(a.shape, l_l[name], plan.mesh, rules)
+                    idx = plan.serve.local_index(a.shape, spec, 0, m)
+                    shape = [len(range(*sl.indices(n)))
+                             for sl, n in zip(idx, a.shape)]
+                    # the batch dim is the data shard's rows
+                    shape[0] = b
+                    nbytes = math.prod(shape) * a.element_size()
+                    held[pos] += nbytes
+                    split = len(spec) > 1 and spec[1] is not None and \
+                        name in ("k", "v", "ckv", "krope")
+                    if split:
+                        c[name] = torch.empty(shape, dtype=a.dtype,
+                                              device="meta")
+                        c["seq_split"] = True
+                    elif c[name].numel() * a.element_size() > nbytes:
+                        gathers[pos] += nbytes
+        out[d] = [[shards[j][layer] for j in range(len(ms))]
+                  for layer in range(len(abstract))]
+    return out, held, gathers
+
+
+def plan_input_specs(arch: str, shape_name: str, mesh_shape: tuple, *,
+                     variant: str = "baseline", cfg=None, shape=None,
+                     positions=None):
+    """(fn, argument bytes per position, plan, cfg, shape) of one cell on
+    a mesh: `fn()` runs the counted positions' step (the train step at
+    ``cfg.train_microbatches``; the prefill; one decode step at the last
+    position over capacity-sized caches), every input a meta tensor."""
+    cfg = cfg or get_config(arch)
+    rules = None
+    if variant != "baseline":
+        from repro_torch.launch import variants
+        cfg, rules = variants.apply(variant, cfg)
+    shape = shape or SHAPES[shape_name]
+    mesh = abstract_mesh(mesh_shape)
+    sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
+    dp = sizes.get("pod", 1) * sizes["data"]
+    positions = positions or count_positions((dp, sizes["model"]))
+    plan = TrainPlan(mesh, cfg, rules, count_positions=positions)
+    model = ShardedTrainModel(cfg, plan)
+    held = {p: storage_bytes(model.shards[p[0]][p[1]]) for p in plan.shards}
+    batch = abstract_batch(cfg, shape.seq_len, shape.global_batch,
+                           shape.kind)
+    rows = _rows_of(plan, shape.global_batch)
+    for p in plan.shards:
+        held[p] += sum(v[rows[p[0]]].numel() * v.element_size()
+                       for v in batch.values())
+    if shape.kind == "train":
+        oc = OptimizerConfig()
+        state = init_state(model, oc)
+        for d, m in plan.shards:
+            held[(d, m)] += storage_bytes(state["opt"][d][m])
+        step = make_train_step(model, oc,
+                               num_microbatches=cfg.train_microbatches)
+
+        def fn():
+            return step(state, batch)
+    elif shape.kind == "prefill":
+        def fn():
+            return [model.run(d, {k: v[rs] for k, v in batch.items()},
+                              mode="prefill") for d, rs in rows.items()]
+    else:
+        caches, cache_b, gathers = _decode_caches(
+            plan, model, rules or DEFAULT_RULES, shape.global_batch,
+            shape.seq_len, rows)
+        for p in plan.shards:
+            held[p] += cache_b[p]
+
+        def fn():
+            for p, nbytes in gathers.items():
+                if nbytes:
+                    count.collective("all-gather", nbytes, p)
+            return [model.run(d, {k: v[rs] for k, v in batch.items()},
+                              mode="decode", caches=caches[d],
+                              pos=shape.seq_len - 1)
+                    for d, rs in rows.items()]
+    return fn, held, plan, cfg, shape
+
+
+def count_cell_mesh(arch: str, shape_name: str, mesh_shape: tuple, *,
+                    hw=H100_SXM, variant: str = "baseline", cfg=None,
+                    shape=None, positions=None) -> dict:
+    """Count one cell's step per device of a mesh (`plan_input_specs`):
+    the record's fields for the position with the longer roofline step,
+    both positions' under ``positions``."""
+    fn, held, plan, cfg, shape = plan_input_specs(
+        arch, shape_name, mesh_shape, variant=variant, cfg=cfg, shape=shape,
+        positions=positions)
+    t0 = time.perf_counter()
+    with CostCounter() as c:
+        fn()
+    count_s = time.perf_counter() - t0
+    chips = math.prod(mesh_shape)
+    per = {}
+    for pos in plan.shards:
+        tc = c.position_summary(pos)
+        roof = roofline_terms(tc["flops_by_class"],
+                              tc["bytes_accessed_fused"],
+                              tc["collectives"]["total_bytes"], hw)
+        live = held[pos] + tc["peak_live_bytes"]
+        per[f"{pos[0]},{pos[1]}"] = {
+            "memory": {"argument_bytes": held[pos],
+                       "temp_bytes": tc["peak_live_bytes"],
+                       "live_bytes_per_device": live,
+                       "fits_hbm": bool(live <= hw.hbm_gib * 2 ** 30)},
+            "cost": {"flops_per_device": tc["flops"],
+                     "flops_by_class": tc["flops_by_class"],
+                     "bytes_per_device": tc["bytes_accessed_fused"],
+                     "bytes_per_device_unfused": tc["bytes_accessed"],
+                     "transcendentals": tc["transcendentals"]},
+            "kernels": tc["kernels"], "kernel_routes": tc["kernel_routes"],
+            "collectives": tc["collectives"], "roofline": roof}
+    key = max(per, key=lambda k: per[k]["roofline"]["step_time_bound_s"])
+    top = per[key]
+    flops = top["cost"]["flops_per_device"]
+    mf = model_flops(cfg, shape, chips)
+    return {"count_s": round(count_s, 3), "position": key,
+            "position_note": POSITION_NOTE, **top, "cost_warnings": [],
+            "model_flops_per_device": mf,
+            "useful_flops_ratio": mf / total_flops(flops) if flops else 0.0,
+            "hardware": hw.name, "positions": per}
 
 
 # ---------------------------------------------------------------------------
@@ -338,16 +574,6 @@ def all_cells():
             for shape in shapes_for(get_config(arch))]
 
 
-def refuse_unported(args) -> None:
-    if args.multi_pod or args.both_meshes:
-        raise SystemExit(f"--multi-pod / --both-meshes {UNPORTED}")
-    if args.mesh != MESH:
-        raise SystemExit(f"--mesh {args.mesh} {UNPORTED}")
-    if args.variant != "baseline":
-        raise SystemExit(f"--variant {args.variant} {UNPORTED} "
-                         f"(launch/variants.py waits for it)")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -355,10 +581,15 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=str(OUT_DIR))
-    ap.add_argument("--mesh", default=MESH)
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--mesh", default=MESH,
+                    help="DxM (or PxDxM): 1x1 counts one device, any "
+                         "other one device of the plan on that mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's 2x16x16 pod mesh")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="the 16x16 pod and the 2x16x16 multi-pod")
+    ap.add_argument("--variant", default="baseline",
+                    help="a named variant of launch/variants.py")
     ap.add_argument("--serve-plan", action="store_true",
                     help="analytic serving-memory report per arch x serve "
                          "mesh (no device): weights + page-pool bytes per "
@@ -366,27 +597,45 @@ def main(argv=None):
     ap.add_argument("--serve-meshes", default=SERVE_MESHES,
                     help="comma-separated DxM serve meshes for --serve-plan")
     args = ap.parse_args(argv)
-    refuse_unported(args)
     if args.serve_plan:
         serve_plan_main(args)
         raise SystemExit(0)
     if not args.all and not (args.arch and args.shape):
         raise SystemExit("give --arch and --shape, or --all")
+    if args.variant != "baseline":
+        from repro_torch.launch import variants
+        try:
+            variants.apply(args.variant, get_config(list_archs()[0]))
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.both_meshes:
+        meshes = [(POD, False), (POD, True)]
+    elif args.multi_pod:
+        meshes = [(POD, True)]
+    else:
+        parse_mesh(args.mesh)
+        meshes = [(args.mesh, False)]
+    if args.variant != "baseline" and meshes == [(MESH, False)]:
+        meshes = [(POD, False)]
     cells = all_cells() if args.all else [(args.arch, args.shape)]
     n_fail = 0
     for arch, shape in cells:
-        rec = run_cell(arch, shape, out_dir=Path(args.out), force=args.force)
-        n_fail += rec["status"] != "ok"
-        if rec["status"] == "ok":
-            r = rec["roofline"]
-            extra = (f"bottleneck={r['bottleneck']} "
-                     f"frac={r['roofline_fraction']:.3f} "
-                     f"fits={rec['memory']['fits_hbm']} "
-                     f"count={rec['count_s']:.1f}s")
-        else:
-            extra = rec["error"][:120]
-        print(f"[{time.strftime('%H:%M:%S')}] {arch:24s} {shape:12s} "
-              f"{MESH:5s} {rec['status']:5s} {extra}", flush=True)
+        for mesh, mp in meshes:
+            rec = run_cell(arch, shape, out_dir=Path(args.out),
+                           force=args.force, mesh=mesh, multi_pod=mp,
+                           variant=args.variant)
+            n_fail += rec["status"] != "ok"
+            if rec["status"] == "ok":
+                r = rec["roofline"]
+                extra = (f"bottleneck={r['bottleneck']} "
+                         f"frac={r['roofline_fraction']:.3f} "
+                         f"fits={rec['memory']['fits_hbm']} "
+                         f"count={rec['count_s']:.1f}s")
+            else:
+                extra = rec["error"][:120]
+            print(f"[{time.strftime('%H:%M:%S')}] {arch:24s} {shape:12s} "
+                  f"{rec['mesh']:12s} {rec['status']:5s} {extra}",
+                  flush=True)
     print(f"done; {n_fail} failures")
     raise SystemExit(1 if n_fail else 0)
 

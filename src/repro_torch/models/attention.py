@@ -14,6 +14,15 @@ cross-attention and MLA product. The paged decode step attends through
 the paged-attention kernel.
 Query heads fold as (hkv, g): query head ``h`` attends kv head
 ``h // g``.
+
+Over a plan's model axis (`models.transformer.mixer_apply_tp`) a shard
+holds a block of query heads. When the axis divides the query heads but
+not the kv heads, the shard holds every kv head and projects only those
+its block maps to (`kv_block`, `select_kv`), as GSPMD computes the
+reference's layout. `attn_decode_seq_tp` and `mla_decode_seq_tp` decode
+over a cache whose positions split over the model shards: each shard
+attends its positions and the partial softmax results combine by
+log-sum-exp (`models.common.Seam.combine`).
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import api
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, as_seam
 from repro_torch.models.layers import apply_rope, norm_spec, rms_norm
 
 NEG_INF = -1e30
@@ -286,3 +295,180 @@ def mla_apply(cfg: ModelConfig, p, x, *, mode: str, positions=None,
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
                          f"'train')")
     return out_proj(p, y, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Layouts of a plan's model axis
+# ---------------------------------------------------------------------------
+def kv_block(cfg: ModelConfig, tp: int, m: int):
+    """The kv heads model shard `m` of `tp` reads when the axis divides the
+    q heads and not the kv heads: a ``slice`` when its q block maps onto
+    whole kv heads at one group size (qwen3-moe-30b-a3b at tp 8: one kv
+    head a shard), else the list of each q head's kv head (a shard then
+    attends with one q head a kv head). None when the kv heads split
+    too, or do not need to."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1 or hq % tp or hkv % tp == 0:
+        return None
+    qb, g = hq // tp, hq // hkv
+    idx = [(m * qb + j) // g for j in range(qb)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if qb % n == 0 and idx == [lo + j // (qb // n) for j in range(qb)]:
+        return slice(lo, lo + n)
+    return idx
+
+
+def select_kv(cfg: ModelConfig, p: dict, tp: int, m: int) -> dict:
+    """Shard `m`'s attention params with `wk` / `wv` (and their biases)
+    cut to its `kv_block` (views, or an index copy), as they are."""
+    blk = kv_block(cfg, tp, m)
+    if blk is None or p["wk"].shape[-2] != cfg.num_kv_heads:
+        return p
+    out = dict(p)
+    for name, dim in (("wk", -2), ("wv", -2), ("bk", -2), ("bv", -2)):
+        if name in p:
+            t = p[name]
+            if isinstance(blk, slice):
+                out[name] = t.narrow(dim, blk.start, blk.stop - blk.start)
+            else:
+                out[name] = torch.index_select(
+                    t, t.ndim + dim, torch.as_tensor(blk, device=t.device))
+    return out
+
+
+def _partial_softmax(s, ok, v_fn):
+    """A block of masked fp32 scores `s` (..., keys): its max, normaliser
+    and unnormalised output ``v_fn(p)``, as `attention_core` computes
+    them over every key."""
+    s = s + torch.where(ok, 0.0, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return m, p.sum(dim=-1, keepdim=True), v_fn(p)
+
+
+def _seq_rows(cache_len: int, idx: int, pos: int, cap: int, valid: int,
+              device):
+    """(local row written at `pos`, or None; the valid mask of a shard's
+    `cache_len` rows from global row ``idx * cache_len``): slot ``pos %
+    cap``, rows below `valid`."""
+    lo = idx * cache_len
+    slot = pos % cap
+    row = slot - lo if lo <= slot < lo + cache_len else None
+    ok = (lo + torch.arange(cache_len, device=device)) < valid
+    return row, ok
+
+
+def attn_decode_seq_tp(cfg: ModelConfig, ps, xs, psum, *, pos: int,
+                       caches, window: int = 0):
+    """One decode step of self-attention over caches whose positions
+    split over the model shards (the reference's layout when the model
+    axis takes ``kv_seq``): every entry of ``caches`` holds all kv heads
+    of its positions. The shard owning the step's slot writes its row;
+    each attends every q head over its positions (the q blocks gathered
+    when the heads split); the partials combine by log-sum-exp; each
+    shard projects its head block out and the seam sums them (a whole
+    projection on each shard when the heads do not split). Returns the
+    lists (y, caches)."""
+    psum = as_seam(psum, len(ps))
+    hq = cfg.num_heads
+    qs, news = [], []
+    for p, x in zip(ps, xs):
+        q, k_new, v_new = decode_qkv(cfg, p, x, pos)
+        qs.append(q)
+        news.append((k_new, v_new))
+    split = qs[0].shape[2] < hq
+    if split:
+        qs = psum.gather(qs, dim=2)
+    ms, ls, accs = [], [], []
+    for idx, q, (k_new, v_new), c in zip(psum.indices, qs, news, caches):
+        k, v = c["k"], c["v"]
+        L = k.shape[1]
+        cap = L * psum.size
+        valid = min(pos + 1, cap) if window else pos + 1
+        row, ok = _seq_rows(L, idx, pos, cap, valid, q.device)
+        if row is not None:
+            k[:, row:row + 1] = k_new.to(k.dtype)
+            v[:, row:row + 1] = v_new.to(v.dtype)
+        b, sq, _, dd = q.shape
+        hkv = k.shape[2]
+        g = hq // hkv
+        scale = 1.0 / math.sqrt(dd)
+        qg = (q.reshape(b, sq, hkv, g, dd) * scale).to(q.dtype)
+        sc = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float())
+        m, l, acc = _partial_softmax(
+            sc, ok, lambda pr: torch.einsum("bhgqs,bshd->bhgqd",
+                                            pr.to(v.dtype).float(),
+                                            v.float()))
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    outs = psum.combine(ms, ls, accs)
+    ys = []
+    for idx, p, x, o in zip(psum.indices, ps, xs, outs):
+        b, hkv, g, sq, dv = o.shape
+        y = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
+        if split:
+            hl = p["wo"].shape[0]
+            y = y[:, :, idx * hl:(idx + 1) * hl]
+        ys.append(out_proj(p, y.to(caches[0]["v"].dtype), x.dtype))
+    return (psum(ys) if split else ys), list(caches)
+
+
+def mla_decode_seq_tp(cfg: ModelConfig, ps, xs, psum, *, pos: int, caches):
+    """`attn_decode_seq_tp` for MLA: every shard computes the step's latent
+    row (``wdkv`` whole), the owner writes it; the absorbed queries (its
+    heads through ``wuk``) are gathered over the heads, each shard scores
+    every head against its positions of ``ckv`` / ``krope``, the latent
+    contexts combine by log-sum-exp, and each shard takes its heads'
+    contexts through ``wuv`` and ``wo`` into the seam."""
+    psum = as_seam(psum, len(ps))
+    nope, rope, kr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+    h = cfg.num_heads
+    lats, ropes, news = [], [], []
+    for p, x in zip(ps, xs):
+        b, s, _ = x.shape
+        q = _proj(rms_norm(x @ p["wdq"], p["q_norm"]), p["wuq"])
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+        dkv = x @ p["wdkv"]
+        ckv_new = rms_norm(dkv[..., :kr], p["kv_norm"])
+        at = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+        q_rope = apply_rope(q_rope, at, cfg.rope_theta)
+        krope_new = apply_rope(dkv[..., kr:][:, :, None, :], at,
+                               cfg.rope_theta)[:, :, 0, :]
+        lats.append(torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"]))
+        ropes.append(q_rope)
+        news.append((ckv_new, krope_new))
+    split = lats[0].shape[2] < h
+    if split:
+        lats = psum.gather(lats, dim=2)
+        ropes = psum.gather(ropes, dim=2)
+    ms, ls, accs = [], [], []
+    for idx, ql, qr, (ckv_new, krope_new), c in zip(
+            psum.indices, lats, ropes, news, caches):
+        ckv, krope = c["ckv"], c["krope"]
+        L = ckv.shape[1]
+        row, ok = _seq_rows(L, idx, pos, L * psum.size, pos + 1, ql.device)
+        if row is not None:
+            ckv[:, row:row + 1] = ckv_new.to(ckv.dtype)
+            krope[:, row:row + 1] = krope_new.to(krope.dtype)
+        sc = (torch.einsum("bshr,btr->bhst", ql.float(), ckv.float())
+              + torch.einsum("bshk,btk->bhst", qr.float(),
+                             krope.float())) * scale
+        m, l, acc = _partial_softmax(
+            sc, ok, lambda pr: torch.einsum("bhst,btr->bhsr",
+                                            pr.to(ckv.dtype).float(),
+                                            ckv.float()))
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    outs = psum.combine(ms, ls, accs)
+    ys = []
+    for idx, p, x, o, c in zip(psum.indices, ps, xs, outs, caches):
+        ctx = o.permute(0, 2, 1, 3).to(c["ckv"].dtype)      # (b, s, h, r)
+        if split:
+            hl = p["wuv"].shape[1]
+            ctx = ctx[:, :, idx * hl:(idx + 1) * hl]
+        y = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
+        ys.append(out_proj(p, y, x.dtype))
+    return (psum(ys) if split else ys), list(caches)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import api
-from repro_torch.models.common import ParamSpec, psum_one
+from repro_torch.models.common import ParamSpec, as_seam, psum_one
 
 C_EXP = 8.0          # Griffin's fixed gate exponent
 CONV_TAPS = 4        # temporal conv width
@@ -70,7 +70,7 @@ def _gates(ps, us, psum):
     pre_a = psum([(u @ p["w_a"]).float() for p, u in zip(ps, us)])
     pre_i = psum([(u @ p["w_i"]).float() for p, u in zip(ps, us)])
     out_a, out_g = [], []
-    for m, (p, u, ra, ri) in enumerate(zip(ps, us, pre_a, pre_i)):
+    for m, p, u, ra, ri in zip(psum.indices, ps, us, pre_a, pre_i):
         w_l = p["b_a"].shape[0]
         c0 = m * w_l
         r = torch.sigmoid(ra[..., c0:c0 + w_l] + p["b_a"])
@@ -89,6 +89,7 @@ def rglru_decode_core_tp(cfg: ModelConfig, ps, xs, hs, convs, psum):
     1, d), ``hs`` (B, W/tp) fp32 states and ``convs`` (B, K-1, W/tp)
     prior raw conv inputs hold one entry per model shard. Returns the
     lists ``(y (B, 1, d), new_h, new_conv)``, y reduced."""
+    psum = as_seam(psum, len(ps))
     us, new_convs = [], []
     for p, x, conv in zip(ps, xs, convs):
         u_raw = x @ p["w_in"]
@@ -100,7 +101,7 @@ def rglru_decode_core_tp(cfg: ModelConfig, ps, xs, hs, convs, psum):
     new_hs = [aa[:, 0] * h + gg[:, 0] for aa, gg, h in zip(a, gated, hs)]
     parts = [(h[:, None, :].to(x.dtype) * _gelu(x @ p["w_gate"]))
              @ p["w_out"] for p, x, h in zip(ps, xs, new_hs)]
-    return psum(parts), new_hs, new_convs
+    return psum.out(parts), new_hs, new_convs
 
 
 def rglru_decode_core(cfg: ModelConfig, p, x, h, conv):
@@ -116,7 +117,12 @@ def rglru_apply_tp(cfg: ModelConfig, ps, xs, psum, *, mode: str,
     """`rglru_apply` over a plan's model axis: ``ps``, ``xs`` and
     ``caches`` hold one entry per model shard; a prefill or training
     forward scans each shard's W/tp columns through the `rglru_scan`
-    kernel. Returns the lists ``(y, cache)``, y reduced."""
+    kernel. Returns the lists ``(y, cache)``, y reduced. A plan whose model
+    axis does not divide the width runs the whole layer on every shard
+    (``psum`` then `Seam.local`)."""
+    psum = as_seam(psum, len(ps))
+    if psum.size > 1 and ps[0]["b_a"].shape[0] == cfg.lru_width:
+        psum = psum.local()
     if mode == "decode":
         ys, hs, convs = rglru_decode_core_tp(
             cfg, ps, xs, [c["h"] for c in caches],
@@ -139,7 +145,7 @@ def rglru_apply_tp(cfg: ModelConfig, ps, xs, psum, *, mode: str,
                            "conv": u_raw[:, -(k - 1):, :].float()}
                           if mode == "prefill" else None)
         parts.append((hh.to(x.dtype) * _gelu(x @ p["w_gate"])) @ p["w_out"])
-    return psum(parts), out_caches
+    return psum.out(parts), out_caches
 
 
 def rglru_apply(cfg: ModelConfig, p, x, *, mode: str, cache=None,

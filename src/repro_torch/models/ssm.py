@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import api
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: F401
-from repro_torch.models.common import ParamSpec, psum_one
+from repro_torch.models.common import ParamSpec, as_seam, psum_one
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -97,8 +97,8 @@ def _gate_norm(ps, ys, dtype, psum):
     Returns each shard's normed block in `dtype`."""
     y32 = [y.to(dtype).float() for y in ys]
     var = psum([torch.mean(y * y, dim=-1, keepdim=True) for y in y32])
-    if len(ps) > 1:
-        var = [v / len(ps) for v in var]
+    if psum.size > 1:
+        var = [v / psum.size for v in var]
     return [((y * torch.rsqrt(v + 1e-6)) * (1.0 + p["gate_norm"].float()))
             .to(dtype) for p, y, v in zip(ps, y32, var)]
 
@@ -109,11 +109,12 @@ def ssd_decode_core_tp(cfg: ModelConfig, ps, xs, convs, states, psum):
     (B, H/tp, P, N) fp32 hold one entry per model shard; ``psum`` reduces
     a list of parts. Returns the lists ``(y (B, 1, d), new_conv,
     new_state)``, y reduced."""
+    psum = as_seam(psum, len(ps))
     din, nh, conv_dim = ssm_dims(cfg)
     g, n = cfg.ssm_ngroups, cfg.ssm_state
     P = cfg.ssm_head_dim
     pre, new_convs, new_states = [], [], []
-    for m, (p, x, conv, state) in enumerate(zip(ps, xs, convs, states)):
+    for m, p, x, conv, state in zip(psum.indices, ps, xs, convs, states):
         B = x.shape[0]
         h0, nh_l = _head_block(p, m)
         proj = x @ p["in_proj"]
@@ -142,7 +143,7 @@ def ssd_decode_core_tp(cfg: ModelConfig, ps, xs, convs, states, psum):
         y = y.reshape(B, 1, nh_l * P)
         pre.append(y * F.silu(z[..., h0 * P:(h0 + nh_l) * P].float()))
     normed = _gate_norm(ps, pre, xs[0].dtype, psum)
-    ys = psum([y @ p["out_proj"] for p, y in zip(ps, normed)])
+    ys = psum.out([y @ p["out_proj"] for p, y in zip(ps, normed)])
     return ys, new_convs, new_states
 
 
@@ -162,7 +163,12 @@ def ssm_apply_tp(cfg: ModelConfig, ps, xs, psum, *, mode: str, caches=None,
     forward scans each shard's block of heads through the `ssd_scan`
     kernel (at H / tp heads and the groups that block reads). Returns the
     lists ``(y, cache)``, y reduced; a shard's cache holds the full-width
-    conv inputs (replicated) and its heads' state."""
+    conv inputs (replicated) and its heads' state. A plan whose model axis
+    does not divide the SSD heads runs the whole layer on every shard
+    (``psum`` then `Seam.local`)."""
+    psum = as_seam(psum, len(ps))
+    if psum.size > 1 and ps[0]["a_log"].shape[0] == ssm_dims(cfg)[1]:
+        psum = psum.local()
     if mode == "decode":
         ys, convs, sts = ssd_decode_core_tp(
             cfg, ps, xs, [c["conv"] for c in caches],
@@ -173,16 +179,12 @@ def ssm_apply_tp(cfg: ModelConfig, ps, xs, psum, *, mode: str, caches=None,
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode', "
                          f"'train')")
-    if cfg.ssm_bf16_intra:
-        raise NotImplementedError(
-            f"{cfg.name}: ssm_bf16_intra is not ported — the ssd_scan "
-            f"kernel keeps its intra-chunk scores in fp32")
     din, nh, conv_dim = ssm_dims(cfg)
     g, n = cfg.ssm_ngroups, cfg.ssm_state
     P = cfg.ssm_head_dim
     k = cfg.ssm_conv_width
     pre, out_caches = [], []
-    for m, (p, x) in enumerate(zip(ps, xs)):
+    for m, p, x in zip(psum.indices, ps, xs):
         B, S = x.shape[:2]
         h0, nh_l = _head_block(p, m)
         g0, g_l = _group_block(cfg, h0, nh_l)
@@ -196,14 +198,15 @@ def ssm_apply_tp(cfg: ModelConfig, ps, xs, psum, *, mode: str, caches=None,
         cm = xbc[..., din + g * n:].reshape(B, S, g, n)[:, :, g0:g0 + g_l]
         y, h_final = api.run("ssd_scan", xs_l.contiguous(), bm.contiguous(),
                              cm.contiguous(), dt.contiguous(), a.contiguous(),
-                             backend=backend)
+                             backend=backend,
+                             bf16_intra=cfg.ssm_bf16_intra)
         y = y + p["d_skip"][None, None, :, None] * xs_l.float()
         y = y.reshape(B, S, nh_l * P)
         out_caches.append({"conv": xbc_raw[:, -(k - 1):, :],
                            "state": h_final} if mode == "prefill" else None)
         pre.append(y * F.silu(z[..., h0 * P:(h0 + nh_l) * P].float()))
     normed = _gate_norm(ps, pre, xs[0].dtype, psum)
-    ys = psum([y @ p["out_proj"] for p, y in zip(ps, normed)])
+    ys = psum.out([y @ p["out_proj"] for p, y in zip(ps, normed)])
     return ys, out_caches
 
 

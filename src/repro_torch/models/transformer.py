@@ -34,8 +34,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (flatten, materialize, psum_one,
-                                       stack_specs, torch_dtype, unflatten)
+from repro_torch.models.common import (as_seam, flatten, materialize,
+                                       psum_one, stack_specs, torch_dtype,
+                                       unflatten)
 from repro_torch.models.layers import (embed_apply, embed_spec, lm_head_apply,
                                        mlp_apply, mlp_spec, norm_spec,
                                        rms_norm)
@@ -75,17 +76,22 @@ def mlp_tail_tp(cfg: ModelConfig, kind, ps, xs, psum):
     Returns (xs, aux): aux the MoE layer's load-balancing statistics
     ``(me, ce)`` (`moe.moe_stats`, model shard 0's), None for other
     MLPs; training turns them into its loss (`moe.balance_loss`), serving
-    drops them, as the reference's serving does."""
+    drops them, as the reference's serving does. When the model axis does
+    not divide ``d_ff`` every shard runs the whole MLP (`Seam.local`)."""
     mixer, mlp = kind[0], kind[1]
     if mlp == MLP_NONE:
         return xs, None
-    hs = [rms_norm(x, p["norm2"]) for p, x in zip(ps, xs)]
+    psum = as_seam(psum, len(ps))
+    if mlp == MLP_DENSE and psum.size > 1 and \
+            ps[0]["mlp"]["up"].shape[-1] == cfg.d_ff:
+        psum = psum.local()
+    hs = psum.gather_seq([rms_norm(x, p["norm2"]) for p, x in zip(ps, xs)])
     aux = None
     if mlp == MLP_MOE:
         outs = [moe_mod.moe_stats(cfg, p["moe"], h) for p, h in zip(ps, hs)]
-        ys, aux = [y for y, _, _ in outs], outs[0][1:]
+        ys, aux = psum.local().out([y for y, _, _ in outs]), outs[0][1:]
     else:
-        ys = psum([mlp_apply(cfg, p["mlp"], h) for p, h in zip(ps, hs)])
+        ys = psum.out([mlp_apply(cfg, p["mlp"], h) for p, h in zip(ps, hs)])
     if mixer == CROSS_ATTN:
         ys = [torch.tanh(p["attn"]["gate_ffn"]).to(y.dtype) * y
               for p, y in zip(ps, ys)]
@@ -99,17 +105,35 @@ def mlp_tail(cfg: ModelConfig, kind, p, x):
     return xs[0], aux
 
 
+def _whole_heads(cfg: ModelConfig, kind, p) -> bool:
+    """True when a shard's attention or MLA params hold every head: the
+    model axis does not divide them, and the mixer runs whole."""
+    mixer = kind[0]
+    if mixer == MLA:
+        return p["mla"]["wuq"].shape[-2] == cfg.num_heads
+    if mixer in (ATTN, LOCAL_ATTN, CROSS_ATTN):
+        return p["attn"]["wq"].shape[-2] == cfg.num_heads
+    return False
+
+
 def mixer_apply_tp(cfg: ModelConfig, kind, ps, hs, psum, *, mode,
                    positions, caches, backend: str = "auto",
                    cross_embeds=None):
     """A layer's mixer on its normed input over a plan's model axis:
     ``ps``, ``hs``, ``positions``, ``caches`` and ``cross_embeds`` hold
-    one entry per model shard. An attention mixer runs each shard's
-    heads and its row-sharded out projection meets in one reduction; the
-    SSD and RG-LRU bodies reduce inside (`ssm_apply_tp`,
-    `rglru_apply_tp`). ``cross_embeds`` reach only a CROSS_ATTN layer.
-    Returns the lists (y, cache), y reduced."""
+    one entry per model shard, ``psum`` is the plan's `Seam` (or a
+    callable summing a list of parts). An attention or MLA mixer runs
+    each shard's heads and its row-sharded out projection meets in one
+    reduction; a shard reads the kv heads its q block maps to
+    (`attention.select_kv`); a mixer whose heads the model axis does not
+    divide runs whole on every shard, unreduced; a decode over caches
+    whose positions split over the shards (``"seq_split"`` in the cache)
+    combines partial attention (`attention.attn_decode_seq_tp`,
+    `mla_decode_seq_tp`). The SSD and RG-LRU bodies reduce inside
+    (`ssm_apply_tp`, `rglru_apply_tp`). ``cross_embeds`` reach only a
+    CROSS_ATTN layer. Returns the lists (y, cache), y reduced."""
     mixer = kind[0]
+    psum = as_seam(psum, len(ps))
     if mixer == SSD:
         return ssm_mod.ssm_apply_tp(cfg, [p["ssm"] for p in ps], hs, psum,
                                     mode=mode, caches=caches,
@@ -118,27 +142,46 @@ def mixer_apply_tp(cfg: ModelConfig, kind, ps, hs, psum, *, mode,
         return rglru_mod.rglru_apply_tp(cfg, [p["rglru"] for p in ps], hs,
                                         psum, mode=mode, caches=caches,
                                         backend=backend)
+    if mode == "decode" and caches[0] is not None and \
+            caches[0].get("seq_split"):
+        # the positions split over the model axis whether or not the
+        # heads do: the seam combines them, and sums the out projection
+        # only where the heads split
+        if mixer == MLA:
+            return attn.mla_decode_seq_tp(
+                cfg, [p["mla"] for p in ps], hs, psum,
+                pos=int(positions[0]), caches=caches)
+        return attn.attn_decode_seq_tp(
+            cfg, [p["attn"] for p in ps], hs, psum, pos=int(positions[0]),
+            caches=caches, window=cfg.window if mixer == LOCAL_ATTN else 0)
+    if psum.size > 1 and _whole_heads(cfg, kind, ps[0]):
+        psum = psum.local()
     if mixer == MLA:
         outs = [attn.mla_apply(cfg, p["mla"], h, mode=mode,
                                positions=pos, cache=c)
                 for p, h, pos, c in zip(ps, hs, positions, caches)]
     else:
         outs = [attn.attn_apply(
-            cfg, p["attn"], h, mode=mode, positions=pos, cache=c,
+            cfg, attn.select_kv(cfg, p["attn"], psum.size, m), h,
+            mode=mode, positions=pos, cache=c,
             window=cfg.window if mixer == LOCAL_ATTN else 0, backend=backend,
             cross_embeds=xe if mixer == CROSS_ATTN else None)
-            for p, h, pos, c, xe in zip(ps, hs, positions, caches,
-                                        cross_embeds)]
-    return psum([y for y, _ in outs]), [c for _, c in outs]
+            for m, p, h, pos, c, xe in zip(psum.indices, ps, hs, positions,
+                                           caches, cross_embeds)]
+    return psum.out([y for y, _ in outs]), [c for _, c in outs]
 
 
 def layer_tp(cfg: ModelConfig, kind, ps, xs, psum, *, mode, positions,
              caches, backend: str = "auto", cross_embeds=None):
     """One layer over a plan's model axis — norm1, the mixer, its
     residual and the MLP tail — every argument but ``kind`` and ``psum``
-    one entry per model shard. Returns (xs, caches, aux), aux as
-    `mlp_tail_tp`'s."""
-    hs = [rms_norm(x, p["norm1"]) for p, x in zip(ps, xs)]
+    one entry per model shard. Under sequence parallelism (``psum.seq``)
+    each ``xs`` entry holds its positions, ``positions`` the whole
+    sequence's: each sublayer gathers its normed input and scatters its
+    output (`Seam.gather_seq`, `Seam.out`). Returns (xs, caches, aux), aux
+    as `mlp_tail_tp`'s."""
+    psum = as_seam(psum, len(xs))
+    hs = psum.gather_seq([rms_norm(x, p["norm1"]) for p, x in zip(ps, xs)])
     ys, cs = mixer_apply_tp(cfg, kind, ps, hs, psum, mode=mode,
                             positions=positions, caches=caches,
                             backend=backend, cross_embeds=cross_embeds)
@@ -155,6 +198,7 @@ def run_stack_tp(cfg: ModelConfig, layers, xs, psum, *, mode, positions,
     a list over the shards. Returns (xs, per-layer lists of per-shard
     caches)."""
     tp = len(xs)
+    psum = as_seam(psum, tp)
     cross_embeds = cross_embeds if cross_embeds is not None else [None] * tp
     out = []
     for layer, kind in enumerate(cfg.layer_kinds()):
@@ -180,6 +224,7 @@ def train_stack_tp(cfg: ModelConfig, layer_params, xs, psum, *, positions,
     not. Returns (xs, stats): stats one ``(me, ce)`` pair per MoE layer,
     in layer order (`moe.balance_loss`)."""
     tp = len(xs)
+    psum = as_seam(psum, tp)
     cross_embeds = cross_embeds if cross_embeds is not None else [None] * tp
     kinds = cfg.layer_kinds()
     gs = cfg.group_size()
@@ -406,6 +451,10 @@ class Model(nn.Module):
             aux = aux + moe_mod.balance_loss(self.cfg, me, ce)
         return self.head(xs[0]), aux
 
+    def cache_spec(self, batch: int, capacity: int):
+        """`cache_spec` of this model's config."""
+        return cache_spec(self.cfg, batch, capacity)
+
     def forward_decode(self, tokens, caches, pos: int, *, embeds=None):
         """One token step over capacity-sized caches (see `pad_caches`),
         updated in place. tokens: (b, 1), or ``embeds`` (b, 1, d) for an
@@ -413,6 +462,56 @@ class Model(nn.Module):
         x, _ = self.run_stack(self.embed_in(tokens, embeds), mode="decode",
                               positions=pos, caches=caches)
         return self.head(x)[:, 0]
+
+
+def layer_cache_spec(cfg: ModelConfig, kind, batch: int, capacity: int):
+    """One layer's decode cache at `capacity`: ({name: ``meta`` tensor},
+    {name: logical axes}), the reference's ``layer_cache_spec``. A
+    sliding-window layer holds ``min(window, capacity)`` rows."""
+    mixer = kind[0]
+    cdt = torch_dtype(cfg.compute_dtype)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def meta(shape, dtype=cdt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    kv_log = ("batch", "kv_seq", "kv_heads", "head_dim")
+    if mixer in (ATTN, LOCAL_ATTN):
+        cap = min(cfg.window, capacity) if mixer == LOCAL_ATTN else capacity
+        shp = (batch, cap, hkv, hd)
+        return {"k": meta(shp), "v": meta(shp)}, {"k": kv_log, "v": kv_log}
+    if mixer == CROSS_ATTN:
+        shp = (batch, cfg.n_img_tokens, hkv, hd)
+        log = ("batch", None, "kv_heads", "head_dim")
+        return {"xk": meta(shp), "xv": meta(shp)}, {"xk": log, "xv": log}
+    if mixer == MLA:
+        return ({"ckv": meta((batch, capacity, cfg.kv_lora_rank)),
+                 "krope": meta((batch, capacity, cfg.qk_rope_dim))},
+                {"ckv": ("batch", "kv_seq", None),
+                 "krope": ("batch", "kv_seq", None)})
+    if mixer == SSD:
+        _, nh, conv_dim = ssm_mod.ssm_dims(cfg)
+        return ({"conv": meta((batch, cfg.ssm_conv_width - 1, conv_dim)),
+                 "state": meta((batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                               torch.float32)},
+                {"conv": ("batch", None, "ssm_inner"),
+                 "state": ("batch", "ssm_heads", None, None)})
+    if mixer == RGLRU:
+        w = cfg.lru_width
+        return ({"h": meta((batch, w), torch.float32),
+                 "conv": meta((batch, 3, w), torch.float32)},
+                {"h": ("batch", "lru"), "conv": ("batch", None, "lru")})
+    raise ValueError(mixer)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, capacity: int):
+    """Every layer's decode cache: (per-layer ``{name: meta tensor}``,
+    per-layer ``{name: logical axes}``), in layer order — the port's cache
+    layout, with the reference's shapes and axes (its
+    ``Model.cache_spec`` stacks the groups' layers)."""
+    specs = [layer_cache_spec(cfg, k, batch, capacity)
+             for k in cfg.layer_kinds()]
+    return [a for a, _ in specs], [lg for _, lg in specs]
 
 
 CACHE_KEYS = {ATTN: ("k", "v"), LOCAL_ATTN: ("k", "v"),

@@ -48,7 +48,9 @@ before its first write, pads the decode rows to an equal block per data
 shard, and runs the fused step and the prefill per shard with the
 reduction seams between model shards; the scheduler admits per shard and
 the radix cache keeps one tree per shard. A plan of one shard is the
-unsharded engine. Mesh serving decodes from a page pool (``kv_pool=``).
+unsharded engine. Without a page pool, `generate` on a mesh is the
+reference's dense-cache path over the plan (`ShardedModel.
+forward_prefill_dense`; minicpm3-4b's MLA included).
 
 Greedy decoding is argmax; temperature sampling draws from a
 ``torch.Generator`` seeded with ``seed``. The eager/numpy decode modes
@@ -101,8 +103,8 @@ class ServeEngine:
     object. ``mesh`` (`launch.mesh.make_serve_mesh`) serves through a
     `ServePlan` over its devices (``device`` is then unused; a mesh of one
     position is the unsharded engine on its device): the config must
-    split over its model axis (`ServePlan.check_config`) and the engine
-    needs ``kv_pool``."""
+    split over its model axis (`ServePlan.check_config`); without
+    ``kv_pool`` it generates from dense caches over the plan."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None,
                  seed: int = 0, kv_pool: Optional[PagedKVPool] = None,
@@ -122,9 +124,6 @@ class ServeEngine:
                                state=params)
         else:
             self.plan.check_config(cfg)
-            if kv_pool is None:
-                raise ValueError("mesh serving decodes from a page pool — "
-                                 "construct the engine with kv_pool=")
             self.device = self.plan.device(0, 0)
             if params is None:
                 # the weights the unsharded engine draws from `seed` on
@@ -413,17 +412,25 @@ class ServeEngine:
         Returns each row's tokens (untrimmed)."""
         plen = prompts.shape[1]
         t0 = time.perf_counter()
-        logits, caches = self.model.forward_prefill(
-            torch.from_numpy(prompts).to(self.device), backend=self.backend)
-        caches = pad_caches(caches, plen + max_new, self.cfg)
+        tokens = torch.from_numpy(prompts).to(self.device)
+        if self.plan is None:
+            logits, caches = self.model.forward_prefill(
+                tokens, backend=self.backend)
+            caches = pad_caches(caches, plen + max_new, self.cfg)
+            decode = self.model.forward_decode
+        else:
+            # over a plan: rows over the data shards, each model shard its
+            # own caches (`ShardedModel.forward_prefill_dense`)
+            logits, caches = self.model.forward_prefill_dense(
+                tokens, plen + max_new, backend=self.backend)
+            decode = self.model.forward_decode_dense
         self.stats["prefill_s"] += time.perf_counter() - t0
         gen = self._generator(seed)
         tok = sample(logits, greedy, temperature, gen)
         outs = [[int(x)] for x in tok.cpu().numpy()]
         t0 = time.perf_counter()
         for step in range(max_new - 1):
-            logits = self.model.forward_decode(tok[:, None], caches,
-                                               plen + step)
+            logits = decode(tok[:, None], caches, plen + step)
             tok = sample(logits, greedy, temperature, gen)
             for i, x in enumerate(tok.cpu().numpy()):
                 outs[i].append(int(x))

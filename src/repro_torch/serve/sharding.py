@@ -39,11 +39,12 @@ import torch
 from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA,
                                       MLP_DENSE, RGLRU, SSD)
 from repro_torch.kernels.paged_attention.spec import head_sharded_specs
-from repro_torch.models.common import flatten, unflatten
+from repro_torch.models.common import Seam, flatten, unflatten
+from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import (Model, model_logical, model_spec,
-                                            run_stack_tp)
-from repro_torch.sharding.partition import (SERVE_RULES, P, mesh_axis_sizes,
-                                            spec_for)
+                                            pad_caches, run_stack_tp)
+from repro_torch.sharding.partition import (COMPUTE_RULES, SERVE_RULES, P,
+                                            mesh_axis_sizes, spec_for)
 
 POOL_ARGS = ("k_pages", "v_pages", "k_quant", "v_quant",
              "k_scale", "v_scale")
@@ -233,6 +234,48 @@ class ServePlan:
         return {n: self._param_spec(ps.shape, logical[n])
                 for n, ps in flatten(model_spec(cfg)).items()}
 
+    def whole_sublayers(self, cfg) -> set:
+        """The sublayer keys (``attn``, ``mla``, ``ssm``, ``rglru``,
+        ``mlp``) whose head count (heads, SSD heads, RG-LRU width, d_ff)
+        the model axis does not divide: every shard runs them whole, as
+        GSPMD replicates what the axis cannot split."""
+        if self.tp == 1:
+            return set()
+        kinds = cfg.layer_kinds()
+        mixers = {m for m, _ in kinds}
+        sizes = {"attn": (cfg.num_heads, mixers & {ATTN, LOCAL_ATTN,
+                                                   CROSS_ATTN}),
+                 "mla": (cfg.num_heads, mixers & {MLA}),
+                 "ssm": (ssm_dims(cfg)[1], mixers & {SSD}),
+                 "rglru": (cfg.lru_width, mixers & {RGLRU}),
+                 "mlp": (cfg.d_ff, {ml for _, ml in kinds} & {MLP_DENSE})}
+        return {k for k, (n, has) in sizes.items() if has and n % self.tp}
+
+    def compute_specs(self, model) -> dict:
+        """Flat ``{name: P}`` of the weights each shard computes with
+        (`sharding.partition.COMPUTE_RULES`; MoE subtrees and the
+        sublayers of `whole_sublayers` whole). Equal to `param_specs` for
+        every config `check_config` accepts but MLA."""
+        cfg = getattr(model, "cfg", model)
+        logical = model_logical(cfg)
+        whole = self.whole_sublayers(cfg)
+        out = {}
+        for n, ps in flatten(model_spec(cfg)).items():
+            parts = n.split(".")
+            sub = parts[2] if parts[0] in ("groups", "tail") else None
+            if sub in whole or "experts" in logical[n]:
+                out[n] = P()
+            else:
+                out[n] = spec_for(ps.shape, logical[n], self.mesh,
+                                  COMPUTE_RULES)
+        return out
+
+    def seam(self, d: int = 0) -> Seam:
+        """Data shard d's model-axis `Seam` over every model shard, its
+        sum `psum`."""
+        return Seam(self.tp, positions=[(d, m) for m in range(self.tp)],
+                    reduce=self.psum)
+
     def local_index(self, shape, spec, d: int, m: int) -> tuple:
         """Slices of the block of a `shape` tensor laid out by `spec`
         that shard (d, m) holds."""
@@ -257,7 +300,7 @@ class ServePlan:
         """Each shard's slice of a flat state dict, copied onto that
         shard's device: ``[d][m] -> {name: tensor}``. A replicated leaf is
         copied once per shard, as each of several cards would hold it."""
-        specs = self.param_specs(model)
+        specs = self.compute_specs(model)
         out = []
         for d in range(self.dp):
             row = []
@@ -305,20 +348,22 @@ class ShardedModel:
     `prefill` is the tensor-parallel prefill of one data shard: every
     layer runs on each model shard's heads (the flash, SSD-scan and
     RG-LRU-scan kernels at the shard's width) and the seams sum the
-    partial outputs."""
+    partial outputs. `forward_prefill_dense` / `forward_decode_dense`
+    are the engine's dense-cache path over the plan (every mixer, MLA
+    and cross-attention included): rows split over the data shards, each
+    model shard keeps its own caches (its kv heads; MLA's latents
+    whole)."""
 
     def __init__(self, cfg, plan: ServePlan, params: dict):
         self.cfg = cfg
         self.plan = plan
         self.kinds = cfg.layer_kinds()
-        unported = {m for m, _ in self.kinds} - {ATTN, LOCAL_ATTN, SSD, RGLRU}
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {sorted(unported)} layers have no sharded "
-                f"serving path")
         flats = plan.shard_params(cfg, params)
         self.shards = [[ShardWeights(cfg, f) for f in row] for row in flats]
-        self.rep_heads = plan.replicate_heads(cfg.num_kv_heads, cfg.name)
+        self.paged_mixers = {m for m, _ in self.kinds} <= \
+            {ATTN, LOCAL_ATTN, SSD, RGLRU}
+        self.rep_heads = plan.replicate_heads(cfg.num_kv_heads, cfg.name) \
+            if self.paged_mixers else False
 
     @property
     def device(self) -> torch.device:
@@ -349,13 +394,10 @@ class ShardedModel:
             return {"conv": caches[0]["conv"].cpu(), "state": cat("state", 1)}
         return {"h": cat("h", -1), "conv": cat("conv", -1)}
 
-    def prefill(self, tokens, d: int = 0, *, backend: str = "auto",
-                all_logits: bool = False):
-        """Prefill `tokens` (b, s) on data shard `d` through the model's
-        layer body (`run_stack_tp`). Returns (logits on the controller's
-        device: (b, V) at the last position, or (b, s, V) with
-        ``all_logits``; the per-layer caches merged as the unsharded
-        model's, on the host)."""
+    def _prefill_rows(self, tokens, d: int, backend: str, all_logits: bool):
+        """Data shard d's prefill of `tokens` (b, s): (logits on the
+        controller's device, per-layer lists of the model shards'
+        caches)."""
         ws = self.shards[d]
         devs = [self.plan.device(d, m) for m in range(len(ws))]
         xs = [w.embed_in(tokens.to(dev)) for w, dev in zip(ws, devs)]
@@ -363,14 +405,68 @@ class ShardedModel:
         positions = [torch.arange(s, dtype=torch.int32, device=dev)
                      .expand(b, s) for dev in devs]
         xs, caches = run_stack_tp(self.cfg, [w.layers for w in ws], xs,
-                                  self.plan.psum, mode="prefill",
+                                  self.plan.seam(d), mode="prefill",
                                   positions=positions, backend=backend)
         x = xs[0] if all_logits else xs[0][:, -1:]
         logits = ws[0].head(x)
         if not all_logits:
             logits = logits[:, 0]
-        return logits.to(self.device), [self._merge(kind, c) for kind, c
-                                        in zip(self.kinds, caches)]
+        return logits.to(self.device), caches
+
+    def prefill(self, tokens, d: int = 0, *, backend: str = "auto",
+                all_logits: bool = False):
+        """Prefill `tokens` (b, s) on data shard `d` through the model's
+        layer body (`run_stack_tp`). Returns (logits on the controller's
+        device: (b, V) at the last position, or (b, s, V) with
+        ``all_logits``; the per-layer caches merged as the unsharded
+        model's, on the host)."""
+        if not self.paged_mixers:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the paged path has no MLA or "
+                f"cross-attention layers; serve through generate")
+        logits, caches = self._prefill_rows(tokens, d, backend, all_logits)
+        return logits, [self._merge(kind, c) for kind, c
+                        in zip(self.kinds, caches)]
+
+    def _row_blocks(self, b: int) -> list:
+        """Rows of a dense batch per data shard: equal contiguous blocks
+        (the first data shards take one more when dp does not divide b)."""
+        return [blk for blk in np.array_split(np.arange(b), self.plan.dp)
+                if len(blk)]
+
+    def forward_prefill_dense(self, tokens, capacity: int,
+                              backend: str = "auto"):
+        """The dense-cache prefill over the plan: each data shard prefills
+        its rows, each model shard keeps its caches, padded to `capacity`
+        (`pad_caches`). Returns (last-position logits (b, V) on the
+        controller's device, the decode state)."""
+        logits, state = [], []
+        for d, rows in enumerate(self._row_blocks(tokens.shape[0])):
+            lg, caches = self._prefill_rows(tokens[rows], d, backend, False)
+            per_shard = [pad_caches([c[m] for c in caches], capacity,
+                                    self.cfg)
+                         for m in range(self.plan.tp)]
+            logits.append(lg)
+            state.append([[ps[layer] for ps in per_shard]
+                          for layer in range(len(self.kinds))])
+        return torch.cat(logits), state
+
+    def forward_decode_dense(self, tokens, state, pos: int):
+        """One token step of every row (tokens (b, 1)) over the state of
+        `forward_prefill_dense`, caches updated in place. Returns logits
+        (b, V) on the controller's device."""
+        out = []
+        for d, (rows, caches) in enumerate(zip(
+                self._row_blocks(tokens.shape[0]), state)):
+            ws = self.shards[d]
+            devs = [self.plan.device(d, m) for m in range(len(ws))]
+            xs = [w.embed_in(tokens[rows].to(dev))
+                  for w, dev in zip(ws, devs)]
+            xs, _ = run_stack_tp(self.cfg, [w.layers for w in ws], xs,
+                                 self.plan.seam(d), mode="decode",
+                                 positions=[pos] * len(ws), caches=caches)
+            out.append(ws[0].head(xs[0])[:, 0].to(self.device))
+        return torch.cat(out)
 
     def forward_prefill(self, tokens, backend: str = "auto", *,
                         row_shards=None):

@@ -67,6 +67,13 @@ SERVE_RULES: dict = {**DEFAULT_RULES,
                      "ssm_proj": [],
                      "batch": [("data",)]}
 
+# The per-shard compute layout of a plan (`serve.sharding.ServePlan.
+# compute_specs`, the weights the bodies run on, in serving and in
+# training): SERVE_RULES with MLA's low-rank latents whole on every shard,
+# so that its q / kv norms see the full latent; its heads (wuq, wuk, wuv,
+# wo) still split over "model".
+COMPUTE_RULES: dict = {**SERVE_RULES, "q_lora": [], "kv_lora": []}
+
 # axes resolved before others (so e.g. kv_heads takes "model" before kv_seq)
 PRIORITY = [
     "vocab", "heads", "kv_heads", "ffn", "experts", "ssm_inner", "ssm_heads",

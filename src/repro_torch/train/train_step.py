@@ -21,7 +21,9 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
+from repro_torch.kernels import count
 from repro_torch.models.common import flatten, torch_dtype, unflatten
 from repro_torch.models.transformer import Model, model_logical, model_spec
 from repro_torch.sharding.partition import batch_logical, with_shardings
@@ -89,7 +91,7 @@ def make_train_step(model, oc: OptimizerConfig, mesh=None,
         def grads_of(params, batch):
             return plan_grads(model, batch, backend)
 
-        reduce, norm = plan.reduce_replicas, plan.global_norm
+        reduce, norm = plan.reduce_replicas, plan.global_norms
 
         def wrap(x):
             return x
@@ -112,7 +114,7 @@ def make_train_step(model, oc: OptimizerConfig, mesh=None,
             return None
 
         def norm(grads):
-            return global_norm(grads[0][0])
+            return [[global_norm(grads[0][0])]]
 
         def wrap(x):
             return [[x]]
@@ -131,36 +133,49 @@ def make_train_step(model, oc: OptimizerConfig, mesh=None,
             reduce(grads)
             return total, mets, grads
         mb = rows // num_microbatches
-        acc = [[{n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n, p in shard.items()}
-                for shard in row] for row in params]
+        acc = [[{} for _ in row] for row in params]
+        for d, m in shards:
+            with count.at((d, m)):
+                acc[d][m] = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device)
+                             for n, p in params[d][m].items()}
         tot = 0.0
         for i in range(num_microbatches):
             t, mets, g = grads_of(params, {k: x[i * mb:(i + 1) * mb]
                                            for k, x in batch.items()})
             for d, m in shards:
-                for n in acc[d][m]:
-                    acc[d][m][n] = acc[d][m][n] + g[d][m][n]
-            tot = tot + t
+                with count.at((d, m)):
+                    for n in acc[d][m]:
+                        acc[d][m][n] = acc[d][m][n] + g[d][m][n]
+            tot = tot + t if t is not None else tot
         reduce(acc)
-        grads = [[{n: g / num_microbatches for n, g in shard.items()}
-                  for shard in row] for row in acc]
+        grads = [[{} for _ in row] for row in acc]
+        for d, m in shards:
+            with count.at((d, m)):
+                grads[d][m] = {n: g / num_microbatches
+                               for n, g in acc[d][m].items()}
         return tot / num_microbatches, mets, grads
 
     def train_step(state, batch):
         params, opt = wrap(state["params"]), wrap(state["opt"])
+        if plan is not None:
+            plan.tag_state(params)
+            plan.tag_state(opt)
         total, mets, grads = compute_grads(params, batch)
         comp_state = state.get("grad_comp")
         if grad_transform is not None:
             grads, comp_state = grad_transform(unwrap(grads), comp_state)
             grads = wrap(grads)
-        gnorm = norm(grads)
+        gnorms = norm(grads)
+        lr = None
         for d, m in shards:
-            _, opt[d][m], opt_mets = adamw_update(
-                params[d][m], grads[d][m], opt[d][m], oc,
-                gnorm=gnorm.to(opt[d][m]["step"].device))
-            if (d, m) == (0, 0):
+            with count.at((d, m)):
+                _, opt[d][m], opt_mets = adamw_update(
+                    params[d][m], grads[d][m], opt[d][m], oc,
+                    gnorm=gnorms[d][m].to(opt[d][m]["step"].device))
+            if lr is None:
                 lr = opt_mets["lr"]
+        gnorm = gnorms[shards[0][0]][shards[0][1]]
         new_state = {"params": unwrap(params), "opt": unwrap(opt)}
         if comp_state is not None:
             new_state["grad_comp"] = comp_state
@@ -178,20 +193,66 @@ def plan_grads(model: ShardedTrainModel, batch: dict,
     gradient}``), each copy of a replicated slice holding only what its
     own compute shards gave it (`TrainPlan.reduce_replicas` sums them).
     A slice no compute shard read (a replicated norm beside the one model
-    shard 0 uses) gets zeros."""
+    shard 0 uses) gets zeros.
+
+    Under a cost counter the gathers' backward adds each block's gradient
+    into the plan's buffer (`train.sharding._Gather`), and each gradient
+    is marked as its position's. A one-position count
+    (``count_positions``) starts the backward where each position's work
+    leaves it: the loss at (0, 0); the loss and MoE-statistics sums a
+    data shard's model shard 0 hands on; the last tensor-parallel sum of
+    any other model shard; each with a ``meta`` stand-in gradient."""
     plan = model.plan
-    loss, aux = model.loss(batch, cross_entropy, backend)
-    total = loss + AUX_LOSS_WEIGHT * aux
+    counting = count.active() is not None
+    # under a counter every remat segment recomputes whole (the flag is
+    # taken when the segment runs forward), so that each position's
+    # recompute is the same whichever positions run
+    with set_checkpoint_early_stop(not counting):
+        loss, aux = model.loss(batch, cross_entropy, backend)
+    total = None
+    if loss is not None:
+        with count.at((0, 0)):
+            total = loss + AUX_LOSS_WEIGHT * aux
     # one backward thread: with shards on distinct cards the engine would
     # run each card's nodes on a thread of its own, and two of them would
     # unpack one remat segment's saved tensors at once (the segment spans
     # a row's cards; `torch.utils.checkpoint` recomputes it unlocked)
-    with torch.autograd.set_multithreading_enabled(False):
-        gs = iter(torch.autograd.grad(total, model.leaves(),
-                                      allow_unused=True,
-                                      materialize_grads=True))
-    grads = [[{n: next(gs) for n in model.shards[d][m]}
-              for m in range(plan.tp)] for d in range(plan.dp)]
+    if not counting:
+        with torch.autograd.set_multithreading_enabled(False):
+            gs = iter(torch.autograd.grad(total, model.leaves(),
+                                          allow_unused=True,
+                                          materialize_grads=True))
+        grads = [[{n: next(gs) for n in model.shards[d][m]}
+                  for m in range(plan.tp)] for d in range(plan.dp)]
+        return total.detach(), {"loss": loss.detach(),
+                                "aux_loss": aux.detach()}, grads
+    roots, outs = ([total], [None]) if total is not None else ([], [])
+    inputs = model.leaves()
+    if plan.stand_in:
+        for kind, t in model._roots:
+            if kind == "input":
+                inputs.append(t)
+            elif t.requires_grad:
+                roots.append(t)
+                with count.hidden():
+                    outs.append(torch.empty_like(t))
+    plan.grad_buffer = {p: {} for p in plan.shards}
+    try:
+        with torch.autograd.set_multithreading_enabled(False):
+            if roots:
+                torch.autograd.grad(roots, inputs, outs, allow_unused=True)
+        buf = plan.grad_buffer
+    finally:
+        plan.grad_buffer = None
+    grads = [[{} for _ in range(plan.tp)] for _ in range(plan.dp)]
+    for d, m in plan.shards:
+        with count.hidden():
+            grads[d][m] = {n: buf[(d, m)].get(n) if buf[(d, m)].get(n)
+                           is not None else torch.zeros_like(t)
+                           for n, t in model.shards[d][m].items()}
+        count.tag(grads[d][m], (d, m))
+    if total is None:
+        return None, {"loss": None, "aux_loss": None}, grads
     return total.detach(), {"loss": loss.detach(),
                             "aux_loss": aux.detach()}, grads
 

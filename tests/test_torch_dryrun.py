@@ -6,11 +6,12 @@ serving step functions on the CPU:
   "ok" with positive counts and the record's keys, counted on ``meta``;
 - one full-width cell (starcoder2-7b ``train_4k``) counts in seconds
   (under `FULL_CELL_S`), its flash entries 32 layers x 2 (remat);
-- the flags that need a mesh raise `SystemExit` naming ROADMAP Queue 1
-  item 6; the records go under experiments/dryrun_torch/ and the corpus
-  under experiments/napel_corpus_torch/, never the reference's
-  directories;
-- the report renders over written records; `variant_delta` raises;
+- malformed mesh flags and unknown variants raise `SystemExit`, and a
+  variant needs a mesh; the records go under experiments/dryrun_torch/
+  and the corpus under experiments/napel_corpus_torch/, never the
+  reference's directories;
+- the report renders over written records; `variant_delta` gives {}
+  without a variant's record;
 - `top_bytes_ops` ranks rows whose bytes sum to the counter's
   ``bytes_accessed`` exactly (its top rows within it);
 - `make_prefill_step` / `make_decode_step` give the reference's tokens on
@@ -87,13 +88,20 @@ def test_full_width_cell_counts_in_seconds(tmp_path):
                            out_dir=tmp_path) == rec
 
 
-@pytest.mark.parametrize("argv", [
-    ["--all", "--multi-pod"], ["--all", "--both-meshes"],
-    ["--all", "--mesh", "16x16"], ["--all", "--variant", "ssm_bf16"],
-    ["--arch", "starcoder2-7b", "--shape", "train_4k", "--mesh", "2x2"]])
-def test_flags_that_need_a_mesh_raise(argv):
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+@pytest.mark.parametrize("argv,match", [
+    (["--all", "--mesh", "16by16"], "DxM"),
+    (["--all", "--mesh", "0x4"], "DxM"),
+    (["--all", "--variant", "ssm_bf17"], "unknown variant"),
+    (["--arch", "starcoder2-7b", "--shape", "train_4k", "--mesh", "2x2x2x2"],
+     "DxM")])
+def test_flags_that_need_a_mesh_raise(argv, match):
+    """The mesh flags are the reference's and run (tests/test_torch_dryrun_
+    mesh.py); a malformed mesh or an unknown variant raises before any
+    cell is counted, and a variant on one device raises too."""
+    with pytest.raises(SystemExit, match=match):
         dryrun.main(argv)
+    with pytest.raises(SystemExit, match="--variant counts a plan"):
+        dryrun.run_cell("starcoder2-7b", "train_4k", variant="no_remat")
 
 
 def test_records_go_to_the_port_directories():
@@ -104,8 +112,8 @@ def test_records_go_to_the_port_directories():
                                             "napel_corpus_torch")
     root = Path(__file__).resolve().parents[1]
     assert dryrun.OUT_DIR.parent == root / "experiments"
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
-        corpus.main(["--mesh", "8x8"])
+    with pytest.raises(SystemExit, match="DxM"):
+        corpus.main(["--mesh", "eight"])
 
 
 def test_report_renders(tmp_path):
@@ -122,8 +130,8 @@ def test_report_renders(tmp_path):
     runs = report.dryrun_table(dryrun_dir=tmp_path)
     assert "flash_attention:2" in runs and "broken" not in runs
     assert len(report.load(dryrun_dir=tmp_path)) == 4
-    with pytest.raises(NotImplementedError, match="variants"):
-        report.variant_delta("starcoder2-7b", "train_s", "x")
+    assert report.variant_delta("starcoder2-7b", "train_s", "x",
+                                dryrun_dir=tmp_path) == {}
 
 
 def test_top_bytes_ops_sum_to_the_total():

@@ -150,10 +150,12 @@ def test_training_plan_state_sizes(arch, layers, gb_2x2, gb_1x1):
     assert round(two.bytes_per_device / 1e9, 2) == gb_2x2
     assert round(one.bytes_per_device / 1e9, 2) == gb_1x1
     assert two.ok and one.ok == (one.bytes_per_device <= HBM_BYTES)
-    # recurrentgemma-2b's 10 heads do not split over 4 model shards
+    # recurrentgemma-2b's 10 heads do not split over 4 model shards: the
+    # plan runs its attention whole on each, and the verdict is memory's
+    # alone, as the reference's
     four = plan_rescale(cfg, oc, make_abstract_mesh((1, 4), ("data",
                                                             "model")))
-    assert four.ok == (arch != "recurrentgemma-2b")
+    assert four.ok and not four.reasons
 
 
 def test_abstract_state_and_batch_on_a_mesh():

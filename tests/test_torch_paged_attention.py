@@ -177,6 +177,19 @@ ROOT = Path(__file__).resolve().parents[1]
 SMS = 132                        # the H100's SMs, for `split_plan`
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations' products are small (64 x 128 x 64): torch's intra-op
+    threads gain nothing on them, and beside other test workers on the
+    same cores they cost a hundred times the arithmetic (one seed of
+    `test_two_bf16_pieces_are_not_enough`: 129.5 s at the default thread
+    count, 1.4 s at one, beside a loaded machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def chip_smoke():
     """`chip_smoke.py` as a module (its helpers run on any device)."""

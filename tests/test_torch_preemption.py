@@ -626,11 +626,74 @@ def test_trace_replay_matches_reference(params, name):
         assert s["n_cancelled"] > 0
 
 
-def test_overload_trace_every_request_terminates(params):
+def test_zero_byte_preemption_matches_reference(params):
+    """A preemption whose victim holds nothing private swaps 0 bytes, in
+    both packages: the overload mix's seed 18 on the fake clock preempts
+    a request whose prompt pages the radix tree pins and whose tail is
+    empty (or that has run no chunk yet). Every verdict, token, stat and
+    swap byte equal."""
+    spec = MIXES["overload"].override(n_requests=10, seed=18)
+    got = both(params, lambda side, p: _replay(side, p, spec))
+    assert got["preemptions"] > 0
+    assert got["pool"]["swap_out_bytes"] == 0
+    assert got["closed_live"] == 0
+
+
+def _held_alone(state, seq) -> int:
+    """Bytes sequence `seq` holds that no other live holder does: its tail
+    rows, its recurrent blocks, and its device-resident pages held by it
+    alone — a shared page only when every holder is parked and no other
+    pin covers it (`PagedKVPool.swap_out_seq`'s rule)."""
+    total = 0
+    n = state.tail_len.get(seq, 0)
+    if n and seq in state._tail_slot:
+        k_all, v_all = state._device.read_slot(state._tail_slot[seq])
+        total += k_all[:, :n].nbytes + v_all[:, :n].nbytes
+    if state._rec is not None and seq in state._rec_slot:
+        total += sum(v.nbytes for v in
+                     state._rec.read_slot(state._rec_slot[seq]).values())
+    pool = state.pool
+    holders: dict = {}
+    for (s, _l), pids in pool._by_seq.items():
+        for pid in pids:
+            holders.setdefault(pid, []).append(s)
+    parked = pool._parked | {seq}
+    seen = set()
+    for (s, _l), pids in pool._by_seq.items():
+        if s != seq:
+            continue
+        for pid in pids:
+            page = pool.pages[pid]
+            if pid in seen or page.tier == "host":
+                continue
+            seen.add(pid)
+            held = holders[pid]
+            if page.refs == 1 or (page.refs == len(held)
+                                  and all(h in parked for h in held)):
+                total += page.nbytes
+    return total
+
+
+def test_overload_trace_every_request_terminates(params, monkeypatch):
     """The reference test's run: the async front end, wall-clock
-    arrivals and deadlines. Outcomes vary with timing, so the check is
-    the accounting, as there."""
+    arrivals and deadlines. Outcomes vary with timing, so the checks hold
+    for any: the accounting, as there, and each preemption's swapped
+    bytes equal to what its victim held alone (the reference's ``bytes >
+    0`` fails on a victim that holds nothing private:
+    `test_zero_byte_preemption_matches_reference`)."""
+    from repro_torch.serve.paged_decode import PagedKVState
     from repro_torch.serve.traffic import run_trace
+    swaps = []
+    swap_out = PagedKVState.swap_out
+
+    def checked(self, seq):
+        want = _held_alone(self, seq)
+        before = self.pool.stats["swap_out_bytes"]
+        out = swap_out(self, seq)
+        swaps.append((want, self.pool.stats["swap_out_bytes"] - before))
+        return out
+
+    monkeypatch.setattr(PagedKVState, "swap_out", checked)
     eng = _engine(SIDES["port"], params)
     pool = eng.kv_pool
     spec = MIXES["overload"].override(n_requests=10)
@@ -640,8 +703,10 @@ def test_overload_trace_every_request_terminates(params):
     assert accounted == out["n_trace"]           # nothing lost or stalled
     assert out["slo_attainment"] is not None     # deadlines were in play
     assert pool.live_pages == 0
+    assert len(swaps) == out["preemptions"]
+    assert all(got == want for want, got in swaps), swaps
+    assert out["swap_out_bytes"] == sum(got for _, got in swaps)
     if out["preemptions"]:
-        assert out["swap_out_bytes"] > 0
         assert out["n_resumed"] + out["n_errors"] + out["n_cancelled"] > 0
 
 

@@ -204,11 +204,11 @@ def test_sampling_is_seeded(params):
 
 
 def test_unported_options_raise(params):
-    """What is still unported raises: the eager/numpy decode modes. Mesh
-    serving decodes from a page pool (`ValueError` without one). Without
-    a page pool `generate` takes the dense-cache path (the reference's
-    tokens), while `serve()` needs the pool and raises `ValueError`, as
-    the reference does."""
+    """What is still unported raises: the eager/numpy decode modes.
+    Without a page pool `generate` takes the dense-cache path (the
+    reference's tokens), on one device and over a mesh's plan alike,
+    while `serve()` needs the pool and raises `ValueError`, as the
+    reference does."""
     from repro_torch.launch.mesh import make_serve_mesh
     jparams, state = params
     cfg = smoke_config(ARCH)
@@ -216,15 +216,16 @@ def test_unported_options_raise(params):
     for kw in ({"decode_mode": "eager"}, {"decode_mode": "numpy"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
-    with pytest.raises(ValueError, match="kv_pool"):
-        ServeEngine(cfg, params=state, device="cpu",
-                    mesh=make_serve_mesh(1, 2, devices=["cpu"] * 2))
-    _assert_same(JaxEngine(jax_smoke(ARCH), params=jparams)
-                 .generate(_reqs(JaxRequest)),
-                 ServeEngine(cfg, params=state, device="cpu")
+    want = JaxEngine(jax_smoke(ARCH), params=jparams) \
+        .generate(_reqs(JaxRequest))
+    on_mesh = ServeEngine(cfg, params=state, device="cpu",
+                          mesh=make_serve_mesh(1, 2, devices=["cpu"] * 2))
+    _assert_same(want, on_mesh.generate(_reqs(Request)))
+    _assert_same(want, ServeEngine(cfg, params=state, device="cpu")
                  .generate(_reqs(Request)))
-    with pytest.raises(ValueError, match="kv_pool"):
-        ServeEngine(cfg, params=state, device="cpu").serve(_reqs(Request))
+    for eng in (on_mesh, ServeEngine(cfg, params=state, device="cpu")):
+        with pytest.raises(ValueError, match="kv_pool"):
+            eng.serve(_reqs(Request))
     assert len(pool.pages) == 0
 
 

@@ -216,12 +216,59 @@ def test_ssm_prefill_and_step_match_jax(layer, s_len):
                                rtol=0)
 
 
-def test_bf16_intra_is_not_ported(layer):
-    _, _, cfg, tp = layer
+@pytest.mark.parametrize("s_len", [7, 32])
+def test_bf16_intra_is_not_ported(layer, s_len):
+    """``ssm_bf16_intra`` (once refused, now the reference's rounding): the
+    mixer's prefill with the flag against the JAX mixer's at lengths one
+    chunk holds on both sides (the JAX mixer chunks by the config's 32,
+    the port's plain scan by 256), at the fp32 tolerance; the flag moves
+    y by more than that."""
+    jcfg, jp, cfg, tp = layer
+    jcfg = dataclasses.replace(jcfg, ssm_bf16_intra=True)
     cfg = dataclasses.replace(cfg, ssm_bf16_intra=True)
-    with pytest.raises(NotImplementedError, match="ssm_bf16_intra"):
-        ssm.ssm_apply(cfg, tp, torch.zeros(1, 4, cfg.d_model),
-                      mode="prefill")
+    x = np.random.default_rng(s_len).normal(
+        size=(2, s_len, cfg.d_model)).astype(np.float32)
+    want, _ = jssm.ssm_apply(jcfg, jp, jnp.asarray(x), mode="prefill")
+    got, _ = ssm.ssm_apply(cfg, tp, torch.from_numpy(x), mode="prefill")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    fp32, _ = ssm.ssm_apply(dataclasses.replace(cfg, ssm_bf16_intra=False),
+                            tp, torch.from_numpy(x), mode="prefill")
+    assert float((fp32 - got).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+def test_bf16_intra_plain_matches_reference_chunked(chunk):
+    """`ref.ssd_chunked(bf16_intra=True)` against the reference model's
+    ``ssd_chunked(bf16_intra=True)`` on the spec's inputs, both at the
+    same chunk. The rounding is the same (scores and x to bf16, the sum
+    fp32), but a score whose two fp32 values (each side's exp and sums)
+    straddle a bf16 rounding boundary rounds one bf16 step apart: so y
+    within 2^-8 of max |y| (one such step of the largest term), and past
+    the fp32 tolerance in under 1% of its elements (0.11% at chunk
+    256); the final state, which the flag does not round, at the fp32
+    tolerance."""
+    (x, b, c, dt, a), _ = _inputs({"B": 2, "S": 256, "H": 4, "P": 16,
+                                   "G": 2, "N": 16})
+    want_y, want_h = jssm.ssd_chunked(
+        *(jnp.asarray(t.numpy()) for t in (x, b, c, dt, a)), chunk=chunk,
+        bf16_intra=True)
+    got_y, got_h = ref.ssd_chunked(x, b, c, dt, a, chunk=chunk,
+                                   bf16_intra=True)
+    err = np.abs(got_y.numpy() - np.asarray(want_y))
+    assert err.max() <= 2.0 ** -8 * np.abs(np.asarray(want_y)).max()
+    assert (err > 1e-4).mean() < 0.01
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-4,
+                               rtol=1e-4)
+    plain_y, _ = ref.ssd_chunked(x, b, c, dt, a, chunk=chunk)
+    assert float((plain_y - got_y).abs().max()) > 1e-4
+    # the spec's work moves the scores times x to the bf16 class
+    from repro_torch.kernels.ssd_scan.spec import work
+    w0, w1 = work(x, b, c, dt, a), work(x, b, c, dt, a, bf16_intra=True)
+    assert w1["bytes"] == w0["bytes"]
+    assert sum(w1["flops"].values()) == sum(w0["flops"].values())
+    assert w1["flops"]["bf16"] > 0 and w1["flops"]["fp32"] < \
+        w0["flops"]["fp32"]
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,10 @@ CPU (``make_serve_mesh(d, m, devices=["cpu"] * n)``):
   embedding families at 1x2 against their 1x1 trainer step;
 - deliberately broken variants: the other microbatch order (data shards
   first) and a per-shard compression scale land outside the limits;
-- refusals: MLA, heads the model axis does not divide, a model row that
-  mixes shared and distinct devices, a batch that does not split, a
-  `Model` given a mesh;
+- MLA and heads the model axis does not divide lay out (their training
+  is `test_torch_plan_layouts.py`'s); refusals: a mesh axis the plan
+  does not lay shards over, a model row that mixes shared and distinct
+  devices, a batch that does not split, a `Model` given a mesh;
 - the seam over distinct cards (`AllReduceSum`) with its collective
   emulated on the CPU: values and gradients equal the in-order sum's.
 
@@ -422,13 +423,18 @@ def test_seam_over_distinct_cards_is_differentiable(monkeypatch):
 
 
 def test_plans_refuse():
-    """MLA has no per-shard training body; heads must divide the model
-    axis; a model row is one device or distinct ones; the batch must
-    split over data shards x microbatches; a `Model` needs its plan."""
-    with pytest.raises(NotImplementedError, match="6d"):
-        TrainPlan(cpu_mesh(1, 2), smoke_config("minicpm3-4b"))
-    with pytest.raises(ValueError, match="num_heads"):
-        TrainPlan(cpu_mesh(1, 3), smoke_config("starcoder2-7b"))
+    """Every config lays out on a ("data", "model") mesh (MLA, heads the
+    model axis does not divide), as GSPMD lays out the reference's; other
+    mesh axes refuse; a model row is one device or distinct ones; the
+    batch must split over data shards x microbatches; a `Model` needs its
+    plan."""
+    TrainPlan(cpu_mesh(1, 2), smoke_config("minicpm3-4b"))
+    plan = TrainPlan(cpu_mesh(1, 3), smoke_config("starcoder2-7b"))
+    assert "attn" in plan.serve.whole_sublayers(plan.cfg)
+    from repro_torch.launch.mesh import make_abstract_mesh
+    with pytest.raises(ValueError, match="lays shards over"):
+        TrainPlan(make_abstract_mesh((2, 2), ("data", "expert")),
+                  smoke_config("starcoder2-7b"))
     from repro_torch.launch.mesh import Mesh
     mixed = np.empty((1, 3), dtype=object)
     mixed[0] = [torch.device("cpu"), torch.device("cpu"),
