@@ -61,7 +61,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    generate prefills' shapes the kernel before the redesign (simt,
    serial) and the new route run in 10 alternating pairs. Times kernel,
    plain version and one PyTorch call (``scaled_dot_product_attention``;
-   none computes either scan) in alternation within one run.
+   none computes either scan) in alternation within one run. Then the
+   tile sweeps (`tile_sweeps`): every tile of the paged, flash, SSD and
+   RG-LRU tune spaces at shapes the phase times, held to the phase's
+   limit, the broken variants over it at each tile, each tile timed
+   beside the knee, the fastest tile and the launch before tiles.
 3. exact   — starcoder2-7b at full width, 2 layers, fp32, seeded weights:
    identical greedy tokens with the kernels and with the plain versions
    for ``generate``, monolithic ``serve``, the default chunked + radix
@@ -73,7 +77,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``generate``, the default ``serve`` and k = 4 ``serve``, and the
    reference's swap protocol (the sequence parked at decode step 6, its
    recurrent slot and ring pages restored) giving the uninterrupted
-   stream.
+   stream; the ``eager`` and ``numpy`` decode modes' fp32 tokens equal
+   the ``fused`` step's for ``generate`` and ``serve`` (`exact_modes`).
 4. serve   — the main path: starcoder2-7b, all 32 layers, bf16, seeded
    weights made on the card, a 128-token page pool with every other page
    in the int8 tier; ``serve`` 5 requests (prompts 120..600, 32 new
@@ -84,7 +89,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    paged launch on the split route. Then 16 decode steps of the same
    model (2 rows, 500-token context) timed bare and under
    ``torch.profiler``: device busy share, kernels per step, the largest
-   kernels.
+   kernels. Then the three decode modes in turns (`serve_modes`), the
+   profile at the knee and at the launch before tiles in the order knee,
+   fixed, fixed, knee, and the knee cache's round trip
+   (`knee_round_trip`).
 5. chunked — the default ``serve`` path (chunked prefill + radix prefix
    cache) on 6 prompts sharing a 512-token head: prefix hit rate, chunk
    and decode step times, time to first token, an empty pool after
@@ -312,7 +320,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    then NCCL all-reduces), else every position on cuda:0; the rows say
    which.
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+Then the ``knees`` line (`knee_audit`: every knee the main path
+resolved, beside the launch before tiles, timed where no sweep confirmed
+it), the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -678,8 +688,9 @@ def scan_ptxas(build) -> dict:
     for fn in re.findall(r"C7519\).*in function '([^']+)'", logs["ssd_scan"]):
         entry = out["ssd_scan"].setdefault(fn, {})
         entry["wgmma_arrives_added"] = entry.get("wgmma_arrives_added", 0) + 1
-    out["ssd_wgmma_scan_smem"] = {f"N={n}": _lib().ssd_scan_wgmma_smem(n)
-                                  for n in (128, 64)}
+    out["ssd_wgmma_scan_smem"] = {
+        f"N={n} chunk={q}": _lib().ssd_scan_wgmma_smem(n, q)
+        for n in (128, 64) for q in (128, 64)}
     return out
 
 
@@ -861,14 +872,15 @@ def paged_tc_products(args, layer, rows: int):
 PAGED_FAULTS = ("k_one_piece", "drop_last_split", "no_int8_scale")
 
 
-def paged_variant(args, layer, rows: int = 1, *, fault):
+def paged_variant(args, layer, rows: int = 1, *, fault,
+                  pages_per_block: int = 0):
     """The plain version broken on purpose, to show that
     `same_input_limit` tells a right paged kernel from a wrong one:
     "k_one_piece" rounds K's float tier to bf16 once (the wgmma route with
     one piece of K), "drop_last_split" leaves out each sequence's
-    positions from the start of the split (`split_plan`) that holds its
-    last row's last position, "no_int8_scale" reads the int8 tier of K
-    without its scale."""
+    positions from the start of the split (`split_plan` at
+    ``pages_per_block``) that holds its last row's last position,
+    "no_int8_scale" reads the int8 tier of K without its scale."""
     from repro_torch.kernels.paged_attention.paged_attention import (
         _sm_count, split_plan)
     from repro_torch.kernels.paged_attention.ref import dequantize_pool
@@ -891,7 +903,8 @@ def paged_variant(args, layer, rows: int = 1, *, fault):
     limit = lens.long()[:, None] + torch.arange(rows, device=q.device)
     ok = pos[None, None, :] < limit[..., None]              # (b, rows, S)
     if fault == "drop_last_split":
-        _, chunk = split_plan(b, hkv, span, d, _sm_count(q.device.index))
+        _, chunk = split_plan(b, hkv, span, d, _sm_count(q.device.index),
+                              page_tokens=t, pages_per_block=pages_per_block)
         last = (lens.long() + rows - 2) // chunk * chunk    # (b,)
         ok &= (pos[None, :] < last[:, None])[:, None, :] | (last == 0)[
             :, None, None]
@@ -1277,12 +1290,13 @@ def route_taken(kernel: str, fn) -> str:
 FLASH_FAULTS = ("bf16_p", "drop_last_tile")
 
 
-def flash_variant(q, k, v, *, causal=True, window=0, fault):
+def flash_variant(q, k, v, *, causal=True, window=0, fault,
+                  block_k: int = 128):
     """The plain version broken on purpose, to show that
     `same_input_limit` tells a right flash kernel from a wrong one:
     "bf16_p" rounds P to bf16 once before P V (the JAX model's
     `attention_core` form; l stays the fp32 sum), "drop_last_tile" leaves
-    out the keys of the last 128-key tile."""
+    out the keys of the last `block_k`-key tile."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d).float() * (1.0 / math.sqrt(d))
@@ -1295,7 +1309,7 @@ def flash_variant(q, k, v, *, causal=True, window=0, fault):
     if window:
         ok &= k_pos > q_pos - window
     if fault == "drop_last_tile":
-        ok &= k_pos < (skv - 1) // 128 * 128
+        ok &= k_pos < (skv - 1) // block_k * block_k
     s = torch.where(ok, s, -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1)
@@ -1378,7 +1392,7 @@ def flash_before_after(q, k, v, label, pairs: int = 10, **kw) -> dict:
     wgmma route, `pairs` pairs of `device_ms`, alternating which runs
     first. Launched through the library directly, so no launch counts."""
     from repro_torch.kernels.flash_attention.flash_attention import \
-        LOG2E, _lib
+        LOG2E, _lib, fixed_tile
     lib = _lib()
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -1395,7 +1409,8 @@ def flash_before_after(q, k, v, label, pairs: int = 10, **kw) -> dict:
 
     def wgmma():
         if lib.flash_attention_wgmma_launch(
-                *args, scale * LOG2E, torch.cuda.current_stream().cuda_stream):
+                *args, scale * LOG2E, *fixed_tile(d).values(),
+                torch.cuda.current_stream().cuda_stream):
             raise RuntimeError("wgmma launch failed")
 
     times = {"simt": [], "wgmma": []}
@@ -1439,7 +1454,294 @@ def phase_kernel() -> dict:
     full.update(flash_full_width(gen))
     full.update(scan_kernels())
     torch.cuda.empty_cache()
+    tile_sweeps(gen)
+    torch.cuda.empty_cache()
     return full
+
+
+# the launch each kernel took before its tile could be chosen (the
+# wrappers' defaults: ``backend="cuda"`` with no tile)
+def tile_sweep(label, kernel, args, kw=None, check=ulp_check,
+               rule=ULP_RULE, broken=None) -> dict:
+    """Every tile of `kernel`'s tune space at these inputs: a tile the
+    spec's cost model calls unlaunchable must be refused before any
+    launch; every other one is launched (``backend="cuda"``), held to the
+    plain version by `check` (the phase's limit for the row) and timed by
+    `device_ms`, beside the model's estimate. ``broken(tile, want)``
+    gives the broken variants' error over the limit at that tile (None
+    where a variant does not apply); each must exceed 1. Then the knee
+    (`api.resolve_tile`, the model's choice), the fastest tile, the launch
+    before tiles (``spec.fixed_tile``) and their ratios, and the rank
+    correlation of estimate and measurement."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import api, registry
+    kw = kw or {}
+    spec = registry.get(kernel)
+    grid = tuple(int(n) for n in spec.grid_of(*args))
+    dtype = str(args[0].dtype).removeprefix("torch.")
+    SWEPT.add((kernel, grid, dtype))
+    want = api.run(kernel, *args, backend="ref", **kw)
+    rows = []
+    for tile, cost in autotune.space_costs(spec, grid, dtype):
+        def fn(t=tile):
+            return api.run(kernel, *args, backend="cuda", tile=t, **kw)
+        if cost is None:
+            try:
+                fn()
+            except ValueError:
+                rows.append({"tile": tile, "launchable": False})
+                continue
+            raise AssertionError(f"{label}: {tile} launched, but the cost "
+                                 f"model calls it unlaunchable")
+        got = fn()
+        torch.cuda.synchronize()
+        err, _, over = check(got, want)
+        del got
+        if not over <= 1.0:
+            raise AssertionError(f"{label} at {tile}: error {err}, {over:.2f}"
+                                 f"x the limit ({rule})")
+        row = {"tile": tile, "launchable": True, "smem": cost[0],
+               "est_ms": cost[1] * 1e3, "max_err_over_limit": over}
+        if broken is not None:
+            faults = {f: v for f, v in broken(tile, want).items()
+                      if v is not None}
+            if any(not v > 1.0 for v in faults.values()):
+                raise AssertionError(f"{label} at {tile}: a broken variant "
+                                     f"passes the limit: {faults}")
+            row["broken_over_limit"] = faults
+        row["device_ms"] = device_ms(fn)
+        rows.append(row)
+    ok = [r for r in rows if r["launchable"]]
+    knee = api.resolve_tile(kernel, args)
+    fixed = spec.fixed_tile(grid)
+    by_tile = {tuple(sorted(r["tile"].items())): r for r in ok}
+    knee_row = by_tile[tuple(sorted(knee.items()))]
+    fixed_row = by_tile[tuple(sorted(fixed.items()))]
+    fastest = min(ok, key=lambda r: r["device_ms"])
+    out = {"phase": "kernel", "case": f"{label}: tile sweep",
+           "kernel": kernel, "grid": list(grid), "dtype": dtype,
+           "tol_rule": rule, "tiles": rows, "knee": knee,
+           "knee_ms": knee_row["device_ms"], "fastest": fastest["tile"],
+           "fastest_ms": fastest["device_ms"],
+           "knee_over_fastest": knee_row["device_ms"] / fastest["device_ms"],
+           "fixed": fixed, "fixed_ms": fixed_row["device_ms"],
+           "knee_over_fixed": knee_row["device_ms"] / fixed_row["device_ms"],
+           "est_vs_ms_rank_corr": spearman(
+               [r["est_ms"] for r in ok], [r["device_ms"] for r in ok])
+           if len(ok) > 2 else None,
+           "timing": "device_ms: 20 calls queued behind a sleep, median of "
+                     "5"}
+    emit(out)
+    return out
+
+
+# (kernel, grid, dtype) of every tile sweep, and every knee of the
+# serving and prefill kernels that `api.resolve_tile` gave after the
+# kernel phase (`keep_knees`); the stencils' knees are the stencil
+# phase's, which sweeps every tile at the grid its main path runs
+SWEPT: set = set()
+MAIN_KNEES: dict = {}
+AUDITED = ("paged_attention", "flash_attention", "ssd_scan", "rglru_scan")
+
+
+def keep_knees():
+    """From here on keep every knee `api.resolve_tile` gives a kernel of
+    `AUDITED` in `MAIN_KNEES`, keyed as the knee cache keys it: the
+    launch shapes the main path took at ``backend="auto"`` (the paged
+    step's, once a step; each flash, SSD and RG-LRU call's)."""
+    from repro_torch.kernels import api
+    resolve = api.resolve_tile
+
+    def kept(kernel, args):
+        tile = resolve(kernel, args)
+        spec = api.as_spec(kernel)
+        if spec.name in AUDITED:
+            MAIN_KNEES[(spec.name, tuple(int(n) for n in spec.grid_of(
+                *args)), str(args[0].dtype).removeprefix("torch."))] = tile
+        return tile
+    api.resolve_tile = kept
+
+
+def _grid_inputs(gen, kernel, grid, dtype) -> tuple:
+    """(args, kw) of a call at a knee's grid, made on the card: paged
+    attention with every sequence at the table's capacity (what the cost
+    model sees), flash attention causal, the scans as the kernel phase
+    makes them."""
+    dt = DTYPES[dtype]
+    if kernel == "paged_attention":
+        b, t, slots, hq, hkv, d, k = grid
+        args = decode_inputs(gen, b=b, hq=hq, hkv=hkv, d=d, t=t,
+                             n_layers=1, lengths=[slots * t - k + 1] * b,
+                             dead=[], q_dtype=dt, rows=k)
+        return args + [0], {}
+    if kernel == "flash_attention":
+        b, sq, skv, hq, hkv, d = grid
+        return flash_inputs(gen, b=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d,
+                            dtype=dt), {"causal": True}
+    if kernel == "ssd_scan":
+        return ssd_inputs(dict(zip(("B", "S", "H", "P", "G", "N"), grid)),
+                          dt, seed=grid[1]), {}
+    a = torch.rand(grid, generator=gen, device="cuda") * 0.149 + 0.85
+    return [a, torch.randn(grid, generator=gen, device="cuda") * 0.1], {}
+
+
+def knee_audit(smi: str) -> dict:
+    """Every knee the main path resolved (`MAIN_KNEES`) beside the launch
+    before tiles: a grid the kernel phase swept (`SWEPT`: every tile
+    held and timed there); the launch before tiles; a route that reads
+    no tile (the cost model flat in it); else the model's word only, and
+    then the knee and the launch before tiles are both timed by
+    `device_ms` on inputs made at that grid (`_grid_inputs`). These
+    launches are not the main path's and count nowhere; the replays of
+    the recorded launches held each main-path launch at its tile."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import api
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    for (kernel, grid, dtype), knee in sorted(MAIN_KNEES.items(),
+                                              key=lambda kv: str(kv[0])):
+        fixed = api.as_spec(kernel).fixed_tile(grid)
+        row = {"kernel": kernel, "grid": list(grid), "dtype": dtype,
+               "knee": knee, "fixed": fixed, "confirmed_by": None}
+        costs = {c[1] for _, c in autotune.space_costs(
+            api.as_spec(kernel), grid, dtype) if c is not None}
+        if (kernel, grid, dtype) in SWEPT:
+            row["confirmed_by"] = "the kernel phase's sweep"
+        elif len(costs) <= 1:
+            row["confirmed_by"] = "a route that reads no tile"
+        elif knee == fixed:
+            row["confirmed_by"] = "the launch before tiles"
+        else:
+            args, kw = _grid_inputs(gen, kernel, grid, dtype)
+            for name, tile in (("knee", knee), ("fixed", fixed)):
+                row[f"{name}_ms"] = device_ms(
+                    lambda t=tile: api.run(kernel, *args,  # noqa: B023
+                                           backend="cuda", tile=t, **kw))
+            row["knee_over_fixed"] = row["knee_ms"] / row["fixed_ms"]
+            del args
+        rows.append(row)
+    torch.cuda.empty_cache()
+    by: dict = {}
+    for r in rows:
+        key = r["confirmed_by"] or "the model's word only (timed here)"
+        by[key] = by.get(key, 0) + 1
+    out = {"phase": "knees", "nvidia_smi": smi,
+           "resolved_on_the_main_path": len(rows), "by": by,
+           "model_only": [r for r in rows if r["confirmed_by"] is None],
+           "timing": "device_ms: 20 calls queued behind a sleep, median of "
+                     "5", "rows": rows}
+    emit(out)
+    return out
+
+
+def tile_sweeps(gen) -> list:
+    """The tile sweep (`tile_sweep`) of each tunable serving and prefill
+    kernel at shapes the phase already times: paged attention's split
+    route in bf16 at starcoder2-7b's decode (k = 1 and the k = 4 verify,
+    b = 4) and at a 2x2 plan's shard (b = 1, 18 / 2 heads, 121
+    positions), the broken variant "drop_last_split" at each tile where
+    a row's positions cross into a second split; flash attention in bf16
+    at starcoder2-7b's s = 2048, 600 and 250 causal prefills,
+    musicgen-medium's d = 64 prefill (b = 2, s = 600, 24 heads) and
+    recurrentgemma-2b's windowed d = 256 prefill, "drop_last_tile" at each
+    tile's key-tile size; the SSD scan's wgmma route at mamba2-780m's B =
+    1, S = 2048 and B = 3, S = 1536 (`ssd_limit`; a chunk left out of the
+    state pass and the scores in one piece at each chunk); the RG-LRU
+    scan at B = 2, S = 2300 and B = 1, S = 2048, W = 2560 (2 ulps; the
+    dropped carry at each chunk, and the kernel equal to
+    `rglru_chunked_loop` at its chunk). The fp32 flash and paged rows
+    take routes that read no tile."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        _sm_count, split_plan)
+    out = []
+    layer = 17
+    for shape, rows in (
+            (dict(b=4, hq=36, hkv=4, d=128, t=128, n_layers=32,
+                  lengths=[2048, 700, 1, 1500], dead=[2]), 1),
+            (dict(b=4, hq=36, hkv=4, d=128, t=128, n_layers=32,
+                  lengths=[2048, 700, 1, 1500], dead=[2]), 4),
+            (dict(b=1, hq=18, hkv=2, d=128, t=128, n_layers=2,
+                  lengths=[121], dead=[]), 1)):
+        args = decode_inputs(gen, q_dtype=torch.bfloat16, rows=rows, **shape)
+        lay = layer if shape["n_layers"] > layer else 1
+        full = list(args) + [lay]
+        lens = args[8]
+        span = args[7].shape[1] * shape["t"]
+
+        def broken(tile, want, args=args, lay=lay, rows=rows, lens=lens,
+                   span=span, shape=shape):
+            splits, chunk = split_plan(
+                shape["b"], shape["hkv"], span, shape["d"],
+                _sm_count(args[0].device.index), page_tokens=shape["t"],
+                pages_per_block=tile["pages_per_block"])
+            applies = splits > 1 and int(lens.max()) + rows - 1 > chunk
+            return {"drop_last_split": ulp_check(paged_variant(
+                args, lay, rows, fault="drop_last_split",
+                pages_per_block=tile["pages_per_block"]), want)[2]
+                if applies else None}
+
+        out.append(tile_sweep(
+            f"paged_attention b={shape['b']} hq={shape['hq']} "
+            f"hkv={shape['hkv']} k={rows} bfloat16", "paged_attention",
+            full, broken=broken))
+        del args, full
+        torch.cuda.empty_cache()
+    for (b, sq, hq, hkv, d), kw in (((1, 2048, 36, 4, 128), {}),
+                                    ((1, 600, 36, 4, 128), {}),
+                                    ((1, 250, 36, 4, 128), {}),
+                                    ((2, 600, 24, 24, 64), {}),
+                                    ((2, 2300, 10, 1, 256), {"window": 2048})):
+        q, k, v = flash_inputs(gen, b=b, sq=sq, skv=sq, hq=hq, hkv=hkv, d=d,
+                               dtype=torch.bfloat16)
+
+        def broken(tile, want, q=q, k=k, v=v, kw=kw):
+            return {"drop_last_tile": ulp_check(flash_variant(
+                q, k, v, fault="drop_last_tile", block_k=tile["block_k"],
+                **kw), want)[2]}
+
+        out.append(tile_sweep(
+            f"flash_attention b={b} s={sq} hq={hq} hkv={hkv} d={d}"
+            f"{' window=' + str(kw['window']) if kw else ''} causal bfloat16",
+            "flash_attention", [q, k, v], kw=kw, broken=broken))
+        del q, k, v
+        torch.cuda.empty_cache()
+    mamba = dict(H=48, P=64, G=1, N=128)
+    for b, s_len in ((1, 2048), (3, 1536)):
+        args = ssd_inputs(dict(B=b, S=s_len, **mamba), torch.bfloat16,
+                          seed=s_len)
+
+        def broken(tile, want, args=args):
+            return {fault: over_ssd_limit(ssd_wgmma_loop(
+                *args, chunk=tile["chunk"], **extra), want)
+                for fault, extra in (
+                    ("skip_state_chunk", {"fault": "skip_state_chunk"}),
+                    ("one_piece_scores", {"score_pieces": 1}))}
+
+        out.append(tile_sweep(
+            f"ssd_scan mamba2-780m B={b} S={s_len} bfloat16", "ssd_scan",
+            args, check=ssd_check, rule=SSD_LIMIT_RULE, broken=broken))
+        del args
+        torch.cuda.empty_cache()
+    for b, s_len in ((2, 2300), (1, 2048)):
+        a = torch.rand(b, s_len, 2560, generator=gen, device="cuda") \
+            * 0.149 + 0.85
+        x = torch.randn(b, s_len, 2560, generator=gen, device="cuda") * 0.1
+
+        def broken(tile, want, a=a, x=x):
+            from repro_torch.kernels import api
+            loop = rglru_chunked_loop(a, x, chunk=tile["chunk"])
+            if not torch.equal(api.run("rglru_scan", a, x, backend="cuda",
+                                       tile=tile), loop):
+                raise AssertionError(f"rglru at {tile}: the kernel is not "
+                                     f"the chunked loop at its chunk")
+            return {"drop_carry": ulp_check(rglru_chunked_loop(
+                a, x, chunk=tile["chunk"], fault="drop_carry"), want)[2]}
+
+        out.append(tile_sweep(
+            f"rglru_scan recurrentgemma-2b B={b} S={s_len} W=2560 float32",
+            "rglru_scan", [a, x], broken=broken))
+        del a, x
+    return out
 
 
 def paged_full_width(gen) -> dict:
@@ -1947,7 +2249,65 @@ def phase_exact() -> dict:
     if not all(same.values()) or not outs["auto"]["prefix_hit_rate"]:
         raise AssertionError(f"kernel and plain tokens differ, or no prefix "
                              f"was adopted: {same}, {outs}")
-    return row, exact_preempt(cfg), exact_hybrid(), exact_hybrid_swap()
+    return row, exact_modes(cfg), exact_preempt(cfg), exact_hybrid(), \
+        exact_hybrid_swap()
+
+
+def exact_modes(cfg) -> dict:
+    """The reference's three decode modes at the phase's depth, fp32:
+    ``eager`` (each layer's rows back to the host, then into the device
+    pool; its kernel launched alone) and ``numpy`` (the pool assembled on
+    the host each step and uploaded for the call) give the ``fused``
+    step's greedy tokens for `generate` and for continuous `serve()` (one
+    prefill pass per prompt, the radix cache's pins on: the non-fused
+    modes' default); each decode step of every mode launches the paged
+    kernel once a layer (never its plain version); each mode's transfer
+    counts are printed."""
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_attention
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+    lengths, new = [70, 130, 200, 257], [9, 12, 15, 18]
+    v = cfg.vocab_size
+    outs, transfers, launches = {}, {}, {}
+    for mode in ("fused", "eager", "numpy"):
+        eng = ServeEngine(cfg, seed=0, decode_mode=mode, kv_pool=PagedKVPool(
+            page_tokens=64, placement_policy=EveryOtherSlow()))
+        reset_launches()
+        plain0 = paged_attention.plain_calls
+        got = {"generate": _tokens(eng.generate(
+            _requests(v, lengths, new, 0), free_pages=True))}
+        transfers[mode] = {"generate": list(eng.last_transfers)}
+        steps = eng.stats["decode_steps"]
+        got["serve"] = _tokens(eng.serve(
+            _requests(v, lengths, new, 1), max_active=2,
+            chunked_prefill=False))
+        transfers[mode]["serve"] = list(eng.last_transfers)
+        steps = eng.stats["decode_steps"]
+        launches[mode] = {"paged_attention": paged_attention.launches,
+                          "decode_steps": steps,
+                          "by_route": routes("paged_attention")}
+        if paged_attention.plain_calls != plain0 or \
+                paged_attention.launches != steps * cfg.num_layers:
+            raise AssertionError(f"{mode}: {paged_attention.launches} paged "
+                                 f"launches for {steps} steps, plain calls "
+                                 f"{paged_attention.plain_calls - plain0}")
+        if eng.kv_pool.live_pages:
+            raise AssertionError(f"{mode}: pages left in the pool")
+        outs[mode] = got
+        del eng
+        torch.cuda.empty_cache()
+    same = {m: outs[m] == outs["fused"] for m in ("eager", "numpy")}
+    row = {"phase": "exact", "case": "decode modes",
+           "config": f"{cfg.name} full width, {cfg.num_layers} layers, fp32",
+           "page_tokens": 64, "prompt_lengths": lengths, "max_new": new,
+           "identical_to_fused": same, "transfers": transfers,
+           "launches": launches, **outs["fused"]}
+    emit(row)
+    if not all(same.values()):
+        raise AssertionError(f"decode modes disagree with fused: {same}, "
+                             f"{outs}")
+    return row
 
 
 def _session_run(eng, reqs, *, park, max_active=2, speculate=None):
@@ -2268,6 +2628,144 @@ def phase_serve() -> dict:
                     ("fast_hits", "slow_hits", "evictions")}}
     emit(row)
     return row, eng
+
+
+# the decode modes' workloads: `fused` and `eager` serve the serve phase's
+# 5 prompts x 32 new tokens; the numpy mode, which assembles and uploads
+# every layer's pool each step, serves a cut, the serve phase's two
+# longest prompts x 16 new tokens, beside a fused turn on the same cut
+MODES_PROMPTS, MODES_NEW = [500, 600], 16
+MODES_TURNS = (("fused", "full"), ("eager", "full"), ("numpy", "cut"),
+               ("fused", "cut"))
+
+
+def serve_modes(eng, rounds: int = 2) -> dict:
+    """The three decode modes on the serve workload's model (starcoder2-7b,
+    32 layers, bf16, the same weights; a fresh pool of 128-token pages,
+    every other one int8, per turn), served continuously with
+    ``max_active=2`` and one prefill pass per prompt (the non-fused
+    modes' default, and the fused step's with ``chunked_prefill=False``),
+    in the turns of `MODES_TURNS`, `rounds` times: ``fused`` and
+    ``eager`` on the serve phase's workload (`SERVE_PROMPTS` x 32), the
+    numpy mode and a fused turn on the cut (`MODES_PROMPTS` x
+    `MODES_NEW`). Per turn: decode ms per step, decode tokens/s, wall
+    seconds, transfers, paged launches (one a layer a step, none on the
+    plain version); the medians by mode and workload; whether the greedy
+    tokens equal the fused turn's on the same workload (bf16: recorded;
+    phase ``exact`` holds the modes' fp32 tokens equal)."""
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_attention
+    cfg = eng.cfg
+    work = {"full": (list(SERVE_PROMPTS), 32), "cut": (MODES_PROMPTS,
+                                                       MODES_NEW)}
+    emit({"phase": "serve", "case": "decode modes: the cut",
+          "cut": f"numpy: {len(MODES_PROMPTS)} prompts ({MODES_PROMPTS}) x "
+                 f"{MODES_NEW} new tokens in place of the serve phase's "
+                 f"{len(SERVE_PROMPTS)} x 32 (it assembles and uploads "
+                 f"each layer's pool every step); a fused turn on the same "
+                 f"cut beside it", "rounds": rounds})
+    turns, tokens = [], {}
+    for r in range(rounds):
+        for mode, w in MODES_TURNS:
+            lengths, new = work[w]
+            e = _shared_engine(eng, decode_mode=mode)
+            reqs = _requests(cfg.vocab_size, lengths, [new] * len(lengths),
+                             5)
+            reset_launches()
+            plain0 = paged_attention.plain_calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = e.serve(reqs, max_active=2, chunked_prefill=False,
+                           radix=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = e.stats["decode_steps"]
+            if paged_attention.plain_calls != plain0 or \
+                    paged_attention.launches != steps * cfg.num_layers:
+                raise AssertionError(f"{mode}: paged launches "
+                                     f"{paged_attention.launches} for "
+                                     f"{steps} steps")
+            if any(o is None or len(o) != new for o in outs):
+                raise AssertionError(f"{mode} {w}: bad output {outs}")
+            tokens.setdefault((mode, w), _tokens(outs))
+            decode_tokens = e.stats["tokens"] - len(reqs)
+            turns.append({"mode": mode, "workload": w, "round": r,
+                          "prompts": len(reqs), "max_new": new,
+                          "decode_steps": steps,
+                          "decode_ms_per_step":
+                              e.stats["decode_s"] / steps * 1e3,
+                          "decode_tok_s": decode_tokens / e.stats["decode_s"],
+                          "prefill_ms_per_request":
+                              e.stats["prefill_s"] / len(reqs) * 1e3,
+                          "wall_s": wall, "transfers": list(e.last_transfers),
+                          "paged_by_route": routes("paged_attention")})
+            emit({"phase": "serve", "case": "decode modes: a turn",
+                  **turns[-1]})
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+    med = {f"{m} {w}": {k: statistics.median(
+        t[k] for t in turns if (t["mode"], t["workload"]) == (m, w))
+        for k in ("decode_ms_per_step", "decode_tok_s", "wall_s")}
+        for m, w in MODES_TURNS}
+
+    def ms(key):
+        return med[key]["decode_ms_per_step"]
+    same = {f"{m} {w}": tokens[(m, w)] == tokens[("fused", w)]
+            for m, w in MODES_TURNS if m != "fused"}
+    row = {"phase": "serve", "case": "decode modes",
+           "config": "starcoder2-7b, 32 layers, bf16", "page_tokens": 128,
+           "workloads": {w: {"prompt_lengths": lengths, "max_new": new}
+                         for w, (lengths, new) in work.items()},
+           "max_active": 2, "median_by_mode": med,
+           "eager_over_fused_ms": ms("eager full") / ms("fused full"),
+           "numpy_over_fused_ms": ms("numpy cut") / ms("fused cut"),
+           "tokens_equal_to_fused": same, "turns": turns}
+    emit(row)
+    return row
+
+
+def knee_round_trip(eng) -> dict:
+    """Knees persisted through ``ServeEngine(knee_cache=)``: with nothing
+    resolved, a serve run over the serve phase's model writes the launch
+    shapes it resolved (the paged kernel's decode knee, the flash
+    kernel's prefill knees) to `api.knee_cache_path(build/knees)`; a
+    second engine over the same file serves the same requests and
+    resolves none (``api.knees_dirty()`` stays false)."""
+    import shutil
+    from repro_torch.kernels import api
+    cfg = eng.cfg
+    ckpt = ROOT / "build" / "knees"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    path = api.knee_cache_path(ckpt)
+    api.invalidate_caches()
+    reqs = _requests(cfg.vocab_size, MODES_PROMPTS, [8, 8], 6)
+    first = _shared_engine(eng, knee_cache=path)
+    out1 = first.serve(reqs, max_active=2, chunked_prefill=False,
+                       radix=False)
+    entries = json.loads(path.read_text())
+    dirty_after_first = api.knees_dirty()
+    del first
+    api.invalidate_caches()
+    second = _shared_engine(eng, knee_cache=path)
+    loaded = len(api._KNEES)
+    out2 = second.serve(_requests(cfg.vocab_size, MODES_PROMPTS, [8, 8], 6),
+                        max_active=2, chunked_prefill=False, radix=False)
+    row = {"phase": "serve", "case": "knee cache round trip",
+           "path": str(path.relative_to(ROOT)), "entries": entries,
+           "loaded_by_second_engine": loaded,
+           "dirty_after_first_save": dirty_after_first,
+           "second_engine_resolved_any": api.knees_dirty(),
+           "same_tokens": _tokens(out1) == _tokens(out2)}
+    emit(row)
+    del second
+    kernels = {e["kernel"] for e in entries}
+    if not {"paged_attention", "flash_attention"} <= kernels or \
+            dirty_after_first or api.knees_dirty() or not loaded or \
+            not row["same_tokens"]:
+        raise AssertionError(f"knee cache round trip: {row}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return row
 
 
 def _shared_engine(eng, **kw):
@@ -2863,7 +3361,7 @@ def _device_us_under(event, skip: str) -> float:
 
 
 def phase_profile(eng, steps: int = 16, k: int = 1,
-                  span: str | None = None) -> dict:
+                  span: str | None = None, backend: str = "auto") -> dict:
     """Steps of 2 rows at ~500 tokens of context, timed without and then
     with `torch.profiler`: device busy share of the traced window (union
     of kernel intervals over its wall time), kernels per step, the paged
@@ -2878,7 +3376,9 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
     shard's kernels launched in turn). ``span``
     names a `torch.profiler.record_function` range the caller wraps
     around part of the step (`moe_span`): its kernels' device time per
-    step and share of the busy time join the row."""
+    step and share of the busy time join the row. ``backend`` "auto"
+    launches the paged kernel at its knee, "cuda" at the launch before
+    tiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.paged_decode import (PagedKVState,
@@ -2906,7 +3406,7 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
     extract_prefill_pages(eng.model, caches, state, seqs)
     del caches
     step_fn = build_fused_step(eng.model, state.slots, k=k,
-                               layout=eng.layout, plan=plan)
+                               layout=eng.layout, plan=plan, backend=backend)
     tok = torch.argmax(logits, -1).to(torch.int32)
     pos = 500
 
@@ -2951,7 +3451,7 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
     row = {"phase": "profile", "config": f"{cfg.name}, {cfg.num_layers} "
            f"layers, {cfg.compute_dtype}", "rows": 2, "context": 500,
            "plan": repr(plan) if plan is not None else None,
-           "k": k, "steps": steps,
+           "k": k, "steps": steps, "backend": backend,
            ("decode_ms_per_step" if k == 1 else "chunk_step_ms"): plain_ms,
            "traced_ms_per_step": traced_s / steps * 1e3,
            "device_busy_share": busy_us / (traced_s * 1e6),
@@ -4503,14 +5003,16 @@ def families_cut(total: dict) -> list:
 def recording(kernel: str):
     """Record the arguments of every ``api.run(kernel, ...)`` call made
     inside the block (copies, so later in-place writes do not change
-    them); yields the list of (args, kwargs)."""
+    them); yields the list of (args, kwargs), the tile the call launched
+    at under ``tile`` (`_as_launched`)."""
     from repro_torch.kernels import api
     plain_run = api.run
     calls = []
 
     def run(name, *args, **kwargs):
         if name == kernel:
-            calls.append(([a.clone() for a in args], dict(kwargs)))
+            calls.append(([a.clone() for a in args],
+                          _as_launched(name, args, kwargs)))
         return plain_run(name, *args, **kwargs)
 
     api.run = run
@@ -4592,9 +5094,13 @@ def families_exact() -> dict:
             got, _ = model.forward_prefill(**kw, backend="auto")
         launches = read_launches()
         want, _ = model.forward_prefill(**kw, backend="ref")
-        per_launch = [ulp_check(api.run("flash_attention", *a, **dict(
-            k, backend="cuda")), api.run("flash_attention", *a, **dict(
-                k, backend="ref")))[2] for a, k in calls]
+        per_launch = []
+        for a, k in calls:
+            rkw, tile = _replay_kw(k)
+            per_launch.append({"tile": tile, "err_over_limit": ulp_check(
+                api.run("flash_attention", *a, **rkw, backend="cuda",
+                        tile=tile),
+                api.run("flash_attention", *a, **rkw, backend="ref"))[2]})
         err, tol, over = ulp_check(got, want)
         row[arch] = {"flash_launches": launches["flash_attention"],
                      "per_launch_err_over_limit": per_launch,
@@ -4606,7 +5112,7 @@ def families_exact() -> dict:
                      "tol_rule": ULP_RULE}
         n_self = sum(m == "attn" for m, _ in cfg.layer_kinds())
         if launches["flash_attention"] != n_self or len(calls) != n_self \
-                or not max(per_launch) <= 1.0 \
+                or not max(r["err_over_limit"] for r in per_launch) <= 1.0 \
                 or not row[arch]["same_greedy_token"]:
             emit(row)
             raise AssertionError(f"{arch}: flash launches {launches}, per "
@@ -4719,7 +5225,7 @@ def train_broken_variants():
     from repro_torch.kernels.rglru_scan import rglru_scan as rg
     exact_vjp = fa.attention_vjp
 
-    def lru_vjp_unshifted(a, h, grad_h):
+    def lru_vjp_unshifted(a, h, grad_h, chunk=None):
         lam = rg.rglru_scan(a.flip(1).contiguous(),
                             grad_h.flip(1).contiguous()).flip(1)
         h_prev = torch.zeros_like(h)
@@ -5324,7 +5830,8 @@ def update_ratios(got, want, init) -> dict:
 
 def check_recorded_grads(seen, label) -> list:
     """Each recorded launch shape's backward: the gradients of sum(out *
-    w), w seeded, through the kernel's Function (``backend="cuda"``)
+    w), w seeded, through the kernel's Function (``backend="cuda"`` at
+    the tile it ran at)
     against autograd of the plain version on the same inputs, per input
     within `TRAIN_GRAD_LIMIT` of its max. Not the main path's launches:
     counted nowhere."""
@@ -5334,7 +5841,7 @@ def check_recorded_grads(seen, label) -> list:
     for kernel, calls in seen.items():
         n = TRAIN_FN_INPUTS[kernel]
         for args, kwargs in calls.values():
-            kw = {k: v for k, v in kwargs.items() if k != "backend"}
+            kw, tile = _replay_kw(kwargs)
             out = api.run(kernel, *args, **kw, backend="ref")
             y = out[0] if isinstance(out, tuple) else out
             w = torch.randn(y.shape, generator=gen, device="cuda",
@@ -5342,13 +5849,15 @@ def check_recorded_grads(seen, label) -> list:
 
             def through(backend):
                 return _grads_of(lambda *x: api.run(
-                    kernel, *x, *args[n:], **kw, backend=backend),
+                    kernel, *x, *args[n:], **kw, backend=backend,
+                    tile=tile if backend == "cuda" else None),
                     args[:n], (w,))[0]
 
             ratios = grad_ratios(dict(enumerate(through("cuda"))),
                                  dict(enumerate(through("ref"))))
             row = {"kernel": kernel, "shapes": [list(a.shape)
                                                 for a in args[:3]],
+                   "tile": tile,
                    "worst_input": _worst({f"d{i}": r for i, r in
                                           ratios.items()}),
                    "limit": TRAIN_GRAD_LIMIT}
@@ -5541,10 +6050,11 @@ def shard_kernel_rows(seen, label) -> list:
     rows = []
     for kernel, calls in seen.items():
         for args, kwargs in calls.values():
-            kw = {k: v for k, v in kwargs.items() if k != "backend"}
+            kw, tile = _replay_kw(kwargs)
 
-            def run(backend, args=args, kw=kw, kernel=kernel):
-                return api.run(kernel, *args, **kw, backend=backend)
+            def run(backend, args=args, kw=kw, kernel=kernel, tile=tile):
+                return api.run(kernel, *args, **kw, backend=backend,
+                               tile=tile if backend == "cuda" else None)
 
             work = work_of(kernel, *args, **kw)
             t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -5562,7 +6072,7 @@ def shard_kernel_rows(seen, label) -> list:
                 def library(qt=qt, kt=kt, vt=vt):
                     return F.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True)
-            row = {"kernel": kernel, "label": label,
+            row = {"kernel": kernel, "label": label, "tile": tile,
                    "shapes": [list(a.shape) for a in args[:3]],
                    "dtype": str(args[0].dtype).replace("torch.", ""),
                    "route": route_taken(kernel, lambda: run("cuda")),
@@ -6692,14 +7202,39 @@ def _call_key(args, kwargs):
     return (tuple((tuple(a.shape), a.dtype) for a in args
                   if isinstance(a, torch.Tensor)),
             tuple(sorted((k, v) for k, v in kwargs.items()
-                         if k != "backend")))
+                         if k not in ("backend", "tile"))))
+
+
+def _as_launched(name, args, kwargs) -> dict:
+    """A recorded call's keyword arguments with the launch shape it runs
+    at under ``tile``: the caller's tile; else, with ``backend="auto"``
+    on the card, the knee `api.resolve_tile` gives (the one `api.run` is
+    about to take); else None (``"cuda"``: the wrapper's launch before
+    tiles; ``"ref"``: the plain version). The replays launch the kernel
+    at that tile (`_replay_kw`)."""
+    from repro_torch.kernels import api
+    kw = dict(kwargs)
+    if kw.get("tile") is None:
+        auto = kw.get("backend", "auto") == "auto"
+        kw["tile"] = api.resolve_tile(name, args) if auto and \
+            api.as_spec(name).tune_space and args[0].is_cuda else None
+    return kw
+
+
+def _replay_kw(kwargs) -> tuple:
+    """(keyword arguments of both sides, the kernel side's tile) of a
+    recorded call: the kernel is replayed at the tile it ran at, the
+    plain version takes none."""
+    return ({k: v for k, v in kwargs.items() if k not in ("backend", "tile")},
+            kwargs.get("tile"))
 
 
 @contextlib.contextmanager
 def first_calls(kernels):
     """Record the first ``api.run(kernel, ...)`` call of every launch
-    shape (argument shapes and dtypes, keyword arguments) for each of
-    `kernels`, its tensors copied; yields ``{kernel: {key: (args,
+    shape (argument shapes and dtypes, keyword arguments but the tile)
+    for each of `kernels`, its tensors copied and the tile it launched at
+    under ``tile`` (`_as_launched`); yields ``{kernel: {key: (args,
     kwargs)}}``."""
     from repro_torch.kernels import api
     plain_run = api.run
@@ -6711,7 +7246,8 @@ def first_calls(kernels):
             if key not in seen[name]:
                 seen[name][key] = ([a.detach().clone()
                                     if isinstance(a, torch.Tensor) else a
-                                    for a in args], dict(kwargs))
+                                    for a in args],
+                                   _as_launched(name, args, kwargs))
         return plain_run(name, *args, **kwargs)
 
     api.run = run
@@ -6791,17 +7327,20 @@ def limit_check(got, want, limit):
             (diff / limit).max().item())
 
 
-def magnitude_faults(kernel, args, kw, want, limit) -> dict:
+def magnitude_faults(kernel, args, kw, want, limit, tile) -> dict:
     """Each broken variant of the kernel on the launch's own inputs over
-    `magnitude_limit` (must exceed 1): flash's `FLASH_FAULTS`, RG-LRU's
-    `RGLRU_FAULTS` (none for a sequence of one chunk, which has no
-    carry)."""
+    `magnitude_limit` (must exceed 1), at the launch's `tile`: flash's
+    `FLASH_FAULTS` (key tiles of its ``block_k``), RG-LRU's
+    `RGLRU_FAULTS` (chunks of its ``chunk``; none for a sequence of one
+    chunk, which has no carry)."""
     from repro_torch.kernels.rglru_scan.rglru_scan import route
     if kernel == "flash_attention":
-        variants = {f: flash_variant(*args[:3], fault=f, **kw)
+        variants = {f: flash_variant(*args[:3], fault=f, **kw,
+                                     block_k=tile["block_k"])
                     for f in FLASH_FAULTS}
-    elif route(args[0].shape[1]) == "chunked":
-        variants = {f: rglru_chunked_loop(*args[:2], fault=f)
+    elif route(args[0].shape[1], tile["chunk"]) == "chunked":
+        variants = {f: rglru_chunked_loop(*args[:2], chunk=tile["chunk"],
+                                          fault=f)
                     for f in RGLRU_FAULTS}
     else:
         variants = {}
@@ -6809,8 +7348,8 @@ def magnitude_faults(kernel, args, kw, want, limit) -> dict:
 
 
 def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
-    """Each recorded launch shape through the kernel (``backend="cuda"``)
-    and the plain version on the same inputs: paged, flash and RG-LRU to
+    """Each recorded launch shape through the kernel (``backend="cuda"``
+    at the tile it ran at) and the plain version on the same inputs: paged, flash and RG-LRU to
     2 ulps, SSD to `ssd_limit`, the kernels in `magnitude` to
     `magnitude_limit`. A magnitude-held launch also shows the cause of
     its 2-ulp reading, a plain loop in the kernel's order of summation
@@ -6825,30 +7364,33 @@ def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
     out, bad = [], []
     for kernel, calls in seen.items():
         for args, kwargs in calls.values():
-            kw = {k: v for k, v in kwargs.items() if k != "backend"}
-            got = api.run(kernel, *args, **kw, backend="cuda")
+            kw, tile = _replay_kw(kwargs)
+            got = api.run(kernel, *args, **kw, backend="cuda", tile=tile)
             want = api.run(kernel, *args, **kw, backend="ref")
             torch.cuda.synchronize()
             shape = [list(a.shape) for a in args
                      if isinstance(a, torch.Tensor)][:3]
             row = {"kernel": kernel, "shapes": shape,
                    "dtype": str(args[0].dtype).replace("torch.", ""),
-                   "kwargs": {k: v for k, v in kw.items()}}
+                   "kwargs": {k: v for k, v in kw.items()}, "tile": tile}
+            spec = api.as_spec(kernel)
+            launched = tile or spec.fixed_tile(tuple(spec.grid_of(*args)))
             if kernel in magnitude:
                 limit = magnitude_limit(kernel, args, kw)
                 err, tol, over = limit_check(got, want, limit)
                 row.update(rule=MAGNITUDE_RULE,
                            over_2ulp=ulp_check(got, want)[2],
                            faults_over_limit=magnitude_faults(
-                               kernel, args, kw, want, limit))
+                               kernel, args, kw, want, limit, launched))
                 if kernel == "flash_attention":
                     emu = flash_online_loop(*args[:3], **kw)
                     row["online_loop_over_2ulp"] = ulp_check(emu, want)[2]
                     row["online_loop_over_limit"] = limit_check(
                         emu, want, limit)[2]
                 else:
-                    emu = rglru_chunked_loop(*args[:2])
-                    row["route"] = route(args[0].shape[1])
+                    chunk = launched["chunk"]
+                    emu = rglru_chunked_loop(*args[:2], chunk=chunk)
+                    row["route"] = route(args[0].shape[1], chunk)
                     row["chunked_loop_over_2ulp"] = ulp_check(emu, want)[2]
                     row["kernel_vs_chunked_loop_over_2ulp"] = \
                         ulp_check(got, emu)[2]
@@ -7158,14 +7700,16 @@ def mesh_serve(serve_eng, smi: str) -> tuple:
         if args[0].dim() != 3:
             continue
         layer = args[9]
+        ptile = _replay_kw(kwargs)[1]
         nbytes, flops = bytes_and_flops(args[:9])
         timed["paged_attention"] = compare_and_time(
             "paged_attention starcoder2-7b 2x2 shard k=1 bfloat16",
-            lambda: api.run("paged_attention", *args, backend="cuda"),  # noqa
+            lambda: api.run("paged_attention", *args,  # noqa: B023
+                            backend="cuda", tile=ptile),
             lambda: api.run("paged_attention", *args, backend="ref"),  # noqa
             sdpa_yardstick(args[:9], layer, 1), nbytes, flops, FP32_FLOPS,
             {"kernel": "paged_attention", "rows": 1, "dtype": "bfloat16",
-             "plan": "2x2", "nvidia_smi": smi,
+             "plan": "2x2", "nvidia_smi": smi, "tile": ptile,
              "shape": {"b": args[0].shape[0], "hq": args[0].shape[1],
                        "hkv": args[1].shape[-2], "d": args[0].shape[-1],
                        "t": args[1].shape[2], "n_layers": args[1].shape[0],
@@ -7177,21 +7721,22 @@ def mesh_serve(serve_eng, smi: str) -> tuple:
     longest = max(seen["flash_attention"].values(),
                   key=lambda c: c[0][0].shape[1])
     q, k, v = longest[0][:3]
-    kw = {kk: vv for kk, vv in longest[1].items() if kk != "backend"}
+    kw, ftile = _replay_kw(longest[1])
     nbytes, flops = flash_bytes_and_flops(q, k, v,
                                           causal=kw.get("causal", True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     timed["flash_attention"] = compare_and_time(
         f"flash_attention starcoder2-7b 2x2 shard s={q.shape[1]} bfloat16",
-        lambda: api.run("flash_attention", q, k, v, **kw, backend="cuda"),
+        lambda: api.run("flash_attention", q, k, v, **kw, backend="cuda",
+                        tile=ftile),
         lambda: api.run("flash_attention", q, k, v, **kw, backend="ref"),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True),
         nbytes, flops, BF16_FLOPS,
         {"kernel": "flash_attention", "dtype": "bfloat16", "plan": "2x2",
-         "nvidia_smi": smi, "shape": {"b": q.shape[0], "sq": q.shape[1],
-                                      "hq": q.shape[2], "hkv": k.shape[2],
-                                      "d": q.shape[3], "causal": True},
+         "nvidia_smi": smi, "tile": ftile,
+         "shape": {"b": q.shape[0], "sq": q.shape[1], "hq": q.shape[2],
+                   "hkv": k.shape[2], "d": q.shape[3], "causal": True},
          "library": "scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True) on (b, h, s, d) copies made "
                     "beforehand"}, device=True)
@@ -7355,13 +7900,43 @@ def main(argv=None) -> int:
     mesh_launches = None
     if run("kernel"):
         full = phase_kernel()
+    keep_knees()
     if run("exact"):
         phase_exact()
     if run("serve") or run("chunked") or run("spec") or run("overload") \
             or run("sibyl") or run("mesh"):
         serve, eng = phase_serve()
         if args.only in (None, "serve"):
-            phase_profile(eng)
+            serve_modes(eng)
+            # the fused step at its knee and at the launch before tiles,
+            # after an untimed turn, in the order knee, fixed, fixed, knee:
+            # kernels per traced step beside the decode ms, paired
+            phase_profile(eng, steps=4)
+            order = ("auto", "cuda", "cuda", "auto")
+            runs = [phase_profile(eng, backend=b) for b in order]
+            knee = [p for b, p in zip(order, runs) if b == "auto"]
+            fixed = [p for b, p in zip(order, runs) if b == "cuda"]
+
+            def per(key):
+                return {"knee": [p[key] for p in knee],
+                        "fixed": [p[key] for p in fixed],
+                        "knee_over_fixed_median": statistics.median(
+                            p[key] for p in knee) / statistics.median(
+                            p[key] for p in fixed)}
+            emit({"phase": "profile", "case": "knee vs the launch before "
+                  "tiles", "order": ["knee" if b == "auto" else "fixed"
+                                     for b in order],
+                  "warm_up": "one untimed profile of 4 steps first",
+                  "kernels_per_step": per("kernels_per_step"),
+                  "decode_ms_per_step": per("decode_ms_per_step"),
+                  "traced_ms_per_step": per("traced_ms_per_step"),
+                  "device_busy_share": per("device_busy_share")})
+            # a traced window's mean, a page fill in it or not
+            if len({round(p["kernels_per_step"]) for p in knee + fixed}) \
+                    != 1:
+                raise AssertionError("kernels per step differ between the "
+                                     "knee and the launch before tiles")
+            knee_round_trip(eng)
         if run("chunked"):
             phase_chunked(eng)
         if run("spec"):
@@ -7405,6 +7980,8 @@ def main(argv=None) -> int:
         # the plans launch the serving kernels (and the scans) at
         # per-shard shapes: their counts join the other phases'
         _add(launches, mesh_launches)
+    if MAIN_KNEES:
+        knee_audit(dev["nvidia_smi"])
     if full is not None or stencil is not None:
         emit(kernels_line(full, launches, stencil))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -38,10 +38,18 @@ MAX_THREADS_PER_SM = 2_048
 MAX_BLOCKS_PER_SM = 32
 HBM_BW = 3.35e12               # bytes/s
 PEAK_FLOPS = 67e12             # fp32 outside the tensor cores
+TENSOR_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
+REGISTERS_PER_SM = 65_536
 LAUNCH_OVERHEAD_S = 3e-6       # measured by chip_smoke.py
 MEM_LATENCY_S = 8e-7           # stated: load latency under load
 SM_CLOCK_HZ = 1.98e9           # boost clock
 ISSUE_PER_CLOCK = 4            # warp instructions an SM issues a cycle
+# A knee replaces a kernel's own launch shape (``spec.fixed_tile``) only
+# where the cost model calls it this much faster: below that the serving
+# kernels' fitted models mis-ranked tiles at grids the card swept and
+# audited (`tools/serve_fit.py` prints each grid's knee over its own
+# launch under the margin).
+KNEE_MARGIN = 0.10
 
 _DTYPE_BYTES = {"float64": 8, "float32": 4, "float16": 2, "bfloat16": 2,
                 "int8": 1, "fp32": 4, "bf16": 2}
@@ -111,17 +119,25 @@ class Candidate:
     feasible: bool
 
 
+def _costs(cost_fn: Callable, grid_shape, space: dict, dtype_bytes: int,
+           **cost_kwargs):
+    """Every tile of `space`, in the search's order, with its cost:
+    ``(tile, (smem_bytes, est_time_s) or None)``."""
+    names = sorted(space)
+    for combo in itertools.product(*(space[n] for n in names)):
+        tile = dict(zip(names, combo))
+        yield tile, cost_fn(grid_shape, tile, dtype_bytes, **cost_kwargs)
+
+
 def autotune(cost_fn: Callable, grid_shape, space: dict, dtype_bytes: int,
              smem_budget: int = SMEM_BYTES, knee_slack: float = 4.0,
              **cost_kwargs) -> dict:
     """Exhaustive multi-objective search. Returns the Pareto front and the
     knee: the fastest front config whose shared memory stays within
     ``knee_slack`` x the smallest front footprint."""
-    names = sorted(space)
     cands = []
-    for combo in itertools.product(*(space[n] for n in names)):
-        tile = dict(zip(names, combo))
-        res = cost_fn(grid_shape, tile, dtype_bytes, **cost_kwargs)
+    for tile, res in _costs(cost_fn, grid_shape, space, dtype_bytes,
+                            **cost_kwargs):
         if res is None:
             continue
         smem, t = res
@@ -144,12 +160,31 @@ def autotune(cost_fn: Callable, grid_shape, space: dict, dtype_bytes: int,
             "knee": knee}
 
 
+def space_costs(spec, grid_shape, dtype="float32") -> list:
+    """Every tile of ``spec.tune_space`` with its cost at this grid:
+    ``(tile, (smem_bytes, est_time_s) or None)`` in the search's order;
+    None where a block of that tile cannot launch."""
+    return list(_costs(spec.cost_fn, tuple(grid_shape), spec.tune_space,
+                       dtype_nbytes(dtype)))
+
+
 def autotune_kernel(spec, grid_shape, dtype="float32", *,
                     smem_budget: int = SMEM_BYTES, knee_slack: float = 4.0,
                     space=None) -> dict:
     """Search ``spec.tune_space`` with ``spec.cost_fn`` for a KernelSpec
-    (or anything shaped like one)."""
+    (or anything shaped like one). A spec with a ``fixed_tile`` (its
+    wrapper's own launch shape) keeps that as the knee unless the knee's
+    estimate is `KNEE_MARGIN` below its estimate."""
     space = {k: list(v) for k, v in (space or spec.tune_space).items()}
-    return autotune(spec.cost_fn, tuple(grid_shape), space,
-                    dtype_bytes=dtype_nbytes(dtype), smem_budget=smem_budget,
-                    knee_slack=knee_slack)
+    grid_shape = tuple(grid_shape)
+    nbytes = dtype_nbytes(dtype)
+    out = autotune(spec.cost_fn, grid_shape, space, dtype_bytes=nbytes,
+                   smem_budget=smem_budget, knee_slack=knee_slack)
+    fixed = getattr(spec, "fixed_tile", None)
+    if fixed is not None:
+        tile = fixed(grid_shape)
+        cost = spec.cost_fn(grid_shape, tile, nbytes)
+        if cost is not None and cost[0] <= smem_budget and \
+                out["knee"].est_time_s > (1 - KNEE_MARGIN) * cost[1]:
+            out["knee"] = Candidate(tile, cost[0], cost[1], True)
+    return out

@@ -5,21 +5,27 @@ all of them — the port's counterpart of ``repro/kernels/api.py``.
     y = api.run("paged_attention", *args)                   # "auto"
     y = api.run("paged_attention", *args, backend="cuda")   # the kernel
     y = api.run("paged_attention", *args, backend="ref")    # plain PyTorch
-    y = api.run("hdiff", src, tile={"tile_x": 32, "tile_y": 8,
-                                    "block_z": 1})          # a tuned kernel
+    y = api.run("hdiff", src, tile={"tile_x": 64, "tile_y": 16,
+                                    "block_z": 1})          # a chosen tile
+    y = api.run("paged_attention", *args, tile={"pages_per_block": 1})
 
 ``auto`` runs the kernel on CUDA tensors and the plain version on CPU
 tensors (through the kernel's wrapper, which makes that choice). Under
 autograd the flash-attention, SSD and RG-LRU wrappers run through their
 autograd Functions, so ``auto`` and ``cuda`` are differentiable; ``ref``
-is differentiated through the plain version's own operations. A spec
-with a ``tune_space`` (the stencils) takes a ``tile``; with ``auto`` and
-no tile its kernel launches at the knee of the spec's Hopper cost model
-(`resolve_tile`). The other kernels' launch shapes are fixed, and they
-refuse tiles. Resolved knees persist across restarts through
+is differentiated through the plain version's own operations. Every
+spec has a ``tune_space`` and takes a ``tile`` from it: the stencils'
+blocks, paged attention's ``pages_per_block``, flash attention's
+``block_q`` / ``block_k``, the scans' ``chunk``. With ``auto`` and no
+tile a kernel launches at the knee of the spec's Hopper cost model
+(`resolve_tile`, once per kernel, grid and dtype); with ``cuda`` and no
+tile, at the wrapper's own launch (the launch before tiles could be
+chosen). A route that has no such freedom reads no tile, and neither
+does the plain version. Resolved knees persist across restarts through
 `save_knee_cache` / `load_knee_cache` (``launch.weather_stencil
---knee-cache``), keyed by kernel, grid, dtype and the arch they were
-resolved for.
+--knee-cache``, ``launch.serve --knee-cache``, ``ServeEngine(
+knee_cache=)``), keyed by kernel, grid, dtype and the arch they were
+resolved for, in a file of the port's own (`knee_cache_path`).
 """
 from __future__ import annotations
 
@@ -52,7 +58,10 @@ class KernelSpec:
     ``cost_fn(grid_shape, tile, dtype_bytes) -> (smem_bytes, est_time_s)``
     or ``None`` when a block of that tile cannot launch. ``grid_shape`` is
     ``tuple(shape[k] for k in shape_keys)``, which ``grid_of`` recovers
-    from live arrays.
+    from live arrays. ``fixed_tile(grid_shape) -> tile`` is the wrapper's
+    own launch shape (``backend="cuda"`` without a tile); a knee that the
+    cost model does not call `autotune.KNEE_MARGIN` faster than it gives
+    way to it (`autotune.autotune_kernel`).
     """
     name: str
     fn: Callable                 # the wrapper: kernel on CUDA, plain on CPU
@@ -67,6 +76,7 @@ class KernelSpec:
     flops: Callable | None = None         # (grid_shape) -> useful flops
     grid_of: Callable | None = None       # (*args) -> grid_shape tuple
     shape_keys: tuple = ()                # logical dims of the grid shape
+    fixed_tile: Callable | None = None    # (grid_shape) -> the own launch
     default_shape: Mapping[str, int] = dataclasses.field(
         default_factory=dict)             # smoke size (tests, sweeps)
     bench_shape: Mapping[str, int] = dataclasses.field(
@@ -90,7 +100,9 @@ def run(name, *args, backend: str = "auto", tile=None, **kwargs):
     on CPU tensors raises. ``tile`` is taken only by a spec with a
     ``tune_space``, only with names from it, and never with ``"ref"``
     (the plain version takes no tile, so a tiled call would silently
-    measure it); a kernel with a fixed launch shape refuses any tile."""
+    measure it). ``auto`` on CUDA tensors with no tile launches at the
+    knee (`resolve_tile`); on CPU tensors the wrapper runs the plain
+    version, which ignores a tile."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     spec = as_spec(name)
@@ -150,8 +162,12 @@ def resolve_tile(kernel, args) -> dict:
 
 
 def knee_cache_path(checkpoint_dir) -> Path:
-    """Canonical knee-cache location next to a checkpoint directory."""
-    return Path(checkpoint_dir) / "knee_cache.json"
+    """The port's knee-cache file next to a checkpoint directory. It is
+    not the JAX package's ``knee_cache.json``: the reference's loader
+    drops a file holding entries it does not key (this arch's) and its
+    saver raises on them, so both engines can serve beside one
+    checkpoint only from files of their own."""
+    return Path(checkpoint_dir) / f"knee_cache_{KNEE_ARCH}.json"
 
 
 def _entry_key(e: dict) -> tuple:

@@ -24,9 +24,13 @@
 // exponentials and shuffles between the two products.
 //
 // Design of the wgmma route:
-// - Work split. One block of two warpgroups (256 threads) per (128 query
-//   positions, query head, sequence); warpgroup c owns rows 64 c .. 64 c +
-//   63. Block ids run over the heads fastest, so the g heads of one kv head
+// - Work split. One block of BM / 64 warpgroups per (BM query positions,
+//   query head, sequence); warpgroup c owns rows 64 c .. 64 c + 63. BM and
+//   the key tile BN are template parameters, the launch shape the wrapper
+//   picks (`block_q`, `block_k`): BM = 64 or 128, BN = 64 or 128, every
+//   pair whose shared memory fits a block (not BN = 128 at d = 256). The
+//   first design's launch, BM = 128 with two warpgroups and BN = 128 (64
+//   at d = 256), is one of them. Block ids run over the heads fastest, so the g heads of one kv head
 //   are neighbours and read its K/V tiles from L2; then over the sequences;
 //   then over the query blocks, last first, so that under a causal mask the
 //   longest blocks start first and the grid's tail is short.
@@ -91,9 +95,6 @@
 
 namespace wg {
 
-constexpr int kBM = 128;                  // query positions per block
-constexpr int kConsumers = 2;             // warpgroups of 64 query rows
-constexpr int kThreads = 128 * kConsumers;
 constexpr int kStages = 2;                // depth of the K/V ring
 constexpr int kRow = 128;                 // bytes of one swizzled row: 64 bf16
 constexpr float kNegInf = -1e30f;
@@ -102,10 +103,18 @@ constexpr float kNegInf = -1e30f;
 constexpr int kNoEncoder = -1;
 constexpr int kEncodeFailed = -2;
 constexpr int kBadHeadDim = -3;
+constexpr int kBadTile = -4;
 
-template <int D>
+// BM query positions per block (BM / 64 consumer warpgroups), BN keys per
+// tile of the K/V ring
+template <int D, int BM, int BN>
 struct Tile {
-  static constexpr int kBN = D <= 128 ? 128 : 64;    // keys per tile
+  static_assert(BM == 64 || BM == 128, "block_q");
+  static_assert(BN == 64 || BN == 128, "block_k");
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
+  static constexpr int kConsumers = BM / 64;          // warpgroups
+  static constexpr int kThreads = 128 * kConsumers;
   static constexpr int kBoxes = D / 64;               // 64-wide boxes per row
   static constexpr int kQBytes = kBM * D * 2;
   static constexpr int kKVBytes = kBN * D * 2;        // one K or one V tile
@@ -114,6 +123,7 @@ struct Tile {
   // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte atom
   static constexpr int kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static constexpr bool kFits = kSmem <= 232448;      // 227 KB a block
 };
 
 struct Params {
@@ -125,14 +135,15 @@ struct Params {
 
 using namespace hopper;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const Params p) {
-  using T = Tile<D>;
-  constexpr int BN = T::kBN;
+  using T = Tile<D, BM, BN>;
+  constexpr int kBM = T::kBM;
+  constexpr int kConsumers = T::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;
@@ -354,26 +365,47 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int BM, int BN>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int hq, int hkv, int causal, int window,
            float scale_log2, cudaStream_t stream) {
+  using T = Tile<D, BM, BN>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return kNoEncoder;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, D, hq, sq, b, kBM) ||
-      !make_map(enc, &tk, k, D, hkv, skv, b, Tile<D>::kBN) ||
-      !make_map(enc, &tv, v, D, hkv, skv, b, Tile<D>::kBN))
+  if (!make_map(enc, &tq, q, D, hq, sq, b, BM) ||
+      !make_map(enc, &tk, k, D, hkv, skv, b, BN) ||
+      !make_map(enc, &tv, v, D, hkv, skv, b, BN))
     return kEncodeFailed;
   const Params p{static_cast<__nv_bfloat16*>(out), b, sq, skv, hq, hkv,
                  causal, window, scale_log2};
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<D, BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<D>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
-  const int blocks = (sq + kBM - 1) / kBM * hq * b;
-  kernel<<<blocks, kThreads, Tile<D>::kSmem, stream>>>(tq, tk, tv, p);
+  const int blocks = (sq + BM - 1) / BM * hq * b;
+  kernel<<<blocks, T::kThreads, T::kSmem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
+}
+
+// every (block_q, block_k) instance at head dim D whose shared memory fits
+template <int D>
+int launch_tile(const void* q, const void* k, const void* v, void* out, int b,
+                int sq, int skv, int hq, int hkv, int causal, int window,
+                float scale_log2, int block_q, int block_k,
+                cudaStream_t stream) {
+#define FLASH_TILE(BM, BN)                                                  \
+  if constexpr (Tile<D, BM, BN>::kFits) {                                   \
+    if (block_q == BM && block_k == BN)                                     \
+      return launch<D, BM, BN>(q, k, v, out, b, sq, skv, hq, hkv, causal,   \
+                               window, scale_log2, stream);                 \
+  }
+  FLASH_TILE(64, 64)
+  FLASH_TILE(64, 128)
+  FLASH_TILE(128, 64)
+  FLASH_TILE(128, 128)
+#undef FLASH_TILE
+  return kBadTile;
 }
 
 }  // namespace wg
@@ -396,26 +428,46 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 }
 
 // The wgmma route: bf16 q, k, v and out, contiguous, 16-byte aligned;
-// d in {64, 128, 256}; `scale_log2` is the softmax scale times log2(e).
+// d in {64, 128, 256}; `scale_log2` is the softmax scale times log2(e);
+// `block_q` query positions (64 or 128) and `block_k` keys (64 or 128) a
+// tile, a pair whose shared memory fits (`flash_attention_wgmma_smem`).
 // Returns 0, a cudaError_t, or one of wg's negative codes.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* out, int b, int sq, int skv, int hq,
                                  int hkv, int d, int causal, int window,
-                                 float scale_log2, void* stream) {
+                                 float scale_log2, int block_q, int block_k,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return wg::launch<64>(q, k, v, out, b, sq, skv, hq, hkv, causal, window,
-                            scale_log2, s);
+      return wg::launch_tile<64>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                                 window, scale_log2, block_q, block_k, s);
     case 128:
-      return wg::launch<128>(q, k, v, out, b, sq, skv, hq, hkv, causal,
-                             window, scale_log2, s);
+      return wg::launch_tile<128>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                                  window, scale_log2, block_q, block_k, s);
     case 256:
-      return wg::launch<256>(q, k, v, out, b, sq, skv, hq, hkv, causal,
-                             window, scale_log2, s);
+      return wg::launch_tile<256>(q, k, v, out, b, sq, skv, hq, hkv, causal,
+                                  window, scale_log2, block_q, block_k, s);
     default:
       return wg::kBadHeadDim;
   }
+}
+
+// Dynamic shared memory of a wgmma block at head dim d and the tile, or
+// -1 where no instance is built (the tile does not fit a block).
+int flash_attention_wgmma_smem(int d, int block_q, int block_k) {
+#define FLASH_SMEM(D, BM, BN)                                  \
+  if (d == D && block_q == BM && block_k == BN)                \
+    return wg::Tile<D, BM, BN>::kFits ? wg::Tile<D, BM, BN>::kSmem : -1;
+#define FLASH_SMEM_D(D) \
+  FLASH_SMEM(D, 64, 64) FLASH_SMEM(D, 64, 128) FLASH_SMEM(D, 128, 64) \
+  FLASH_SMEM(D, 128, 128)
+  FLASH_SMEM_D(64)
+  FLASH_SMEM_D(128)
+  FLASH_SMEM_D(256)
+#undef FLASH_SMEM_D
+#undef FLASH_SMEM
+  return -1;
 }
 
 const char* flash_attention_error_string(int err) {
@@ -426,6 +478,9 @@ const char* flash_attention_error_string(int err) {
       return "cuTensorMapEncodeTiled refused a tensor map";
     case wg::kBadHeadDim:
       return "the wgmma route takes head dims 64, 128 and 256";
+    case wg::kBadTile:
+      return "no wgmma instance at this (block_q, block_k): 64 or 128 each, "
+             "within 227 KB of shared memory";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(err));
   }

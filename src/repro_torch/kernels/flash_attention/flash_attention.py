@@ -40,6 +40,33 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 ROUTES = ("wgmma", "simt")
 LOG2E = math.log2(math.e)
 _DTYPES = (torch.float32, torch.bfloat16)
+# the wgmma route's launch shapes: query positions a block (one or two
+# consumer warpgroups) and keys a tile of the K/V ring, each a template
+# instance of csrc/flash_attention.cu where its shared memory fits a block
+TILE_SPACE = {"block_q": (64, 128), "block_k": (64, 128)}
+SMEM_BYTES = 232_448          # shared memory one block may use (227 KB)
+STAGES = 2                    # depth of the K/V ring
+
+
+def fixed_tile(d: int) -> dict:
+    """The wgmma route's launch before tiles could be chosen: 128 query
+    positions (two warpgroups), 128-key tiles, 64 at d = 256."""
+    return {"block_q": 128, "block_k": 128 if d <= 128 else 64}
+
+
+def wgmma_smem_bytes(d: int, block_q: int, block_k: int) -> int:
+    """Dynamic shared memory of a wgmma block (csrc `Tile::kSmem`): 1024
+    bytes of alignment slack, Q, `STAGES` K and V tiles, the barriers and
+    the release counts."""
+    return (1024 + block_q * d * 2 + 2 * STAGES * block_k * d * 2
+            + 8 * (1 + 2 * STAGES) + 4 * STAGES)
+
+
+def wgmma_launchable(d: int, block_q: int, block_k: int) -> bool:
+    """True when csrc/flash_attention.cu builds this tile at head dim d."""
+    return block_q in TILE_SPACE["block_q"] and \
+        block_k in TILE_SPACE["block_k"] and \
+        wgmma_smem_bytes(d, block_q, block_k) <= SMEM_BYTES
 
 
 def route(dtype, d: int) -> str:
@@ -58,8 +85,10 @@ def _lib():
         [vp] * 4 + [i32] * 8 + [ctypes.c_float, i32, vp])
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_wgmma_launch.argtypes = (
-        [vp] * 4 + [i32] * 8 + [ctypes.c_float, vp])
+        [vp] * 4 + [i32] * 8 + [ctypes.c_float, i32, i32, vp])
     lib.flash_attention_wgmma_launch.restype = i32
+    lib.flash_attention_wgmma_smem.argtypes = [i32] * 3
+    lib.flash_attention_wgmma_smem.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,33 +137,39 @@ class FlashAttentionFn(torch.autograd.Function):
     """`flash_attention`'s forward, `attention_vjp`'s backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softmax_scale):
+    def forward(ctx, q, k, v, causal, window, softmax_scale, tile):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, softmax_scale)
         return _forward(q, k, v, causal=causal, window=window,
-                        softmax_scale=softmax_scale)
+                        softmax_scale=softmax_scale, **tile)
 
     @staticmethod
     def backward(ctx, grad_out):
         causal, window, softmax_scale = ctx.mask
         grads = attention_vjp(*ctx.saved_tensors, grad_out, causal=causal,
                               window=window, softmax_scale=softmax_scale)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softmax_scale=None):
+                    softmax_scale=None, block_q=None, block_k=None):
     """Same arguments and result as `ref.attention`: q (b, sq, hq, d), k and
-    v (b, skv, hkv, d), any sq and skv. Differentiable (`FlashAttentionFn`)
-    when grad mode is on and an input requires grad."""
+    v (b, skv, hkv, d), any sq and skv. ``block_q`` / ``block_k`` set the
+    wgmma route's launch shape (`TILE_SPACE`; None: `fixed_tile`); the
+    simt route and the plain version read no tile. Differentiable
+    (`FlashAttentionFn`, the forward at the same tile) when grad mode is
+    on and an input requires grad."""
+    tile = {"block_q": block_q, "block_k": block_k}
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window, softmax_scale)
+        return FlashAttentionFn.apply(q, k, v, causal, window, softmax_scale,
+                                      tile)
     return _forward(q, k, v, causal=causal, window=window,
-                    softmax_scale=softmax_scale)
+                    softmax_scale=softmax_scale, **tile)
 
 
-def _forward(q, k, v, *, causal, window, softmax_scale):
+def _forward(q, k, v, *, causal, window, softmax_scale, block_q=None,
+             block_k=None):
     def work():
         from repro_torch.kernels.flash_attention.spec import work
         return work(q, k, v, causal=causal, window=window)
@@ -142,11 +177,13 @@ def _forward(q, k, v, *, causal, window, softmax_scale):
     return count.call(
         "flash_attention", q.device, lambda: route(q.dtype, q.shape[-1]),
         work, lambda: _run(q, k, v, causal=causal, window=window,
-                           softmax_scale=softmax_scale),
+                           softmax_scale=softmax_scale, block_q=block_q,
+                           block_k=block_k),
         lambda: torch.empty_like(q), inputs=(q, k, v))
 
 
-def _run(q, k, v, *, causal, window, softmax_scale):
+def _run(q, k, v, *, causal, window, softmax_scale, block_q=None,
+         block_k=None):
     if not q.is_cuda:
         flash_attention.plain_calls += 1
         return ref.attention(q, k, v, causal=causal, window=window,
@@ -159,12 +196,21 @@ def _run(q, k, v, *, causal, window, softmax_scale):
     lib = _lib()
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if kind == "wgmma":
+        fixed = fixed_tile(d)
+        bq = fixed["block_q"] if block_q is None else int(block_q)
+        bk = fixed["block_k"] if block_k is None else int(block_k)
+        if not wgmma_launchable(d, bq, bk):
+            raise ValueError(f"flash_attention: block_q={bq}, block_k={bk} "
+                             f"at d={d} is not a wgmma instance "
+                             f"({TILE_SPACE}, within {SMEM_BYTES} bytes of "
+                             f"shared memory)")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "wgmma":
             err = lib.flash_attention_wgmma_launch(
                 *ptrs, b, sq, skv, hq, hkv, d, int(bool(causal)), int(window),
-                scale * LOG2E, stream)
+                scale * LOG2E, bq, bk, stream)
         else:
             err = lib.flash_attention_launch(
                 *ptrs, b, sq, skv, hq, hkv, d, int(bool(causal)), int(window),

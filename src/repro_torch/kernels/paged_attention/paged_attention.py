@@ -6,7 +6,8 @@ head (k * g) and the head dim alone: "split" (``csrc/paged_split.cuh``)
 for at most 64 rows (decode, the k = 4 verify) at head dims 16-256 that
 are powers of two, the positions split over blocks whose count `split_plan`
 takes from static shapes (never from the lengths, which would be a read
-from the card); "wgmma" (the Hopper tensor-core kernel of
+from the card): by default from the SM count, or ``pages_per_block``
+whole pages a block (the route's tile, `TILE_SPACE`); "wgmma" (the Hopper tensor-core kernel of
 ``csrc/paged_attention.cu``) for bf16 q at more rows (chunk-fill steps)
 and head dims 64, 128, 256; "simt" (``csrc/paged_simt.cuh``, the first
 port) for the rest. On CUDA tensors `paged_attention` checks its
@@ -39,6 +40,9 @@ ROUTES = ("split", "wgmma", "simt")
 SPLIT_MAX_ROWS = 64          # k * g rows per kv head on the split route
 SPLIT_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_SPLITS = 64              # split::kMaxSplits
+# the split route's launch shape: whole pages a block walks; 0 is the
+# plan from the SM count (`split_plan`), the route's launch before tiles
+TILE_SPACE = {"pages_per_block": (0, 1, 2, 4, 8, 16, 32)}
 WGMMA_HEAD_DIMS = (64, 128, 256)
 LOG2E = math.log2(math.e)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -61,13 +65,27 @@ def split_tile(d: int) -> int:
     return 32 if d <= 128 else 16
 
 
-def split_plan(b: int, hkv: int, positions: int, d: int,
-               sms: int) -> tuple[int, int]:
-    """(splits, positions per split) for the split route: enough splits
-    that b * hkv * splits blocks fill `sms` SMs twice, at most one per
-    tile of the table's `positions` (slots * T) and `MAX_SPLITS`; each
-    split a whole number of tiles, together covering every position."""
+def split_plan(b: int, hkv: int, positions: int, d: int, sms: int, *,
+               page_tokens: int = 0,
+               pages_per_block: int = 0) -> tuple[int, int]:
+    """(splits, positions per split) for the split route. With
+    ``pages_per_block`` > 0 every split walks that many whole pages of
+    ``page_tokens`` (a `ValueError` when that is not a whole number of
+    tiles or needs more than `MAX_SPLITS`); with 0, enough splits that b
+    * hkv * splits blocks fill `sms` SMs twice, at most one per tile of
+    the table's `positions` (slots * T) and `MAX_SPLITS`; each split a
+    whole number of tiles, together covering every position."""
     tp = split_tile(d)
+    if pages_per_block:
+        chunk = pages_per_block * page_tokens
+        splits = -(-positions // chunk) if chunk > 0 else 0
+        if chunk <= 0 or chunk % tp or splits > MAX_SPLITS:
+            raise ValueError(
+                f"paged_attention: pages_per_block={pages_per_block} of "
+                f"{page_tokens} positions is not a whole number of "
+                f"{tp}-position tiles in at most {MAX_SPLITS} splits of "
+                f"{positions} positions")
+        return splits, chunk
     want = -(-2 * sms // (b * hkv))
     splits = max(1, min(want, -(-positions // tp), MAX_SPLITS))
     chunk = -(-(-(-positions // splits)) // tp) * tp
@@ -83,11 +101,15 @@ _COUNTERS: dict = {}     # device index -> int32 zeros, one per (b, kv head)
 
 
 def split_scratch(device, b: int, hkv: int, kg: int, d: int,
-                  positions: int) -> tuple:
-    """The split route's plan and scratch for a launch: ``(splits, chunk,
-    (m, l) pointer, accumulator pointer, counters pointer, keep)``; the
-    pointers stay valid while ``keep`` is referenced."""
-    splits, chunk = split_plan(b, hkv, positions, d, _sm_count(device.index))
+                  positions: int, *, page_tokens: int = 0,
+                  pages_per_block: int = 0) -> tuple:
+    """The split route's plan (`split_plan`) and scratch for a launch:
+    ``(splits, chunk, (m, l) pointer, accumulator pointer, counters
+    pointer, keep)``; the pointers stay valid while ``keep`` is
+    referenced."""
+    splits, chunk = split_plan(b, hkv, positions, d, _sm_count(device.index),
+                               page_tokens=page_tokens,
+                               pages_per_block=pages_per_block)
     # (m, l) of every split's rows, then (16-byte aligned) their
     # accumulators; one split writes O itself and needs none
     n_rows = b * hkv * splits * kg if splits > 1 else 0
@@ -197,10 +219,13 @@ def _check(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
 
 
 def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
-                    page_table, lengths, layer=None, *, softmax_scale=None):
+                    page_table, lengths, layer=None, *, softmax_scale=None,
+                    pages_per_block: int = 0):
     """Same arguments and result as `ref.paged_attention`. Page-table
     entries must name pages of the pool; entries past a sequence's last
-    page (``ceil((lengths[b] + k - 1) / T)``) are never read."""
+    page (``ceil((lengths[b] + k - 1) / T)``) are never read.
+    ``pages_per_block`` is the split route's launch shape (`split_plan`);
+    the wgmma and simt routes and the plain version read no tile."""
     args = (q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
             page_table, lengths, layer)
 
@@ -215,12 +240,13 @@ def paged_attention(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
 
     return count.call(
         "paged_attention", q.device, card_route, work,
-        lambda: _run(*args, softmax_scale=softmax_scale),
+        lambda: _run(*args, softmax_scale=softmax_scale,
+                     pages_per_block=pages_per_block),
         lambda: torch.empty_like(q), inputs=(q,))
 
 
 def _run(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
-         page_table, lengths, layer, *, softmax_scale):
+         page_table, lengths, layer, *, softmax_scale, pages_per_block=0):
     if not q.is_cuda:
         paged_attention.plain_calls += 1
         return ref.paged_attention(q, k_pages, v_pages, k_quant, v_quant,
@@ -228,6 +254,9 @@ def _run(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
                                    layer, softmax_scale=softmax_scale)
     kind = _check(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
                   page_table, lengths, layer)
+    if pages_per_block not in TILE_SPACE["pages_per_block"]:
+        raise ValueError(f"paged_attention: pages_per_block="
+                         f"{pages_per_block} not in {TILE_SPACE}")
     rows = q.shape[1] if q.ndim == 4 else 1
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     pages, t, hkv = k_pages.shape[-4], k_pages.shape[-3], k_pages.shape[-2]
@@ -246,7 +275,8 @@ def _run(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "split":
             splits, chunk, *scratch, _keep = split_scratch(
-                q.device, b, hkv, rows * (hq // hkv), d, slots * t)
+                q.device, b, hkv, rows * (hq // hkv), d, slots * t,
+                page_tokens=t, pages_per_block=pages_per_block)
             err = lib.paged_attention_split_launch(
                 *ptrs, *scratch, b, rows, hq, hkv, d, pages, t, slots, lyr,
                 scale, splits, chunk, q_bf16, pool_bf16, stream)

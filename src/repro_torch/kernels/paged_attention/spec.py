@@ -3,9 +3,8 @@
 The validation cases, tolerances and input generator are copies of the
 JAX package's ``repro/kernels/paged_attention/spec.py`` so that the CPU
 tests and `chip_smoke.py` hold the kernel to the same cases; one wide
-case of the port's own follows them. The launch shape is fixed (one block
-per sequence, kv head and 64 query rows), so the spec has no tunable
-tiles yet.
+case of the port's own follows them. Every route takes one kv head a
+block; the split route's positions a block are its tile (below).
 
 `work` is the function's least work, the same for every route and for
 the plain version: q and the output once, and for every position a row
@@ -14,19 +13,113 @@ the lengths: on a real tensor it reads them (from the card, a sync), on
 ``meta`` it counts every sequence at the table's capacity, and the
 record says which. The cost counter (`repro_torch.core.hlo_cost`)
 records it for each call and `chip_smoke.py` bounds the kernel by it.
+
+The tune space is the split route's: ``pages_per_block``, the whole
+pages each block walks (0: the plan from the SM count, the route's
+launch before tiles; `paged_attention.split_plan`). The reference's
+``head_block`` has no counterpart: every route takes one kv head a block
+with all its k * g query rows, so that K and V are read once. The wgmma
+and simt routes read no tile, and their cost is flat in it.
+`paged_cost` is the Hopper model the knee is taken from; `work` does not
+depend on the tile.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core.autotune import (HBM_BW, LAUNCH_OVERHEAD_S, NUM_SMS,
+                                       stream_time)
 from repro_torch.kernels import registry
 from repro_torch.kernels.api import KernelCase, KernelSpec
 from repro_torch.kernels.paged_attention import ref
-from repro_torch.kernels.paged_attention.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention.paged_attention import (
+    TILE_SPACE, paged_attention, route, split_plan, split_tile)
 from repro_torch.kernels.paged_attention.quant import quantize_page
 
 DEFAULT_SHAPE = {"b": 2, "pages": 16, "page_tokens": 16, "slots": 4,
                  "hq": 4, "hkv": 2, "d": 32, "k": 1}
+# the main path's decode: starcoder2-7b, 4 rows, 128-token pages
+BENCH_SHAPE = {"b": 4, "pages": 512, "page_tokens": 128, "slots": 24,
+               "hq": 36, "hkv": 4, "d": 128, "k": 1}
+SPLIT_THREADS = 256
+POOL_BYTES = 4           # the serving pools' float tier is float32
+# Fitted by `tools/serve_fit.py` to the kernel phase's tile sweeps on an
+# H100 80GB HBM3 at 700 W (log(estimate / measured) by least squares over
+# every launchable tile of every swept grid): a block's set-up, q load and
+# partial write, the rate at which one block walks its tiles' bytes
+# (loads in a ring of two), its fp32 math per query row and position, and
+# the combine's read of the partials by the last block of a (sequence,
+# kv head).
+SPLIT_BLOCK_S = 4.45e-6
+SPLIT_BLOCK_BW = 1.77e10         # bytes/s one block walks
+SPLIT_ROW_POS_S = 7.13e-9        # s a block spends per (query row, position)
+SPLIT_COMBINE_BW = 7.49e10       # bytes/s of partials the last block reads
+
+
+def split_smem_bytes(kg: int, d: int, pool_bytes: int = POOL_BYTES) -> int:
+    """Dynamic shared memory of a split block (csrc `split::Smem::total`)
+    for kg = k * g query rows at head dim d."""
+    tp = split_tile(d)
+    kf, vf, i8 = tp * (d + 4) * 4, tp * d * 4, tp * d
+    raw = 0 if pool_bytes == 4 else tp * d * 2
+    stage = kf + vf + 2 * i8 + 2 * raw
+    main = 2 * kg * d * 4 + 2 * stage + kg * tp * 4 + 16 * kg + 8 * tp + 16
+    return max(main, 64 * kg * 12 + kg * 4 + 16)
+
+
+def paged_cost(grid_shape, tile: dict, dtype_bytes: int) -> tuple | None:
+    """(shared bytes per block, estimated seconds) of one call on the
+    route its shapes take, q of `dtype_bytes` (2: bf16) and float32
+    pools, every sequence at the table's capacity (the model sees no
+    lengths). Split route: b * hkv * splits blocks in waves, each wave
+    the longer of its bytes at the memory rate (`stream_time`: the
+    bytes in flight of a tile a block) and one block's walk
+    (`SPLIT_BLOCK_S` + for each position it walks, at most the table's,
+    the longer of its bytes at `SPLIT_BLOCK_BW` and its k * g rows' math
+    at `SPLIT_ROW_POS_S`), then the
+    combine's read of every split's partials; None when
+    ``pages_per_block`` does not split the positions into whole tiles
+    in at most `MAX_SPLITS`. Other routes read no tile: their bytes at
+    the memory rate and one launch, the same for every tile."""
+    b, t, slots, hq, hkv, d, k = grid_shape
+    kg = k * (hq // hkv)
+    q_dtype = torch.bfloat16 if dtype_bytes == 2 else torch.float32
+    positions = slots * t
+    per_pos = 2 * (d * (POOL_BYTES + 1) + POOL_BYTES)
+    nbytes = b * hkv * positions * per_pos + 2 * b * k * hq * d * dtype_bytes
+    if route(q_dtype, kg, d) != "split":
+        return 0, nbytes / HBM_BW + LAUNCH_OVERHEAD_S
+    try:
+        splits, chunk = split_plan(b, hkv, positions, d, NUM_SMS,
+                                   page_tokens=t,
+                                   pages_per_block=tile["pages_per_block"])
+    except ValueError:
+        return None
+    smem = split_smem_bytes(kg, d)
+    tp = split_tile(d)
+    walked = -(-min(chunk, positions) // tp) * tp
+    walk = SPLIT_BLOCK_S + walked * max(per_pos / SPLIT_BLOCK_BW,
+                                        kg * SPLIT_ROW_POS_S)
+    t_run = stream_time(nbytes, b * hkv * splits, SPLIT_THREADS, smem,
+                        tp * per_pos / SPLIT_THREADS, min_wave_s=walk)
+    if t_run is None:
+        return None
+    combine = splits * kg * (d + 2) * 4 / SPLIT_COMBINE_BW \
+        if splits > 1 else 0.0
+    return smem, t_run + combine
+
+
+def _grid_of(q, k_pages, *rest):
+    """(b, page_tokens, slots, hq, hkv, d, k) of a call: its grid shape
+    (`shape_keys`), flat or layer-stacked pools alike. The pool's page
+    count is left out: no route's cost depends on it, and a pool that
+    grows (the numpy mode's, padded to a power of two) would key a new
+    knee at every size."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    k = q.shape[1] if q.ndim == 4 else 1
+    t, hkv = k_pages.shape[-3], k_pages.shape[-2]
+    return b, t, rest[5].shape[1], hq, hkv, d, k
 
 
 def work(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
@@ -159,4 +252,12 @@ SPEC = registry.register(KernelSpec(
         KernelCase({"b": 2, "pages": 16, "page_tokens": 32, "slots": 4,
                     "hq": 18, "hkv": 2, "d": 32, "k": 32}),
     ),
+    tune_space=TILE_SPACE,
+    cost_fn=paged_cost,
+    grid_of=_grid_of,
+    shape_keys=("b", "page_tokens", "slots", "hq", "hkv", "d", "k"),
+    fixed_tile=lambda grid: {"pages_per_block": 0},
+    default_shape=DEFAULT_SHAPE,
+    bench_shape=BENCH_SHAPE,
+    dtypes=("float32", "bfloat16"),
 ))

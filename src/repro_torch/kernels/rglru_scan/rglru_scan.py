@@ -1,11 +1,12 @@
 """RG-LRU prefill recurrence: the wrapper of the CUDA kernels in
 ``csrc/rglru_scan.cu``.
 
-Two routes, chosen by `route` from the sequence length alone: "chunked",
-the chunk-parallel scan (chunks of `CHUNK` positions; two CUDA launches
-a call), for S longer than one chunk; "serial", the first port's one
+Two routes, chosen by `route` from the sequence length and the chunk:
+"chunked", the chunk-parallel scan (chunks of ``chunk`` positions, one
+of `CHUNKS`, `CHUNK` unless the caller picks; two CUDA launches a
+call), for S longer than one chunk; "serial", the first port's one
 thread per channel over the whole sequence (``csrc/rglru_serial.cuh``),
-for S <= `CHUNK` (the decode-shaped steps among them). On CUDA tensors
+for S <= the chunk (the decode-shaped steps among them). On CUDA tensors
 `rglru_scan` checks its arguments, allocates the output and the route's
 scratch and launches on the current stream, or raises: there is no
 fallback. On CPU tensors it runs the plain version
@@ -36,15 +37,16 @@ import torch
 from repro_torch.kernels import count
 from repro_torch.kernels.rglru_scan import ref
 
-CHUNK = 32               # the chunked route's chunk length
+CHUNK = 32               # the chunked route's default chunk length
+CHUNKS = (32, 64, 128, 256)   # the chunk lengths a launch may take
 ROUTES = ("chunked", "serial")
 _ROUTE_ARG = {"serial": 0, "chunked": 1}   # rglru_scan_launch's `route`
 
 
-def route(S: int) -> str:
-    """The kernel a launch over S positions takes: "chunked" when S spans
-    more than one chunk, else "serial"."""
-    return "chunked" if S > CHUNK else "serial"
+def route(S: int, chunk: int = CHUNK) -> str:
+    """The kernel a launch over S positions in chunks of `chunk` takes:
+    "chunked" when S spans more than one chunk, else "serial"."""
+    return "chunked" if S > chunk else "serial"
 
 
 @functools.cache
@@ -80,12 +82,12 @@ def launch(a, b, h, kind: str, *, chunk: int = CHUNK) -> None:
                            f"{lib.rglru_scan_error_string(err).decode()}")
 
 
-def lru_vjp(a, h, grad_h):
+def lru_vjp(a, h, grad_h, chunk=None):
     """(da, db) of ``h = scan(a, b)`` against `grad_h`, by the reverse
-    scan (see the module docstring)."""
+    scan (see the module docstring), launched at `chunk`."""
     a_rev = torch.zeros_like(a)
     a_rev[:, 1:] = a[:, 1:].flip(1)
-    lam = rglru_scan(a_rev, grad_h.flip(1).contiguous()).flip(1)
+    lam = rglru_scan(a_rev, grad_h.flip(1).contiguous(), chunk=chunk).flip(1)
     h_prev = torch.zeros_like(h)
     h_prev[:, 1:] = h[:, :-1]
     return lam * h_prev, lam
@@ -95,38 +97,44 @@ class RglruScanFn(torch.autograd.Function):
     """`rglru_scan`'s forward, `lru_vjp`'s backward."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        h = _forward(a, b)
+    def forward(ctx, a, b, chunk):
+        h = _forward(a, b, chunk)
         ctx.save_for_backward(a, h)
+        ctx.chunk = chunk
         return h
 
     @staticmethod
     def backward(ctx, grad_h):
         a, h = ctx.saved_tensors
-        return lru_vjp(a, h, grad_h.to(torch.float32))
+        return lru_vjp(a, h, grad_h.to(torch.float32), ctx.chunk) + (None,)
 
 
-def rglru_scan(a, b):
+def rglru_scan(a, b, *, chunk=None):
     """a, b: (B, S, W) float32. Returns h: (B, S, W) float32 with
     ``h_t = a_t h_{t-1} + b_t`` from a zero state, as `ref.lru_scan`.
-    Differentiable (`RglruScanFn`) when grad mode is on and an input
-    requires grad."""
+    ``chunk`` is the launch shape (`CHUNKS`; None: `CHUNK`), which also
+    sets the route (`route`); the plain version reads no tile.
+    Differentiable (`RglruScanFn`: forward and reverse scan at the same
+    chunk) when grad mode is on and an input requires grad."""
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return RglruScanFn.apply(a, b)
-    return _forward(a, b)
+        return RglruScanFn.apply(a, b, chunk)
+    return _forward(a, b, chunk)
 
 
-def _forward(a, b):
+def _forward(a, b, chunk=None):
+    chunk = CHUNK if chunk is None else int(chunk)
+
     def work():
         from repro_torch.kernels.rglru_scan.spec import work
         return work(a, b)
 
-    return count.call("rglru_scan", a.device, lambda: route(a.shape[1]),
-                      work, lambda: _run(a, b), lambda: torch.empty_like(a),
+    return count.call("rglru_scan", a.device,
+                      lambda: route(a.shape[1], chunk), work,
+                      lambda: _run(a, b, chunk), lambda: torch.empty_like(a),
                       inputs=(a, b))
 
 
-def _run(a, b):
+def _run(a, b, chunk=CHUNK):
     if not a.is_cuda:
         rglru_scan.plain_calls += 1
         return ref.lru_scan(a, b)
@@ -139,9 +147,11 @@ def _run(a, b):
         raise TypeError(f"a {a.dtype}, b {b.dtype}: the kernel takes float32")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
-    kind = route(a.shape[1])
+    if chunk not in CHUNKS:
+        raise ValueError(f"rglru_scan: chunk {chunk} not in {CHUNKS}")
+    kind = route(a.shape[1], chunk)
     h = torch.empty_like(a)
-    launch(a, b, h, kind)
+    launch(a, b, h, kind, chunk=chunk)
     rglru_scan.launches += 1
     rglru_scan.launches_by_route[kind] += 1
     return h

@@ -19,8 +19,9 @@
 //   every other shape (the spec's small cases: P = 8-32, N = 8 or 16).
 //
 // The wgmma route: the chunked decomposition itself, chunk-parallel across
-// the sequence; only the small state pass runs in order. Chunks of Q = 128
-// positions (kChunk; 64 also builds: tools/ssd_variants.py times both); the
+// the sequence; only the small state pass runs in order. Chunks of Q
+// positions, a template parameter the launch picks (`chunk`: 128, the
+// default kChunk, or 64; chip_smoke.py's kernel phase times both); the
 // last chunk may be short and is masked (rows past S load as zeros). Three
 // launches on one stream, per call:
 //   1. Chunk states, one block (one warpgroup) per (head, chunk, sequence):
@@ -104,7 +105,8 @@ using namespace hopper;
 
 constexpr int kP = 64;         // head dim the route takes: one warpgroup's rows
 constexpr int kRow = 128;      // bytes of one swizzled row: 64 bf16
-constexpr int kChunk = 128;    // positions per chunk (64 also builds)
+constexpr int kChunk = 128;    // the default chunk (the first design's)
+constexpr int kChunks[] = {64, 128};  // the chunks a launch may take
 constexpr int kPieces = 2;     // bf16 pieces of an fp32 operand (3 also builds)
 
 // error codes of the launch beside cudaError_t's (which are >= 0)
@@ -530,11 +532,19 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 namespace {
 
+template <int Q, bool Intra>
+int launch_chunk(const tc::Args& args, int B, int N, cudaStream_t s) {
+  constexpr int kS = Intra ? 1 : tc::kPieces;
+  if (N == 128) return tc::launch<Q, 128, tc::kPieces, kS>(args, B, s);
+  if (N == 64) return tc::launch<Q, 64, tc::kPieces, kS>(args, B, s);
+  return tc::kBadShape;
+}
+
 template <bool Intra>
 int launch_any(const void* x, const void* b, const void* c, const void* dt,
                const void* a, void* y, void* state, void* chunk_states,
                void* chunk_decay, int B, int S, int H, int P, int G, int N,
-               int bf16, int route, void* stream) {
+               int bf16, int route, int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     simt::Args args{x, b, c, static_cast<const float*>(dt),
@@ -544,7 +554,8 @@ int launch_any(const void* x, const void* b, const void* c, const void* dt,
                            : simt::launch<float, Intra>(args, B, s);
     return (int)err;
   }
-  if (route != 1 || !bf16 || P != tc::kP) return tc::kBadShape;
+  if (route != 1 || !bf16 || P != tc::kP || (chunk != 64 && chunk != 128))
+    return tc::kBadShape;
   tc::Args args{static_cast<const __nv_bfloat16*>(x),
                 static_cast<const __nv_bfloat16*>(b),
                 static_cast<const __nv_bfloat16*>(c),
@@ -554,13 +565,9 @@ int launch_any(const void* x, const void* b, const void* c, const void* dt,
                 static_cast<float*>(state),
                 static_cast<float*>(chunk_states),
                 static_cast<float*>(chunk_decay),
-                S, H, G, (S + tc::kChunk - 1) / tc::kChunk};
-  constexpr int kS = Intra ? 1 : tc::kPieces;
-  if (N == 128)
-    return tc::launch<tc::kChunk, 128, tc::kPieces, kS>(args, B, s);
-  if (N == 64)
-    return tc::launch<tc::kChunk, 64, tc::kPieces, kS>(args, B, s);
-  return tc::kBadShape;
+                S, H, G, (S + chunk - 1) / chunk};
+  return chunk == 64 ? launch_chunk<64, Intra>(args, B, N, s)
+                     : launch_chunk<128, Intra>(args, B, N, s);
 }
 
 }  // namespace
@@ -572,15 +579,18 @@ extern "C" {
 // one dtype: bf16 if `bf16`, else fp32; dt (B, S, H) and a (H,) are fp32; y
 // (B, S, H, P) and state (B, H, P, N) are fp32 outputs. S >= 1, G divides H,
 // N <= 256. `route` 0 is the simt route (the scratch unused); 1 the wgmma
-// route: bf16, P = 64, N = 64 or 128, x, b, c 16-byte aligned,
+// route: bf16, P = 64, N = 64 or 128, x, b, c 16-byte aligned, chunks
+// of `chunk` positions (64 or 128; the simt route ignores it),
 // `chunk_states` fp32 scratch of B * nc * H * P * N and `chunk_decay` of
-// B * nc * H, nc = ceil(S / ssd_scan_wgmma_chunk()).
+// B * nc * H, nc = ceil(S / chunk).
 int ssd_scan_launch(const void* x, const void* b, const void* c,
                     const void* dt, const void* a, void* y, void* state,
                     void* chunk_states, void* chunk_decay, int B, int S, int H,
-                    int P, int G, int N, int bf16, int route, void* stream) {
+                    int P, int G, int N, int bf16, int route, int chunk,
+                    void* stream) {
   return launch_any<false>(x, b, c, dt, a, y, state, chunk_states,
-                           chunk_decay, B, S, H, P, G, N, bf16, route, stream);
+                           chunk_decay, B, S, H, P, G, N, bf16, route, chunk,
+                           stream);
 }
 
 // `ssd_scan_launch` under ssm_bf16_intra: the intra-chunk scores rounded
@@ -590,27 +600,38 @@ int ssd_scan_launch_bf16_intra(const void* x, const void* b, const void* c,
                                const void* dt, const void* a, void* y,
                                void* state, void* chunk_states,
                                void* chunk_decay, int B, int S, int H, int P,
-                               int G, int N, int bf16, int route,
+                               int G, int N, int bf16, int route, int chunk,
                                void* stream) {
   return launch_any<true>(x, b, c, dt, a, y, state, chunk_states,
-                          chunk_decay, B, S, H, P, G, N, bf16, route, stream);
+                          chunk_decay, B, S, H, P, G, N, bf16, route, chunk,
+                          stream);
 }
 
-// The wgmma route's chunk length and pieces, as built.
+// The wgmma route's default chunk and its pieces, as built; whether a
+// chunk is built (1) or not (0).
 int ssd_scan_wgmma_chunk() { return tc::kChunk; }
 int ssd_scan_wgmma_pieces() { return tc::kPieces; }
+int ssd_scan_wgmma_built(int chunk) {
+  for (int q : tc::kChunks)
+    if (q == chunk) return 1;
+  return 0;
+}
 
 // Dynamic shared memory of the wgmma route's chunk-scan block (its largest)
-// at state size n, or a negative code for one the route does not take.
-int ssd_scan_wgmma_smem(int n) {
-  if (n == 128) return tc::Cfg<tc::kChunk, 128, tc::kPieces>::kSmemScan;
-  if (n == 64) return tc::Cfg<tc::kChunk, 64, tc::kPieces>::kSmemScan;
+// at state size n and the chunk, or a negative code for one the route
+// does not take.
+int ssd_scan_wgmma_smem(int n, int chunk) {
+  if (chunk == 128 && n == 128) return tc::Cfg<128, 128, tc::kPieces>::kSmemScan;
+  if (chunk == 128 && n == 64) return tc::Cfg<128, 64, tc::kPieces>::kSmemScan;
+  if (chunk == 64 && n == 128) return tc::Cfg<64, 128, tc::kPieces>::kSmemScan;
+  if (chunk == 64 && n == 64) return tc::Cfg<64, 64, tc::kPieces>::kSmemScan;
   return tc::kBadShape;
 }
 
 const char* ssd_scan_error_string(int err) {
   if (err == tc::kBadShape)
-    return "the wgmma route takes bf16, P = 64, N = 64 or 128";
+    return "the wgmma route takes bf16, P = 64, N = 64 or 128, chunks of "
+           "64 or 128";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -2,8 +2,9 @@
 ``csrc/ssd_scan.cu``.
 
 Two routes, chosen by `route` from static shapes alone: "wgmma", the
-chunk-parallel tensor-core scan (chunks of `WGMMA_CHUNK` positions, the
-fp32 operands in `WGMMA_PIECES` bf16 pieces; three CUDA launches a call),
+chunk-parallel tensor-core scan (chunks of ``chunk`` positions, one of
+`WGMMA_CHUNKS`, `WGMMA_CHUNK` unless the caller picks; the fp32
+operands in `WGMMA_PIECES` bf16 pieces; three CUDA launches a call),
 for bf16 inputs at P = 64 and N = 64 or 128 (mamba2's prefill); "simt",
 the first port's fp32-FMA kernel (``csrc/ssd_simt.cuh``), for fp32
 inputs and every other shape. On CUDA tensors `ssd_scan` checks its
@@ -42,8 +43,9 @@ from repro_torch.kernels.ssd_scan import ref
 
 CHUNK = 64               # the simt kernel's chunk length (positions per step)
 MAX_STATE = 256          # largest state size N its shared memory takes
-WGMMA_CHUNK = 128        # the wgmma route's chunk length, as csrc builds it
-WGMMA_PIECES = 2         # bf16 pieces of each fp32 tensor-core operand, idem
+WGMMA_CHUNK = 128        # the wgmma route's default chunk (csrc kChunk)
+WGMMA_CHUNKS = (64, 128)  # the chunks csrc builds the wgmma route for
+WGMMA_PIECES = 2         # bf16 pieces of each fp32 tensor-core operand
 WGMMA_HEAD_DIM = 64      # P: one warpgroup's 64 rows
 WGMMA_STATES = (64, 128)  # N
 ROUTES = ("wgmma", "simt")
@@ -67,17 +69,23 @@ def _lib():
     lib = load("ssd_scan")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ssd_scan_launch, lib.ssd_scan_launch_bf16_intra):
-        fn.argtypes = [vp] * 9 + [i32] * 8 + [vp]
+        fn.argtypes = [vp] * 9 + [i32] * 9 + [vp]
         fn.restype = i32
-    lib.ssd_scan_wgmma_smem.argtypes = [i32]
+    lib.ssd_scan_wgmma_smem.argtypes = [i32, i32]
     lib.ssd_scan_wgmma_smem.restype = i32
+    lib.ssd_scan_wgmma_built.argtypes = [i32]
+    lib.ssd_scan_wgmma_built.restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    built = (lib.ssd_scan_wgmma_chunk(), lib.ssd_scan_wgmma_pieces())
-    if built != (WGMMA_CHUNK, WGMMA_PIECES):
-        raise RuntimeError(f"csrc/ssd_scan.cu builds chunk, pieces {built}, "
-                           f"the wrapper sizes its scratch for "
-                           f"{(WGMMA_CHUNK, WGMMA_PIECES)}")
+    # every instance the wrapper may launch, and the one it sizes by default
+    built = {q: lib.ssd_scan_wgmma_built(q) for q in WGMMA_CHUNKS}
+    if not all(built.values()) or lib.ssd_scan_wgmma_chunk() != WGMMA_CHUNK \
+            or lib.ssd_scan_wgmma_pieces() != WGMMA_PIECES:
+        raise RuntimeError(f"csrc/ssd_scan.cu builds chunks {built}, default "
+                           f"{lib.ssd_scan_wgmma_chunk()}, pieces "
+                           f"{lib.ssd_scan_wgmma_pieces()}; the wrapper "
+                           f"launches {WGMMA_CHUNKS}, default {WGMMA_CHUNK}, "
+                           f"pieces {WGMMA_PIECES}")
     return lib
 
 
@@ -117,27 +125,30 @@ def _check(x, b_mat, c_mat, dt, a):
                                  f"route loads it 16 bytes a copy")
 
 
-def wgmma_scratch(B: int, S: int, H: int, N: int, device):
-    """The wgmma route's scratch: the chunk states (B, nc, H, P, N) fp32,
-    then the states entering each chunk, and each chunk's decay (B, nc,
-    H) fp32, nc = ceil(S / `WGMMA_CHUNK`)."""
-    nc = -(-S // WGMMA_CHUNK)
+def wgmma_scratch(B: int, S: int, H: int, N: int, device,
+                  chunk: int = WGMMA_CHUNK):
+    """The wgmma route's scratch at the launched chunk: the chunk states
+    (B, nc, H, P, N) fp32, then the states entering each chunk, and each
+    chunk's decay (B, nc, H) fp32, nc = ceil(S / chunk)."""
+    nc = -(-S // chunk)
     return (torch.empty(B, nc, H, WGMMA_HEAD_DIM, N, dtype=torch.float32,
                         device=device),
             torch.empty(B, nc, H, dtype=torch.float32, device=device))
 
 
 def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
-           scratch=None, bf16_intra: bool = False) -> None:
+           scratch=None, bf16_intra: bool = False,
+           chunk: int = WGMMA_CHUNK) -> None:
     """One launch of route `kind` into y and state, with no checks and no
     counts (`ssd_scan` checks and counts; tools and `chip_smoke.py`'s
-    before/after pairs call this directly). Raises on a launch error."""
+    before/after pairs call this directly); the wgmma route at `chunk`
+    (its scratch sized for it). Raises on a launch error."""
     B, S, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     states = decay = None
     if kind == "wgmma":
         states, decay = scratch if scratch is not None else \
-            wgmma_scratch(B, S, H, N, x.device)
+            wgmma_scratch(B, S, H, N, x.device, chunk)
     lib = _lib()
     fn = lib.ssd_scan_launch_bf16_intra if bf16_intra else \
         lib.ssd_scan_launch
@@ -147,7 +158,7 @@ def launch(x, b_mat, c_mat, dt, a, y, state, kind: str, *,
             a.data_ptr(), y.data_ptr(), state.data_ptr(),
             None if states is None else states.data_ptr(),
             None if decay is None else decay.data_ptr(), B, S, H, P, G, N,
-            int(x.dtype == torch.bfloat16), _ROUTE_ARG[kind],
+            int(x.dtype == torch.bfloat16), _ROUTE_ARG[kind], int(chunk),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed ({kind} route): "
@@ -171,31 +182,35 @@ class SsdScanFn(torch.autograd.Function):
     """`ssd_scan`'s forward, `ssd_vjp`'s backward."""
 
     @staticmethod
-    def forward(ctx, x, b_mat, c_mat, dt, a, bf16_intra):
+    def forward(ctx, x, b_mat, c_mat, dt, a, bf16_intra, chunk):
         ctx.save_for_backward(x, b_mat, c_mat, dt, a)
         ctx.set_materialize_grads(False)
         ctx.bf16_intra = bf16_intra
-        return _forward(x, b_mat, c_mat, dt, a, bf16_intra)
+        return _forward(x, b_mat, c_mat, dt, a, bf16_intra, chunk)
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):
         return ssd_vjp(ctx.saved_tensors, grad_y, grad_state,
-                       ctx.bf16_intra) + (None,)
+                       ctx.bf16_intra) + (None, None)
 
 
-def ssd_scan(x, b_mat, c_mat, dt, a, *, bf16_intra: bool = False):
+def ssd_scan(x, b_mat, c_mat, dt, a, *, bf16_intra: bool = False,
+             chunk=None):
     """x: (B, S, H, P); b_mat, c_mat: (B, S, G, N), x's dtype (float32 or
     bfloat16); dt: (B, S, H) and a: (H,) float32. Returns fp32 ``(y (B, S,
     H, P), final state (B, H, P, N))``, as `ref.ssd_chunked` (with its
-    ``bf16_intra`` rounding when asked). Differentiable (`SsdScanFn`)
-    when grad mode is on and an input requires grad."""
+    ``bf16_intra`` rounding when asked). ``chunk`` is the wgmma route's
+    launch shape (`WGMMA_CHUNKS`; None: `WGMMA_CHUNK`); the simt route
+    (chunks of `CHUNK`) and the plain version read no tile.
+    Differentiable (`SsdScanFn`, the forward at the same chunk) when grad
+    mode is on and an input requires grad."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, b_mat, c_mat, dt, a)):
-        return SsdScanFn.apply(x, b_mat, c_mat, dt, a, bf16_intra)
-    return _forward(x, b_mat, c_mat, dt, a, bf16_intra)
+        return SsdScanFn.apply(x, b_mat, c_mat, dt, a, bf16_intra, chunk)
+    return _forward(x, b_mat, c_mat, dt, a, bf16_intra, chunk)
 
 
-def _forward(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
+def _forward(x, b_mat, c_mat, dt, a, bf16_intra: bool = False, chunk=None):
     def work():
         from repro_torch.kernels.ssd_scan.spec import work
         return work(x, b_mat, c_mat, dt, a, bf16_intra=bf16_intra)
@@ -210,11 +225,11 @@ def _forward(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
         "ssd_scan", x.device,
         lambda: route(x.dtype, x.shape[1], x.shape[3], b_mat.shape[3],
                       b_mat.shape[2]),
-        work, lambda: _run(x, b_mat, c_mat, dt, a, bf16_intra), empty,
+        work, lambda: _run(x, b_mat, c_mat, dt, a, bf16_intra, chunk), empty,
         inputs=(x, b_mat, c_mat, dt, a))
 
 
-def _run(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
+def _run(x, b_mat, c_mat, dt, a, bf16_intra: bool = False, chunk=None):
     if not x.is_cuda:
         ssd_scan.plain_calls += 1
         return ref.ssd_chunked(x, b_mat, c_mat, dt, a,
@@ -223,9 +238,14 @@ def _run(x, b_mat, c_mat, dt, a, bf16_intra: bool = False):
     B, S, H, P = x.shape
     G, N = b_mat.shape[2], b_mat.shape[3]
     kind = route(x.dtype, S, P, N, G)
+    chunk = WGMMA_CHUNK if chunk is None else int(chunk)
+    if kind == "wgmma" and chunk not in WGMMA_CHUNKS:
+        raise ValueError(f"ssd_scan: chunk {chunk} is not a wgmma instance "
+                         f"{WGMMA_CHUNKS}")
     y = torch.empty(B, S, H, P, dtype=torch.float32, device=x.device)
     state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
-    launch(x, b_mat, c_mat, dt, a, y, state, kind, bf16_intra=bf16_intra)
+    launch(x, b_mat, c_mat, dt, a, y, state, kind, bf16_intra=bf16_intra,
+           chunk=chunk)
     ssd_scan.launches += 1
     ssd_scan.launches_by_route[kind] += 1
     return y, state

@@ -45,9 +45,14 @@ smoke config, else its published widths, with random weights from seed
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
         --smoke --device cpu --paged --mesh 2x2
 
-``--knee-cache`` raises `NotImplementedError`: the port's serving kernels
-launch at fixed shapes, so serving resolves no knee to persist (the
-stencils' knees persist through ``launch.weather_stencil --knee-cache``).
+    # the per-layer reference decode, or the host-assembled pool, with
+    # the launch shapes persisted across restarts:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
+        --smoke --device cpu --paged --decode-mode eager \
+        --knee-cache /tmp/ckpt/knee_cache_sm_90a.json
+
+``--knee-cache PATH`` loads the launch shapes (`kernels.api.resolve_tile`
+knees) an earlier run saved and saves the ones this run resolved.
 """
 from __future__ import annotations
 
@@ -85,8 +90,9 @@ def _parser() -> argparse.ArgumentParser:
                          " + slow-hit penalty)")
     ap.add_argument("--decode-mode", default="fused",
                     choices=("fused", "eager", "numpy"),
-                    help="fused = one step per token over the device pool "
-                         "(the only mode ported)")
+                    help="fused = one step per token over the device "
+                         "pool; eager = the per-layer reference path; "
+                         "numpy = pool arrays assembled on the host")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="speculative decode: verify K-token runs per step "
                          "(requires --paged/--continuous; K <= "
@@ -132,17 +138,10 @@ def _parser() -> argparse.ArgumentParser:
                          "penalties) instead of the deterministic "
                          "least-progress fallback")
     ap.add_argument("--knee-cache", default=None, metavar="PATH",
-                    help="JSON cache of backend='auto' knee points (not "
-                         "ported: no serving kernel has a tune space)")
+                    help="JSON cache of backend='auto' knee points (e.g. "
+                         "api.knee_cache_path(<checkpoint-dir>)): loaded "
+                         "at start, saved after serving")
     return ap
-
-
-def _refuse_unported(args):
-    if args.knee_cache:
-        raise NotImplementedError(
-            "the port's serving kernels launch at fixed shapes, so serving "
-            "resolves no knee to persist; the stencils' knees persist "
-            "through `launch.weather_stencil --knee-cache`")
 
 
 def _preempt_policy(args):
@@ -172,7 +171,6 @@ def _mesh(args):
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.external_embed:
         raise SystemExit(f"{args.arch} takes frame embeddings, not tokens")
@@ -196,7 +194,8 @@ def main(argv=None) -> dict:
         raise SystemExit("--mesh needs --paged or --continuous")
     eng = ServeEngine(cfg, kv_pool=pool, device=args.device,
                       decode_mode=args.decode_mode,
-                      speculate=args.speculate, draft=args.draft, mesh=mesh)
+                      knee_cache=args.knee_cache, speculate=args.speculate,
+                      draft=args.draft, mesh=mesh)
     if eng.plan is not None:
         print(f"serve plan: {eng.plan} over "
               f"{[str(x) for x in eng.plan.devices.ravel()]}")

@@ -1,6 +1,6 @@
 """Serving engine over one model — the port of ``repro/serve/engine.py``:
-paged, fused decode, and the dense-cache path of an engine without a
-page pool.
+paged decode in the reference's three modes, and the dense-cache path of
+an engine without a page pool.
 
 - `generate` — static lockstep batch: prefill the (left-padded) prompts
   through the flash-attention kernel, write their K/V into the
@@ -18,6 +18,19 @@ page pool.
   fused steps and a radix prefix cache lets later requests adopt cached
   prompt pages; ``chunked_prefill=False`` prefills each prompt in one
   pass at admission.
+
+Paged decode runs in one of the reference's three modes (``decode_mode``,
+`serve.paged_decode.MODES`): ``fused`` (the default) runs the whole token
+as one step over the device-resident pool — two host/device transfers a
+token, whatever the depth; ``eager`` is the per-layer reference path the
+fused step is tested against (each layer's K/V rows back to the host and
+into the same device pool, its kernel launched alone); ``numpy``
+assembles each layer's pool arrays on the host every step and uploads
+them for the call (``device_gather=False`` without a mode picks it). Eager
+and numpy decode one token a step over pure global-attention stacks, with
+monolithic prefill in `serve()` and `ServeSession`, unsharded on a mesh's
+first device; speculation, chunked prefill and hybrid stacks raise there,
+as in the reference.
 
 Speculative decode (``speculate=k`` on the engine or per `Request`): a
 draft proposer (`serve.speculative`) guesses k - 1 tokens per request and
@@ -53,9 +66,11 @@ reference's dense-cache path over the plan (`ShardedModel.
 forward_prefill_dense`; minicpm3-4b's MLA included).
 
 Greedy decoding is argmax; temperature sampling draws from a
-``torch.Generator`` seeded with ``seed``. The eager/numpy decode modes
-are not ported: ``decode_mode`` other than "fused" raises
-`NotImplementedError`. As in the reference, `serve()` and
+``torch.Generator`` seeded with ``seed``. ``knee_cache`` (a JSON path,
+canonically ``api.knee_cache_path(checkpoint_dir)``) persists the launch
+shapes ``backend="auto"`` resolves (`kernels.api.resolve_tile`) across
+restarts: loaded at construction, saved after each `generate` / `serve`
+that resolved a new one. As in the reference, `serve()` and
 `ServeSession` need a pool (`ValueError`), a paged MLA or cross-attention
 stack raises `NotImplementedError`, and the engine feeds tokens only: a
 cross-attention stack (llama-3.2-vision-11b: no image embeddings) fails
@@ -72,12 +87,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import api
 from repro_torch.models import Model
 from repro_torch.models.common import flatten
 from repro_torch.models.transformer import check_state, pad_caches
 from repro_torch.serve.kvcache import PagedKVPool
-from repro_torch.serve.paged_decode import (PagedKVState, build_fused_step,
-                                            extract_prefill_pages, sample)
+from repro_torch.serve.paged_decode import (MODES, PagedKVState,
+                                            build_fused_step,
+                                            extract_prefill_pages,
+                                            paged_decode_step, sample)
 from repro_torch.serve.paged_state import StateLayout, supports_paged_layout
 from repro_torch.serve.preemption import LRUVictimPolicy, RequestView
 from repro_torch.serve.prefix_cache import RadixPrefixCache
@@ -104,18 +122,27 @@ class ServeEngine:
     `ServePlan` over its devices (``device`` is then unused; a mesh of one
     position is the unsharded engine on its device): the config must
     split over its model axis (`ServePlan.check_config`); without
-    ``kv_pool`` it generates from dense caches over the plan."""
+    ``kv_pool`` it generates from dense caches over the plan. Only the
+    fused mode runs under a plan: eager and numpy serve unsharded on the
+    mesh's first device. ``decode_mode`` None means ``"fused"`` with
+    ``device_gather``, else ``"numpy"``."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None,
                  seed: int = 0, kv_pool: Optional[PagedKVPool] = None,
                  device="cuda", backend: str = "auto",
-                 decode_mode: Optional[str] = None, speculate: int = 0,
-                 draft="ngram", mesh=None):
-        if decode_mode not in (None, "fused"):
-            raise NotImplementedError(f"decode_mode={decode_mode!r}: only "
-                                      f"the fused step is ported")
+                 device_gather: bool = True,
+                 decode_mode: Optional[str] = None, knee_cache=None,
+                 speculate: int = 0, draft="ngram", mesh=None):
+        if decode_mode is None:
+            decode_mode = "fused" if device_gather else "numpy"
+        if decode_mode not in MODES:
+            raise ValueError(f"decode_mode {decode_mode!r} not in {MODES}")
+        self.decode_mode = decode_mode
         self.cfg = cfg
-        self.plan = ServePlan.from_mesh(mesh)
+        # only the fused step runs under a plan (eager and numpy are the
+        # one-device references)
+        self.plan = ServePlan.from_mesh(mesh) if decode_mode == "fused" \
+            else None
         if self.plan is None:
             # a mesh of one position serves unsharded on its device
             self.device = torch.device(device if mesh is None
@@ -136,6 +163,9 @@ class ServeEngine:
                                           check_state(cfg, params))
         self.kv_pool = kv_pool
         self.backend = backend
+        self.knee_cache = knee_cache
+        if knee_cache is not None:
+            api.load_knee_cache(knee_cache)
         self.layout = StateLayout(cfg, kv_pool.page_tokens) \
             if kv_pool is not None else None
         self.speculate = int(speculate)
@@ -159,7 +189,7 @@ class ServeEngine:
     @property
     def _hybrid(self) -> bool:
         """True when the stack holds any non-global-attention mixer
-        (recurrent slots or ring pages)."""
+        (recurrent slots or ring pages) — served fused-only."""
         return self.layout.has_rec or self.layout.has_ring
 
     def _require_paged(self):
@@ -170,16 +200,28 @@ class ServeEngine:
             raise NotImplementedError(
                 f"{self.cfg.name}: paged serving needs a stack of "
                 f"attn/local_attn/ssd/rglru mixers")
+        if self._hybrid and self.decode_mode != "fused":
+            raise NotImplementedError(
+                f"{self.cfg.name}: recurrent/ring layers serve through the "
+                f"fused paged step only; decode_mode="
+                f"{self.decode_mode!r} stays the global-attention "
+                f"reference")
 
     def _check_spec_width(self, k: int):
-        """A k-token verify step needs the page pool and k <= page_tokens
-        (one step may cross at most one page boundary)."""
+        """A k-token verify step needs the page pool, the fused mode (eager
+        and numpy stay the one-token references) and k <= page_tokens (one
+        step may cross at most one page boundary)."""
         if k <= 1:
             return
         if self.kv_pool is None:
             raise ValueError("speculative decode verifies against the "
                              "page pool — construct the engine with "
                              "kv_pool=")
+        if self.decode_mode != "fused":
+            raise ValueError(
+                f"speculative decode (k={k}) runs over the fused verify "
+                f"step; decode_mode={self.decode_mode!r} stays the "
+                f"1-token reference")
         t = self.kv_pool.page_tokens
         if k > t:
             raise ValueError(
@@ -199,8 +241,9 @@ class ServeEngine:
         cfg = self.cfg
         return PagedKVState(self.kv_pool, capacity, self.layout,
                             cfg.num_kv_heads, cfg.head_dim,
-                            batch_hint=batch_hint, tail_slots=tail_slots,
-                            device=self.device, plan=self.plan)
+                            mode=self.decode_mode, batch_hint=batch_hint,
+                            tail_slots=tail_slots, device=self.device,
+                            plan=self.plan)
 
     def _fused_step_fn(self, slots: int, greedy: bool, temperature: float,
                        k: int = 1):
@@ -213,6 +256,12 @@ class ServeEngine:
                                   layout=self.layout, plan=self.plan)
             self._fused_cache[key] = fn
         return fn
+
+    def _maybe_save_knees(self):
+        """Persist the knees resolved since the last save, when the engine
+        has a knee cache."""
+        if self.knee_cache is not None and api.knees_dirty():
+            api.save_knee_cache(self.knee_cache)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -335,6 +384,7 @@ class ServeEngine:
         if self.kv_pool is None:
             outs = self._generate_dense(prompts, max_new, greedy,
                                         temperature, seed)
+            self._maybe_save_knees()
             return self._finish_generate(outs, requests, [SpecStats()
                                                           for _ in requests],
                                          max_new)
@@ -377,7 +427,9 @@ class ServeEngine:
                                 outs, spec_stats, plen, greedy, temperature,
                                 gen, observe)
         else:
-            step_fn = self._fused_step_fn(state.slots, greedy, temperature)
+            fused = self.decode_mode == "fused"
+            step_fn = self._fused_step_fn(state.slots, greedy, temperature) \
+                if fused else None
             step_seqs = seq_ids + [-1] * (n_rows - b)
             if n_rows > b:       # device-side pad: no extra upload
                 tok = torch.cat([tok, tok.new_zeros(n_rows - b)])
@@ -385,10 +437,17 @@ class ServeEngine:
                 hits0 = (self.kv_pool.stats["fast_hits"],
                          self.kv_pool.stats["slow_hits"])
                 g0 = state.gather_s
-                # steady state: one control upload, one token download —
-                # `tok` stays on the device
-                tok_host, tok = state.run_fused(step_fn, tok, step_seqs,
-                                                plen + step, gen)
+                if fused:
+                    # steady state: one control upload, one token
+                    # download — `tok` stays on the device
+                    tok_host, tok = state.run_fused(step_fn, tok, step_seqs,
+                                                    plen + step, gen)
+                else:
+                    logits = paged_decode_step(
+                        self.model, tok.cpu().numpy(), state, seq_ids,
+                        plen + step, backend=self.backend)
+                    tok = sample(logits, greedy, temperature, gen)
+                    tok_host = tok.cpu().numpy()
                 if observe is not None:
                     observe(state.gather_s - g0,
                             self.kv_pool.stats["fast_hits"] - hits0[0],
@@ -402,6 +461,7 @@ class ServeEngine:
         if free_pages:
             for seq in seq_ids:
                 state.free_seq(seq)
+        self._maybe_save_knees()
         return self._finish_generate(outs, requests, spec_stats, max_new)
 
     def _generate_dense(self, prompts: np.ndarray, max_new: int,
@@ -561,6 +621,7 @@ class ServeEngine:
         self.last_request_stats = [session.request_stats(r)
                                    for r in requests]
         session.close()    # drop radix pins: the pool tracks live work
+        self._maybe_save_knees()
         return [session.result(r) for r in requests]
 
 
@@ -663,7 +724,11 @@ class ServeSession:
     prompts' pages so later requests adopt the cached prefix instead of
     prefilling it. A hybrid stack (recurrent or ring layers) always
     prefills in chunks, with no radix cache and no prefix hashing, as in
-    the reference: ``chunked_prefill=False`` raises `ValueError`.
+    the reference: ``chunked_prefill=False`` raises `ValueError`. Chunked
+    prefill rides the fused step: an eager or numpy engine's session
+    prefills each prompt in one pass at admission (``chunked_prefill=
+    True`` raises `ValueError`) and decodes through
+    `paged_decode.paged_decode_step`.
 
     Overload: requests may carry a ``deadline`` and a ``priority``. When
     an admission round leaves a strictly more urgent head blocked and
@@ -704,6 +769,11 @@ class ServeSession:
         self.max_active = max_active
         self.greedy, self.temperature = greedy, float(temperature)
         self.metrics = metrics
+        fused = engine.decode_mode == "fused"
+        if chunked_prefill and not fused:
+            raise ValueError(
+                f"chunked prefill rides the fused verify step; "
+                f"decode_mode={engine.decode_mode!r} stays monolithic")
         hybrid = engine._hybrid
         if hybrid and chunked_prefill is not None and not chunked_prefill:
             # the monolithic prefill of a session cannot hand a recurrent
@@ -711,7 +781,7 @@ class ServeSession:
             raise ValueError(
                 f"{engine.cfg.name}: recurrent/ring stacks prefill through "
                 f"chunked prefill only; drop chunked_prefill=False")
-        self.chunked = True if chunked_prefill is None \
+        self.chunked = fused if chunked_prefill is None \
             else bool(chunked_prefill)
         self.prefill_budget = max(1, int(prefill_budget))
         # a recurrent state is not content-addressable: no radix adoption
@@ -749,8 +819,10 @@ class ServeSession:
         self._recs: dict[int, _SessionRec] = {}
         self._gen = engine._generator(seed)
         self._observe = getattr(self.pool.policy, "observe", None)
+        self._fused = fused
         self._step_fn = engine._fused_step_fn(self.state.slots, greedy,
-                                              temperature, k=k)
+                                              temperature, k=k) \
+            if fused else None
         self._tok_dev = None      # device-resident (n_rows,) last tokens
         self._rows_dirty = True   # host-known token entered/left a row
         self.steps = 0
@@ -927,7 +999,8 @@ class ServeSession:
         pins = self.prefix_index.pin_counts() \
             if self.prefix_index is not None else None
         self.pool.check_invariants(pins=pins)
-        self.state._device.check_invariants()
+        if self.state._device is not None:
+            self.state._device.check_invariants()
         if self.state._rec is not None:
             self.state._rec.check_invariants()
 
@@ -1290,6 +1363,19 @@ class ServeSession:
             # vector — rebuild it on the next plain step
             self._rows_dirty = True
             self._tok_dev = None
+        elif not self._fused:
+            # eager / numpy: the per-layer step over host tokens
+            pos = np.zeros(len(rows), np.int32)
+            seq_ids = [-1] * len(rows)
+            tokens = np.zeros(len(rows), np.int32)
+            for i, act in enumerate(rows):
+                if act is not None:
+                    pos[i], seq_ids[i] = act.pos, act.seq
+                    tokens[i] = act.outs[-1]
+            logits = paged_decode_step(eng.model, tokens, state, seq_ids,
+                                       pos, backend=eng.backend)
+            toks = sample(logits, self.greedy, self.temperature,
+                          self._gen).cpu().numpy()
         else:
             pos = np.zeros(len(rows), np.int32)
             seq_ids = [-1] * len(rows)

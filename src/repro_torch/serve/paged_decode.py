@@ -23,6 +23,21 @@ filled pages to the pool after. Steady state crosses the host/device
 boundary twice per token — one int32 control upload, one sampled-token
 download — whatever the depth.
 
+Three decode modes over one `PagedKVState`, as in the reference:
+
+``fused``  (default) the step above.
+``eager``  the per-layer reference path (`paged_decode_step`): a Python
+           loop over layers, each bringing its new K/V rows back to the
+           host, writing them into the same layer-stacked device pool
+           (`DevicePagePool.write_rows`) and launching the paged kernel
+           alone — about two transfers a layer a token.
+``numpy``  no device pool: each layer's pool-shaped arrays are
+           assembled on the host every step (padded to a power of two,
+           at least 8 entries, so shapes change only as the pool grows)
+           and uploaded for the call; the tail rows stay on the host.
+Eager and numpy serve pure global-attention stacks, one token a step; on
+the card both launch the paged kernel, never its plain version.
+
 ``build_fused_step(k > 1)`` is the speculative VERIFY step over the same
 body, widened to k token rows per sequence: the k input tokens ride in the
 control block, every layer scatters k K/V rows (rows past the page
@@ -72,7 +87,30 @@ from repro_torch.serve.paged_state import (RecurrentStore, StateLayout,
                                            gather_ring_kv, rec_array_names,
                                            rec_gather, rec_scan_tokens_tp,
                                            rec_scatter,
-                                           ring_attend, select_checkpoint)
+                                           ring_attend, select_checkpoint,
+                                           supports_paged_layout)
+
+MODES = ("fused", "eager", "numpy")
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def paged_tile(backend: str, args):
+    """The paged-attention launch shape for one step's shapes: with
+    ``backend="auto"`` the knee of the spec's Hopper cost model
+    (`api.resolve_tile`, cached per shape and persisted by the knee
+    cache), looked up once a step and used for every layer; else None
+    (``"cuda"``: the wrapper's own plan; ``"ref"`` takes no tile). On the
+    CPU the knee is resolved all the same, and the plain version ignores
+    it."""
+    if backend != "auto":
+        return None
+    return api.resolve_tile("paged_attention", args)
 
 
 class PagedKVState:
@@ -104,14 +142,30 @@ class PagedKVState:
     block carries shard-local slot ids, so its row attends only pages of
     its own shard. The decode batch must hold an equal block of rows per
     shard (pad with -1 rows: `ServePlan.pad_rows`); every shard has its
-    own trash slots. The control block is still one upload."""
+    own trash slots. The control block is still one upload.
+
+    ``mode`` is the decode mode (`MODES`). ``"numpy"`` keeps no device
+    pool: the tail rows live in ``tail_data`` on the host and `gather`
+    assembles each layer's arrays for the step. A plan, or a stack with
+    recurrent or ring layers, takes the fused mode only, as in the
+    reference."""
 
     def __init__(self, pool: PagedKVPool, capacity: int,
                  layout: StateLayout, hkv: int, hd: int, *,
-                 batch_hint: int = 1, tail_slots: int = 1, device="cuda",
-                 plan=None):
+                 mode: str = "fused", batch_hint: int = 1,
+                 tail_slots: int = 1, device="cuda", plan=None):
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
         if tail_slots not in (1, 2):
             raise ValueError(f"tail_slots must be 1 or 2, got {tail_slots}")
+        if plan is not None and mode != "fused":
+            raise ValueError(f"mesh-sharded serving requires the fused "
+                             f"decode mode, got {mode!r}")
+        if (layout.has_rec or layout.has_ring) and mode != "fused":
+            raise NotImplementedError(
+                f"recurrent/ring paged state is fused-only, got mode "
+                f"{mode!r}")
+        self.mode = mode
         self.pool = pool
         self.layout = layout
         self.num_layers = num_layers = layout.n_kv
@@ -138,10 +192,15 @@ class PagedKVState:
         # init_slots is the PER-SHARD worst case: each shard carries its
         # block of decode rows
         rows_per_shard = -(-self.batch_hint // shards)
-        self._device = DevicePagePool(num_layers, t, hkv, hd,
-                                      init_slots=self.slots * rows_per_shard,
-                                      device=self.device, plan=plan)
-        self._trash = [self._device.alloc(s) for s in range(shards)]
+        self.tail_data: dict[tuple, list] = {}  # numpy: (seq, layer) -> rows
+        self._device: DevicePagePool | None = None
+        self._trash: list = []
+        if mode != "numpy":
+            self._device = DevicePagePool(
+                num_layers, t, hkv, hd,
+                init_slots=self.slots * rows_per_shard, device=self.device,
+                plan=plan)
+            self._trash = [self._device.alloc(s) for s in range(shards)]
         self._rec: RecurrentStore | None = None
         if layout.has_rec:
             self._rec = RecurrentStore(
@@ -155,7 +214,9 @@ class PagedKVState:
         # empty at swap-out; seq -> its parked recurrent state blocks
         self._parked_tail: dict[int, object] = {}
         self._parked_rec: dict[int, dict] = {}
-        self._in_step = False     # between begin_step and end_step
+        # between begin_step and end_step: the step's sequences, control
+        # block, and (eager) uploaded page table, lengths and tile
+        self._step: dict | None = None
         self.gather_s = 0.0       # host-side bookkeeping time
         self.h2d = 0
         self.d2h = 0
@@ -172,7 +233,8 @@ class PagedKVState:
                                f"shard {prev}, cannot rebind to {shard}")
 
     def shard_of(self, seq: int) -> int:
-        if self._device.shards > 1 and seq not in self._shard_of:
+        if self._device is not None and self._device.shards > 1 \
+                and seq not in self._shard_of:
             raise RuntimeError(f"sequence {seq} not bound to a data shard "
                                f"— call bind_seq before its first write")
         return self._shard_of.get(seq, 0)
@@ -194,8 +256,9 @@ class PagedKVState:
         """(host->device, device->host) explicit transfers so far,
         including the device pool's write batches and fill readbacks and
         the recurrent store's slot writes and reads."""
-        h2d = self.h2d + self._device.writes
-        d2h = self.d2h + self._device.reads
+        dev = self._device
+        h2d = self.h2d + (dev.writes if dev is not None else 0)
+        d2h = self.d2h + (dev.reads if dev is not None else 0)
         if self._rec is not None:
             h2d += self._rec.writes
             d2h += self._rec.reads
@@ -233,10 +296,14 @@ class PagedKVState:
                 f"layout requires layer-uniform prefill lengths")
         if not n_rest:
             return
+        rest_k, rest_v = k[n_full * t:], v[n_full * t:]
+        if self._device is None:
+            self.tail_data[(seq, layer)] = [(rest_k[r], rest_v[r])
+                                            for r in range(n_rest)]
+            return
         slot = self._ensure_tail_slot(seq)
         self._device.write_rows(layer, np.full(n_rest, slot),
-                                np.arange(n_rest), k[n_full * t:],
-                                v[n_full * t:])
+                                np.arange(n_rest), rest_k, rest_v)
 
     def adopt_prefix(self, seq: int, groups, pending_hashes=()):
         """Start a sequence from cached pages instead of a prefill: each
@@ -347,15 +414,19 @@ class PagedKVState:
         positions = np.broadcast_to(np.asarray(positions, np.int32), (b,))
         cc = self.layout.cols(self.slots, k)
         dev = self._device
-        shards = dev.shards
+        if k > 1 and dev is None:
+            raise RuntimeError("k-row steps scatter inside the fused step "
+                               "— they need a device pool")
+        shards = dev.shards if dev is not None else 1
         if b % shards:
             raise ValueError(f"decode batch of {b} rows does not split "
                              f"over {shards} data shards — pad with -1 "
                              f"rows (ServePlan.pad_rows)")
         row_shard = [i * shards // b for i in range(b)]
         control = np.zeros((b, cc.width), np.int32)
-        control[:, cc.tail] = [dev.local_slot(self._trash[sh])
-                               for sh in row_shard]
+        if dev is not None:
+            control[:, cc.tail] = [dev.local_slot(self._trash[sh])
+                                   for sh in row_shard]
         control[:, cc.len] = 1
         if self._rec is not None:
             control[:, cc.rec] = [self._rec.local_slot(self._rec.trash_of[sh])
@@ -382,13 +453,14 @@ class PagedKVState:
             sync_shards.extend([row_shard[i]] * len(groups))
             groups_by_row.append(groups)
         self.pool.touch_many(touch_pids)
-        dev.sync(self.pool, sync_groups, sync_shards)
+        if dev is not None:
+            dev.sync(self.pool, sync_groups, sync_shards)
         for i, groups in enumerate(groups_by_row):
             if groups is None:
                 continue
             seq = seq_ids[i]
             tail = self.tail_len.get(seq, 0)
-            if self.num_layers:
+            if dev is not None and self.num_layers:
                 sh = row_shard[i]
                 for n, g in enumerate(groups):
                     control[i, n] = dev.local_slot(dev.slot(g[0], sh))
@@ -412,7 +484,8 @@ class PagedKVState:
             control[i, cc.row] = tail
             control[i, cc.pos] = positions[i]
             control[i, cc.len] = len(groups) * t + tail + 1
-        self._in_step = True
+        self._step = {"seq_ids": list(seq_ids), "control": control, "cc": cc,
+                      "table": None, "lengths": None, "tile": None}
         self.gather_s += time.perf_counter() - t0
         return control
 
@@ -475,7 +548,7 @@ class PagedKVState:
         rollback. When the kept tokens cross the page boundary, the spill
         slot (already holding their rows) becomes the tail slot. Default:
         1 token per live row."""
-        if not self._in_step:
+        if self._step is None:
             raise RuntimeError("end_step() without begin_step()")
         t0 = time.perf_counter()
         t = self.pool.page_tokens
@@ -497,6 +570,15 @@ class PagedKVState:
                     self._drop_ring(seq)
                 continue
             self.tail_len[seq] = n - t
+            if self._device is None:
+                if adv != 1:
+                    raise RuntimeError("multi-token steps need the device "
+                                       "pool (decode_mode='fused')")
+                for layer in range(self.num_layers):
+                    rows = self.tail_data.pop((seq, layer))
+                    self.pool.put(seq, np.stack([r[0] for r in rows]),
+                                  np.stack([r[1] for r in rows]), layer=layer)
+                continue
             slot = self._tail_slot.pop(seq)
             k_all, v_all = self._device.read_slot(slot)
             # a chunked prefill queued this page's cumulative prompt hash:
@@ -520,7 +602,7 @@ class PagedKVState:
                     f"must begin_step with k > 1")
             if self.layout.has_ring:
                 self._drop_ring(seq)
-        self._in_step = False
+        self._step = None
         self.gather_s += time.perf_counter() - t0
 
     def _drop_ring(self, seq: int):
@@ -547,7 +629,62 @@ class PagedKVState:
         tree hooks this (``on_release``) so an evicted or cleared pin
         frees its slot exactly like `free_seq` does for a retired
         sequence's pages."""
-        self._device.release_pid(pid)
+        if self._device is not None:
+            self._device.release_pid(pid)
+
+    # -- eager / numpy modes: one layer at a time ----------------------------
+    def _step_view(self) -> dict:
+        if self._step is None:
+            raise RuntimeError("decode step used outside "
+                               "begin_step()/end_step()")
+        return self._step
+
+    def append_step_rows(self, layer: int, k_rows: np.ndarray,
+                         v_rows: np.ndarray):
+        """Eager / numpy modes: append this step's (b, hkv, hd) host K/V
+        rows at one layer — one `DevicePagePool.write_rows` batch into the
+        tail slots (dead rows into the scratch slot), or onto the host
+        ``tail_data``. The fused step does the same scatter itself."""
+        st = self._step_view()
+        c, cc = st["control"], st["cc"]
+        if self._device is not None:
+            self._device.write_rows(layer, c[:, cc.tail], c[:, cc.row],
+                                    k_rows, v_rows)
+            return
+        for i, seq in enumerate(st["seq_ids"]):
+            if seq >= 0:
+                self.tail_data.setdefault((seq, layer), []) \
+                    .append((k_rows[i], v_rows[i]))
+
+    def attend(self, q, layer: int, backend: str = "auto"):
+        """Eager / numpy modes: q (b, hq, hd) for the step's token at one
+        layer -> (b, hq, hd) over every pooled page and tail row, through
+        ``api.run("paged_attention", ...)``. Eager attends the resident
+        layer-stacked pool (the page table and lengths uploaded once a
+        step: 2 transfers); numpy uploads the layer's host-assembled
+        arrays for the call (8 transfers). The launch shape is resolved
+        once a step (`paged_tile`)."""
+        st = self._step_view()
+        if self._device is not None:
+            if st["table"] is None:
+                c, cc = st["control"], st["cc"]
+                st["table"] = torch.from_numpy(
+                    np.ascontiguousarray(c[:, :self.slots])).to(self.device)
+                st["lengths"] = torch.from_numpy(
+                    np.ascontiguousarray(c[:, cc.len])).to(self.device)
+                self.h2d += 2
+            args = (q, *self._device.arrays, st["table"], st["lengths"],
+                    layer)
+        else:
+            t0 = time.perf_counter()
+            view = self._gather_numpy(layer, st["seq_ids"])
+            self.gather_s += time.perf_counter() - t0
+            self.h2d += len(view)
+            args = (q, *[torch.from_numpy(a).to(self.device) for a in view])
+        if st["tile"] is None:
+            st["tile"] = paged_tile(backend, args) or {}
+        return api.run("paged_attention", *args, backend=backend,
+                       tile=st["tile"] or None)
 
     # -- preemption: whole-sequence swap out / in ---------------------------
     def is_parked(self, seq: int) -> bool:
@@ -571,7 +708,9 @@ class PagedKVState:
         tail_bytes = 0
         n = self.tail_len.get(seq, 0)
         slot = self._tail_slot.pop(seq, None)
-        if n > 0:
+        if self._device is None:
+            self._parked_tail[seq] = None   # numpy tails already host-side
+        elif n > 0:
             if slot is None:
                 raise RuntimeError(
                     f"sequence {seq}: {n} tail rows but no tail slot")
@@ -600,7 +739,7 @@ class PagedKVState:
                 self.pool.stats["swap_out_bytes"] += rec_bytes
                 tail_bytes += rec_bytes
         for pid, _layer in self.pool.swap_out_seq(seq):
-            self._device.release_pid(pid)
+            self.release_page(pid)
         return tail_bytes
 
     def swap_in(self, seq: int) -> int:
@@ -614,7 +753,7 @@ class PagedKVState:
         self.pool.swap_in_seq(seq)
         tail_bytes = 0
         n = self.tail_len.get(seq, 0)
-        if n > 0:
+        if self._device is not None and n > 0:
             kt, vt = data
             slot = self._ensure_tail_slot(seq)
             slots = np.full(n, slot)
@@ -641,7 +780,7 @@ class PagedKVState:
         layer) pairs."""
         destroyed = self.pool.free(seq)
         for pid, _layer in destroyed:
-            self._device.release_pid(pid)
+            self.release_page(pid)
         self._shard_of.pop(seq, None)
         self.tail_len.pop(seq, None)
         self._pending_hashes.pop(seq, None)
@@ -651,11 +790,81 @@ class PagedKVState:
         slot = self._rec_slot.pop(seq, None)
         if slot is not None:
             self._rec.release_slot(slot)
+        for key in [key for key in self.tail_data if key[0] == seq]:
+            self.tail_data.pop(key)
         for slot in (self._tail_slot.pop(seq, None),
                      self._spill_slot.pop(seq, None)):
             if slot is not None:
                 self._device.release_slot(slot)
         return destroyed
+
+
+    # -- numpy mode: the host-assembled pool ---------------------------------
+    def gather(self, layer: int, seq_ids) -> tuple:
+        """numpy mode: (k_pages, v_pages, k_quant, v_quant, k_scale,
+        v_scale, page_table, lengths) for the batch at this layer, host
+        arrays in the kernel's argument order (the device modes keep the
+        pool resident: use begin_step / attend)."""
+        if self.mode != "numpy":
+            raise RuntimeError("gather() assembles host arrays — device-"
+                               "resident modes use begin_step()/attend()")
+        t0 = time.perf_counter()
+        view = self._gather_numpy(layer, list(seq_ids))
+        self.gather_s += time.perf_counter() - t0
+        return view
+
+    def _seq_view_numpy(self, seq, layer):
+        pids = self.pool.seq_pages(seq, layer)
+        tail = self.tail_data.get((seq, layer), ())
+        if len(pids) + bool(tail) > self.slots:
+            raise ValueError(
+                f"sequence {seq}: {len(pids)} pages + "
+                f"{'a partial' if tail else 'no'} tail page exceed the "
+                f"page-table capacity of {self.slots} slots "
+                f"({self.slots * self.pool.page_tokens} tokens) at layer "
+                f"{layer}; size the PagedKVState capacity to the longest "
+                f"request")
+        return pids, tail
+
+    def _gather_numpy(self, layer: int, seq_ids) -> tuple:
+        """The layer's pages and tail rows as one flat float32 / int8
+        pool, padded to a power of two and at least 8 entries, with the
+        page table into it and the lengths."""
+        pool, t = self.pool, self.pool.page_tokens
+        b = len(seq_ids)
+        entries: list = []
+        table = np.zeros((b, self.slots), np.int32)
+        lengths = np.ones(b, np.int32)
+        for i, seq in enumerate(seq_ids):
+            if seq < 0:
+                continue
+            pids, tail = self._seq_view_numpy(seq, layer)
+            for n, pid in enumerate(pids):
+                table[i, n] = len(entries)
+                entries.append(pool.pages[pid])
+            if tail:
+                table[i, len(pids)] = len(entries)
+                entries.append(tuple(tail))
+            lengths[i] = max(1, len(pids) * t + len(tail))
+        hkv, hd = self.hkv, self.hd
+        n = max(8, _next_pow2(len(entries)))
+        kf = np.zeros((n, t, hkv, hd), np.float32)
+        vf = np.zeros_like(kf)
+        kq = np.zeros((n, t, hkv, hd), np.int8)
+        vq = np.zeros_like(kq)
+        ks = np.zeros((n, t, hkv), np.float32)
+        vs = np.zeros_like(ks)
+        for e, entry in enumerate(entries):
+            if isinstance(entry, tuple):               # tail: partial page
+                kf[e, :len(entry)] = np.stack([r[0] for r in entry])
+                vf[e, :len(entry)] = np.stack([r[1] for r in entry])
+            elif entry.tier == "fast":
+                kf[e], vf[e] = entry.data
+            else:                                      # slow: stays int8
+                (pkq, pks), (pvq, pvs) = entry.data
+                kq[e], ks[e] = pkq, pks[..., 0]
+                vq[e], vs[e] = pvq, pvs[..., 0]
+        return kf, vf, kq, vq, ks, vs, table, lengths
 
 
 def extract_prefill_pages(model, caches, state: PagedKVState, seq_ids,
@@ -709,6 +918,52 @@ def extract_prefill_pages(model, caches, state: PagedKVState, seq_ids,
                 seq, {n: np.stack(v) for n, v in rec_parts[bi].items()})
 
 
+def paged_decode_step(model, tokens, state: PagedKVState, seq_ids, pos,
+                      backend: str = "auto"):
+    """One decode step with every attention layer served from the page
+    pool, one layer at a time — the eager reference path and the numpy
+    mode: each layer brings its new K/V rows back to the host (2
+    transfers), appends them (`PagedKVState.append_step_rows`) and
+    launches the paged kernel alone (`PagedKVState.attend`). The fused
+    step must match it token for token.
+
+    tokens: (b,) int32 host values; `pos` a scalar shared by the batch or
+    (b,) per-sequence positions; `seq_ids` may carry -1 padding rows,
+    whose logits are garbage. Returns logits (b, V) on the model's
+    device. A stack that is not pure global attention raises
+    `NotImplementedError`: recurrent and ring layers are fused-only."""
+    cfg = model.cfg
+    if not all(mixer == ATTN for mixer, _ in cfg.layer_kinds()) \
+            or not supports_paged_layout(cfg):
+        raise NotImplementedError(
+            f"eager paged decode needs a pure global-attention stack "
+            f"(recurrent/ring layers are fused-only), got "
+            f"{cfg.layer_kinds()}")
+    seq_ids = list(seq_ids)
+    b = len(seq_ids)
+    state.begin_step(seq_ids, pos)
+    dev = state.device
+    x = model.embed_in(torch.from_numpy(
+        np.asarray(tokens, np.int32).reshape(b, 1)).to(dev))
+    positions = torch.from_numpy(np.broadcast_to(
+        np.asarray(pos, np.int32), (b,)).copy()).to(dev)
+    for layer, kind in enumerate(model.kinds):
+        p = model.layers[layer]
+        h = rms_norm(x, p["norm1"])
+        q, k_new, v_new = decode_qkv(cfg, p["attn"], h, positions)
+        k_rows = k_new[:, 0].float().cpu().numpy()
+        v_rows = v_new[:, 0].float().cpu().numpy()
+        state.d2h += 2
+        row = state.layout.kv_of[layer]
+        state.append_step_rows(row, k_rows, v_rows)
+        y = state.attend(q[:, 0].contiguous(), row, backend=backend)
+        x = x + out_proj(p["attn"], y[:, None], h.dtype)
+        (x,), _ = mlp_tail_tp(cfg, kind, [p], [x], psum_one)
+    logits = model.head(x)[:, 0]
+    state.end_step(seq_ids)
+    return logits
+
+
 def sample(logits, greedy: bool, temperature: float, generator=None):
     """Greedy argmax, or one draw from softmax(logits / temperature) with
     an explicit ``torch.Generator``. Returns int32 tokens."""
@@ -720,12 +975,14 @@ def sample(logits, greedy: bool, temperature: float, generator=None):
 
 
 def _attend_rows(cfg, lay, kind, p, h, positions, arrays, table, lengths,
-                 ring_base, row_base, backend):
+                 ring_base, row_base, backend, tiles, m):
     """A KV or ring layer of the fused step: scatter the step's K/V rows
     into the pool at ``row_base`` (flat (slot, row) indices, (b * k,)),
     then attend — the paged-attention kernel for a global layer, the ring
     gather and windowed attention for a sliding-window one. h: (b, k, d);
-    positions: (b, k). Returns the out-projected (b, k, d)."""
+    positions: (b, k). The kernel's launch shape is model shard m's entry
+    of ``tiles``, resolved at the step's first global layer
+    (`paged_tile`). Returns the out-projected (b, k, d)."""
     kf, vf, kq, vq, ks, vs = arrays
     n_layers, c, t = kf.shape[:3]
     ap = p["attn"]
@@ -741,8 +998,11 @@ def _attend_rows(cfg, lay, kind, p, h, positions, arrays, table, lengths,
                        .to(vf.dtype))
     if kind[0] == ATTN:
         qq = q[:, 0].contiguous() if kk == 1 else q.contiguous()
-        y = api.run("paged_attention", qq, kf, vf, kq, vq, ks, vs, table,
-                    lengths, row, backend=backend)
+        args = (qq, kf, vf, kq, vq, ks, vs, table, lengths, row)
+        if tiles[m] is None:
+            tiles[m] = paged_tile(backend, args) or {}
+        y = api.run("paged_attention", *args, backend=backend,
+                    tile=tiles[m] or None)
         if kk == 1:
             y = y[:, None]
     else:
@@ -864,6 +1124,7 @@ def build_fused_step(model, num_slots: int, *, k: int = 1,
         else:
             xs = [w.embed_in(c.tokens) for w, c in zip(ws, ctl)]
         commits = []        # (store tensor, row, rec slots, checkpoints)
+        tiles = [None] * len(ws)    # per model shard, resolved once a step
         for kind in kinds:
             mixer, layer = kind[0], kind[2]
             ps = [w.layers[layer] for w in ws]
@@ -871,8 +1132,10 @@ def build_fused_step(model, num_slots: int, *, k: int = 1,
             if mixer in (ATTN, LOCAL_ATTN):
                 ys = psum([_attend_rows(cfg, lay, kind, p, h, c.positions,
                                         tuple(a[:6]), c.table, c.lengths,
-                                        c.ring_base, c.row_base, backend)
-                           for p, h, c, a in zip(ps, hs, ctl, arrays_d)])
+                                        c.ring_base, c.row_base, backend,
+                                        tiles, m)
+                           for m, (p, h, c, a) in enumerate(
+                               zip(ps, hs, ctl, arrays_d))])
             else:
                 row = lay.ssd_of[layer] if mixer == SSD else lay.rg_of[layer]
                 stores = [[a[6 + rec_of[n]] for n in _rec_names(mixer)]

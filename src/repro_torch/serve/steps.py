@@ -42,3 +42,40 @@ def make_decode_step(model: Model):
         logits = model.forward_decode(tokens, caches, pos, embeds=embeds)
         return torch.argmax(logits, dim=-1).to(torch.int32)
     return decode_step
+
+
+def make_paged_decode_step(model: Model, state, backend: str = "auto"):
+    """The paged counterpart of `make_decode_step`, closed over a
+    `PagedKVState` in the eager (or numpy) mode: one call is one
+    `paged_decode.paged_decode_step` — the per-layer path, each layer's
+    kernel launched alone. ``decode_step(tokens (b,), seq_ids, pos) ->
+    (next tokens (b,) int32, logits (b, V))``; `pos` is a scalar or (b,)
+    positions, `seq_ids` may carry -1 padding rows."""
+    from repro_torch.serve.paged_decode import paged_decode_step
+
+    def decode_step(tokens, seq_ids, pos):
+        logits = paged_decode_step(model, tokens, state, seq_ids, pos,
+                                   backend=backend)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+    return decode_step
+
+
+def make_fused_decode_step(model: Model, state, backend: str = "auto",
+                           greedy: bool = True, temperature: float = 1.0):
+    """Step-function wrapper over the fused step
+    (`paged_decode.build_fused_step`): one call is one token for the
+    whole batch, the host's part reduced to the state's begin / end
+    bookkeeping (`PagedKVState.run_fused` owns the transfer counts).
+    ``decode_step(tokens, seq_ids, pos, generator=None) -> (host tokens,
+    device tokens)``; it returns no logits, which never leave the device.
+    Host `tokens` cost one extra upload a call; pass the previous call's
+    device tokens to stay at 2 transfers a token."""
+    from repro_torch.serve.paged_decode import build_fused_step
+
+    fused = build_fused_step(model, state.slots, backend=backend,
+                             greedy=greedy, temperature=temperature,
+                             layout=state.layout)
+
+    def decode_step(tokens, seq_ids, pos, generator=None):
+        return state.run_fused(fused, tokens, seq_ids, pos, generator)
+    return decode_step

@@ -29,6 +29,7 @@ from repro.models import Model as JaxModel
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import api, registry
+from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     WGMMA_HEAD_DIMS, _check, flash_attention, route)
@@ -120,7 +121,8 @@ def test_run_dispatch_and_plain_call_count():
     with pytest.raises(ValueError, match="CUDA"):
         api.run("flash_attention", *args, backend="cuda")
     with pytest.raises(ValueError, match="tile"):
-        api.run("flash_attention", *args, tile={"block_q": 64})
+        api.run("flash_attention", *args, backend="ref",
+                tile={"block_q": 64})
     launches, plain = flash_attention.launches, flash_attention.plain_calls
     routes = dict(flash_attention.launches_by_route)
     out = api.run("flash_attention", *args, causal=False)   # auto on CPU
@@ -162,10 +164,12 @@ def test_cuda_wrapper_checks_raise(breakage):
     _check(*_args(inp, "bfloat16", "torch"), 0)     # valid arguments pass
 
 
-def wgmma_emulation(q, k, v, *, causal=True, window=0, pieces=3):
+def wgmma_emulation(q, k, v, *, causal=True, window=0, pieces=3,
+                    block_q=None, block_k=None):
     """The Hopper kernel's arithmetic (`csrc/flash_attention.cu`, wgmma
     route) in plain PyTorch, used by nothing but these tests: query blocks
-    of 128 positions; key tiles of 128 (d <= 128) or 64 (d = 256) over
+    of `block_q` positions; key tiles of `block_k` (by default the launch
+    before tiles: 128 and 128 at d <= 128, 64 at d = 256) over
     the range the block's rows can see, from the tile holding its first
     window position; S = Q K^T with fp32 sums, then one fp32 multiply by
     scale * log2(e); masked scores -1e30; online softmax in exp2; P cut
@@ -175,15 +179,17 @@ def wgmma_emulation(q, k, v, *, causal=True, window=0, pieces=3):
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    bn = 128 if d <= 128 else 64
+    fixed = fa_mod.fixed_tile(d)
+    bm = block_q or fixed["block_q"]
+    bn = block_k or fixed["block_k"]
     scale_log2 = torch.tensor(1.0 / math.sqrt(d) * math.log2(math.e),
                               dtype=torch.float32)
     qf = q.float().transpose(1, 2)
     kf = k.float().repeat_interleave(g, 2).transpose(1, 2)
     vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
     out = torch.empty(b, hq, sq, d)
-    for q0 in range(0, sq, 128):
-        rows = min(128, sq - q0)
+    for q0 in range(0, sq, bm):
+        rows = min(bm, sq - q0)
         qp = torch.arange(q0, q0 + rows)[:, None]
         k_lo = max(0, q0 - window + 1) if window else 0
         k_hi = min(skv, q0 + rows) if causal else skv
@@ -359,3 +365,86 @@ def test_forward_prefill_matches_jax_through_flash(arch):
     wk = np.asarray(wcaches["groups"]["l0"]["k"])        # (groups, b, s, ...)
     np.testing.assert_allclose(caches[0]["k"].numpy(), wk[0], atol=1e-5,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route's tiles (`block_q`, `block_k`), cost model and knee
+# ---------------------------------------------------------------------------
+TILE_GRIDS = [((1, 2048, 2048, 36, 4, 128), "bfloat16"),
+              ((1, 600, 600, 36, 4, 128), "bfloat16"),
+              ((2, 2300, 2300, 10, 1, 256), "bfloat16"),
+              ((1, 1000, 1000, 4, 2, 64), "bfloat16"),
+              ((1, 2048, 2048, 36, 4, 128), "float32"),
+              ((2, 128, 128, 4, 2, 64), "float32")]
+
+
+@pytest.mark.parametrize("grid,dtype", TILE_GRIDS)
+def test_tile_space_costs_or_refuses_and_knee_is_deterministic(grid, dtype):
+    """Every (block_q, block_k) costs or is None exactly where csrc
+    builds no instance (shared memory over 227 KB: block_k 128 at d =
+    256); the knee is launchable and the same on every search; the launch
+    before tiles is in the space and launchable; the simt route (fp32) is
+    flat in the tile."""
+    from repro_torch.core import autotune
+    d = grid[-1]
+    costs = autotune.space_costs(SPEC, grid, dtype)
+    assert len(costs) == 4
+    for tile, cost in costs:
+        if dtype == "bfloat16":
+            assert (cost is None) == (not fa_mod.wgmma_launchable(
+                d, tile["block_q"], tile["block_k"])), tile
+        assert cost is None or (cost[0] >= 0 and 0 < cost[1] < math.inf)
+    knee = autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    assert knee == autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    assert knee.params in [t for t, c in costs if c is not None]
+    fixed = fa_mod.fixed_tile(d)
+    assert fixed in [t for t, c in costs if c is not None]
+    if dtype == "float32":
+        assert len({c for _, c in costs}) == 1
+    # d = 256 with 128-key tiles: Q 64 KB + 2 stages of 64 KB K and V
+    assert fa_mod.wgmma_smem_bytes(256, 128, 128) > fa_mod.SMEM_BYTES
+
+
+def test_run_takes_the_tiles_and_work_ignores_them():
+    from repro_torch.core import hlo_cost
+    inp = SPEC.example_inputs(shape=dict(SPEC.cases[0].shape))
+    args = _args(inp, "float32", "torch")
+    want = ref.attention(*args)
+    counts = []
+    for bq in fa_mod.TILE_SPACE["block_q"]:
+        for bk in fa_mod.TILE_SPACE["block_k"]:
+            tile = {"block_q": bq, "block_k": bk}
+            assert torch.equal(api.run("flash_attention", *args, tile=tile),
+                               want)
+            counts.append(hlo_cost.analyze(
+                lambda *a, t=tile: api.run("flash_attention", *a, tile=t),
+                *args))
+    assert all(c == counts[0] for c in counts) and counts[0]["kernels"]
+    with pytest.raises(ValueError, match="unknown tile"):
+        api.run("flash_attention", *args, tile={"chunk": 64})
+    with pytest.raises(ValueError, match="backend='ref'"):
+        api.run("flash_attention", *args, backend="ref",
+                tile={"block_q": 64, "block_k": 64})
+
+
+@pytest.mark.parametrize("shape,kw", [EMULATED[0], EMULATED[1]],
+                         ids=["g9_causal", "g10_d256_window"])
+def test_wgmma_arithmetic_at_every_tile(chip_smoke, shape, kw):
+    """At every launchable tile the wgmma route's arithmetic stays within
+    the card's limit of the plain version, and the two broken forms
+    (P in one bf16 piece; the last `block_k` keys dropped) go over it."""
+    q, k, v = _bf16_inputs(shape)
+    d = shape["d"]
+    want = ref.attention(q, k, v, **kw)
+    for bq in fa_mod.TILE_SPACE["block_q"]:
+        for bk in fa_mod.TILE_SPACE["block_k"]:
+            if not fa_mod.wgmma_launchable(d, bq, bk):
+                continue
+            got = wgmma_emulation(q, k, v, block_q=bq, block_k=bk, **kw)
+            assert chip_smoke.ulp_check(got, want)[2] <= 1.0, (bq, bk)
+            one = wgmma_emulation(q, k, v, block_q=bq, block_k=bk, pieces=1,
+                                  **kw)
+            assert chip_smoke.ulp_check(one, want)[2] > 1.0, (bq, bk)
+            drop = chip_smoke.flash_variant(q, k, v, fault="drop_last_tile",
+                                            block_k=bk, **kw)
+            assert chip_smoke.ulp_check(drop, want)[2] > 1.0, (bq, bk)

@@ -371,10 +371,20 @@ def test_launcher_replays_overload_mix(capsys):
 @pytest.mark.parametrize("flag", [["--decode-mode", "numpy"],
                                   ["--knee-cache", "knees.json"],
                                   ["--decode-mode", "eager"]])
-def test_launcher_unported_options_raise(flag):
+def test_launcher_unported_options_raise(flag, tmp_path):
+    """The options once refused now run: the eager and numpy decode modes
+    serve the batch (pool empty after), and ``--knee-cache`` writes the
+    knees serving resolved."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError):
-        main(LAUNCH + ["--continuous"] + flag)
+    if flag[0] == "--knee-cache":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out = main(LAUNCH + ["--continuous"] + flag)
+    assert all(o is not None and len(o) for o in out["outs"])
+    assert out["engine"].kv_pool.live_pages == 0
+    if flag[0] == "--decode-mode":
+        assert out["engine"].decode_mode == flag[1]
+    else:
+        assert (tmp_path / "knees.json").exists()
 
 
 def test_launcher_dense_path_stays_refused(monkeypatch, capsys):

@@ -216,9 +216,10 @@ def _gathered(args, layer):
 
 def split_emulation(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
                     page_table, lengths, layer=None, *, sms=SMS,
-                    drop_last=False):
+                    drop_last=False, pages_per_block=0):
     """The split route's arithmetic (`csrc/paged_split.cuh`): the table's
-    positions cut by `split_plan` into splits of whole tiles; per split
+    positions cut by `split_plan` (at ``pages_per_block``) into splits
+    of whole tiles; per split
     and row an fp32 online softmax over its tiles (q pre-scaled, scores
     as fp32 dots, masked p = 0, acc = acc * corr + p V), giving (m, l,
     acc); then the combine, O = sum_s exp(m_s - M) acc_s / max(sum_s
@@ -233,7 +234,9 @@ def split_emulation(q, k_pages, v_pages, k_quant, v_quant, k_scale, v_scale,
     span, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     tp = pa_mod.split_tile(d)
-    splits, chunk = pa_mod.split_plan(b, hkv, span, d, sms)
+    splits, chunk = pa_mod.split_plan(
+        b, hkv, span, d, sms, page_tokens=k_pages.shape[-3],
+        pages_per_block=pages_per_block)
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
     out = torch.zeros(b, rows, hq, d)
     for bi in range(b):
@@ -556,3 +559,138 @@ def test_split_and_wgmma_routes_need_16_byte_aligned_tensors(name, rows):
         f32 = dict(bad, q=bad["q"].float() if name != "q"
                    else torch.zeros(x.shape + (1,))[..., 0].float())
         assert _check(*(f32[n] for n in SPEC.arg_names), None) == "simt"
+
+
+# ---------------------------------------------------------------------------
+# The split route's tile (`pages_per_block`), its Hopper cost model and knee
+# ---------------------------------------------------------------------------
+# (grid shape, q dtype): starcoder2-7b decode at b = 4 and at a 2x2 plan's
+# shard, the k = 4 verify, a k = 128 chunk fill (the wgmma route, flat in
+# the tile), fp32 q, and a spec case
+TILE_GRIDS = [((4, 128, 24, 36, 4, 128, 1), "bfloat16"),
+              ((1, 128, 2, 18, 2, 128, 1), "bfloat16"),
+              ((2, 128, 8, 36, 4, 128, 4), "bfloat16"),
+              ((2, 128, 8, 36, 4, 128, 128), "bfloat16"),
+              ((4, 128, 24, 36, 4, 128, 1), "float32"),
+              ((2, 16, 4, 4, 2, 32, 1), "float32")]
+
+
+@pytest.mark.parametrize("grid,dtype", TILE_GRIDS)
+def test_tile_space_costs_or_refuses_and_knee_is_deterministic(grid, dtype):
+    """Every tile either costs (shared bytes, a finite positive time) or
+    cannot launch (None); the knee is one launchable tile, the same on
+    every search; the launch before tiles (0: the SM-count plan) is in the
+    space and launchable; the wgmma route's cost is flat in the tile."""
+    from repro_torch.core import autotune
+    costs = autotune.space_costs(SPEC, grid, dtype)
+    assert len(costs) == len(SPEC.tune_space["pages_per_block"])
+    for tile, cost in costs:
+        assert cost is None or (cost[0] >= 0 and 0 < cost[1] < math.inf), \
+            (tile, cost)
+    knee = autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    assert knee == autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    by_ppb = {t["pages_per_block"]: c for t, c in costs}
+    assert knee.params["pages_per_block"] in by_ppb and \
+        by_ppb[knee.params["pages_per_block"]] is not None
+    assert 0 in pa_mod.TILE_SPACE["pages_per_block"] and by_ppb[0]
+    if grid[-1] * grid[3] // grid[4] > pa_mod.SPLIT_MAX_ROWS:
+        assert len({c for c in by_ppb.values()}) == 1
+
+
+def test_run_takes_the_tile_and_work_ignores_it():
+    """`api.run` takes ``pages_per_block`` (the plain version on CPU
+    tensors ignores it), refuses unknown names and a tile with ``ref``;
+    the cost counter's record (the spec's `work`) is the same at every
+    tile."""
+    from repro_torch.core import hlo_cost
+    inp, _ = _inputs(SPEC.cases[0], stacked=False)
+    args = _torch_args(inp, torch.float32)
+    want = ref.paged_attention(*args)
+    counts = []
+    for ppb in pa_mod.TILE_SPACE["pages_per_block"]:
+        tile = {"pages_per_block": ppb}
+        assert torch.equal(api.run("paged_attention", *args, tile=tile),
+                           want)
+        counts.append(hlo_cost.analyze(
+            lambda *a, t=tile: api.run("paged_attention", *a, tile=t),
+            *args))
+    assert all(c == counts[0] for c in counts)
+    assert counts[0]["kernels"]
+    with pytest.raises(ValueError, match="unknown tile"):
+        api.run("paged_attention", *args, tile={"head_block": 1})
+    with pytest.raises(ValueError, match="backend='ref'"):
+        api.run("paged_attention", *args, backend="ref",
+                tile={"pages_per_block": 1})
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_split_arithmetic_at_every_tile(chip_smoke, rows):
+    """At every ``pages_per_block`` of the space the split route's
+    arithmetic (`split_emulation`) stays within the card's 2-ulp limit
+    and, where a live row's positions cross into a second split, leaving
+    the last split out goes over it; a tile that does not cut
+    the positions into whole tiles in at most 64 splits raises, as the
+    wrapper does before any launch."""
+    args, layer = _narrow(NARROW, [n - rows + 1 if n > rows else n
+                                   for n in NARROW_LENGTHS],
+                          dead=(4,), dtype=torch.bfloat16, rows=rows,
+                          stacked=True)
+    want = ref.paged_attention(*args, layer)
+    span = NARROW["slots"] * NARROW["page_tokens"]
+    checked = 0
+    for ppb in pa_mod.TILE_SPACE["pages_per_block"]:
+        try:
+            splits, chunk = pa_mod.split_plan(
+                5, 1, span, 32, SMS, page_tokens=NARROW["page_tokens"],
+                pages_per_block=ppb)
+        except ValueError:
+            assert ppb * NARROW["page_tokens"] % 32
+            continue
+        got = split_emulation(*args, layer, pages_per_block=ppb)
+        assert chip_smoke.ulp_check(got, want)[2] <= 1.0, ppb
+        last = int(args[8].max()) + rows - 1     # the longest row's view
+        if splits > 1 and last > chunk:
+            broken = split_emulation(*args, layer, drop_last=True,
+                                     pages_per_block=ppb)
+            assert chip_smoke.ulp_check(broken, want)[2] > 1.0, ppb
+            checked += 1
+    assert checked >= 1
+
+
+def test_split_plan_by_pages():
+    """Whole pages a split, the split count covering the table; a
+    non-whole tile or too many splits raise."""
+    assert pa_mod.split_plan(2, 4, 1024, 128, SMS, page_tokens=128,
+                             pages_per_block=2) == (4, 256)
+    assert pa_mod.split_plan(2, 4, 1024, 128, SMS, page_tokens=128,
+                             pages_per_block=32) == (1, 4096)
+    with pytest.raises(ValueError, match="whole number"):
+        pa_mod.split_plan(2, 4, 1024, 128, SMS, page_tokens=16,
+                          pages_per_block=1)
+    with pytest.raises(ValueError, match="whole number"):
+        pa_mod.split_plan(2, 4, 65 * 32, 128, SMS, page_tokens=32,
+                          pages_per_block=1)
+
+
+def test_knee_key_leaves_out_the_pool_page_count(monkeypatch):
+    """The grid a knee is keyed on (`_grid_of`) leaves out the pool's
+    page count, which no route's cost reads: pools of 16 and of 64 pages
+    under one table resolve one knee, and the second resolves nothing."""
+    case = SPEC.cases[0]
+    small = _torch_args(_inputs(case, stacked=False)[0], torch.float32)
+    big = list(small)
+    for i in range(1, 7):                        # the six pool tensors
+        pad = torch.zeros((48,) + tuple(small[i].shape[1:]),
+                          dtype=small[i].dtype)
+        big[i] = torch.cat([small[i], pad])
+    assert SPEC.grid_of(*small) == SPEC.grid_of(*big)
+    assert len(SPEC.grid_of(*small)) == len(SPEC.shape_keys)
+    api.invalidate_caches()
+    try:
+        knee = api.resolve_tile("paged_attention", small)
+        assert api.knees_dirty()
+        monkeypatch.setattr(api, "_knees_dirty", False)
+        assert api.resolve_tile("paged_attention", big) == knee
+        assert not api.knees_dirty()
+    finally:
+        api.invalidate_caches()

@@ -12,6 +12,8 @@ the launcher flags that reach them, against the JAX package's.
 - `DecodeTraceRecorder` on the port's pool records JAX's events.
 - The launcher's ``--sibyl`` and ``--sibyl-preempt``.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -260,11 +262,21 @@ def test_launcher_sibyl_flags(mode, capsys):
 @pytest.mark.parametrize("flag,exc,match", [
     (["--mesh", "2x2", "--mesh-devices", "cpu,cpu,cpu"], ValueError,
      "needs 4 devices"),
-    (["--knee-cache", "knees.json"], NotImplementedError, "fixed shapes")],
+    (["--knee-cache", "knees.json"], None, None)],
     ids=["mesh", "knees"])
-def test_launcher_mesh_and_knee_cache_still_raise(flag, exc, match):
+def test_launcher_mesh_and_knee_cache_still_raise(flag, exc, match,
+                                                 tmp_path):
     """Beside the Sibyl flags: a mesh with fewer devices than positions
-    raises, and serving resolves no knee to persist."""
+    raises; ``--knee-cache`` writes the paged kernel's knee that serving
+    resolved."""
+    from repro_torch.kernels import api
     from repro_torch.launch.serve import main
-    with pytest.raises(exc, match=match):
-        main(LAUNCH + ["--continuous", "--sibyl"] + flag)
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            main(LAUNCH + ["--continuous", "--sibyl"] + flag)
+        return
+    api.invalidate_caches()
+    path = tmp_path / flag[1]
+    main(LAUNCH + ["--continuous", "--sibyl", flag[0], str(path)])
+    assert any(e["kernel"] == "paged_attention"
+               for e in json.loads(path.read_text()))

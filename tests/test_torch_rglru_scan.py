@@ -70,7 +70,7 @@ def test_run_dispatch_and_plain_call_count():
     with pytest.raises(ValueError, match="CUDA"):
         api.run("rglru_scan", *targs, backend="cuda")
     with pytest.raises(ValueError, match="tile"):
-        api.run("rglru_scan", *targs, tile={"chunk": 64})
+        api.run("rglru_scan", *targs, backend="ref", tile={"chunk": 64})
     launches, plain = rglru_scan.launches, rglru_scan.plain_calls
     out = api.run("rglru_scan", *targs)                  # auto on the CPU
     assert rglru_scan.plain_calls == plain + 1
@@ -245,3 +245,67 @@ def test_launch_counts_untouched_on_cpu():
     assert rglru_scan.launches == launches
     assert rglru_scan.launches_by_route == by_route
     assert set(by_route) == {"chunked", "serial"}
+
+
+# ---------------------------------------------------------------------------
+# The tile (`chunk`), its Hopper cost model and knee
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("grid", [(2, 2300, 2560), (1, 2048, 2560),
+                                  (1, 100, 2560), (2, 128, 32)])
+def test_tile_space_costs_and_knee_is_deterministic(grid):
+    """Every chunk of the space costs; the knee is the same on every
+    search; the launch before tiles (`CHUNK`, 32) is in the space; a
+    chunk that holds all of S takes the serial route."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.rglru_scan.rglru_scan import CHUNK, CHUNKS, route
+    costs = autotune.space_costs(SPEC, grid, "float32")
+    assert [t["chunk"] for t, _ in costs] == list(CHUNKS)
+    for tile, cost in costs:
+        assert cost is not None and 0 < cost[1] < np.inf
+    knee = autotune.autotune_kernel(SPEC, grid)["knee"]
+    assert knee == autotune.autotune_kernel(SPEC, grid)["knee"]
+    assert CHUNK in CHUNKS == SPEC.tune_space["chunk"]
+    assert route(100, 128) == "serial" and route(100, 64) == "chunked"
+
+
+def test_run_takes_the_chunk_and_work_ignores_it():
+    from repro_torch.core import hlo_cost
+    targs, _ = _inputs(dict(SPEC.cases[1].shape))
+    want = ref.lru_scan(*targs)
+    counts = []
+    for q in SPEC.tune_space["chunk"]:
+        assert torch.equal(api.run("rglru_scan", *targs, tile={"chunk": q}),
+                           want)
+        counts.append(hlo_cost.analyze(
+            lambda *a, q=q: api.run("rglru_scan", *a, tile={"chunk": q}),
+            *targs))
+    assert all(c == counts[0] for c in counts) and counts[0]["kernels"]
+    with pytest.raises(ValueError, match="unknown tile"):
+        api.run("rglru_scan", *targs, tile={"pages_per_block": 1})
+    with pytest.raises(ValueError, match="backend='ref'"):
+        api.run("rglru_scan", *targs, backend="ref", tile={"chunk": 64})
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_chunked_route_at_every_chunk(chip_smoke, long_inputs, chunk):
+    """At every chunk of the space the chunked route's algorithm stays
+    within the 2-ulp limit and a dropped carry goes over it."""
+    targs, want, _ = long_inputs
+    got = chip_smoke.rglru_chunked_loop(*targs, chunk=chunk)
+    assert chip_smoke.ulp_check(got, want)[2] < 0.5
+    broken = chip_smoke.rglru_chunked_loop(*targs, chunk=chunk,
+                                           fault="drop_carry")
+    assert chip_smoke.ulp_check(broken, want)[2] > 1e3
+
+
+def test_autograd_reverse_scan_runs_at_the_chunk():
+    """`RglruScanFn`'s backward is the same scan at the forward's chunk:
+    the gradient through a tiled call equals the untiled one (the plain
+    version on the CPU, whatever the chunk)."""
+    targs, _ = _inputs({"B": 2, "S": 300, "W": 8}, seed=4)
+    grads = []
+    for chunk in (None, 128):
+        a, b = (t.clone().requires_grad_() for t in targs)
+        rglru_scan(a, b, chunk=chunk).square().sum().backward()
+        grads.append((a.grad, b.grad))
+    assert all(torch.equal(x, y) for x, y in zip(*grads))

@@ -204,18 +204,20 @@ def test_sampling_is_seeded(params):
 
 
 def test_unported_options_raise(params):
-    """What is still unported raises: the eager/numpy decode modes.
-    Without a page pool `generate` takes the dense-cache path (the
-    reference's tokens), on one device and over a mesh's plan alike,
-    while `serve()` needs the pool and raises `ValueError`, as the
-    reference does."""
+    """The eager and numpy decode modes, once refused, construct and serve
+    (their parity with JAX is `test_torch_decode_modes.py`'s). Without a
+    page pool `generate` takes the dense-cache path (the reference's
+    tokens), on one device and over a mesh's plan alike, while `serve()`
+    needs the pool and raises `ValueError`, as the reference does."""
     from repro_torch.launch.mesh import make_serve_mesh
     jparams, state = params
     cfg = smoke_config(ARCH)
     pool = PagedKVPool(page_tokens=4)
     for kw in ({"decode_mode": "eager"}, {"decode_mode": "numpy"}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
+        eng = ServeEngine(cfg, params=state, kv_pool=pool, device="cpu", **kw)
+        assert eng.decode_mode == kw["decode_mode"]
+        outs = eng.serve(_reqs(Request), max_active=2)
+        assert [len(o) for o in outs] == [6, 6]
     want = JaxEngine(jax_smoke(ARCH), params=jparams) \
         .generate(_reqs(JaxRequest))
     on_mesh = ServeEngine(cfg, params=state, device="cpu",

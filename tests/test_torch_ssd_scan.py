@@ -135,7 +135,7 @@ def test_run_dispatch_and_plain_call_count():
     with pytest.raises(ValueError, match="CUDA"):
         api.run("ssd_scan", *targs, backend="cuda")
     with pytest.raises(ValueError, match="tile"):
-        api.run("ssd_scan", *targs, tile={"chunk": 64})
+        api.run("ssd_scan", *targs, backend="ref", tile={"chunk": 64})
     launches, plain = ssd_scan.launches, ssd_scan.plain_calls
     y, state = api.run("ssd_scan", *targs)            # auto on the CPU
     assert ssd_scan.plain_calls == plain + 1
@@ -426,3 +426,73 @@ def test_wrapper_constants_match_the_source():
         == WGMMA_CHUNK
     assert int(re.search(r"constexpr int kPieces = (\d+);", src)[1]) \
         == WGMMA_PIECES
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route's tile (`chunk`), its Hopper cost model and knee
+# ---------------------------------------------------------------------------
+TILE_GRIDS = [((1, 2048, 48, 64, 1, 128), "bfloat16"),
+              ((3, 1536, 48, 64, 1, 128), "bfloat16"),
+              ((1, 1000, 48, 64, 1, 64), "bfloat16"),
+              ((1, 2048, 48, 64, 1, 128), "float32"),
+              ((2, 64, 4, 16, 1, 8), "float32")]
+
+
+@pytest.mark.parametrize("grid,dtype", TILE_GRIDS)
+def test_tile_space_costs_or_refuses_and_knee_is_deterministic(grid, dtype):
+    """Every chunk of the space costs (the route builds both); the knee is
+    the same on every search; the launch before tiles (`WGMMA_CHUNK`) is
+    in the space; the simt route is flat in the tile."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan as sd
+    costs = autotune.space_costs(SPEC, grid, dtype)
+    assert [t["chunk"] for t, _ in costs] == list(sd.WGMMA_CHUNKS)
+    for tile, cost in costs:
+        assert cost is not None and cost[0] >= 0 and 0 < cost[1] < np.inf
+    knee = autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    assert knee == autotune.autotune_kernel(SPEC, grid, dtype)["knee"]
+    assert sd.WGMMA_CHUNK in sd.WGMMA_CHUNKS == SPEC.tune_space["chunk"]
+    if dtype == "float32":
+        assert len({c for _, c in costs}) == 1
+
+
+def test_run_takes_the_chunk_and_work_ignores_it():
+    from repro_torch.core import hlo_cost
+    targs, _ = _inputs(dict(SPEC.cases[0].shape))
+    want = ref.ssd_chunked(*targs)
+    counts = []
+    for q in SPEC.tune_space["chunk"]:
+        got = api.run("ssd_scan", *targs, tile={"chunk": q})
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        counts.append(hlo_cost.analyze(
+            lambda *a, q=q: api.run("ssd_scan", *a, tile={"chunk": q}),
+            *targs))
+    assert all(c == counts[0] for c in counts) and counts[0]["kernels"]
+    with pytest.raises(ValueError, match="unknown tile"):
+        api.run("ssd_scan", *targs, tile={"block_q": 64})
+    with pytest.raises(ValueError, match="backend='ref'"):
+        api.run("ssd_scan", *targs, backend="ref", tile={"chunk": 128})
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_wgmma_arithmetic_at_every_chunk(chip_smoke, chunk):
+    """At each chunk of the space the wgmma route's arithmetic stays
+    within the on-card limit, and the broken forms (chunk 1 left out of
+    the state pass; the scores in one bf16 piece) go over it."""
+    shape = WGMMA_SHAPES[1]
+    targs, _ = _bf16_inputs(shape, seed=shape["S"])
+    want = ref.ssd_chunked(*targs)
+    got = chip_smoke.ssd_wgmma_loop(*targs, chunk=chunk)
+    assert chip_smoke.over_ssd_limit(got, want) < 0.1
+    skip = chip_smoke.ssd_wgmma_loop(*targs, chunk=chunk,
+                                     fault="skip_state_chunk")
+    assert chip_smoke.over_ssd_limit(skip, want) > 10.0
+    one = chip_smoke.ssd_wgmma_loop(*targs, chunk=chunk, score_pieces=1)
+    assert chip_smoke.over_ssd_limit(one, want) > 1.0
+
+
+def test_wgmma_scratch_follows_the_chunk():
+    from repro_torch.kernels.ssd_scan.ssd_scan import wgmma_scratch
+    states, decay = wgmma_scratch(3, 1000, 48, 128, "cpu", chunk=64)
+    assert tuple(states.shape) == (3, 16, 48, 64, 128)
+    assert tuple(decay.shape) == (3, 16, 48)

@@ -53,18 +53,24 @@ def test_registry_lists_six_kernels():
                                 "rglru_scan", "ssd_scan", "vadvc"]
     assert [s.name for s in registry.all_kernels()] == registry.names()
     assert {n for n in registry.names() if registry.get(n).tune_space} == \
-        {"hdiff", "vadvc"}
+        set(registry.names())
     assert api.as_spec(registry.get("hdiff")) is registry.get("hdiff")
 
 
 @pytest.mark.parametrize("name", ["paged_attention", "flash_attention",
                                   "ssd_scan", "rglru_scan"])
 def test_fixed_launch_kernels_refuse_tiles(name):
+    """The serving and prefill kernels, once of fixed launch shapes, now
+    take their own tiles, and still refuse another kernel's tile names
+    and any tile with the plain version."""
     spec = registry.get(name)
     args = [torch.from_numpy(v) for v in spec.example_inputs().values()]
-    for backend in ("auto", "cuda", "ref"):
-        with pytest.raises(ValueError, match="launch shape is fixed"):
+    for backend in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="unknown tile params"):
             api.run(name, *args, backend=backend, tile={"block_z": 1})
+    own = {k: v[-1] for k, v in spec.tune_space.items()}
+    with pytest.raises(ValueError, match="backend='ref'"):
+        api.run(name, *args, backend="ref", tile=own)
 
 
 @pytest.mark.parametrize("name", ["hdiff", "vadvc"])
@@ -200,7 +206,7 @@ def test_knee_cache_persists_and_preloads(tmp_path):
     them, re-tunes nothing and leaves the file as it was."""
     api.invalidate_caches()
     path = api.knee_cache_path(tmp_path)
-    assert path == tmp_path / "knee_cache.json"
+    assert path == tmp_path / "knee_cache_sm_90a.json"
     res = weather_stencil.main(["--device", "cpu", "--knee-cache",
                                 str(path)])
     assert res["knees_loaded"] == 0 and res["knees_saved"] == 2

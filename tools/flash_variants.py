@@ -99,11 +99,9 @@ VARIANTS = {
         _sub("  static constexpr int kBoxes",
              "  static constexpr int kStages = D <= 128 ? 3 : 2;\n"
              "  static constexpr int kBoxes"),
-        _sub("  constexpr int BN = T::kBN;\n",
-             "  constexpr int BN = T::kBN, kStages = T::kStages;\n")),
-    # 64-key tiles at d = 128 too
-    "bn64": _sub("static constexpr int kBN = D <= 128 ? 128 : 64;",
-                 "static constexpr int kBN = D == 64 ? 128 : 64;"),
+        _sub("  constexpr int kConsumers = T::kConsumers;\n",
+             "  constexpr int kConsumers = T::kConsumers, "
+             "kStages = T::kStages;\n")),
 }
 FUNC = re.compile(r"flash_wgmma_kernelILi(\d+)E")
 
@@ -142,7 +140,7 @@ def build(names, nvcc, flags, tmp):
             lib = ctypes.CDLL(str(tmp / name / "lib.so"))
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             lib.flash_attention_wgmma_launch.argtypes = \
-                [vp] * 4 + [i32] * 8 + [ctypes.c_float, vp]
+                [vp] * 4 + [i32] * 8 + [ctypes.c_float, i32, i32, vp]
             built[name] = lib
     return built
 
@@ -154,7 +152,7 @@ def launch(lib, q, k, v, causal, window):
     err = lib.flash_attention_wgmma_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
         skv, hq, hkv, d, int(causal), window,
-        1.0 / math.sqrt(d) * math.log2(math.e),
+        1.0 / math.sqrt(d) * math.log2(math.e), 128, 128 if d <= 128 else 64,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")

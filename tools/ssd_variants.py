@@ -132,13 +132,14 @@ def build_variants(cs, tmp) -> dict:
                 rf"C7519\).*'{fn}'", log))
         lib = ctypes.CDLL(str(tmp / name / "lib.so"))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [vp] * 9 + [i32] * 8 + [vp]
-        lib.ssd_scan_wgmma_smem.argtypes = [i32]
+        lib.ssd_scan_launch.argtypes = [vp] * 9 + [i32] * 9 + [vp]
+        lib.ssd_scan_wgmma_smem.argtypes = [i32, i32]
         emit({"variant": name, "built": True,
               "chunk": lib.ssd_scan_wgmma_chunk(),
               "pieces": lib.ssd_scan_wgmma_pieces(),
               "chunk_scan_ptxas": scan,
-              "chunk_scan_smem": lib.ssd_scan_wgmma_smem(128)})
+              "chunk_scan_smem": lib.ssd_scan_wgmma_smem(
+                  128, lib.ssd_scan_wgmma_chunk())})
         libs[name] = lib
     return libs
 
@@ -186,8 +187,8 @@ def launcher(lib, args, y, st):
 
     def run():
         err = lib.ssd_scan_launch(*ptrs, b, s_len, h, p, args[1].shape[2], n,
-                                  1, 1, torch.cuda.current_stream()
-                                  .cuda_stream)
+                                  1, 1, lib.ssd_scan_wgmma_chunk(),
+                                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: {err}")
     run.scratch = (states, decay)   # the launch holds raw pointers to it
