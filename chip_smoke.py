@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only kernel   # or exact | serve | chunked |
                                           # spec | overload | families |
                                           # hybrid | train | napel |
-                                          # stencil | sibyl | mesh
+                                          # stencil | sibyl | mesh |
+                                          # examples
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
@@ -79,7 +80,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    recurrent slot and ring pages restored) giving the uninterrupted
    stream; the ``eager`` and ``numpy`` decode modes' fp32 tokens equal
    the ``fused`` step's for ``generate`` and ``serve`` (`exact_modes`).
-4. serve   — the main path: starcoder2-7b, all 32 layers, bf16, seeded
+4. serve   — the main path: starcoder2-7b, 16 of 32 layers, bf16, seeded
    weights made on the card, a 128-token page pool with every other page
    in the int8 tier; ``serve`` 5 requests (prompts 120..600, 32 new
    tokens) with ``max_active=2`` and one prefill pass per prompt. Checks
@@ -117,8 +118,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``REPRO_SERVE_FAULT=swap_fail:1`` pass (the victim ends as a
    ``swap_fail`` error, the rest finish) and one recurrentgemma-2b
    request at full depth parked and resumed.
-8. hybrid  — the hybrid stacks at full depth, bf16, seeded weights:
-   mamba2-780m ``generate`` (prompts 256/700/1536, 32 new tokens) and
+8. hybrid  — the hybrid stacks, bf16, seeded weights: mamba2-780m (12 of
+   48 layers) ``generate`` (prompts 256/700/1536, 32 new tokens) and
    the default ``serve`` (3 prompts of 200-350 tokens), recurrentgemma-2b
    ``generate`` (prompts 2300 and 1000, 40 new tokens: a ring page drops
    during decode) and the default ``serve`` (3 short prompts). Checks
@@ -177,8 +178,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (split) and 128 (wgmma), flash attention at each family's prefill (s =
    600: musicgen-medium, codeqwen, granite-moe, llama-3.2-vision-11b,
    qwen3-moe at its generate batch of 5), bf16, held to 2 ulps and timed
-   by `device_ms` beside SDPA's. ``qwen3-moe-30b-a3b``: all 48 layers,
-   bf16, seeded weights on the card (61 GB), a 128-token pool with every
+   by `device_ms` beside SDPA's. ``qwen3-moe-30b-a3b``: 12 of 48 layers,
+   bf16, seeded weights on the card (61 GB at 48), a 128-token pool with every
    other page int8: the serve workload through the default ``serve()``
    and one monolithic ``generate``: decode ms/step, TTFT, prefill ms,
    launches by route, 2 transfers per steady token, 8 traced decode steps
@@ -208,8 +209,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    at W=2560 S=4096, fp32) with the broken variants over the limit,
    forward + backward timed beside the plain version's and SDPA's.
    ``full`` (bf16 params, fp32 master, m and v; `TRAIN_FULL`):
-   mamba2-780m (48 layers, batch 4 x 2048), recurrentgemma-2b (26, 1 x
-   4096) and starcoder2-7b (8 of 32 layers, 2 x 2048) through `Trainer`,
+   mamba2-780m (12 of 48 layers, batch 4 x 2048), recurrentgemma-2b (26,
+   1 x 4096) and starcoder2-7b (2 of 32 layers, 2 x 2048) through
+   `Trainer`,
    4 steps: mamba2 and starcoder2 2 steps and the trainer's checkpoint, a
    new trainer resuming for 2 more (mamba2's params equal to a straight
    4-step run's to the bit); recurrentgemma in one run, its 49.7 GB
@@ -237,8 +239,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    shape of flash, SSD and RG-LRU held to its plain version forward (the
    kernel phase's rules; recurrentgemma's flash and RG-LRU by
    `magnitude_limit`) and backward (`TRAIN_GRAD_LIMIT`); ``full``,
-   `Trainer(mesh=)` at 2x2 on `TRAIN_MESH_FULL` (starcoder2-7b at 8 of
-   32 layers, 2 x 2048; mamba2-780m at 48, 4 x 2048), bf16, 4 steps after
+   `Trainer(mesh=)` at 2x2 on `TRAIN_MESH_FULL` (starcoder2-7b at 2 of
+   32 layers, 2 x 2048; mamba2-780m at 12, 4 x 2048), bf16, 4 steps after
    the 1x1 trainer of the same shapes: step ms and tokens/s, the state
    bytes each shard holds equal to `plan_rescale`'s, peak memory,
    launches by route, every step's loss and step 0's grad norm against
@@ -250,7 +252,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    line's counts.
 13. napel — the thesis's data-driven models (Ch. 5-6) on the cost
    counter (`repro_torch.core.hlo_cost`), one JSON line per part; the
-   meta counts first, in `NAPEL_WORKERS` processes. ``dryrun``: every
+   meta counts first, in `NAPEL_EARLY_WORKERS` processes started with
+   phase ``train`` and running beside it (in `NAPEL_WORKERS` here when
+   ``train`` does not run). ``dryrun``: every
    arch x shape cell of `launch.dryrun` at mesh 1x1 on ``meta`` (status,
    counted flops and bytes, live bytes, fits, bottleneck, wall s), then
    the same 32 cells per device of the 16 x 16 pod (one line each
@@ -259,10 +263,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (starcoder2-7b, 2 layers, bf16) at 2x2 and 1x8 with every position on
    cuda:0, counted on the card; its counts of positions (0, 0) and (0,
    1) equal the one-position counts on ``meta`` in flops by class, fused
-   bytes, kernel entries by route and collectives. ``count``: the train steps of `NAPEL_TRAIN` (mamba2-780m 48
-   layers 4 x 2048, recurrentgemma-2b 26 layers 1 x 4096, starcoder2-7b 8
+   bytes, kernel entries by route and collectives. ``count``: the train steps of `NAPEL_TRAIN` (mamba2-780m 12
+   layers 4 x 2048, recurrentgemma-2b 26 layers 1 x 4096, starcoder2-7b 2
    of 32 layers 2 x 2048) and the prefill of `NAPEL_PREFILL`
-   (starcoder2-7b, 32 layers, 1 x 600), each counted on ``meta`` and on
+   (starcoder2-7b, 16 layers, 1 x 600), each counted on ``meta`` and on
    the card: flops by class, both byte counts and every kernel entry
    equal, each kernel's launches equal to its entries; the step's ms
    (median of 3 after a warm step), the counted bound on `H100_SXM` and
@@ -301,8 +305,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    as at every plan because of the order of their sums, to
    `magnitude_limit` instead, beside the plain loops in the kernels'
    orders and broken variants read over that limit. ``serve``: starcoder2-7b
-   at full width and `MESH_SERVE_LAYERS` (16) of its 32 layers (cut
-   from 32 to keep the whole run within its time limit), bf16, on a
+   at full width and `MESH_SERVE_LAYERS` (8) of its 32 layers (cut
+   to keep the whole run within its time limit), bf16, on a
    2x2 plan beside a 1x1 engine over the same weights: the weight bytes
    each holds, counted from the spec before the run and equal to what
    the shards hold; the serve workload (monolithic prefill) in turns
@@ -320,9 +324,38 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    then NCCL all-reduces), else every position on cuda:0; the rows say
    which.
 
-Then the ``knees`` line (`knee_audit`: every knee the main path
+15. examples — the JAX package's four remaining ``examples/`` scripts as
+   the port runs them (`repro_torch.examples`), each through its
+   ``main`` with ``--device cuda``, in process, the launch counts set to
+   0 just before it and read just after: ``serve_stream`` (starcoder2-7b
+   smoke, 8-token pages: a 6-request ``prefix_heavy`` trace through the
+   async front end equal to `serve()`, a cancel after 2 tokens, the pool
+   empty; throughput, TTFT / TPOT p50 and p99), ``serve_lm`` (llama3-405b
+   smoke: Sibyl placement over a 16-page fast tier, the decode trace's
+   replay through the HSS simulator, k = 4 n-gram tokens equal to
+   `generate`'s; transitions, the replay's average and p99 latency, the
+   accept rate), ``quickstart`` (codeqwen1.5-7b smoke: 40 steps, a
+   checkpoint every 20, `generate`; the loss falls) and ``train_100m``
+   (135,313,152 fp32 parameters at seq 256 x batch 8 under `Supervisor`,
+   `EXAMPLES_TRAIN_STEPS` steps for the run's time and disk,
+   `EXAMPLES_STEPS_NOTE`;
+   no restart, the loss finite and falling; median step ms, tokens/s).
+   These launch the paged kernel at head dim 16 with 8-token pages (split
+   at k * g <= 64 rows, simt above) and flash in fp32 (simt); every
+   launch is recorded (`recording`), its route checked against its
+   shapes and held to its plain version at the tile it ran at
+   (`check_recorded`, 2 ulps; train_100m's fp32 flash launches at d 64,
+   s 256, which miss 2 ulps by the order of their sums, by
+   `magnitude_limit`, beside their 2-ulp reading, the loop in the
+   kernel's order and the broken variants over that limit). The
+   launches join the ``kernels`` line.
+
+Each phase ends with a ``disk`` line: its writes from ``/proc/self/io``
+(`io_counts`: bytes passed to write calls, bytes sent to storage) and
+the run's so far. Then the ``knees`` line (`knee_audit`: every knee the main path
 resolved, beside the launch before tiles, timed where no sweep confirmed
-it), the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+it), the ``disk`` line of the whole run against the 45 GiB a call may
+write, the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 Needs one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -403,8 +436,18 @@ def rglru_bytes_and_flops(a, b):
     return w["bytes"], sum(w["flops"].values())
 
 
+RUN_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line on stdout; on stderr, the run's seconds so far beside
+    the line's phase and part (or case), so a stopped run shows where its
+    time went."""
     print(json.dumps(obj), flush=True)
+    where = " ".join(str(obj[k])[:60] for k in ("phase", "part", "case")
+                     if k in obj)
+    print(f"chip_smoke {time.perf_counter() - RUN_T0:8.1f} s  {where}",
+          file=sys.stderr, flush=True)
 
 
 def cuda_ms(fns: dict, warmup: int = 5, rounds: int = 30) -> dict:
@@ -2518,6 +2561,14 @@ def exact_hybrid() -> list:
 # ---------------------------------------------------------------------------
 # 4. the main path at full size
 # ---------------------------------------------------------------------------
+# the serve phase's depth, which the chunked, spec, overload, sibyl and
+# mesh phases share: at all 32 layers an every-phase run took 1,030-1,200
+# s of its 1,200 s limit, host launches (2,452 kernels a decode step) most
+# of it
+SERVE_LAYERS = 16
+SERVE_CONFIG = f"starcoder2-7b, {SERVE_LAYERS} of 32 layers, bf16"
+
+
 def _counters():
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
@@ -2553,7 +2604,7 @@ def phase_serve() -> dict:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
     from repro_torch.serve.steps import prefill_all_positions
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config("starcoder2-7b", num_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, seed=0, kv_pool=PagedKVPool(
         page_tokens=128, placement_policy=EveryOtherSlow()))
@@ -2605,7 +2656,7 @@ def phase_serve() -> dict:
                 prefill_all_positions(eng.model, toks, backend=backend)
                 torch.cuda.synchronize()
                 ab[name].append((time.perf_counter() - t1) * 1e3)
-    row = {"phase": "serve", "config": "starcoder2-7b, 32 layers, bf16",
+    row = {"phase": "serve", "config": SERVE_CONFIG,
            "path": "monolithic prefill (chunked_prefill=False, radix=False)",
            "params": sum(p.numel() for p in eng.model.parameters()),
            "init_s": init_s, "requests": len(reqs), "prompt_lengths": lengths,
@@ -2641,7 +2692,7 @@ MODES_TURNS = (("fused", "full"), ("eager", "full"), ("numpy", "cut"),
 
 def serve_modes(eng, rounds: int = 2) -> dict:
     """The three decode modes on the serve workload's model (starcoder2-7b,
-    32 layers, bf16, the same weights; a fresh pool of 128-token pages,
+    16 layers, bf16, the same weights; a fresh pool of 128-token pages,
     every other one int8, per turn), served continuously with
     ``max_active=2`` and one prefill pass per prompt (the non-fused
     modes' default, and the fused step's with ``chunked_prefill=False``),
@@ -2714,7 +2765,7 @@ def serve_modes(eng, rounds: int = 2) -> dict:
     same = {f"{m} {w}": tokens[(m, w)] == tokens[("fused", w)]
             for m, w in MODES_TURNS if m != "fused"}
     row = {"phase": "serve", "case": "decode modes",
-           "config": "starcoder2-7b, 32 layers, bf16", "page_tokens": 128,
+           "config": SERVE_CONFIG, "page_tokens": 128,
            "workloads": {w: {"prompt_lengths": lengths, "max_new": new}
                          for w, (lengths, new) in work.items()},
            "max_active": 2, "median_by_mode": med,
@@ -2865,7 +2916,7 @@ def phase_chunked(base) -> dict:
             launches["flash_attention"]:
         raise AssertionError(f"{launches} launches for {run['steps']} steps")
     paged = check_paged_routes(run, cfg.num_layers)
-    row = {"phase": "chunked", "config": "starcoder2-7b, 32 layers, bf16",
+    row = {"phase": "chunked", "config": SERVE_CONFIG,
            "path": "default serve: chunked prefill + radix prefix cache",
            "requests": len(reqs), "shared_prefix": 512,
            "prompt_lengths": [len(r.prompt) for r in reqs], "max_new": 32,
@@ -2902,7 +2953,7 @@ def phase_spec(base) -> dict:
     accepted = sum(d["accepted"] for d in run["stats"])
     decode_tokens = sum(d["tokens"] - 1 for d in run["stats"])
     verify_steps = sum(d["steps"] for d in run["stats"])
-    row = {"phase": "spec", "config": "starcoder2-7b, 32 layers, bf16",
+    row = {"phase": "spec", "config": SERVE_CONFIG,
            "path": "default serve, speculate=4, n-gram draft",
            "requests": len(reqs), "max_new": 32, "max_active": 2,
            "launches": launches, "paged_launches_by_route": paged,
@@ -2995,7 +3046,7 @@ def phase_overload(base, serve_row, smi: str) -> dict:
     the reference's ``overload`` mix (16 requests, deadline classes,
     priorities 0 / 1) replayed open-loop by `traffic.run_trace` through
     `AsyncServeFrontend` over the serve phase's weights (starcoder2-7b,
-    32 layers, bf16, 128-token pages, every other one int8), with the
+    16 layers, bf16, 128-token pages, every other one int8), with the
     mix's prompt and output lengths scaled to the serve phase's range,
     the arrival rate set to ARRIVAL_X_SERVICE times the service rate the
     serve phase measured and the deadlines to DEADLINE_X_STEP times its
@@ -3038,7 +3089,7 @@ def phase_overload(base, serve_row, smi: str) -> dict:
     steady = list(ses.steady_transfers)
     pool = eng.kv_pool
     swaps = timer.summary()
-    row = {"phase": "overload", "config": "starcoder2-7b, 32 layers, bf16",
+    row = {"phase": "overload", "config": SERVE_CONFIG,
            "path": "traffic.run_trace -> AsyncServeFrontend -> ServeSession "
                    "(chunked prefill + radix, preemption on, LRU victims)",
            "nvidia_smi": smi, "mix": "overload", "n_requests": spec.n_requests,
@@ -3260,9 +3311,15 @@ def _hybrid_serve(eng, reqs) -> dict:
             "wall_s": run["wall_s"]}
 
 
+# depths: recurrentgemma-2b whole, mamba2-780m cut from 48, whose default
+# `serve` steps its one-token cores position by position, host launches
+# (59 s of a whole run at 48 layers, 30-39 s at 24)
+HYBRID_LAYERS = {"mamba2-780m": 12, "recurrentgemma-2b": 26}
+
+
 def phase_hybrid() -> dict:
-    """The hybrid stacks at full depth, bf16, seeded random weights made on
-    the card: `generate` prefills through the SSD / RG-LRU scan kernels
+    """The hybrid stacks at `HYBRID_LAYERS`, bf16, seeded random weights
+    made on the card: `generate` prefills through the SSD / RG-LRU scan kernels
     (and, for recurrentgemma's local-attention layers, the flash kernel
     with a 2048 window), then decodes with one recurrent slot per
     sequence and ring pages; the default `serve` streams short prompts
@@ -3275,7 +3332,7 @@ def phase_hybrid() -> dict:
     for arch, gen_lengths, gen_new, serve_lengths in (
             ("mamba2-780m", [256, 700, 1536], 32, [200, 280, 350]),
             ("recurrentgemma-2b", [2300, 1000], 40, [150, 220, 300])):
-        cfg = get_config(arch)
+        cfg = get_config(arch, num_layers=HYBRID_LAYERS[arch])
         t0 = time.perf_counter()
         eng = ServeEngine(cfg, seed=0, kv_pool=PagedKVPool(
             page_tokens=128, placement_policy=EveryOtherSlow()))
@@ -3350,6 +3407,22 @@ def _union_us(intervals) -> float:
             total += b - end
             end = b
     return total
+
+
+def device_events(prof) -> list:
+    """The trace's device events as recorded, (name, start µs, end µs)
+    from the first one's start: parsing the trace into a tree of function
+    events (`prof.events()`) took a minute at mamba2-780m's ~90,000
+    kernels a 2x2 training step."""
+    from torch.autograd import DeviceType
+    events = [(e.name(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    if not events:
+        return []
+    t0_ns = min(start for _, start, _ in events)     # µs from here, exact
+    return [(name, (start - t0_ns) / 1e3, (end - t0_ns) / 1e3)
+            for name, start, end in events]
 
 
 def _device_us_under(event, skip: str) -> float:
@@ -3435,13 +3508,18 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
             one_step()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and e.name != span]
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
-                        for e in kernels)
+    if span is None:
+        kernels = device_events(prof)
+    else:
+        # the span's kernels are found through the tree of function
+        # events, which `prof.events()` builds
+        kernels = [(e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != span]
+    busy_us = _union_us((start, end) for _, start, end in kernels)
     by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + end - start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn_us = sum(v for k, v in by_name.items() if "paged_attention" in k)
     port_us = sum(v for k, v in by_name.items()
@@ -4364,7 +4442,7 @@ def sibyl_serve(base, smi: str) -> tuple:
     peak = max(r["peak_live_pages"] for rs in runs.values() for r in rs)
     want = {"split": first["steps"] * cfg.num_layers, "wgmma": 0, "simt": 0}
     row = {"phase": "sibyl", "part": "serve", "nvidia_smi": smi,
-           "config": "starcoder2-7b, 32 layers, bf16",
+           "config": SERVE_CONFIG,
            "path": "ServeSession(chunked_prefill=False, radix=False), "
                    "SibylPlacement(device='cuda') as the pool's policy",
            "prompt_lengths": lengths, "max_new": 32, "max_active": 2,
@@ -4578,7 +4656,7 @@ def sibyl_overload(base, serve_row, smi: str) -> dict:
         out[name] = res
         del eng
     row = {"phase": "sibyl", "part": "overload", "nvidia_smi": smi,
-           "config": "starcoder2-7b, 32 layers, bf16", "mix": "overload",
+           "config": SERVE_CONFIG, "mix": "overload",
            "n_requests": spec.n_requests,
            "arrival_rate_rps": spec.arrival_rate,
            "deadlines_s": list(spec.deadlines),
@@ -4770,16 +4848,20 @@ def _add(total: dict, launches: dict) -> dict:
     return total
 
 
+QWEN3_LAYERS = 12    # of 48: at 48 the part took 68.5 s of a whole run,
+#                      at 24 34-36 s
+
+
 def families_qwen3(total: dict) -> dict:
-    """qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
-    bf16, seeded weights drawn on the card): the serve workload's five
+    """qwen3-moe-30b-a3b at full width, `QWEN3_LAYERS` of its 48 layers
+    (128 experts, bf16, seeded weights drawn on the card): the serve workload's five
     prompts through the default `serve()` (chunked prefill + radix), then
     through one monolithic `generate`; then 8 decode steps of 2 rows
     traced, the MoE layers' kernels attributed through `moe_span`."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config("qwen3-moe-30b-a3b")
+    cfg = get_config("qwen3-moe-30b-a3b", num_layers=QWEN3_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, seed=0, kv_pool=_family_pool(cfg))
@@ -4839,7 +4921,8 @@ def families_qwen3(total: dict) -> dict:
         prof = phase_profile(eng, steps=8, span=MOE_SPAN)
     decode_ms = statistics.median(run["narrow_ms"])
     row = {"phase": "families", "part": "qwen3-moe-30b-a3b",
-           "config": "qwen3-moe-30b-a3b, 48 layers, 128 experts top-8, "
+           "config": f"qwen3-moe-30b-a3b, {QWEN3_LAYERS} of 48 layers, 128 "
+                     "experts top-8, "
                      "bf16, seeded weights", "init_s": init_s,
            "params": sum(p.numel() for p in eng.model.parameters()),
            "weight_gb": weight_bytes / 1e9, "expert_gb": expert_bytes / 1e9,
@@ -5002,16 +5085,19 @@ def families_cut(total: dict) -> list:
 @contextlib.contextmanager
 def recording(kernel: str):
     """Record the arguments of every ``api.run(kernel, ...)`` call made
-    inside the block (copies, so later in-place writes do not change
-    them); yields the list of (args, kwargs), the tile the call launched
-    at under ``tile`` (`_as_launched`)."""
+    inside the block (detached copies, so later in-place writes do not
+    change them and a training step's graph is not kept); yields the list
+    of (args, kwargs), the tile the call launched at under ``tile``
+    (`_as_launched`)."""
     from repro_torch.kernels import api
     plain_run = api.run
     calls = []
 
     def run(name, *args, **kwargs):
         if name == kernel:
-            calls.append(([a.clone() for a in args],
+            calls.append(([a.detach().clone()
+                           if isinstance(a, torch.Tensor) else a
+                           for a in args],
                           _as_launched(name, args, kwargs)))
         return plain_run(name, *args, **kwargs)
 
@@ -5166,15 +5252,18 @@ TRAIN_OC = {"lr": 1e-4, "warmup_steps": 1, "total_steps": 8}
 TRAIN_EXACT = (("starcoder2-7b", 2, 1, 1024), ("mamba2-780m", 2, 2, 1024),
                ("recurrentgemma-2b", 3, 1, 2560))
 # (arch, layers, batch, seq, mid-run checkpoint and resume): published
-# widths, bf16; mamba2-780m and recurrentgemma-2b at full depth,
-# starcoder2-7b cut to 8 of 32 layers (its training state at 32 layers,
-# ~118 GB, does not fit one card). The card's machine allows a call 45
-# GiB of disk writes: mamba2's checkpoint (12.0 GB) and starcoder2's
-# (30.7 GB) fit, recurrentgemma-2b's (49.7 GB) alone does not, so it
+# widths, bf16; recurrentgemma-2b at full depth, mamba2-780m cut to 12 of
+# 48 layers and starcoder2-7b to 2 of 32 (its training state at 32
+# layers, ~118 GB, does not fit one card): at 48 and 8 layers the phase
+# took 279 s of a whole run's 1,030-1,200 s and its limit of 1,200, 58 s
+# of it starcoder2's 30.7 GB checkpoint written and read back; at 24 and
+# 4, 188-201 s (18.5 GB, 37 s). The card's
+# machine allows a call 45 GiB of disk writes: mamba2's and starcoder2's
+# checkpoints fit, recurrentgemma-2b's (49.7 GB) alone does not, so it
 # trains its 4 steps in one run
-TRAIN_FULL = (("mamba2-780m", 48, 4, 2048, True),
+TRAIN_FULL = (("mamba2-780m", 12, 4, 2048, True),
               ("recurrentgemma-2b", 26, 1, 4096, False),
-              ("starcoder2-7b", 8, 2, 2048, True))
+              ("starcoder2-7b", 2, 2, 2048, True))
 TRAIN_STRAIGHT = ("mamba2-780m",)     # resumed == straight, to the bit
 TRAIN_PLAIN_TURNS = ("mamba2-780m", "starcoder2-7b")   # RG-LRU's plain
 # step is a Python loop over 4096 positions: not timed at full depth
@@ -5786,8 +5875,8 @@ TRAIN_MESH_RULE = ("against the 1x1 trainer on the same weights and "
                    "||p_1x1 - p_init||, within 1e-2")
 # (arch, layers, batch, seq): bf16 at 2x2 through `Trainer(mesh=)`, the
 # shapes of `TRAIN_FULL`'s 1x1 trainers, which ran (and were freed) first
-TRAIN_MESH_FULL = (("starcoder2-7b", 8, 2, 2048),
-                   ("mamba2-780m", 48, 4, 2048))
+TRAIN_MESH_FULL = (("starcoder2-7b", 2, 2, 2048),
+                   ("mamba2-780m", 12, 4, 2048))
 TRAIN_MESH_FULL_STEPS = 4
 # Relative limits against the 1x1 trainer, bf16. The plan's seams add the
 # halves of each product in another order than the 1x1 step's one matmul;
@@ -6098,7 +6187,6 @@ def traced_plan_step(step_fn, state, batch) -> dict:
     """One step of a plan's trainer under `torch.profiler`: wall ms,
     device busy share, kernels launched (every CUDA kernel, not only the
     counted ones) and the top device ops."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -6108,18 +6196,10 @@ def traced_plan_step(step_fn, state, batch) -> dict:
         float(mets["loss"])
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    # the trace's device events as recorded: parsing it into a tree of
-    # function events (`prof.events()`) took a minute at mamba2-780m's
-    # ~90,000 kernels a 2x2 step
-    events = [(e.name(), e.start_ns(), e.end_ns())
-              for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
-    if not events:
+    kernels = device_events(prof)
+    if not kernels:
         raise AssertionError("the traced plan step recorded no device "
                              "activity")
-    t0_ns = min(start for _, start, _ in events)     # µs from here, exact
-    kernels = [(name, (start - t0_ns) / 1e3, (end - t0_ns) / 1e3)
-               for name, start, end in events]
     busy_us = _union_us((start, end) for _, start, end in kernels)
     by_name: dict = {}
     for name, start, end in kernels:
@@ -6317,11 +6397,14 @@ def train_mesh_full(arch, layers, batch, seq, one, smi) -> tuple:
 # ---------------------------------------------------------------------------
 # 13. napel: the cost counter, the dry run, NAPEL and LEAPER on the card
 # ---------------------------------------------------------------------------
-NAPEL_TRAIN = (("mamba2-780m", 48, 4, 2048),        # the train phase's shapes
+NAPEL_TRAIN = (("mamba2-780m", 12, 4, 2048),        # the train phase's shapes
                ("recurrentgemma-2b", 26, 1, 4096),
-               ("starcoder2-7b", 8, 2, 2048))
-NAPEL_PREFILL = ("starcoder2-7b", 32, 1, 600)   # the serve phase's model and
-#                                                 its longest prompt
+               ("starcoder2-7b", 2, 2, 2048))
+# the serve phase's model and its longest prompt
+NAPEL_PREFILL = ("starcoder2-7b", SERVE_LAYERS, 1, 600)
+# processes of the meta counts when phase train runs beside them, started
+# with it (two cores left to the main process: its host-bound steps)
+NAPEL_EARLY_WORKERS = 6
 NAPEL_WORKERS = 8            # processes of the meta counts (the 8 cores;
 #                              the main process waits on the pool)
 NAPEL_CARD_POINTS = 10       # corpus points trained on the card ...
@@ -6447,11 +6530,14 @@ def meta_task(task):
     return summary, entries, log, {"count_s": c.count_s, "live_bytes": live}
 
 
-def napel_meta_counts() -> dict:
-    """Every meta count of the phase, in `NAPEL_WORKERS` processes: the
+META_POOL: dict = {}
+
+
+def start_meta_counts(workers: int = NAPEL_WORKERS) -> None:
+    """Start every meta count of phase napel in `workers` processes: the
     dry run's cells at 1x1 and on the 16 x 16 pod, the corpus points, the
     count part's steps and the one-position counts of part
-    ``mesh_count``."""
+    ``mesh_count``. `napel_meta_counts` collects them."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.core.napel.corpus import corpus_points
@@ -6467,12 +6553,42 @@ def napel_meta_counts() -> dict:
     tasks.sort(key=lambda t: (t[0] != "train",
                               not (t[0] == "dryrun_pod"
                                    and t[2] == "train_4k")))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    done: list = []
+    META_POOL.update(pool=pool, workers=workers, done=done,
+                     t0=time.perf_counter(), futures={})
+    for task in tasks:
+        fut = pool.submit(meta_task, task)
+        fut.add_done_callback(lambda _: done.append(time.perf_counter()))
+        META_POOL["futures"][task] = fut
+
+
+def stop_meta_counts() -> None:
+    """Cancel the meta counts not yet started (a run that failed)."""
+    if META_POOL:
+        META_POOL.pop("pool").shutdown(wait=False, cancel_futures=True)
+        META_POOL.clear()
+
+
+def napel_meta_counts() -> dict:
+    """The meta counts' results (started here unless `start_meta_counts`
+    ran before), the pool's wall seconds from its start to its last
+    count, and the seconds the phase waited for them."""
+    if not META_POOL:
+        start_meta_counts()
     t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(NAPEL_WORKERS,
-                                                mp_context=ctx) as pool:
-        results = dict(zip(tasks, pool.map(meta_task, tasks)))
-    return {"results": results, "wall_s": time.perf_counter() - t0}
+    futures, done = META_POOL["futures"], META_POOL["done"]
+    results = {t: f.result() for t, f in futures.items()}
+    now = time.perf_counter()
+    # a count's time is noted by its future's callback, which may run
+    # just after its result is handed out
+    last = max(done) if len(done) == len(futures) else now
+    out = {"results": results, "workers": META_POOL["workers"],
+           "wall_s": last - META_POOL["t0"], "wait_s": now - t0}
+    META_POOL.pop("pool").shutdown()
+    META_POOL.clear()
+    return out
 
 
 def _step_ms(fn, steps: int = NAPEL_TIMED_STEPS) -> list:
@@ -7153,7 +7269,8 @@ def phase_napel(smi: str) -> dict:
     _add(launches, corpus_launches)
     napel_leaper(results, corpus_row, energy)
     emit({"phase": "napel", "part": "done", "launches": launches,
-          "meta_pool_s": meta["wall_s"],
+          "meta_pool_s": meta["wall_s"], "meta_wait_s": meta["wait_s"],
+          "meta_workers": meta["workers"],
           "wall_s": time.perf_counter() - t0})
     return launches
 
@@ -7176,8 +7293,9 @@ MESH_MAGNITUDE_HELD = {"recurrentgemma-2b": ("flash_attention",
 MESH_PLAN_MESHES = "1x1,1x2,2x2,1x4,2x4"
 MESH_PROFILE_STEPS = 4   # traced 2x2 steps: ~5,000 kernels each
 # part ``serve``'s depth: at 32 layers (97.2 s of it) an every-phase run
-# took 1,138.7 s of its 1,200 s limit on a slow host
-MESH_SERVE_LAYERS = 16
+# took 1,138.7 s of its 1,200 s limit on a slow host; at 16 the part
+# took 37 s of a 735 s run
+MESH_SERVE_LAYERS = 8
 MESH_KERNELS = ("paged_attention", "flash_attention", "ssd_scan",
                 "rglru_scan")
 
@@ -7347,7 +7465,8 @@ def magnitude_faults(kernel, args, kw, want, limit, tile) -> dict:
     return {f: limit_check(v, want, limit)[2] for f, v in variants.items()}
 
 
-def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
+def check_recorded(seen, label, magnitude=(), phase="mesh",
+                   summarize=False) -> list:
     """Each recorded launch shape through the kernel (``backend="cuda"``
     at the tile it ran at) and the plain version on the same inputs: paged, flash and RG-LRU to
     2 ulps, SSD to `ssd_limit`, the kernels in `magnitude` to
@@ -7358,7 +7477,9 @@ def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
     must equal the kernel within 2 ulps), and its broken variants over
     the limit (`magnitude_faults`). Every shape is checked and emitted;
     then any launch past its limit raises. These launches are not the
-    main path's and count nowhere."""
+    main path's and count nowhere. With `summarize` the line groups the
+    launches by kernel, shapes, dtype and tile (`launch_groups`) instead
+    of one row each."""
     from repro_torch.kernels import api
     from repro_torch.kernels.rglru_scan.rglru_scan import route
     out, bad = [], []
@@ -7411,13 +7532,40 @@ def check_recorded(seen, label, magnitude=(), phase="mesh") -> list:
             out.append(row)
             del got, want
     emit({"phase": phase, "part": "launch_checks", "label": label,
-          "checks": out})
+          **({"launches_checked": len(out), "groups": launch_groups(out)}
+             if summarize else {"checks": out})})
     if bad:
         raise AssertionError(f"{label}: {len(bad)} launch shapes past their "
                              f"limit, equal to no loop in the kernel's "
                              f"order, or with a broken variant inside the "
                              f"limit: {bad}")
     return out
+
+
+def launch_groups(rows) -> list:
+    """`check_recorded`'s rows grouped by kernel, shapes, dtype and tile:
+    the launches in each and the worst error over the limit."""
+    groups: dict = {}
+    for r in rows:
+        key = json.dumps([r["kernel"], r["shapes"], r["dtype"], r["tile"]])
+        g = groups.setdefault(key, {
+            "kernel": r["kernel"], "shapes": r["shapes"], "dtype": r["dtype"],
+            "tile": r["tile"], "rule": r["rule"], "launches": 0,
+            "worst_over_limit": 0.0, "max_abs_err": 0.0})
+        g["launches"] += 1
+        g["worst_over_limit"] = max(g["worst_over_limit"],
+                                    r["max_err_over_limit"])
+        g["max_abs_err"] = max(g["max_abs_err"], r["max_abs_err"])
+        # a magnitude-held launch: its 2-ulp reading, the loop in the
+        # kernel's order, the broken variants (the least over the limit)
+        for key in ("over_2ulp", "online_loop_over_2ulp",
+                    "online_loop_over_limit"):
+            if key in r:
+                g[f"worst_{key}"] = max(g.get(f"worst_{key}", 0.0), r[key])
+        for fault, over in r.get("faults_over_limit", {}).items():
+            least = g.setdefault("least_faults_over_limit", {})
+            least[fault] = min(least.get(fault, math.inf), over)
+    return list(groups.values())
 
 
 def _mesh_engine(cfg, params, d, m, **kw):
@@ -7834,6 +7982,176 @@ def phase_mesh(base, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# 15. examples: the JAX package's examples/ scripts on the port
+# ---------------------------------------------------------------------------
+# train_100m at its default --steps 300 writes four checkpoints of 2.2 GB
+# (at 100, 200 and twice at 300: the trainer saves its last step again at
+# its end), 8.7 GB, and takes ~42 s (139 ms a step): a whole run must
+# stay within its 1,200 s, and a call may write 45 GiB (48.3 GB), 42.7 GB
+# of which phase train wrote before its depth was cut. 60 steps write
+# one checkpoint, at the end.
+EXAMPLES_TRAIN_STEPS = 60
+EXAMPLES_STEPS_NOTE = (
+    f"--steps {EXAMPLES_TRAIN_STEPS} (the example's default is 300): 300 "
+    f"steps write four 2.2 GB checkpoints (100, 200, 300 twice), 8.7 GB, "
+    f"and take ~42 s, against the whole run's 1,200 s and a call's 45 GiB "
+    f"of writes; {EXAMPLES_TRAIN_STEPS} write one (the end's); seq 256 "
+    f"and batch 8 stay the example's")
+EXAMPLES_KERNELS = ("paged_attention", "flash_attention")
+
+
+def expected_routes(kernel: str, calls) -> dict:
+    """{route: launches} the recorded calls must have taken: paged
+    attention by q's dtype, k * g rows and head dim (`route`), flash by
+    dtype and head dim."""
+    if kernel == "paged_attention":
+        from repro_torch.kernels.paged_attention.paged_attention import route
+    else:
+        from repro_torch.kernels.flash_attention.flash_attention import route
+    out: dict = {}
+    for args, _ in calls:
+        q = args[0]
+        if kernel == "paged_attention":
+            rows = (q.shape[1] if q.ndim == 4 else 1) * (
+                q.shape[-2] // args[1].shape[-2])
+            r = route(q.dtype, rows, q.shape[-1])
+        else:
+            r = route(q.dtype, q.shape[-1])
+        out[r] = out.get(r, 0) + 1
+    return out
+
+
+def run_example(name, argv, smi, magnitude=()) -> tuple:
+    """One example's ``main`` on the card with the launch counts set to 0
+    just before it and read just after, every launch of the paged and
+    flash kernels recorded (`recording`) and then held to its plain
+    version at the tile it ran at (`check_recorded`: 2 ulps, the kernels
+    in `magnitude` to `magnitude_limit`); fails if a launch escaped the
+    recording or took another route than its shapes give. Returns (its
+    result, the row to emit, its launches)."""
+    import importlib
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    argv = ["--device", "cuda"] + list(argv)
+    _release()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        calls = {k: stack.enter_context(recording(k))
+                 for k in EXAMPLES_KERNELS}
+        out = module.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    routes = {k: dict(_counters()[k].launches_by_route)
+              for k in EXAMPLES_KERNELS}
+    want_routes = {k: expected_routes(k, calls[k]) for k in EXAMPLES_KERNELS}
+    row = {"phase": "examples", "part": name, "nvidia_smi": smi,
+           "argv": argv, "wall_s": wall,
+           "launches": {k: launches[k] for k in EXAMPLES_KERNELS},
+           "recorded": {k: len(calls[k]) for k in EXAMPLES_KERNELS},
+           "routes": {k: {r: n for r, n in routes[k].items() if n}
+                      for k in EXAMPLES_KERNELS},
+           "routes_expected": want_routes}
+    bad = [k for k in EXAMPLES_KERNELS
+           if launches[k] != len(calls[k]) or row["routes"][k]
+           != want_routes[k]]
+    if bad:
+        emit(row)
+        raise AssertionError(f"examples {name}: launches unrecorded or on "
+                             f"another route: {bad}")
+    checked = check_recorded({k: dict(enumerate(v)) for k, v in calls.items()},
+                             f"examples {name}", magnitude,
+                             phase="examples", summarize=True)
+    row["launches_checked"] = len(checked)
+    row["worst_over_limit"] = max((c["max_err_over_limit"]
+                                   for c in checked), default=None)
+    del calls, checked
+    _release()
+    return out, row, {k: launches[k] for k in EXAMPLES_KERNELS}
+
+
+def phase_examples(smi: str) -> dict:
+    """The four examples the port adds (`repro_torch.examples`), each
+    through its ``main`` with ``--device cuda``: serve_stream (the
+    streams equal `serve()`, a cancel, the pool empty), serve_lm (Sibyl
+    placement, the decode trace's replay, k = 4 speculative tokens equal
+    to `generate`'s), quickstart (40 steps, checkpoints, `generate`),
+    train_100m (135,313,152 fp32 parameters at seq 256 x batch 8,
+    `EXAMPLES_TRAIN_STEPS` steps under `Supervisor`). Their own
+    assertions hold or the phase fails; beside them quickstart's loss
+    falls, train_100m's is finite and falls with no restart. Every paged
+    and flash launch is held to its plain version (`run_example`): 2
+    ulps, train_100m's fp32 flash launches `magnitude_limit`.
+    Returns the phase's launches."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    out, row, launches = run_example("serve_stream", [], smi)
+    s = out["summary"]
+    row.update(tokens=s["tokens"], n_done=s["n_done"],
+               throughput_tok_s=s["throughput_tok_s"],
+               ttft_ms={k: s["ttft"][k] for k in ("p50_ms", "p99_ms")},
+               tpot_ms={k: s["tpot"][k] for k in ("p50_ms", "p99_ms")},
+               shared_puts=out["shared_puts"],
+               cancelled_after=len(out["partial"]),
+               live_pages=out["live_pages"])
+    emit(row)
+    _add(total, launches)
+
+    out, row, launches = run_example("serve_lm", [], smi)
+    spec = out["spec_stats"]
+    row.update(tokens=sum(len(o) for o in out["outs"]),
+               pool_stats=out["pool_stats"], sibyl=out["sibyl"],
+               replay_events=len(out["events"]),
+               replay_avg_latency_us=out["replay"]["avg_latency_us"],
+               replay_p99_latency_us=out["replay"]["p99_latency_us"],
+               replay_note="the HSS simulator's latencies (H&M), not times "
+                           "of the card",
+               spec_accept_rate=[d["accept_rate"] for d in spec],
+               spec_tokens_per_step=[d["tokens_per_step"] for d in spec],
+               spec_accepted=[d["accepted"] for d in spec])
+    emit(row)
+    _add(total, launches)
+
+    out, row, launches = run_example("quickstart", [], smi)
+    losses = out["losses"]
+    row.update(losses=losses, generated=[o.tolist() for o in
+                                         out["generated"]])
+    emit(row)
+    _add(total, launches)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1]
+            < losses[0]):
+        raise AssertionError(f"examples quickstart: the loss did not fall: "
+                             f"{losses}")
+
+    # its fp32 flash launches (d 64, s 256) miss 2 ulps by the order of
+    # their sums, as recurrentgemma-2b's fp32 flash does (phase mesh):
+    # held to magnitude_limit, the 2-ulp reading and the loop in the
+    # kernel's order beside it, the broken variants over the limit
+    out, row, launches = run_example(
+        "train_100m", ["--steps", str(EXAMPLES_TRAIN_STEPS)], smi,
+        magnitude=("flash_attention",))
+    losses = out["losses"]
+    step_ms = [h["step_time_s"] * 1e3 for h in out["history"]]
+    med = statistics.median(step_ms)
+    row.update(param_count=out["param_count"], steps=out["steps"],
+               seq=out["seq"], batch=out["batch"],
+               steps_note=EXAMPLES_STEPS_NOTE, restarts=out["restarts"],
+               loss_first=losses[0], loss_last=losses[-1],
+               step_ms_median=med, step_ms_first=step_ms[0],
+               tokens_per_s=out["seq"] * out["batch"] / (med / 1e3))
+    emit(row)
+    _add(total, launches)
+    if out["restarts"] != 0 or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"examples train_100m: {out['restarts']} "
+                             f"restarts, or the loss is not finite or did "
+                             f"not fall: {losses}")
+    emit({"phase": "examples", "part": "done", "launches": total,
+          "wall_s": time.perf_counter() - t0})
+    return total
+
+
 def kernels_line(full, launches, stencil=None) -> dict:
     """One entry per kernel at its main path's shapes (bf16 where the path
     runs bf16): paged attention at one decode row and flash attention at
@@ -7872,8 +8190,85 @@ def kernels_line(full, launches, stencil=None) -> dict:
     return {"kernels": out}
 
 
+def serve_profiles(eng) -> None:
+    """The serve phase's decode modes in turns (`serve_modes`), the fused
+    step at its knee and at the launch before tiles, after an untimed
+    turn, in the order knee, fixed, fixed, knee (kernels per traced step
+    beside the decode ms, paired), and the knee cache's round trip."""
+    serve_modes(eng)
+    phase_profile(eng, steps=4)
+    order = ("auto", "cuda", "cuda", "auto")
+    runs = [phase_profile(eng, backend=b) for b in order]
+    knee = [p for b, p in zip(order, runs) if b == "auto"]
+    fixed = [p for b, p in zip(order, runs) if b == "cuda"]
+
+    def per(key):
+        return {"knee": [p[key] for p in knee],
+                "fixed": [p[key] for p in fixed],
+                "knee_over_fixed_median": statistics.median(
+                    p[key] for p in knee) / statistics.median(
+                    p[key] for p in fixed)}
+    emit({"phase": "profile", "case": "knee vs the launch before "
+          "tiles", "order": ["knee" if b == "auto" else "fixed"
+                             for b in order],
+          "warm_up": "one untimed profile of 4 steps first",
+          "kernels_per_step": per("kernels_per_step"),
+          "decode_ms_per_step": per("decode_ms_per_step"),
+          "traced_ms_per_step": per("traced_ms_per_step"),
+          "device_busy_share": per("device_busy_share")})
+    # a traced window's mean, a page fill in it or not
+    if len({round(p["kernels_per_step"]) for p in knee + fixed}) \
+            != 1:
+        raise AssertionError("kernels per step differ between the "
+                             "knee and the launch before tiles")
+    knee_round_trip(eng)
+
+
 PHASES = ("kernel", "exact", "serve", "chunked", "spec", "overload",
-          "families", "hybrid", "train", "napel", "stencil", "sibyl", "mesh")
+          "families", "hybrid", "train", "napel", "stencil", "sibyl", "mesh",
+          "examples")
+DISK_BUDGET_BYTES = 45 * 2 ** 30     # what one call of the card may write
+DISK_START: dict = {}
+
+
+IO_KEYS = ("wchar", "write_bytes", "cancelled_write_bytes")
+
+
+def io_counts() -> dict | None:
+    """This process's write counters from ``/proc/self/io`` (its threads,
+    and its children once reaped): ``wchar``, the bytes it passed to
+    write calls (files, pipes and the terminal alike), and
+    ``write_bytes``, the bytes it sent to storage, deleted files included
+    (``cancelled_write_bytes`` those never written back); the card's
+    machine reports ``write_bytes`` as 0, so the budget reads the larger.
+    None where the file cannot be read."""
+    try:
+        fields = dict(line.split(": ") for line in
+                      Path("/proc/self/io").read_text().splitlines())
+    except (OSError, ValueError):
+        return None
+    return {k: int(fields[k]) for k in IO_KEYS if k in fields}
+
+
+def _io_delta(after, before) -> dict | None:
+    if after is None or before is None:
+        return None
+    return {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def disk(phase: str):
+    """Emit the phase's storage writes (`io_counts` before and after it)
+    and the run's so far, with the phase's wall seconds and the run's,
+    on a line of the phase's own."""
+    before = io_counts()
+    t0 = time.perf_counter()
+    yield
+    after = io_counts()
+    emit({"phase": phase, "part": "disk", "io": _io_delta(after, before),
+          "run_io": _io_delta(after, DISK_START.get("io")),
+          "wall_s": time.perf_counter() - t0,
+          "run_s": time.perf_counter() - RUN_T0})
 
 
 def main(argv=None) -> int:
@@ -7893,60 +8288,42 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False    # plain fp32 is fp32
     torch.backends.cudnn.allow_tf32 = False
-    dev = phase_device()
+    DISK_START["io"] = io_counts()
+    with disk("device"):
+        dev = phase_device()
+    smi = dev["nvidia_smi"]
     run = (lambda p: args.only in (None, p))
     full = serve = None
     launches = {}
     mesh_launches = None
     if run("kernel"):
-        full = phase_kernel()
+        with disk("kernel"):
+            full = phase_kernel()
     keep_knees()
     if run("exact"):
-        phase_exact()
+        with disk("exact"):
+            phase_exact()
     if run("serve") or run("chunked") or run("spec") or run("overload") \
             or run("sibyl") or run("mesh"):
-        serve, eng = phase_serve()
-        if args.only in (None, "serve"):
-            serve_modes(eng)
-            # the fused step at its knee and at the launch before tiles,
-            # after an untimed turn, in the order knee, fixed, fixed, knee:
-            # kernels per traced step beside the decode ms, paired
-            phase_profile(eng, steps=4)
-            order = ("auto", "cuda", "cuda", "auto")
-            runs = [phase_profile(eng, backend=b) for b in order]
-            knee = [p for b, p in zip(order, runs) if b == "auto"]
-            fixed = [p for b, p in zip(order, runs) if b == "cuda"]
-
-            def per(key):
-                return {"knee": [p[key] for p in knee],
-                        "fixed": [p[key] for p in fixed],
-                        "knee_over_fixed_median": statistics.median(
-                            p[key] for p in knee) / statistics.median(
-                            p[key] for p in fixed)}
-            emit({"phase": "profile", "case": "knee vs the launch before "
-                  "tiles", "order": ["knee" if b == "auto" else "fixed"
-                                     for b in order],
-                  "warm_up": "one untimed profile of 4 steps first",
-                  "kernels_per_step": per("kernels_per_step"),
-                  "decode_ms_per_step": per("decode_ms_per_step"),
-                  "traced_ms_per_step": per("traced_ms_per_step"),
-                  "device_busy_share": per("device_busy_share")})
-            # a traced window's mean, a page fill in it or not
-            if len({round(p["kernels_per_step"]) for p in knee + fixed}) \
-                    != 1:
-                raise AssertionError("kernels per step differ between the "
-                                     "knee and the launch before tiles")
-            knee_round_trip(eng)
+        with disk("serve"):
+            serve, eng = phase_serve()
+            if args.only in (None, "serve"):
+                serve_profiles(eng)
         if run("chunked"):
-            phase_chunked(eng)
+            with disk("chunked"):
+                phase_chunked(eng)
         if run("spec"):
-            phase_spec(eng)
+            with disk("spec"):
+                phase_spec(eng)
         if run("overload"):
-            phase_overload(eng, serve, dev["nvidia_smi"])
+            with disk("overload"):
+                phase_overload(eng, serve, smi)
         if run("sibyl"):
-            phase_sibyl(eng, serve, dev["nvidia_smi"])
+            with disk("sibyl"):
+                phase_sibyl(eng, serve, smi)
         if run("mesh"):
-            mesh_launches = phase_mesh(eng, dev["nvidia_smi"])
+            with disk("mesh"):
+                mesh_launches = phase_mesh(eng, smi)
         del eng
         # a finished session's radix tree and its release callback form
         # reference cycles: collect them so the next phase's memory
@@ -7958,30 +8335,51 @@ def main(argv=None) -> int:
     if run("families"):
         # the families' paths launch the serving kernels at new shapes:
         # their counts join the serve phase's
-        _add(launches, phase_families())
+        with disk("families"):
+            _add(launches, phase_families())
     if run("hybrid"):
-        _, hybrid_launches = phase_hybrid()
+        with disk("hybrid"):
+            _, hybrid_launches = phase_hybrid()
         launches["ssd_scan"] = hybrid_launches["mamba2-780m"]["ssd_scan"]
         launches["rglru_scan"] = \
             hybrid_launches["recurrentgemma-2b"]["rglru_scan"]
     if run("train"):
+        if run("napel"):
+            # the napel phase's meta counts, on the CPU, run beside the
+            # train phase's work on the card
+            start_meta_counts(NAPEL_EARLY_WORKERS)
         # the training path launches flash, SSD and RG-LRU at new shapes:
         # its trainers' counts join the serving and hybrid phases'
-        _add(launches, phase_train(dev["nvidia_smi"]))
+        with disk("train"):
+            _add(launches, phase_train(smi))
     if run("napel"):
         # the counted and timed steps launch flash, SSD and RG-LRU: their
         # counts join the other phases'
-        _add(launches, phase_napel(dev["nvidia_smi"]))
+        with disk("napel"):
+            _add(launches, phase_napel(smi))
     stencil = None
     if run("stencil"):
-        stencil, stencil_launches = phase_stencil()
+        with disk("stencil"):
+            stencil, stencil_launches = phase_stencil()
         launches.update(stencil_launches)
     if mesh_launches is not None:
         # the plans launch the serving kernels (and the scans) at
         # per-shard shapes: their counts join the other phases'
         _add(launches, mesh_launches)
+    if run("examples"):
+        # the examples launch the serving kernels at head dim 16 with
+        # 8-token pages and flash in fp32: their counts join the others'
+        with disk("examples"):
+            _add(launches, phase_examples(smi))
     if MAIN_KNEES:
-        knee_audit(dev["nvidia_smi"])
+        knee_audit(smi)
+    total = _io_delta(io_counts(), DISK_START["io"])
+    written = None if total is None else max(
+        total.get("wchar", 0), total.get("write_bytes", 0))
+    emit({"phase": "disk", "nvidia_smi": smi, "run_io": total,
+          "written_bytes": written, "budget_bytes": DISK_BUDGET_BYTES,
+          "within_budget": None if written is None
+          else written <= DISK_BUDGET_BYTES})
     if full is not None or stencil is not None:
         emit(kernels_line(full, launches, stencil))
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
@@ -7990,4 +8388,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_meta_counts()

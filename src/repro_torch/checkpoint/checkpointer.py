@@ -80,13 +80,15 @@ class Checkpointer:
     def save(self, step: int, state, extra: Optional[dict] = None,
              blocking: bool = True):
         """Snapshot to host copies, then write (on a thread if not
-        `blocking`)."""
+        `blocking`). A write still in flight finishes first: the trainer
+        saves its last step twice (at its interval, async, and at its
+        end), and two writers of one step share its temporary directory."""
         host = {k: (to_host(v), str(v.dtype).removeprefix("torch."))
                 for k, v in _keys(state).items()}
+        self.wait()
         if blocking:
             self._write(step, host, extra or {})
         else:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, extra or {}))
             self._thread.start()

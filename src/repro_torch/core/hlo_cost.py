@@ -139,6 +139,9 @@ class _Bucket:
         self.ops = 0
         self.live = 0
         self.peak = 0
+        # the position's collective rows and, with inspect=True, op rows
+        self.rows: dict = defaultdict(lambda: {"count": 0, "bytes": 0})
+        self.coll_rows: dict = defaultdict(lambda: {"count": 0, "bytes": 0})
 
     def add(self, flops: dict, nbytes: int, fused: int, trans: int,
             ops: int = 1):
@@ -156,6 +159,11 @@ class _Bucket:
         for k, v in other.collectives.items():
             self.collectives[k]["count"] += v["count"]
             self.collectives[k]["bytes"] += v["bytes"]
+        for mine, theirs in ((self.rows, other.rows),
+                             (self.coll_rows, other.coll_rows)):
+            for key, row in theirs.items():
+                mine[key]["count"] += row["count"]
+                mine[key]["bytes"] += row["bytes"]
 
 
 def _base(op) -> str:
@@ -265,13 +273,20 @@ class CostCounter(TorchDispatchMode):
 
         return _At()
 
-    def collective(self, kind: str, nbytes: int, pos=None):
+    def collective(self, kind: str, nbytes: int, pos=None, shape=None):
         """One collective of `kind` with `nbytes` operand bytes, at `pos`
-        (None: the totals only)."""
+        (None: the totals only); its row (`coll_rows`) under `shape`, the
+        operand's (None: not known)."""
         for b in ([self.collectives] + ([self.by_position[pos].collectives]
                                         if pos is not None else [])):
             b[kind]["count"] += 1
             b[kind]["bytes"] += int(nbytes)
+        key = (kind, str(tuple(shape))[:60] if shape is not None else "()",
+               self._source())
+        for rows in [self.coll_rows] + ([self.by_position[pos].coll_rows]
+                                        if pos is not None else []):
+            rows[key]["count"] += 1
+            rows[key]["bytes"] += int(nbytes)
 
     def _position(self, ins):
         """The position of an op reading `ins`: their one marked position,
@@ -297,7 +312,7 @@ class CostCounter(TorchDispatchMode):
             self._pending_live += list(new_live)
             return
         b = self.by_position[pos]
-        if self._pending.ops:
+        if self._pending.ops or self._pending.rows:
             b.merge(self._pending)
             self._pending = _Bucket()
         b.add(flops, nbytes, fused, trans)
@@ -371,7 +386,7 @@ class CostCounter(TorchDispatchMode):
             self.by_position[pos].entries.append(entry)
             self.tag(out, pos)
         if self.inspect:
-            self._row(f"kernel:{name}", _tensors(out), entry["bytes"])
+            self._row(f"kernel:{name}", _tensors(out), entry["bytes"], pos)
         return out
 
     # -- ops ------------------------------------------------------------------
@@ -410,13 +425,10 @@ class CostCounter(TorchDispatchMode):
         self._flops(func, base, ins, outs)
         self._fused(func, base, ins, outs, in_b, out_b)
         if func.namespace == "_c10d_functional" and base in COLLECTIVE_OPS:
-            name = COLLECTIVE_OPS[base]
-            self.collective(name, in_b, pos if self._tags else None)
+            self.collective(COLLECTIVE_OPS[base], in_b,
+                            pos if self._tags else None,
+                            ins[0].shape if ins else None)
             self.bytes_fused += in_b + out_b
-            row = self.coll_rows[(name, str(tuple(ins[0].shape))[:60]
-                                  if ins else "()", self._source())]
-            row["count"] += 1
-            row["bytes"] += in_b
         if before is not None:
             flops = {c: f - before[0].get(c, 0)
                      for c, f in self.flops_by_class.items()
@@ -425,7 +437,7 @@ class CostCounter(TorchDispatchMode):
                             self.bytes_fused - before[2],
                             self.transcendentals - before[3], holders)
         if self.inspect:
-            self._row(base, outs or ins, in_b + out_b)
+            self._row(base, outs or ins, in_b + out_b, pos)
 
     def _flops(self, func, base, ins, outs):
         out_n = sum(t.numel() for t in outs)
@@ -498,11 +510,19 @@ class CostCounter(TorchDispatchMode):
             f = f.f_back
         return "autograd"
 
-    def _row(self, op, tensors, nbytes):
+    def _row(self, op, tensors, nbytes, pos=None):
+        """One op's row in the totals and, in a plan's count, in `pos`'s
+        bucket (the pending one when None: the next marked op takes it,
+        as its bytes)."""
         shape = str(tuple(tensors[0].shape))[:48] if tensors else "()"
         key = (op, shape, self._source())
-        self.rows[key]["count"] += 1
-        self.rows[key]["bytes"] += nbytes
+        tables = [self.rows]
+        if self._tags:
+            tables.append((self._pending if pos is None
+                           else self.by_position[pos]).rows)
+        for rows in tables:
+            rows[key]["count"] += 1
+            rows[key]["bytes"] += nbytes
 
     # -- results --------------------------------------------------------------
     def kernel_summary(self) -> tuple:
@@ -514,16 +534,22 @@ class CostCounter(TorchDispatchMode):
         """The positions counted, in order ("mixed" left out)."""
         return sorted(p for p in self.by_position if p != MIXED)
 
+    def position_bucket(self, pos) -> _Bucket:
+        """Position `pos`'s bucket, once ops still waiting for a marked op
+        count at the last position seen."""
+        if (self._pending.ops or self._pending.rows) and \
+                self._last is not None:
+            self._attribute(self._last, {}, 0, 0, 0)
+            self.by_position[self._last].ops -= 1
+        return self.by_position[pos]
+
     def position_summary(self, pos) -> dict:
         """Position `pos`'s share: ``flops``, ``flops_by_class``,
         ``bytes_accessed``, ``bytes_accessed_fused``, ``transcendentals``,
         ``kernels``, ``kernel_routes``, ``collectives`` (with totals) and
         ``peak_live_bytes``. Ops still waiting for a marked op count at
         the last position seen."""
-        if self._pending.ops and self._last is not None:
-            self._attribute(self._last, {}, 0, 0, 0)
-            self.by_position[self._last].ops -= 1
-        b = self.by_position[pos]
+        b = self.position_bucket(pos)
         kernels, routes = _kernel_summary(b.entries)
         by_class = {c: f for c, f in sorted(b.flops_by_class.items()) if f}
         colls = {k: dict(v) for k, v in b.collectives.items()}

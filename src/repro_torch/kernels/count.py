@@ -53,13 +53,14 @@ def tag(t, pos) -> None:
         counter.tag(t, pos)
 
 
-def collective(kind: str, nbytes: int, pos) -> None:
+def collective(kind: str, nbytes: int, pos, shape=None) -> None:
     """One collective of `kind` (the reference's names: "all-reduce",
     "all-gather", "reduce-scatter", ...) with `nbytes` operand bytes on
-    position `pos`'s device."""
+    position `pos`'s device; `shape` is the operand's, where known (the
+    op log's row, `core.hlo_inspect`)."""
     counter = active()
     if counter is not None:
-        counter.collective(kind, nbytes, pos)
+        counter.collective(kind, nbytes, pos, shape)
 
 
 class _Nothing:

@@ -11,6 +11,7 @@ Usage:
   python -m repro_torch.launch.dryrun --all --both-meshes  # both pods
   python -m repro_torch.launch.dryrun --all --mesh 16x16 --variant no_remat
   python -m repro_torch.launch.dryrun --serve-plan   # serving-memory report
+  python -m repro_torch.launch.dryrun --arch A --shape S --save-hlo
 Results are cached as JSON under experiments/dryrun_torch/ (never the
 reference's experiments/dryrun/, whose readers must not load them).
 
@@ -52,6 +53,14 @@ The record reports the position with the longer roofline step as the
 device's, both beside it under ``positions``, and says so in
 ``position_note``. ``count_s`` is the count's wall time, which takes the
 place of the reference's ``lower_s`` / ``compile_s``.
+
+``--save-hlo`` keeps the reference's flag. There is no HLO: the cell is
+counted under ``CostCounter(inspect=True)`` and its op log
+(`core.hlo_inspect.op_log`: the rows per op, shape and source, the
+collectives' rows and the kernel entries; on a mesh the reported
+position's) is written beside the record as
+``<arch>__<shape>__<mesh>.ops.json``, whose path the record keeps under
+``ops_path``. `core.hlo_inspect` reads it as it reads a live counter.
 """
 from __future__ import annotations
 
@@ -66,6 +75,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import SHAPES, get_config, list_archs, shapes_for
+from repro_torch.core.hlo_inspect import op_log
 from repro_torch.kernels import count
 from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.core.hlo_cost import CostCounter
@@ -164,14 +174,14 @@ def storage_bytes(tree) -> int:
 
 
 def count_cell(arch: str, shape_name: str, *, hw=H100_SXM, cfg=None,
-               shape=None) -> dict:
+               shape=None, ops: bool = False) -> dict:
     """Count one cell's step (`input_specs`); returns its record without
-    status or path."""
+    status or path, and with `ops` its op log under ``"ops"``."""
     fn, kwargs, model, shape = input_specs(arch, shape_name, cfg=cfg,
                                            shape=shape)
     args_b = storage_bytes((kwargs, model.params))
     t0 = time.perf_counter()
-    with CostCounter() as c:
+    with CostCounter(inspect=ops) as c:
         out = fn(**kwargs)
     count_s = time.perf_counter() - t0
     tc = c.summary()
@@ -203,17 +213,21 @@ def count_cell(arch: str, shape_name: str, *, hw=H100_SXM, cfg=None,
     mf = model_flops(model.cfg, shape, 1)
     rec["model_flops_per_device"] = mf
     rec["useful_flops_ratio"] = mf / total_flops(flops) if flops else 0.0
+    if ops:
+        rec["ops"] = op_log(c)
     return rec
 
 
 def run_cell(arch: str, shape_name: str, *, out_dir: Path = OUT_DIR,
              force: bool = False, hw=H100_SXM, cfg=None, shape=None,
              mesh: str = MESH, multi_pod: bool = False,
-             variant: str = "baseline") -> dict:
+             variant: str = "baseline", save_hlo: bool = False) -> dict:
     """Count one cell and write its record (cached: a second call reads
     it). `mesh` "1x1" counts one device (`count_cell`); any other
     ("16x16", "DxM", "PxDxM"; ``multi_pod``: 2x16x16) one device of the
-    port's plan on that mesh (`count_cell_mesh`)."""
+    port's plan on that mesh (`count_cell_mesh`). With `save_hlo` the
+    cell's op log is written beside the record (``.ops.json``, its path
+    under ``ops_path``)."""
     shape_t = (2, 16, 16) if multi_pod else parse_mesh(mesh)
     one = math.prod(shape_t) == 1
     if one and variant != "baseline":
@@ -230,11 +244,16 @@ def run_cell(arch: str, shape_name: str, *, out_dir: Path = OUT_DIR,
     try:
         if one:
             rec.update(count_cell(arch, shape_name, hw=hw, cfg=cfg,
-                                  shape=shape))
+                                  shape=shape, ops=save_hlo))
         else:
             rec.update(count_cell_mesh(arch, shape_name, shape_t, hw=hw,
                                        variant=variant, cfg=cfg,
-                                       shape=shape))
+                                       shape=shape, ops=save_hlo))
+        if save_hlo:
+            ops_path = out_path.with_suffix(".ops.json")
+            ops_path.parent.mkdir(parents=True, exist_ok=True)
+            ops_path.write_text(json.dumps(rec.pop("ops")))
+            rec["ops_path"] = str(ops_path)
     except Exception as e:  # record failures for triage, don't hide them
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -397,15 +416,16 @@ def plan_input_specs(arch: str, shape_name: str, mesh_shape: tuple, *,
 
 def count_cell_mesh(arch: str, shape_name: str, mesh_shape: tuple, *,
                     hw=H100_SXM, variant: str = "baseline", cfg=None,
-                    shape=None, positions=None) -> dict:
+                    shape=None, positions=None, ops: bool = False) -> dict:
     """Count one cell's step per device of a mesh (`plan_input_specs`):
     the record's fields for the position with the longer roofline step,
-    both positions' under ``positions``."""
+    both positions' under ``positions``; with `ops` that position's op
+    log under ``"ops"``."""
     fn, held, plan, cfg, shape = plan_input_specs(
         arch, shape_name, mesh_shape, variant=variant, cfg=cfg, shape=shape,
         positions=positions)
     t0 = time.perf_counter()
-    with CostCounter() as c:
+    with CostCounter(inspect=ops) as c:
         fn()
     count_s = time.perf_counter() - t0
     chips = math.prod(mesh_shape)
@@ -432,11 +452,14 @@ def count_cell_mesh(arch: str, shape_name: str, mesh_shape: tuple, *,
     top = per[key]
     flops = top["cost"]["flops_per_device"]
     mf = model_flops(cfg, shape, chips)
-    return {"count_s": round(count_s, 3), "position": key,
-            "position_note": POSITION_NOTE, **top, "cost_warnings": [],
-            "model_flops_per_device": mf,
-            "useful_flops_ratio": mf / total_flops(flops) if flops else 0.0,
-            "hardware": hw.name, "positions": per}
+    rec = {"count_s": round(count_s, 3), "position": key,
+           "position_note": POSITION_NOTE, **top, "cost_warnings": [],
+           "model_flops_per_device": mf,
+           "useful_flops_ratio": mf / total_flops(flops) if flops else 0.0,
+           "hardware": hw.name, "positions": per}
+    if ops:
+        rec["ops"] = op_log(c, tuple(int(i) for i in key.split(",")))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +619,11 @@ def main(argv=None):
                          "device vs the card's memory")
     ap.add_argument("--serve-meshes", default=SERVE_MESHES,
                     help="comma-separated DxM serve meshes for --serve-plan")
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="there is no HLO: write the cell's counted op "
+                         "breakdown (rows per op, shape and source, the "
+                         "collectives, the kernel entries) beside its "
+                         "record as <cell>.ops.json")
     args = ap.parse_args(argv)
     if args.serve_plan:
         serve_plan_main(args)
@@ -623,7 +651,7 @@ def main(argv=None):
         for mesh, mp in meshes:
             rec = run_cell(arch, shape, out_dir=Path(args.out),
                            force=args.force, mesh=mesh, multi_pod=mp,
-                           variant=args.variant)
+                           variant=args.variant, save_hlo=args.save_hlo)
             n_fail += rec["status"] != "ok"
             if rec["status"] == "ok":
                 r = rec["roofline"]

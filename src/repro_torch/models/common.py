@@ -176,8 +176,10 @@ class Seam:
 
     def _record(self, kind: str, tensors: list, outs: list) -> list:
         for pos, t, o in zip(self.positions, tensors, outs):
-            _count.collective(kind, t if isinstance(t, int) else _nbytes(t),
-                              pos)
+            if isinstance(t, int):
+                _count.collective(kind, t, pos)
+            else:
+                _count.collective(kind, _nbytes(t), pos, t.shape)
             _count.tag(o, pos)
         return outs
 

@@ -353,6 +353,11 @@ class Model(nn.Module):
         return unflatten({n: t[g] for n, t in
                           flatten(self.params["groups"][f"l{i}"]).items()})
 
+    def param_count(self) -> int:
+        """The number of parameter elements (the reference's
+        ``Model.param_count``); on ``meta`` it allocates nothing."""
+        return sum(p.numel() for p in self.weights.parameters())
+
     def train_params(self) -> dict:
         """Make every weight trainable and return them as a flat ``{name:
         parameter}`` dict in the reference's tree order (names sorted

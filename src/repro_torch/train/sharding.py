@@ -154,7 +154,8 @@ class _Gather(torch.autograd.Function):
         saved = iter(ctx.saved_tensors)
         tensors = [next(saved) if p else None for p in ctx.present]
         if ctx.spans:
-            count.collective("reduce-scatter", _nbytes(grad), ctx.pos)
+            count.collective("reduce-scatter", _nbytes(grad), ctx.pos,
+                             grad.shape)
         buf = plan.grad_buffer
         want = [(k, t) for k, t in zip(ctx.keys, tensors)
                 if t is not None and buf is not None and k in buf]
@@ -498,7 +499,8 @@ class TrainPlan:
                         sums = list(parts) if self.stand_in else \
                             [s.clone() for s in reduce_tensors(parts)]
                     for pos, part, s in zip(members, parts, sums):
-                        count.collective("all-reduce", _nbytes(part), pos)
+                        count.collective("all-reduce", _nbytes(part), pos,
+                                         part.shape)
                         count.tag(s, pos)
                 for (d, m), s in zip(members, sums):
                     grads[d][m][name] = s

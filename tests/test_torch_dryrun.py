@@ -14,6 +14,10 @@ serving step functions on the CPU:
   without a variant's record;
 - `top_bytes_ops` ranks rows whose bytes sum to the counter's
   ``bytes_accessed`` exactly (its top rows within it);
+- ``--save-hlo`` writes the cell's op log beside its record (1x1 and a
+  1x2 mesh), which `hlo_inspect` reads as it reads a live counter;
+  without the flag the record is the same and no file is written; a
+  cached record keeps its ``ops_path``;
 - `make_prefill_step` / `make_decode_step` give the reference's tokens on
   the starcoder2-7b smoke config with shared weights (fp32, greedy:
   equal).
@@ -201,3 +205,81 @@ def test_serving_steps_match_the_reference():
                               9)
     got2 = make_decode_step(model)(caches, torch.from_numpy(nxt), 9)
     np.testing.assert_array_equal(got2.numpy(), np.asarray(want2))
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "1x2"])
+def test_saved_op_log_reads_as_the_live_counter(mesh, tmp_path):
+    """``save_hlo``: the cell's op log beside its record; each of
+    `hlo_inspect`'s functions gives the same rows from the file (its
+    path or its loaded dict) as from a live counter of the same step (on
+    a mesh, the reported position's share)."""
+    arch, shape = "starcoder2-7b", SMOKE_SHAPES["train"]
+    cfg = smoke_config(arch)
+    rec = dryrun.run_cell(arch, shape.name, out_dir=tmp_path, cfg=cfg,
+                          shape=shape, mesh=mesh, save_hlo=True)
+    assert rec["status"] == "ok", rec.get("traceback")
+    path = Path(rec["ops_path"])
+    assert path == tmp_path / f"{arch}__{shape.name}__{mesh}.ops.json"
+    if mesh == "1x1":
+        fn, kwargs, _, _ = dryrun.input_specs(arch, shape.name, cfg=cfg,
+                                              shape=shape)
+        _, c = count(fn, **kwargs, inspect=True)
+        pos = None
+    else:
+        fn, _, _, _, _ = dryrun.plan_input_specs(arch, shape.name, (1, 2),
+                                                 cfg=cfg, shape=shape)
+        _, c = count(fn, inspect=True)
+        pos = tuple(int(i) for i in rec["position"].split(","))
+    log = json.loads(path.read_text())
+    assert set(log) == {"position", "rows", "coll_rows", "kernels"}
+    for src in (path, str(path), log):
+        for fn_ in (hlo_inspect.top_bytes_ops,
+                    hlo_inspect.collective_breakdown):
+            assert fn_(src, 10 ** 9) == fn_(c, 10 ** 9, position=pos)
+        assert hlo_inspect.top_bytes_report(src) == \
+            hlo_inspect.top_bytes_report(c, position=pos)
+        assert hlo_inspect.dominant_ops_report(src) == \
+            hlo_inspect.dominant_ops_report(c, position=pos)
+    rows = hlo_inspect.top_bytes_ops(path, 10 ** 9)
+    assert sum(r["bytes"] for r in rows) == \
+        rec["cost"]["bytes_per_device_unfused"]
+    assert len(log["kernels"]) == \
+        rec["kernels"]["flash_attention"]["entries"]
+    routes = {}
+    for k in log["kernels"]:
+        routes.setdefault(k["kernel"], {}).setdefault(k["route"], 0)
+        routes[k["kernel"]][k["route"]] += 1
+    assert routes == rec["kernel_routes"]
+    assert all(k["work"]["bytes"] > 0 for k in log["kernels"])
+    colls = hlo_inspect.collective_breakdown(log, 10 ** 9)
+    assert sum(r["count"] for r in colls) == \
+        rec["collectives"]["total_count"]
+    assert bool(colls) == (mesh != "1x1")
+
+
+def test_save_hlo_flag_and_cached_record(tmp_path):
+    """``--save-hlo`` on the command line writes the op log and
+    ``ops_path``; without it the same cell writes the same record and no
+    file; a cached record read back without ``--force`` keeps its
+    ``ops_path``."""
+    arch, shape = "recurrentgemma-2b", "decode_32k"
+    plain, saved = tmp_path / "plain", tmp_path / "saved"
+    for out, extra in ((plain, []), (saved, ["--save-hlo"])):
+        with pytest.raises(SystemExit) as exit_:
+            dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                         str(out)] + extra)
+        assert exit_.value.code == 0
+    name = f"{arch}__{shape}__1x1"
+    assert sorted(p.name for p in plain.iterdir()) == [f"{name}.json"]
+    assert sorted(p.name for p in saved.iterdir()) == \
+        [f"{name}.json", f"{name}.ops.json"]
+    rec = json.loads((saved / f"{name}.json").read_text())
+    rec0 = json.loads((plain / f"{name}.json").read_text())
+    assert rec["ops_path"] == str(saved / f"{name}.ops.json")
+    assert set(rec) - set(rec0) == {"ops_path"}
+    for key in ("cost", "memory", "kernels", "kernel_routes", "roofline"):
+        assert rec[key] == rec0[key], key
+    assert dryrun.run_cell(arch, shape, out_dir=saved) == rec
+    log = json.loads(Path(rec["ops_path"]).read_text())
+    assert sum(r["bytes"] for r in log["rows"]) == \
+        rec["cost"]["bytes_per_device_unfused"]

@@ -9,7 +9,7 @@ reference's `Admission` verdicts, the per-request metrics satisfy the
 latency-vocabulary invariants with the JAX front end's counts, and
 `make_trace` gives the reference's arrays for every mix. Plus
 ``python -m repro_torch.launch.serve`` on the CPU: a batch, the front
-end, the overload mix, and the options that stay unported."""
+end, the overload mix, and the options once unported."""
 import asyncio
 import types
 
@@ -371,7 +371,7 @@ def test_launcher_replays_overload_mix(capsys):
 @pytest.mark.parametrize("flag", [["--decode-mode", "numpy"],
                                   ["--knee-cache", "knees.json"],
                                   ["--decode-mode", "eager"]])
-def test_launcher_unported_options_raise(flag, tmp_path):
+def test_launcher_once_unported_options_run(flag, tmp_path):
     """The options once refused now run: the eager and numpy decode modes
     serve the batch (pool empty after), and ``--knee-cache`` writes the
     knees serving resolved."""
@@ -387,7 +387,7 @@ def test_launcher_unported_options_raise(flag, tmp_path):
         assert (tmp_path / "knees.json").exists()
 
 
-def test_launcher_dense_path_stays_refused(monkeypatch, capsys):
+def test_launcher_dense_path_matches_reference(monkeypatch, capsys):
     """The dense-cache path, refused before this port slice, now runs:
     without ``--paged`` the launcher calls the dense `generate` and
     prints the reference launcher's tokens for the same arguments. Both

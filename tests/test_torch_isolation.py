@@ -62,7 +62,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                  "data.pipeline", "train.optimizer", "train.grad_compression",
                  "train.train_step", "train.trainer",
                  "checkpoint.checkpointer", "ft.straggler", "ft.supervisor",
-                 "launch.train"):
+                 "launch.train", "launch.dryrun", "core.hlo_inspect",
+                 "examples", "examples.serve_stream", "examples.serve_lm",
+                 "examples.quickstart", "examples.train_100m"):
         assert f"repro_torch.{name}" in result["modules"]
 
 

@@ -4,7 +4,8 @@ JAX ``Model.init`` params carried over through numpy
 leaf (norm scales, q/k/v biases) overwritten on both sides by the same
 seeded noise so that a wrong ``1 + scale`` or a dropped bias shows.
 Prefill and dense-cache decode logits agree at atol 1e-4 (fp32, sums
-reordered) and a greedy continuation is token-identical."""
+reordered) and a greedy continuation is token-identical. `param_count`
+equals the reference's for the ten configs, full and smoke."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +149,22 @@ def test_unported_layers_raise():
             assert tuple(state[name].shape) == tuple(ps.shape), name
         leaf = "mla" if pattern[0][0] == MLA else "moe"
         assert any(f".{leaf}." in n for n in state)
+
+
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", [
+    "codeqwen1.5-7b", "granite-moe-3b-a800m", "llama-3.2-vision-11b",
+    "llama3-405b", "mamba2-780m", "minicpm3-4b", "musicgen-medium",
+    "qwen3-moe-30b-a3b", "recurrentgemma-2b", "starcoder2-7b"])
+def test_param_count_equals_reference(arch, size):
+    """`Model.param_count()` is the reference's for every config, at its
+    published widths (counted on ``meta``) and at smoke size."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config, list_archs
+    assert arch in list_archs()
+    if size == "full":
+        jcfg, cfg, device = jax_get_config(arch), get_config(arch), "meta"
+    else:
+        jcfg, cfg, device = jax_smoke(arch), smoke_config(arch), "cpu"
+    assert Model(cfg, device=device).param_count() == \
+        JaxModel(jcfg).param_count()

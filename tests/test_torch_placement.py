@@ -264,7 +264,7 @@ def test_launcher_sibyl_flags(mode, capsys):
      "needs 4 devices"),
     (["--knee-cache", "knees.json"], None, None)],
     ids=["mesh", "knees"])
-def test_launcher_mesh_and_knee_cache_still_raise(flag, exc, match,
+def test_launcher_mesh_raises_and_knee_cache_writes(flag, exc, match,
                                                  tmp_path):
     """Beside the Sibyl flags: a mesh with fewer devices than positions
     raises; ``--knee-cache`` writes the paged kernel's knee that serving
