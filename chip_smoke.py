@@ -3409,15 +3409,27 @@ def _union_us(intervals) -> float:
     return total
 
 
+PROGRAM_SPANS = "repro_torch."   # the port's spans (`repro_torch.core.spans`)
+
+
+def device_op(name: str, ranges=()) -> bool:
+    """Whether a device event of a trace is an operation, and not the
+    mark a `record_function` range leaves on the device timeline over
+    the work launched inside it: those of the `ranges` the caller opens.
+    The port's spans are op-scope ranges and leave none; an event under
+    their prefix is never taken for an operation all the same."""
+    return not name.startswith(PROGRAM_SPANS) and name not in ranges
+
+
 def device_events(prof) -> list:
-    """The trace's device events as recorded, (name, start µs, end µs)
-    from the first one's start: parsing the trace into a tree of function
-    events (`prof.events()`) took a minute at mamba2-780m's ~90,000
-    kernels a 2x2 training step."""
+    """The trace's device operations as recorded, (name, start µs, end
+    µs) from the first one's start (`device_op`): parsing the trace into
+    a tree of function events (`prof.events()`) took a minute at
+    mamba2-780m's ~90,000 kernels a 2x2 training step."""
     from torch.autograd import DeviceType
     events = [(e.name(), e.start_ns(), e.end_ns())
               for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
+              if e.device_type() == DeviceType.CUDA and device_op(e.name())]
     if not events:
         return []
     t0_ns = min(start for _, start, _ in events)     # µs from here, exact
@@ -3425,12 +3437,13 @@ def device_events(prof) -> list:
             for name, start, end in events]
 
 
-def _device_us_under(event, skip: str) -> float:
+def _device_us_under(event, ranges) -> float:
     """Device time of the kernels launched under a profiler CPU event (its
-    own and its descendants'), leaving out the GPU-side range of an
-    annotation named `skip`."""
-    return (sum(kern.duration for kern in event.kernels if kern.name != skip)
-            + sum(_device_us_under(c, skip) for c in event.cpu_children))
+    own and its descendants'), leaving out the marks of the port's spans
+    and of the `ranges` (`device_op`)."""
+    return (sum(kern.duration for kern in event.kernels
+                if device_op(kern.name, ranges))
+            + sum(_device_us_under(c, ranges) for c in event.cpu_children))
 
 
 def phase_profile(eng, steps: int = 16, k: int = 1,
@@ -3515,7 +3528,8 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
         # events, which `prof.events()` builds
         kernels = [(e.name, e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name != span]
+                   if e.device_type == DeviceType.CUDA
+                   and device_op(e.name, (span,))]
     busy_us = _union_us((start, end) for _, start, end in kernels)
     by_name: dict = {}
     for name, start, end in kernels:
@@ -3542,7 +3556,7 @@ def phase_profile(eng, steps: int = 16, k: int = 1,
            else None,
            "top_kernels_us_per_step": [[k[:80], v / steps] for k, v in top]}
     if span is not None:
-        span_us = sum(_device_us_under(e, span) for e in prof.events()
+        span_us = sum(_device_us_under(e, (span,)) for e in prof.events()
                       if e.name == span and e.device_type == DeviceType.CPU)
         if not span_us:
             raise AssertionError(f"no device time under {span!r}")
@@ -5565,16 +5579,20 @@ def function_rows(gen) -> list:
     return rows
 
 
-TRAIN_RANGES = ("forward", "backward", "optimizer", "remat_recompute",
-                "vjp", "plain_recompute")
+TRAIN_RANGES = ("remat_recompute", "vjp", "plain_recompute")
+TRAIN_SPANS = {"forward": "repro_torch.train.forward",
+               "optimizer": "repro_torch.train.optimizer",
+               "ssd_vjp": "repro_torch.ssd_scan.backward"}
 
 
-def traced_train_step(model, state, batch, oc) -> dict:
-    """One training step under `torch.profiler`, its forward, backward and
-    optimizer in named ranges, and inside the backward: the remat groups'
-    forward rerun ("remat_recompute": a layer run while autograd
-    executes), the flash / SSD Functions' backwards ("vjp") and, within
-    them, the plain version's forward they recompute
+def traced_train_step(step_fn, state, batch) -> dict:
+    """One step of `step_fn` (`make_train_step`) under `torch.profiler`.
+    The port's spans split it into forward, backward and optimizer (clip
+    norm and AdamW) and mark the SSD Function's backward; the ranges
+    opened here mark, inside the backward, the remat groups' forward
+    rerun ("remat_recompute": a layer run while autograd executes), the
+    flash Function's backward ("vjp") and, within the two Functions'
+    backwards, the plain version's forward they recompute
     ("plain_recompute"). Device busy share, the top device ops, the
     recompute's share of the backward's device time and the vjps'."""
     from torch.autograd import DeviceType
@@ -5582,11 +5600,7 @@ def traced_train_step(model, state, batch, oc) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.ssd_scan import ref as sref
-    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
-    from repro_torch.train.optimizer import adamw_update
-    from repro_torch.train.train_step import make_loss_fn
     from repro_torch.models import transformer
-    params = state["params"]
     layer = transformer.layer_tp
 
     def traced_layer(*args, **kw):
@@ -5603,7 +5617,6 @@ def traced_train_step(model, state, batch, oc) -> dict:
 
     with patched(transformer, "layer_tp", traced_layer), \
             patched(fa, "attention_vjp", ranged("vjp", fa.attention_vjp)), \
-            patched(ssd, "ssd_vjp", ranged("vjp", ssd.ssd_vjp)), \
             patched(fref, "attention",
                     ranged("plain_recompute", fref.attention)), \
             patched(sref, "ssd_chunked",
@@ -5612,26 +5625,23 @@ def traced_train_step(model, state, batch, oc) -> dict:
                                 ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with record_function("forward"):
-            total, _ = make_loss_fn(model)(batch)
-        with record_function("backward"):
-            grads = torch.autograd.grad(total, list(params.values()))
-        with record_function("optimizer"):
-            adamw_update(params, dict(zip(params, grads)), state["opt"], oc)
+        step_fn(state, batch)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in TRAIN_RANGES]
+               and device_op(e.name, TRAIN_RANGES)]
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     total_us = sum(e.time_range.elapsed_us() for e in kernels)
 
     def under(name):
-        return sum(_device_us_under(e, name) for e in events
+        return sum(_device_us_under(e, TRAIN_RANGES) for e in events
                    if e.name == name and e.device_type == DeviceType.CPU)
 
     us = {name: under(name) for name in TRAIN_RANGES}
+    us.update({key: under(name) for key, name in TRAIN_SPANS.items()})
+    us["vjp"] += us["ssd_vjp"]
     bwd_us = total_us - us["forward"] - us["optimizer"]
     by_name: dict = {}
     for e in kernels:
@@ -5802,7 +5812,7 @@ def train_full(arch, layers, batch, seq, resume, smi) -> tuple:
                 step += 1
         row["turns_step_ms"] = times
         row["traced"] = traced_train_step(
-            model, state, batch_to(pipe.batch_at(step), "cuda"), oc)
+            fns["kernel"], state, batch_to(pipe.batch_at(step), "cuda"))
     del state, model, tr, out
     _release()
     return row, launches

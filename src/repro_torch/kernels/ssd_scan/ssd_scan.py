@@ -38,6 +38,7 @@ import functools
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import count
 from repro_torch.kernels.ssd_scan import ref
 
@@ -190,8 +191,9 @@ class SsdScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):
-        return ssd_vjp(ctx.saved_tensors, grad_y, grad_state,
-                       ctx.bf16_intra) + (None, None)
+        with spans.span("repro_torch.ssd_scan.backward"):
+            return ssd_vjp(ctx.saved_tensors, grad_y, grad_state,
+                           ctx.bf16_intra) + (None, None)
 
 
 def ssd_scan(x, b_mat, c_mat, dt, a, *, bf16_intra: bool = False,

@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.kernels import api
 from repro_torch.models import Model
 from repro_torch.models.common import flatten
@@ -299,37 +300,39 @@ class ServeEngine:
         step commits: a chunk row exactly its chunk length, a verify row
         ``min(accepted, proposed) + 1`` (pad drafts never advance the
         state)."""
-        b = len(rows)
-        toks = np.zeros((b, k), np.int32)
-        seq_ids = [-1] * b
-        pos = np.zeros(b, np.int32)
-        proposed = [0] * b
-        keep_fixed = np.ones(b, np.int32)
-        keep_cap = np.zeros(b, np.int32)
-        for i, r in enumerate(rows):
-            if r is None:
-                continue
-            seq_ids[i] = r["seq"]
-            pos[i] = r["pos"]
-            chunk = r.get("chunk")
-            if chunk is not None:
-                m = len(chunk)
-                toks[i, :m] = chunk
-                keep_fixed[i] = m
-                if m < k:               # pad: repeat the last true token
-                    toks[i, m:] = chunk[-1]
-                continue
-            hist = r["history"]
-            toks[i, 0] = hist[-1]
-            n_d = min(r["eff_k"], k) - 1
-            if n_d > 0:
-                drafts = np.asarray(self.draft.propose(hist, n_d), np.int32)
-                proposed[i] = len(drafts)
-                toks[i, 1:1 + len(drafts)] = drafts
-            if proposed[i] < k - 1:     # pad: repeat the last filled token
-                toks[i, 1 + proposed[i]:] = toks[i, proposed[i]]
-            keep_fixed[i] = -1
-            keep_cap[i] = proposed[i]
+        with spans.span("repro_torch.serve.control"):
+            b = len(rows)
+            toks = np.zeros((b, k), np.int32)
+            seq_ids = [-1] * b
+            pos = np.zeros(b, np.int32)
+            proposed = [0] * b
+            keep_fixed = np.ones(b, np.int32)
+            keep_cap = np.zeros(b, np.int32)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                seq_ids[i] = r["seq"]
+                pos[i] = r["pos"]
+                chunk = r.get("chunk")
+                if chunk is not None:
+                    m = len(chunk)
+                    toks[i, :m] = chunk
+                    keep_fixed[i] = m
+                    if m < k:               # pad: repeat the last true token
+                        toks[i, m:] = chunk[-1]
+                    continue
+                hist = r["history"]
+                toks[i, 0] = hist[-1]
+                n_d = min(r["eff_k"], k) - 1
+                if n_d > 0:
+                    drafts = np.asarray(self.draft.propose(hist, n_d),
+                                        np.int32)
+                    proposed[i] = len(drafts)
+                    toks[i, 1:1 + len(drafts)] = drafts
+                if proposed[i] < k - 1:     # pad: repeat the last filled token
+                    toks[i, 1 + proposed[i]:] = toks[i, proposed[i]]
+                keep_fixed[i] = -1
+                keep_cap[i] = proposed[i]
         verdict = state.run_spec(step_fn, toks, seq_ids, pos, generator,
                                  keep_fixed=keep_fixed, keep_cap=keep_cap)
         kept = [None] * b
@@ -1306,7 +1309,8 @@ class ServeSession:
         while every decode row keeps decoding in the same step."""
         events: list[StreamEvent] = list(self._pending_events)
         self._pending_events.clear()
-        self._admit(events)
+        with spans.span("repro_torch.serve.admit"):
+            self._admit(events)
         rows = self._rows
         if all(a is None for a in rows):
             if not self.sched.done:   # unreachable: submit() rejects instead
@@ -1322,41 +1326,44 @@ class ServeSession:
         hits0 = (pool.stats["fast_hits"], pool.stats["slow_hits"])
         g0 = state.gather_s
         if spec:
-            # verify step: k rows per live request, mixed freely with
-            # plain (eff_k = 1) rows and prefill chunk rows; tokens ride
-            # in the control block, so no device-token feedback
-            k = max(self.spec_k, t) if wide else self.spec_k
-            step_fn = eng._fused_step_fn(state.slots, self.greedy,
-                                         self.temperature, k=k) \
-                if wide else self._step_fn
-            budget = self.prefill_budget
-            srows: list[Optional[dict]] = []
-            for act in rows:
-                if act is None:
-                    srows.append(None)
-                    continue
-                if act.prefilling:
-                    if budget <= 0:
-                        srows.append(None)   # over budget: wait a step
+            with spans.span("repro_torch.serve.control"):
+                # verify step: k rows per live request, mixed freely with
+                # plain (eff_k = 1) rows and prefill chunk rows; tokens ride
+                # in the control block, so no device-token feedback
+                k = max(self.spec_k, t) if wide else self.spec_k
+                step_fn = eng._fused_step_fn(state.slots, self.greedy,
+                                             self.temperature, k=k) \
+                    if wide else self._step_fn
+                budget = self.prefill_budget
+                srows: list[Optional[dict]] = []
+                for act in rows:
+                    if act is None:
+                        srows.append(None)
                         continue
-                    budget -= 1
-                    # fill to the page boundary, never across it: one
-                    # chunk completes at most one page, so end_step sees
-                    # whole pages exactly as decode does
-                    m = min(t - act.prefilled % t, len(act.pending))
-                    final = m == len(act.pending)
-                    chunk_rows[len(srows)] = (m, final)
-                    srows.append({"seq": act.seq, "pos": act.prefilled,
-                                  "chunk": act.pending[:m], "final": final})
-                    continue
-                srows.append({
-                    "seq": act.seq,
-                    "history": np.concatenate(
-                        [np.asarray(act.req.prompt, np.int32),
-                         np.asarray(act.outs, np.int32)]),
-                    "pos": act.pos, "eff_k": act.eff_k,
-                    "limit": act.req.max_new_tokens - len(act.outs),
-                    "eos": act.req.eos_token, "stats": act.stats})
+                    if act.prefilling:
+                        if budget <= 0:
+                            srows.append(None)   # over budget: wait a step
+                            continue
+                        budget -= 1
+                        # fill to the page boundary, never across it: one
+                        # chunk completes at most one page, so end_step sees
+                        # whole pages exactly as decode does
+                        m = min(t - act.prefilled % t, len(act.pending))
+                        final = m == len(act.pending)
+                        chunk_rows[len(srows)] = (m, final)
+                        srows.append({"seq": act.seq,
+                                      "pos": act.prefilled,
+                                      "chunk": act.pending[:m],
+                                      "final": final})
+                        continue
+                    srows.append({
+                        "seq": act.seq,
+                        "history": np.concatenate(
+                            [np.asarray(act.req.prompt, np.int32),
+                             np.asarray(act.outs, np.int32)]),
+                        "pos": act.pos, "eff_k": act.eff_k,
+                        "limit": act.req.max_new_tokens - len(act.outs),
+                        "eos": act.req.eos_token, "stats": act.stats})
             kept = eng._spec_step(state, step_fn, k, srows, self._gen)
             self.chunk_steps += bool(chunk_rows)
             # the verify step did not refresh the 1-token device feedback
@@ -1377,22 +1384,23 @@ class ServeSession:
             toks = sample(logits, self.greedy, self.temperature,
                           self._gen).cpu().numpy()
         else:
-            pos = np.zeros(len(rows), np.int32)
-            seq_ids = [-1] * len(rows)
-            for i, act in enumerate(rows):
-                if act is not None:
-                    pos[i], seq_ids[i] = act.pos, act.seq
-            tok_in = self._tok_dev
-            fed_back = not (self._rows_dirty or tok_in is None)
-            if not fed_back:
-                # an admission or a retirement changed the rows — upload
-                # the token vector once; steady-state steps feed the
-                # previous step's device tokens back
-                tok_in = np.zeros(len(rows), np.int32)
+            with spans.span("repro_torch.serve.control"):
+                pos = np.zeros(len(rows), np.int32)
+                seq_ids = [-1] * len(rows)
                 for i, act in enumerate(rows):
                     if act is not None:
-                        tok_in[i] = act.outs[-1]
-                self._rows_dirty = False
+                        pos[i], seq_ids[i] = act.pos, act.seq
+                tok_in = self._tok_dev
+                fed_back = not (self._rows_dirty or tok_in is None)
+                if not fed_back:
+                    # an admission or a retirement changed the rows — upload
+                    # the token vector once; steady-state steps feed the
+                    # previous step's device tokens back
+                    tok_in = np.zeros(len(rows), np.int32)
+                    for i, act in enumerate(rows):
+                        if act is not None:
+                            tok_in[i] = act.outs[-1]
+                    self._rows_dirty = False
             before = state.transfer_counts()
             pool_io = (state._device.writes, state._device.reads)
             toks, self._tok_dev = state.run_fused(self._step_fn, tok_in,
@@ -1411,53 +1419,55 @@ class ServeSession:
             self._observe(state.gather_s - g0,
                           pool.stats["fast_hits"] - hits0[0],
                           pool.stats["slow_hits"] - hits0[1])
-        decode_tokens = 0
-        for i, act in enumerate(rows):
-            if act is None:
-                continue
-            rec = self._recs[id(act.req)]
-            if i in chunk_rows:
-                m, final = chunk_rows[i]
-                act.prefilled += m
-                act.pending = act.pending[m:]
-                if not final:
-                    continue        # mid-prefill: nothing to stream yet
-                tok = int(kept[i][0])    # first generated token
-                act.outs.append(tok)
-                act.pending = None
-                eng.stats["tokens"] += 1
-                if self.radix and act.hashes:
-                    # prompt fully resident: pin its full pages so later
-                    # requests adopt them
-                    self.prefix_index.insert(
-                        act.hashes, shard=self.sched.assigned_shard(act.req))
+        with spans.span("repro_torch.serve.stream"):
+            decode_tokens = 0
+            for i, act in enumerate(rows):
+                if act is None:
+                    continue
+                rec = self._recs[id(act.req)]
+                if i in chunk_rows:
+                    m, final = chunk_rows[i]
+                    act.prefilled += m
+                    act.pending = act.pending[m:]
+                    if not final:
+                        continue        # mid-prefill: nothing to stream yet
+                    tok = int(kept[i][0])    # first generated token
+                    act.outs.append(tok)
+                    act.pending = None
+                    eng.stats["tokens"] += 1
+                    if self.radix and act.hashes:
+                        # prompt fully resident: pin its full pages so later
+                        # requests adopt them
+                        self.prefix_index.insert(
+                            act.hashes,
+                            shard=self.sched.assigned_shard(act.req))
+                    if rec.metrics is not None:
+                        rec.metrics.on_tokens(1)
+                    done = act.finished
+                    if done:
+                        self._finish(rec)
+                    events.append(StreamEvent(act.req, [tok], done=done))
+                    continue
+                if spec:
+                    if kept[i] is None:      # over-budget prefill row idled
+                        continue
+                    new = [int(x) for x in kept[i]]
+                    act.outs.extend(new)
+                else:
+                    new = [int(toks[i])]
+                    act.outs.append(new[0])
+                    act.stats.steps += 1
+                    act.stats.tokens += 1
+                decode_tokens += len(new)
+                eng.stats["tokens"] += len(new)
                 if rec.metrics is not None:
-                    rec.metrics.on_tokens(1)
+                    rec.metrics.on_tokens(len(new))
                 done = act.finished
                 if done:
                     self._finish(rec)
-                events.append(StreamEvent(act.req, [tok], done=done))
-                continue
-            if spec:
-                if kept[i] is None:      # over-budget prefill row idled
-                    continue
-                new = [int(x) for x in kept[i]]
-                act.outs.extend(new)
-            else:
-                new = [int(toks[i])]
-                act.outs.append(new[0])
-                act.stats.steps += 1
-                act.stats.tokens += 1
-            decode_tokens += len(new)
-            eng.stats["tokens"] += len(new)
-            if rec.metrics is not None:
-                rec.metrics.on_tokens(len(new))
-            done = act.finished
-            if done:
-                self._finish(rec)
-            events.append(StreamEvent(act.req, new, done=done))
-        if chunk_rows and decode_tokens:
-            self.prefill_step_decode_ms.append(dt * 1e3 / decode_tokens)
+                events.append(StreamEvent(act.req, new, done=done))
+            if chunk_rows and decode_tokens:
+                self.prefill_step_decode_ms.append(dt * 1e3 / decode_tokens)
         if self._preempt_observe is not None:
             # per-step reward for a learned victim ranking: decode
             # latency + the deadline misses the finishes above counted

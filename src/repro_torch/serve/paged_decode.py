@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, SSD
+from repro_torch.core import spans
 from repro_torch.kernels import api
 from repro_torch.models.attention import decode_qkv, out_proj
 from repro_torch.models.common import psum_one, torch_dtype
@@ -498,15 +499,18 @@ class PagedKVState:
         tensor (no upload — the steady state) or host values (one extra
         upload: the first step, or a continuous admission). Returns
         ``(host_tokens, device_tokens)``."""
-        control = self.begin_step(seq_ids, positions)
-        cdev = torch.from_numpy(control).to(self.device)
-        self.h2d += 1
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.from_numpy(np.asarray(tokens, np.int32)) \
-                .to(self.device)
+        with spans.span("repro_torch.serve.control"):
+            control = self.begin_step(seq_ids, positions)
+            cdev = torch.from_numpy(control).to(self.device)
             self.h2d += 1
-        tok_dev = step_fn(self.device_arrays, tokens, cdev, generator)
-        tok_host = tok_dev.cpu().numpy()
+            if not isinstance(tokens, torch.Tensor):
+                tokens = torch.from_numpy(np.asarray(tokens, np.int32)) \
+                    .to(self.device)
+                self.h2d += 1
+        with spans.span("repro_torch.serve.launch"):
+            tok_dev = step_fn(self.device_arrays, tokens, cdev, generator)
+        with spans.span("repro_torch.serve.tokens"):
+            tok_host = tok_dev.cpu().numpy()
         self.d2h += 1
         self.end_step(seq_ids)
         return tok_host, tok_dev
@@ -523,13 +527,18 @@ class PagedKVState:
         pick: a row with ``keep_fixed[i] >= 0`` commits exactly that many
         tokens of recurrent state (chunk rows), a ``-1`` row ``min(
         accepted, keep_cap[i]) + 1`` (the verify rule)."""
-        tokens_k = np.asarray(tokens_k, np.int32)
-        control = self.begin_step(seq_ids, positions, k=tokens_k.shape[1],
-                                  tokens=tokens_k, keep_fixed=keep_fixed,
-                                  keep_cap=keep_cap)
-        cdev = torch.from_numpy(control).to(self.device)
-        self.h2d += 1
-        out = step_fn(self.device_arrays, cdev, generator).cpu().numpy()
+        with spans.span("repro_torch.serve.control"):
+            tokens_k = np.asarray(tokens_k, np.int32)
+            control = self.begin_step(seq_ids, positions,
+                                      k=tokens_k.shape[1], tokens=tokens_k,
+                                      keep_fixed=keep_fixed,
+                                      keep_cap=keep_cap)
+            cdev = torch.from_numpy(control).to(self.device)
+            self.h2d += 1
+        with spans.span("repro_torch.serve.launch"):
+            out = step_fn(self.device_arrays, cdev, generator)
+        with spans.span("repro_torch.serve.tokens"):
+            out = out.cpu().numpy()
         self.d2h += 1
         return out
 
@@ -548,62 +557,64 @@ class PagedKVState:
         rollback. When the kept tokens cross the page boundary, the spill
         slot (already holding their rows) becomes the tail slot. Default:
         1 token per live row."""
-        if self._step is None:
-            raise RuntimeError("end_step() without begin_step()")
-        t0 = time.perf_counter()
-        t = self.pool.page_tokens
-        if advanced is None:
-            advanced = [1] * len(seq_ids)
-        for seq, adv in zip(seq_ids, advanced):
-            if seq < 0 or adv == 0:
-                continue
-            if not 0 < adv <= t:
-                raise ValueError(
-                    f"sequence {seq}: advanced {adv} tokens in one step "
-                    f"(valid: 1..page_tokens={t})")
-            if self.num_layers == 0:
-                continue            # pure-recurrent stack: no pages to fill
-            n = self.tail_len.get(seq, 0) + adv
-            if n < t:
-                self.tail_len[seq] = n
+        with spans.span("repro_torch.serve.pages"):
+            if self._step is None:
+                raise RuntimeError("end_step() without begin_step()")
+            t0 = time.perf_counter()
+            t = self.pool.page_tokens
+            if advanced is None:
+                advanced = [1] * len(seq_ids)
+            for seq, adv in zip(seq_ids, advanced):
+                if seq < 0 or adv == 0:
+                    continue
+                if not 0 < adv <= t:
+                    raise ValueError(
+                        f"sequence {seq}: advanced {adv} tokens in one step "
+                        f"(valid: 1..page_tokens={t})")
+                if self.num_layers == 0:
+                    continue        # pure-recurrent stack: no pages to fill
+                n = self.tail_len.get(seq, 0) + adv
+                if n < t:
+                    self.tail_len[seq] = n
+                    if self.layout.has_ring:
+                        self._drop_ring(seq)
+                    continue
+                self.tail_len[seq] = n - t
+                if self._device is None:
+                    if adv != 1:
+                        raise RuntimeError("multi-token steps need the device "
+                                           "pool (decode_mode='fused')")
+                    for layer in range(self.num_layers):
+                        rows = self.tail_data.pop((seq, layer))
+                        self.pool.put(seq, np.stack([r[0] for r in rows]),
+                                      np.stack([r[1] for r in rows]),
+                                      layer=layer)
+                    continue
+                slot = self._tail_slot.pop(seq)
+                k_all, v_all = self._device.read_slot(slot)
+                # a chunked prefill queued this page's cumulative prompt hash:
+                # store it shared (identical content dedups onto a live or
+                # pinned page; `adopt` then recycles the tail slot)
+                pending = self._pending_hashes.get(seq)
+                h = pending.pop(0) if pending else None
+                group = tuple(self.pool.put(seq, k_all[l], v_all[l], layer=l,
+                                            content_hash=h)
+                              for l in range(self.num_layers))
+                self._device.adopt(group, slot, self.pool,
+                                   shard=self._device.shard_of_slot(slot))
+                spill = self._spill_slot.pop(seq, None)
+                if spill is not None:
+                    # rows past the boundary were scattered here already
+                    self._tail_slot[seq] = spill
+                elif n > t:
+                    raise RuntimeError(
+                        f"sequence {seq}: {n - t} tokens crossed the page "
+                        f"boundary without a spill slot — multi-token steps "
+                        f"must begin_step with k > 1")
                 if self.layout.has_ring:
                     self._drop_ring(seq)
-                continue
-            self.tail_len[seq] = n - t
-            if self._device is None:
-                if adv != 1:
-                    raise RuntimeError("multi-token steps need the device "
-                                       "pool (decode_mode='fused')")
-                for layer in range(self.num_layers):
-                    rows = self.tail_data.pop((seq, layer))
-                    self.pool.put(seq, np.stack([r[0] for r in rows]),
-                                  np.stack([r[1] for r in rows]), layer=layer)
-                continue
-            slot = self._tail_slot.pop(seq)
-            k_all, v_all = self._device.read_slot(slot)
-            # a chunked prefill queued this page's cumulative prompt hash:
-            # store it shared (identical content dedups onto a live or
-            # pinned page; `adopt` then recycles the tail slot)
-            pending = self._pending_hashes.get(seq)
-            h = pending.pop(0) if pending else None
-            group = tuple(self.pool.put(seq, k_all[l], v_all[l], layer=l,
-                                        content_hash=h)
-                          for l in range(self.num_layers))
-            self._device.adopt(group, slot, self.pool,
-                               shard=self._device.shard_of_slot(slot))
-            spill = self._spill_slot.pop(seq, None)
-            if spill is not None:
-                # rows past the boundary were scattered here already
-                self._tail_slot[seq] = spill
-            elif n > t:
-                raise RuntimeError(
-                    f"sequence {seq}: {n - t} tokens crossed the page "
-                    f"boundary without a spill slot — multi-token steps "
-                    f"must begin_step with k > 1")
-            if self.layout.has_ring:
-                self._drop_ring(seq)
-        self._step = None
-        self.gather_s += time.perf_counter() - t0
+            self._step = None
+            self.gather_s += time.perf_counter() - t0
 
     def _drop_ring(self, seq: int):
         """Ring recycling: retire the front pages no query from here on

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
+from repro_torch.core import spans
 from repro_torch.kernels import count
 from repro_torch.models.common import flatten, torch_dtype, unflatten
 from repro_torch.models.transformer import Model, model_logical, model_spec
@@ -105,8 +106,11 @@ def make_train_step(model, oc: OptimizerConfig, mesh=None,
         plan, shards = None, [(0, 0)]
 
         def grads_of(params, batch):
-            total, mets = loss_fn(batch)
-            grads = torch.autograd.grad(total, list(params[0][0].values()))
+            with spans.span("repro_torch.train.forward"):
+                total, mets = loss_fn(batch)
+            with spans.span("repro_torch.train.backward"):
+                grads = torch.autograd.grad(total,
+                                            list(params[0][0].values()))
             mets = {k: v.detach() for k, v in mets.items()}
             return total.detach(), mets, [[dict(zip(params[0][0], grads))]]
 
@@ -166,15 +170,16 @@ def make_train_step(model, oc: OptimizerConfig, mesh=None,
         if grad_transform is not None:
             grads, comp_state = grad_transform(unwrap(grads), comp_state)
             grads = wrap(grads)
-        gnorms = norm(grads)
-        lr = None
-        for d, m in shards:
-            with count.at((d, m)):
-                _, opt[d][m], opt_mets = adamw_update(
-                    params[d][m], grads[d][m], opt[d][m], oc,
-                    gnorm=gnorms[d][m].to(opt[d][m]["step"].device))
-            if lr is None:
-                lr = opt_mets["lr"]
+        with spans.span("repro_torch.train.optimizer"):
+            gnorms = norm(grads)
+            lr = None
+            for d, m in shards:
+                with count.at((d, m)):
+                    _, opt[d][m], opt_mets = adamw_update(
+                        params[d][m], grads[d][m], opt[d][m], oc,
+                        gnorm=gnorms[d][m].to(opt[d][m]["step"].device))
+                if lr is None:
+                    lr = opt_mets["lr"]
         gnorm = gnorms[shards[0][0]][shards[0][1]]
         new_state = {"params": unwrap(params), "opt": unwrap(opt)}
         if comp_state is not None:
@@ -207,7 +212,8 @@ def plan_grads(model: ShardedTrainModel, batch: dict,
     # under a counter every remat segment recomputes whole (the flag is
     # taken when the segment runs forward), so that each position's
     # recompute is the same whichever positions run
-    with set_checkpoint_early_stop(not counting):
+    with set_checkpoint_early_stop(not counting), \
+            spans.span("repro_torch.train.forward"):
         loss, aux = model.loss(batch, cross_entropy, backend)
     total = None
     if loss is not None:
@@ -218,7 +224,8 @@ def plan_grads(model: ShardedTrainModel, batch: dict,
     # unpack one remat segment's saved tensors at once (the segment spans
     # a row's cards; `torch.utils.checkpoint` recomputes it unlocked)
     if not counting:
-        with torch.autograd.set_multithreading_enabled(False):
+        with torch.autograd.set_multithreading_enabled(False), \
+                spans.span("repro_torch.train.backward"):
             gs = iter(torch.autograd.grad(total, model.leaves(),
                                           allow_unused=True,
                                           materialize_grads=True))
